@@ -1,0 +1,340 @@
+"""Co-occurrence gram G = XᵀX — the count kernel behind NB + MI.
+
+Port of ``avenir_tpu/ops/pallas_hist.py``.  Every NB and MI count table is a
+sub-block of G, where X is the [N, W] one-hot of the joint (feature, bin,
+class) code.  The layout helpers (:func:`plan`, :func:`clsb_tile`,
+:func:`g_key`, :func:`w_index`, :func:`counts_from_cooc`) are copied
+unchanged, so G, its checkpoint key and its read-out mean the same in both
+packages.
+
+:func:`cooc_counts_cols` is the wrapper of the hand-written CUDA kernel
+``csrc/cooc.cu`` (the fmaj and jmaj modes, which replace
+``pallas_hist.py:283 _cooc_kernel``).  On a CPU tensor it runs the plain
+PyTorch version :func:`cooc_counts_cols_ref`; on a CUDA tensor it launches
+the kernel or raises — there is no fallback between them.  The per-class
+modes ``cls`` and ``clsb`` (TPU kernels B2 and B3) are not ported yet: on
+CUDA they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from avenir_tpu_torch.ops.agg import check_chunk
+
+# The XᵀX pass costs ~2·Wp² operations per row; past this width the JAX
+# package switches to its per-class modes (and past their gates, to the
+# scatter einsum).
+MAX_W = 768
+
+# per-class mode gates ("cls"): per-class width, class count, G bytes
+MAX_W_CLS = 1536
+MAX_C_CLS = 8
+MAX_G_BYTES_CLS = 25 * 1024 * 1024
+
+# blocked per-class mode gates ("clsb")
+MAX_W_CLSB = 6144
+MAX_C_CLSB = 16
+_ACC_BYTES_CLSB = 35 * 1024 * 1024
+
+# fmaj is preferred unless its jc→32 padding widens the gram by more than
+# this factor against the j-major packing (shared with the JAX package's
+# PackGraft cost model)
+WIDTH_SLACK = 1.5
+
+
+def _ru(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def plan(num_feat: int, num_bins: int, num_classes: int):
+    """Static layout plan → (mode, jcp, wp).
+
+    ``fmaj``: w = f·jcp + (bin·C + cls), jcp = jc rounded up to 32.  Chosen
+    unless that padding would widen the padded gram (wp) by more than
+    ``WIDTH_SLACK`` versus the j-major packing ``jmaj`` (w = j·F + f).
+
+    ``cls`` (wide shapes): G is [C, wp, wp] with per-class row index
+    w = bin·F + f; ``clsb`` is the same gram for wider shapes still.
+    """
+    jc = num_bins * num_classes
+    jcp32 = _ru(jc, 32)
+    wp32 = _ru(num_feat * jcp32, 128)
+    wpj = _ru(num_feat * jc, 128)
+    if wp32 <= wpj or (wp32 <= MAX_W and wp32 <= WIDTH_SLACK * wpj):
+        narrow = ("fmaj", jcp32, wp32)
+    else:
+        narrow = ("jmaj", jc, wpj)
+    if narrow[2] <= MAX_W:
+        return narrow
+    wcp = _ru(num_feat * num_bins, 128)
+    if (wcp <= MAX_W_CLS and 2 <= num_classes <= MAX_C_CLS
+            and num_classes * wcp * wcp * 4 <= MAX_G_BYTES_CLS):
+        return "cls", num_bins, wcp
+    tile = clsb_tile(num_feat, num_bins, num_classes)
+    if tile is not None:
+        return "clsb", num_bins, tile[1]
+    return narrow          # too wide for any kernel; applicable() rejects
+
+
+def clsb_tile(num_feat: int, num_bins: int, num_classes: int):
+    """(row-band height TR, padded per-class width wp) for the blocked
+    per-class mode, or None when the shape is outside its gates.  A band
+    is a whole number of bins (TR = F·k); wp pads the bin count to a
+    multiple of k.  Pure function of the shape."""
+    wcp = _ru(num_feat * num_bins, 128)
+    if not (MAX_W_CLS < wcp or num_classes > MAX_C_CLS
+            or num_classes * wcp * wcp * 4 > MAX_G_BYTES_CLS):
+        return None                      # plain cls mode serves it
+    if wcp > MAX_W_CLSB or not 2 <= num_classes <= MAX_C_CLSB:
+        return None
+    m = 8 // math.gcd(num_feat, 8)
+    kmax = _ru(max(512 // num_feat, 1), m) + m
+    best = None
+    for k in range(m, kmax + 1, m):
+        tr = num_feat * k
+        wp = num_feat * _ru(num_bins, k)
+        if wp > MAX_W_CLSB or num_classes * tr * wp * 4 > _ACC_BYTES_CLSB:
+            continue
+        key = (wp, -k)
+        if best is None or key < best[0]:
+            best = (key, (tr, wp))
+    return best[1] if best else None
+
+
+def g_key(num_feat: int, num_bins: int, num_classes: int) -> str:
+    """Accumulator key of a G matrix of this shape's layout, the same string
+    the JAX package uses (``g:<mode>:f<F>:b<B>:c<C>``), so a G total carries
+    its layout across packages and a foreign layout can be refused."""
+    mode, _, _ = plan(num_feat, num_bins, num_classes)
+    return f"g:{mode}:f{num_feat}:b{num_bins}:c{num_classes}"
+
+
+def w_index(num_feat: int, num_bins: int, num_classes: int) -> np.ndarray:
+    """[F, B, C] int64 array of each cell's row/col index in G (layout per
+    :func:`plan`).  In the per-class modes the index is within class c's
+    [wp, wp] gram; it is the same for every c."""
+    mode, jcp, _ = plan(num_feat, num_bins, num_classes)
+    if mode in ("cls", "clsb"):
+        w2 = np.arange(num_bins)[None, :] * num_feat \
+            + np.arange(num_feat)[:, None]
+        return np.repeat(w2[:, :, None], num_classes, axis=2).astype(np.int64)
+    j = np.arange(num_bins)[:, None] * num_classes + np.arange(num_classes)
+    if mode == "fmaj":
+        return (np.arange(num_feat)[:, None, None] * jcp + j[None]).astype(
+            np.int64)
+    return (j[None] * num_feat
+            + np.arange(num_feat)[:, None, None]).astype(np.int64)
+
+
+def default_block_cols(wp: int, mode: str = "fmaj") -> int:
+    """The JAX kernel's column block (rows of the chunk per grid step),
+    sized for the TPU's vector memory.  Kept for reference parity; the
+    CUDA kernel stages 128 rows at a time in shared memory instead."""
+    if mode == "fmaj":
+        bn = min(98304, (72 * 1024 * 1024) // max(wp, 128))
+    elif mode == "cls":
+        bn = min(49152, (64 * 1024 * 1024) // (5 * max(wp, 128)))
+    elif mode == "clsb":
+        bn = (50 * 1024 * 1024) // (6 * max(wp, 128))
+    else:
+        bn = 49152 * 384 // max(wp, 128)
+    return max(128, (bn // 128) * 128)
+
+
+def applicable(num_feat: int, num_bins: int, num_classes: int) -> bool:
+    """Static shape gate: does some XᵀX form (any plan mode) take it?"""
+    if num_feat * num_bins * num_classes <= 0:
+        return False
+    mode, _, wp = plan(num_feat, num_bins, num_classes)
+    return mode in ("cls", "clsb") or wp <= MAX_W
+
+
+def use_kernel(num_feat: int, num_bins: int, num_classes: int,
+               device) -> bool:
+    """The routing predicate of the NB + MI count path: the data lives on
+    CUDA and the shape is applicable.  A CUDA shape in a per-class mode
+    then reaches :func:`cooc_counts_cols`, which raises until B2/B3 are
+    ported."""
+    return (torch.device(device).type == "cuda"
+            and applicable(num_feat, num_bins, num_classes))
+
+
+def _gram_block_rows(num_feat: int, depth: int, wp: int) -> int:
+    """Row block of the plain gram: a ~64 MB float32 intermediate budget and
+    at most 2^16 rows, so each block's float32 matmul sums stay exact."""
+    per_row = 4 * max(num_feat * depth + 2 * wp, 1)
+    return max(256, min(1 << 16, (1 << 26) // per_row) // 128 * 128)
+
+
+def cooc_counts_cols_ref(codes_t: torch.Tensor, labels: torch.Tensor,
+                         num_bins: int, num_classes: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cooc_counts_cols` for every plan
+    mode, modelled on ``pallas_hist.gram_counts_cols``: codes_t [F, N],
+    labels [N] → G int32 ([wp, wp], or [C, wp, wp] in the per-class modes).
+
+    Rows are processed in blocks of at most 2^16; each block's one-hot
+    product runs in float32, exact because its counts stay below 2^24, and
+    is added into an int32 total.  Runs on whatever device its inputs are
+    on."""
+    f, n = codes_t.shape
+    dev = codes_t.device
+    mode, jcp, wp = plan(f, num_bins, num_classes)
+    cls_mode = mode in ("cls", "clsb")
+    out_shape = (num_classes, wp, wp) if cls_mode else (wp, wp)
+    g = torch.zeros(out_shape, dtype=torch.int32, device=dev)
+    if n == 0:
+        return g
+    jc = num_bins * num_classes
+    depth = (wp // f if mode == "clsb" else
+             num_bins if mode == "cls" else
+             jcp if mode == "fmaj" else jc)
+    br = _gram_block_rows(f, depth, wp)
+    lanes = torch.arange(depth, device=dev)
+    for s in range(0, n, br):
+        cb = codes_t[:, s:s + br].long()                       # [F, br]
+        yb = labels[s:s + br].long()                           # [br]
+        rows = cb.shape[1]
+        if cls_mode:
+            # per-class gram over w = bin·F + f
+            code = torch.where((cb >= 0) & (cb < num_bins), cb, -1)
+            oh = (code[:, :, None] == lanes).to(torch.float32)  # [F, br, d]
+            x = oh.permute(1, 2, 0).reshape(rows, depth * f)
+            x = torch.nn.functional.pad(x, (0, wp - x.shape[1]))
+            for c in range(num_classes):
+                xc = x * (yb == c).to(torch.float32)[:, None]
+                g[c] += (xc.T @ xc).to(torch.int32)
+            continue
+        ok = (((yb >= 0) & (yb < num_classes))[None, :]
+              & (cb >= 0) & (cb < num_bins))
+        j = torch.where(ok, cb * num_classes + yb[None, :], -1)  # [F, br]
+        oh = (j[:, :, None] == lanes).to(torch.float32)          # [F, br, d]
+        if mode == "fmaj":
+            x = oh.permute(1, 0, 2).reshape(rows, f * depth)
+        else:
+            x = oh.permute(1, 2, 0).reshape(rows, depth * f)
+        x = torch.nn.functional.pad(x, (0, wp - x.shape[1]))
+        g += (x.T @ x).to(torch.int32)
+    return g
+
+
+def _check_operands(codes_t: torch.Tensor, labels: torch.Tensor) -> None:
+    if codes_t.dim() != 2 or labels.dim() != 1:
+        raise ValueError(f"codes_t must be [F, N] and labels [N], got "
+                         f"{tuple(codes_t.shape)} and {tuple(labels.shape)}")
+    if codes_t.shape[1] != labels.shape[0]:
+        raise ValueError(f"codes_t has {codes_t.shape[1]} rows, labels "
+                         f"{labels.shape[0]}")
+    if codes_t.dtype != torch.int32 or labels.dtype != torch.int32:
+        raise TypeError(f"codes_t and labels must be int32, got "
+                        f"{codes_t.dtype} and {labels.dtype}")
+    if codes_t.device != labels.device:
+        raise ValueError(f"codes_t on {codes_t.device}, labels on "
+                         f"{labels.device}")
+    check_chunk(codes_t.shape[1])
+
+
+def _splits(device: torch.device, ntiles: int, n: int) -> int:
+    """Row ranges to spread over: about eight blocks per SM in all."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    pairs = ntiles * (ntiles + 1) // 2
+    return max(1, min(-(-8 * sms // pairs), -(-n // 128)))
+
+
+def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
+                     num_bins: int, num_classes: int) -> torch.Tensor:
+    """codes_t [F, N] int32 (columnar), labels [N] int32 → G [wp, wp] int32
+    co-occurrence counts (row/col index per :func:`w_index`).
+
+    G[w1, w2] = #rows whose feature f1 falls in (b1, c) and f2 in (b2, c):
+    all NB/MI count tables at once.  On CUDA this launches ``csrc/cooc.cu``
+    (counted in ``cooc_counts_cols.launches``); on the CPU it runs
+    :func:`cooc_counts_cols_ref`."""
+    _check_operands(codes_t, labels)
+    f, n = codes_t.shape
+    dev = codes_t.device
+    if dev.type == "cpu":
+        return cooc_counts_cols_ref(codes_t, labels, num_bins, num_classes)
+    if dev.type != "cuda":
+        raise ValueError(f"cooc_counts_cols takes CPU or CUDA tensors, got {dev}")
+    mode, jcp, wp = plan(f, num_bins, num_classes)
+    if mode in ("cls", "clsb"):
+        raise NotImplementedError(
+            f"shape F={f} B={num_bins} C={num_classes} routes to the "
+            f"per-class gram mode {mode!r} (TPU kernel "
+            f"{'B2' if mode == 'cls' else 'B3'}), which is not ported to "
+            f"CUDA yet (ROADMAP.md, Queue 2)")
+    if not applicable(f, num_bins, num_classes):
+        raise ValueError(f"shape F={f} B={num_bins} C={num_classes} is "
+                         f"outside the gram kernel's gates (wp {wp} > {MAX_W})")
+    if not (codes_t.is_contiguous() and labels.is_contiguous()):
+        raise ValueError("cooc_counts_cols needs contiguous codes_t and labels")
+    g = torch.zeros((wp, wp), dtype=torch.int32, device=dev)
+    if n == 0:
+        return g
+    lib = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cooc_gram(codes_t.data_ptr(), labels.data_ptr(), g.data_ptr(),
+                            f, n, num_bins, num_classes, jcp, wp,
+                            int(mode == "fmaj"), _splits(dev, wp // 64, n),
+                            stream)
+    if err:
+        raise RuntimeError(f"cooc_gram launch failed with CUDA error {err}")
+    cooc_counts_cols.launches += 1
+    return g
+
+
+cooc_counts_cols.launches = 0
+
+
+def _kernel() -> ctypes.CDLL:
+    from avenir_tpu_torch.ops import _build
+
+    lib = _build.load("cooc")
+    fn = lib.cooc_gram
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+    return lib
+
+
+def cooc_counts(codes: torch.Tensor, labels: torch.Tensor, num_bins: int,
+                num_classes: int) -> torch.Tensor:
+    """Row-major entry: codes [N, F] → one device transpose, then
+    :func:`cooc_counts_cols`."""
+    return cooc_counts_cols(codes.t().contiguous(), labels, num_bins,
+                            num_classes)
+
+
+def counts_from_cooc(g, num_feat: int, num_bins: int, num_classes: int,
+                     ci, cj):
+    """Host-side (numpy) read-out of the reference-shaped count tensors
+    from G:  → (fbc [F, B, C], pair [P, B, B, C]), dtype preserved.  Runs
+    once per job on a small matrix."""
+    if isinstance(g, torch.Tensor):
+        g = g.cpu().numpy()
+    g = np.asarray(g)
+    b, c = num_bins, num_classes
+    wf = w_index(num_feat, b, c)                             # [F, B, C]
+    ci = np.asarray(ci, np.int64)
+    cj = np.asarray(cj, np.int64)
+    p = len(ci)
+    if g.ndim == 3:                                          # cls mode
+        w2 = wf[:, :, 0]                                     # [F, B]
+        fbc = np.stack([g[k][w2, w2] for k in range(c)], axis=-1)
+        wi = np.broadcast_to(w2[ci][:, :, None], (p, b, b))
+        wj = np.broadcast_to(w2[cj][:, None, :], (p, b, b))
+        pair = np.stack([g[k][wi, wj] for k in range(c)], axis=-1)
+        return fbc, pair
+    fbc = g[wf, wf]
+    wi = wf[ci][:, :, None, :]                               # [P, B, 1, C]
+    wj = wf[cj][:, None, :, :]                               # [P, 1, B, C]
+    pair = g[np.broadcast_to(wi, (p, b, b, c)),
+             np.broadcast_to(wj, (p, b, b, c))]
+    return fbc, pair

@@ -25,6 +25,11 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped where CUDA is absent")
+
+
 @pytest.fixture()
 def rng():
     # function-scoped so each test draws a deterministic stream regardless of

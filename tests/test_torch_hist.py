@@ -1,0 +1,213 @@
+"""The port's co-occurrence gram and count tensors (avenir_tpu_torch.ops)
+held against the JAX package on the CPU.
+
+The plain version ``cooc_counts_cols_ref`` must equal the Pallas kernel run
+through its interpreter (as tests/test_pallas_hist.py runs it) exactly; the
+layout helpers must equal the JAX copies; the ``agg`` bincounts must equal
+the JAX einsum counts.  The CUDA kernel is held against the plain version
+on the card in tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from avenir_tpu.ops import agg as jagg  # noqa: E402
+from avenir_tpu.ops import pallas_hist as ph  # noqa: E402
+from avenir_tpu_torch.ops import agg, hist  # noqa: E402
+
+LAYOUT_SHAPES = [
+    (11, 12, 2),    # hospital readmission: fmaj, jcp 32, wp 384
+    (20, 3, 2),     # jmaj, wp 128
+    (5, 6, 2),      # jmaj
+    (4, 5, 3),      # fmaj
+    (3, 30, 2),     # fmaj, jcp 64
+    (200, 1, 2),    # jmaj with more features than a 64-wide tile
+    (10, 20, 1),    # one class (Cramér shape)
+    (20, 20, 2),    # cls
+    (16, 20, 3),    # cls
+    (100, 20, 2),   # clsb
+    (40, 40, 9),    # past cls's class gate
+    (1, 1, 1),
+]
+
+
+def _data(n, f, b, c, seed, invalid=True):
+    """codes_t [F, N], labels [N] int32 with dropped cells (-1, B, B+5) and
+    dropped rows (-1, C)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, b, size=(f, n)).astype(np.int32)
+    labels = rng.integers(0, c, size=n).astype(np.int32)
+    if invalid and n:
+        for val in (-1, b, b + 5):
+            codes[rng.integers(0, f, 8), rng.integers(0, n, 8)] = val
+        for val in (-1, c):
+            labels[rng.integers(0, n, 5)] = val
+    return codes, labels
+
+
+@pytest.mark.parametrize("f,b,c", LAYOUT_SHAPES)
+def test_layout_helpers_match_jax(f, b, c):
+    assert hist.plan(f, b, c) == ph.plan(f, b, c)
+    assert hist.clsb_tile(f, b, c) == ph.clsb_tile(f, b, c)
+    assert hist.g_key(f, b, c) == ph.g_key(f, b, c)
+    assert hist.applicable(f, b, c) == ph.applicable(f, b, c)
+    np.testing.assert_array_equal(hist.w_index(f, b, c), ph.w_index(f, b, c))
+    mode, _, wp = ph.plan(f, b, c)
+    assert hist.default_block_cols(wp, mode) == ph.default_block_cols(wp, mode)
+
+
+@pytest.mark.parametrize("n,f,b,c", [
+    (4096, 11, 12, 2),     # hospital shape, whole blocks
+    (2999, 11, 12, 2),     # ragged tail
+    (1000, 4, 5, 3),       # fmaj, C = 3
+    (777, 20, 3, 2),       # jmaj
+    (300, 5, 6, 2),        # jmaj
+    (513, 3, 30, 2),       # fmaj, jcp 64
+    (0, 11, 12, 2),        # empty chunk
+    (0, 20, 3, 2),
+])
+def test_ref_matches_jax_kernel_interpret(n, f, b, c):
+    codes, labels = _data(n, f, b, c, seed=n + f)
+    want = np.asarray(ph.cooc_counts_cols(
+        jnp.asarray(codes), jnp.asarray(labels), b, c, block_cols=256,
+        interpret=True))
+    got = hist.cooc_counts_cols_ref(torch.from_numpy(codes),
+                                    torch.from_numpy(labels), b, c)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,f,b,c", [(400, 20, 20, 2), (300, 16, 20, 3),
+                                     (200, 100, 20, 2)])
+def test_ref_per_class_modes_match_jax(n, f, b, c, monkeypatch):
+    """cls/clsb shapes: the plain version equals the JAX exact gram."""
+    codes, labels = _data(n, f, b, c, seed=7)
+    want = np.asarray(ph.gram_counts_cols(jnp.asarray(codes),
+                                          jnp.asarray(labels), b, c))
+    monkeypatch.setattr(hist, "_gram_block_rows", lambda *a: 128)
+    got = hist.cooc_counts_cols_ref(torch.from_numpy(codes),
+                                    torch.from_numpy(labels), b, c)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ref_block_rows_do_not_change_g(monkeypatch):
+    codes, labels = _data(1500, 11, 12, 2, seed=3)
+    ct, lb = torch.from_numpy(codes), torch.from_numpy(labels)
+    whole = hist.cooc_counts_cols_ref(ct, lb, 12, 2)
+    for br in (128, 256, 1408):
+        monkeypatch.setattr(hist, "_gram_block_rows", lambda *a, br=br: br)
+        assert torch.equal(hist.cooc_counts_cols_ref(ct, lb, 12, 2), whole)
+
+
+def test_wrapper_on_cpu_runs_plain_version_without_launch():
+    codes, labels = _data(1000, 11, 12, 2, seed=5)
+    before = hist.cooc_counts_cols.launches
+    g = hist.cooc_counts_cols(torch.from_numpy(codes),
+                              torch.from_numpy(labels), 12, 2)
+    assert hist.cooc_counts_cols.launches == before
+    ref = hist.cooc_counts_cols_ref(torch.from_numpy(codes),
+                                    torch.from_numpy(labels), 12, 2)
+    assert torch.equal(g, ref)
+    # G is the full symmetric matrix, pad rows/cols exactly zero
+    assert torch.equal(g, g.T)
+    used = np.zeros(g.shape[0], bool)
+    used[hist.w_index(11, 12, 2).ravel()] = True
+    assert (g.numpy()[~used] == 0).all()
+    # row-major entry = columnar entry
+    rows = hist.cooc_counts(torch.from_numpy(np.ascontiguousarray(codes.T)),
+                            torch.from_numpy(labels), 12, 2)
+    assert torch.equal(rows, g)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    ct = torch.zeros((3, 10), dtype=torch.int32)
+    lb = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hist.cooc_counts_cols(ct.long(), lb, 4, 2)
+    with pytest.raises(ValueError):
+        hist.cooc_counts_cols(ct, lb[:9], 4, 2)
+    with pytest.raises(ValueError):
+        hist.cooc_counts_cols(ct[0], lb, 4, 2)
+    with pytest.raises(ValueError):          # neither CPU nor CUDA
+        hist.cooc_counts_cols(ct.to("meta"), lb.to("meta"), 4, 2)
+    with pytest.raises(ValueError):          # the exact-count chunk cap
+        hist.cooc_counts_cols(torch.empty((1, 1 << 24), dtype=torch.int32),
+                              torch.empty(1 << 24, dtype=torch.int32), 4, 2)
+
+
+def test_use_kernel_means_cuda_and_applicable():
+    assert not hist.use_kernel(11, 12, 2, "cpu")
+    assert hist.use_kernel(11, 12, 2, "cuda")
+    assert hist.use_kernel(20, 20, 2, "cuda")          # cls: raises at launch
+    assert not hist.use_kernel(300, 40, 20, "cuda")    # past every gate
+
+
+@pytest.mark.parametrize("n,f,b,c", [(1200, 11, 12, 2), (700, 20, 3, 2),
+                                     (500, 16, 20, 3)])
+def test_counts_from_cooc_equal_agg_counts(n, f, b, c):
+    codes_t, labels = _data(n, f, b, c, seed=11)
+    pairs = np.array([(i, j) for i in range(f) for j in range(i + 1, f)],
+                     np.int64).reshape(-1, 2)
+    g = hist.cooc_counts_cols_ref(torch.from_numpy(codes_t),
+                                  torch.from_numpy(labels), b, c)
+    fbc, pair = hist.counts_from_cooc(g, f, b, c, pairs[:, 0], pairs[:, 1])
+    codes = torch.from_numpy(np.ascontiguousarray(codes_t.T))
+    lab = torch.from_numpy(labels)
+    np.testing.assert_array_equal(
+        fbc, agg.feature_class_counts(codes, lab, c, b).numpy())
+    ip, jp = torch.from_numpy(pairs[:, 0]), torch.from_numpy(pairs[:, 1])
+    np.testing.assert_array_equal(
+        pair, agg.pair_class_counts(codes[:, ip], codes[:, jp], lab, c, b).numpy())
+    # and the JAX package's einsum step gives the same tensors
+    jf, jp_ = jagg.nb_mi_pipeline_step(
+        jnp.asarray(codes_t.T), jnp.asarray(labels), jnp.asarray(pairs[:, 0]),
+        jnp.asarray(pairs[:, 1]), c, b)
+    np.testing.assert_array_equal(fbc, np.asarray(jf))
+    np.testing.assert_array_equal(pair, np.asarray(jp_))
+
+
+def test_agg_counts_match_jax():
+    rng = np.random.default_rng(2)
+    n, f, b, c = 900, 6, 7, 3
+    codes_t, labels = _data(n, f, b, c, seed=2)
+    codes = np.ascontiguousarray(codes_t.T)
+    ci = codes[:, [0, 1, 4]]
+    cj = codes[:, [2, 5, 3]]
+    t = torch.from_numpy
+    np.testing.assert_array_equal(
+        agg.class_counts(t(labels), c).numpy(),
+        np.asarray(jagg.class_counts(jnp.asarray(labels), c)))
+    np.testing.assert_array_equal(
+        agg.feature_class_counts(t(codes), t(labels), c, b).numpy(),
+        np.asarray(jagg.feature_class_counts(jnp.asarray(codes),
+                                             jnp.asarray(labels), c, b)))
+    np.testing.assert_array_equal(
+        agg.pair_class_counts(t(ci), t(cj), t(labels), c, b).numpy(),
+        np.asarray(jagg.pair_class_counts(jnp.asarray(ci), jnp.asarray(cj),
+                                          jnp.asarray(labels), c, b)))
+    # integer-valued moments are exact in float32 on both sides
+    vals = rng.integers(-50, 50, size=(n, 3)).astype(np.float32)
+    mine = agg.class_moments(t(vals), t(labels), c)
+    theirs = jagg.class_moments(jnp.asarray(vals), jnp.asarray(labels), c)
+    for a, b_ in zip(mine, theirs):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+
+
+def test_agg_chunk_cap_and_accumulator():
+    with pytest.raises(ValueError):
+        agg.class_counts(torch.empty(1 << 24, dtype=torch.int32), 2)
+    acc = agg.Accumulator()
+    acc.add("x", torch.tensor([1, 2], dtype=torch.int32))
+    acc.add("x", np.array([3, 4], np.int32))
+    acc.add("m", torch.tensor([0.5]))
+    assert acc.get("x").dtype == np.int64 and acc.get("x").tolist() == [4, 6]
+    assert acc.get("m").dtype == np.float64
+    assert sorted(acc.names()) == ["m", "x"] and "x" in acc
+    state = acc.state()
+    other = agg.Accumulator()
+    other.load(state)
+    assert other.get("x").tolist() == [4, 6]
