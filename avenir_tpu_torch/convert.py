@@ -11,6 +11,12 @@ This system has no weights: its state is count tables and model files.
 - NB model files need no conversion: the file ``avenir_tpu``'s
   ``model_to_lines`` writes loads unchanged through the port's
   ``models.naive_bayes.model_from_lines``.
+- :func:`tree_model_from_jax` takes a JAX ``DecisionTreeModel.to_string()``
+  (the first line of a DecisionTreeBuilder model file) and returns the
+  port's :class:`~avenir_tpu_torch.models.tree.DecisionTreeModel`, checked
+  for consistency, so a tree grown by either package scores the same rows
+  in the other.  The port's ``to_string()`` is the same JSON, so the way
+  back is ``from_string`` on the JAX side.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Dict
 
 import numpy as np
 
+from avenir_tpu_torch.models import tree as dtree
 from avenir_tpu_torch.ops import agg, hist
 
 _G_KEY = re.compile(r"g:(fmaj|jmaj|cls|clsb):f(\d+):b(\d+):c(\d+)")
@@ -55,3 +62,35 @@ def accumulator_from_jax(state: Dict[str, np.ndarray]) -> agg.Accumulator:
     for name, arr in out.items():
         acc.add(name, arr)
     return acc
+
+
+def tree_model_from_jax(model_string: str) -> dtree.DecisionTreeModel:
+    """The port's DecisionTreeModel from a JAX ``to_string()``.  Refuses a
+    tree the walker would misread: node ids out of order, a child that is
+    not a node, a split whose children or bin table disagree with its
+    segment count or the model's bin width, or an unknown algorithm."""
+    model = dtree.DecisionTreeModel.from_string(model_string)
+    m = len(model.nodes)
+    if model.algorithm not in dtree.ALGORITHMS:
+        raise ValueError(f"unknown tree algorithm {model.algorithm!r}")
+    for i, node in enumerate(model.nodes):
+        if node.node_id != i:
+            raise ValueError(f"node {i} carries id {node.node_id}")
+        if len(node.class_counts) != len(model.class_values):
+            raise ValueError(f"node {i} has {len(node.class_counts)} class "
+                             f"counts for {len(model.class_values)} classes")
+        if node.split is None:
+            if node.children:
+                raise ValueError(f"leaf {i} has children")
+            continue
+        sp = node.split
+        if len(sp.seg_of_bin) != model.max_bins:
+            raise ValueError(f"node {i}: bin table of {len(sp.seg_of_bin)} "
+                             f"bins, model has {model.max_bins}")
+        if (len(node.children) != sp.num_segments
+                or not all(i < ch < m for ch in node.children)
+                or sp.seg_of_bin.min() < 0
+                or sp.seg_of_bin.max() >= sp.num_segments):
+            raise ValueError(f"node {i}: split {sp.key!r} does not match "
+                             f"its children {node.children}")
+    return model

@@ -88,6 +88,10 @@ class JobConfig:
             return default
         return [v.strip() for v in val.split(delim)]
 
+    def get_int_list(self, key: str, default: Optional[List[int]] = None, delim: str = ",") -> Optional[List[int]]:
+        vals = self.get_list(key, None, delim)
+        return default if vals is None else [int(v) for v in vals]
+
     def get_float_list(self, key: str, default: Optional[List[float]] = None, delim: str = ",") -> Optional[List[float]]:
         vals = self.get_list(key, None, delim)
         return default if vals is None else [float(v) for v in vals]

@@ -212,6 +212,30 @@ class DatasetEncoder:
     def fit_transform(self, rows: np.ndarray, with_labels: bool = True) -> EncodedDataset:
         return self.fit(rows).transform(rows, with_labels=with_labels)
 
+    # -- state capture (ship the fitted encoding with a saved model) ---------
+    def state_dict(self) -> Dict:
+        """JSON-safe fitted state: vocabularies, bin offsets/counts, class
+        values — the same dict the JAX package's encoder writes.  Saved next
+        to models whose parameters are keyed by raw bin codes (the decision
+        tree's ``seg_of_bin`` tables), so scoring re-creates the train-time
+        code space instead of re-fitting on the scoring input."""
+        return {
+            "vocab": {str(k): v for k, v in self.vocab.items()},
+            "bin_offset": {str(k): v for k, v in self.bin_offset.items()},
+            "n_bins": {str(k): v for k, v in self.n_bins.items()},
+            "class_values": list(self.class_values),
+        }
+
+    def load_state_dict(self, state: Dict) -> "DatasetEncoder":
+        self.vocab = {int(k): dict(v) for k, v in state["vocab"].items()}
+        self.bin_offset = {int(k): int(v) for k, v in state["bin_offset"].items()}
+        self.n_bins = {int(k): int(v) for k, v in state["n_bins"].items()}
+        self.class_values = list(state["class_values"])
+        self.class_map = {v: i for i, v in enumerate(self.class_values)}
+        self._inv_vocab_cache = {}
+        self._fitted = True
+        return self
+
     def _inverse_vocab(self, ordinal: int) -> Dict[int, str]:
         if ordinal not in self._inv_vocab_cache:
             self._inv_vocab_cache[ordinal] = {i: v for v, i in self.vocab[ordinal].items()}
@@ -230,3 +254,6 @@ class DatasetEncoder:
         if f.is_categorical:
             return self.vocab[f.ordinal].get(label, self.n_bins[f.ordinal] - 1)
         return int(label) - self.bin_offset[f.ordinal]
+
+    def class_label(self, idx: int) -> str:
+        return self.class_values[idx]

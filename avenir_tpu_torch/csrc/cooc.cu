@@ -37,12 +37,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "onehot_mma.cuh"
+
 namespace {
 
-constexpr int TILE = 64;            // output tile edge, in w
-constexpr int KB = 128;             // data rows per shared-memory stage
-constexpr int STRIDE = KB + 16;     // bytes per one-hot row: conflict-free fragment loads
-constexpr int THREADS = 128;        // 4 warps, 2×2 over the tile, 32×32 each
+using onehot::KB;
+using onehot::STRIDE;
+using onehot::THREADS;
+using onehot::TILE;
 
 struct Params {
   const int* codes;    // [F, N] int32, row-major
@@ -50,15 +52,6 @@ struct Params {
   int* g;              // [wp, wp] int32, zeroed by the caller
   int f, n, nbins, nclass, jcp, wp, fmaj, ntiles, rows_per_split;
 };
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // Set x[w - w0][k] = 1 for every valid (feature, row) whose w falls in the
 // tile [w0, w0 + TILE).  x must be zero; lab[k] is the row's class or -1.
@@ -92,39 +85,19 @@ cooc_gram_kernel(const Params p) {
   __shared__ __align__(16) int8_t xb[TILE * STRIDE];
   __shared__ int lab[KB];
 
-  // blockIdx.x enumerates the upper-triangle tile pairs ti <= tj
-  int t = blockIdx.x, ti = 0;
-  while (t >= p.ntiles - ti) {
-    t -= p.ntiles - ti;
-    ++ti;
-  }
-  const int tj = ti + t;
+  int ti, tj;
+  onehot::upper_pair(blockIdx.x, p.ntiles, ti, tj);
   const int wa = ti * TILE, wb = tj * TILE;
   const bool diag = ti == tj;
-  const int8_t* xbr = diag ? xa : xb;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;          // mma fragment coordinates
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
 
   int acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  onehot::zero_acc(acc);
 
   const int row_begin = blockIdx.y * p.rows_per_split;
   const int row_end = min(p.n, row_begin + p.rows_per_split);
-  const uint4 zero = make_uint4(0, 0, 0, 0);
 
   for (int n0 = row_begin; n0 < row_end; n0 += KB) {
-    for (int i = threadIdx.x; i < TILE * (KB / 16); i += THREADS) {
-      const int off = (i / (KB / 16)) * STRIDE + (i % (KB / 16)) * 16;
-      *reinterpret_cast<uint4*>(xa + off) = zero;
-      if (!diag) *reinterpret_cast<uint4*>(xb + off) = zero;
-    }
+    onehot::zero_slices(xa, xb, diag);
     for (int k = threadIdx.x; k < KB; k += THREADS) {
       int y = -1;
       if (n0 + k < row_end) {
@@ -137,34 +110,10 @@ cooc_gram_kernel(const Params p) {
     expand(p, wa, n0, lab, xa);
     if (!diag) expand(p, wb, n0, lab, xb);
     __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < KB; kk += 32) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* base = xa + (wm + mi * 16 + gq) * STRIDE + kk + tq * 4;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mi][1] = *reinterpret_cast<const uint32_t*>(base + 8 * STRIDE);
-        a[mi][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-        a[mi][3] = *reinterpret_cast<const uint32_t*>(base + 8 * STRIDE + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* base = xbr + (wn + ni * 8 + gq) * STRIDE + kk + tq * 4;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(base);
-        b[ni][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
+    onehot::tile_mma(acc, xa, diag ? xa : xb);
     __syncthreads();
   }
 
-  // accumulator element e of fragment (mi, ni) sits at tile row
-  // wm + mi·16 + gq + 8·(e/2), column wn + ni·8 + 2·tq + e%2
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -173,8 +122,8 @@ cooc_gram_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) {
         const int v = acc[mi][ni][e];
         if (v == 0) continue;
-        const int r = wa + wm + mi * 16 + gq + 8 * (e >> 1);
-        const int c = wb + wn + ni * 8 + 2 * tq + (e & 1);
+        const int r = wa + onehot::acc_row(mi, e);
+        const int c = wb + onehot::acc_col(ni, e);
         atomicAdd(p.g + (size_t)r * p.wp + c, v);
         if (!diag) atomicAdd(p.g + (size_t)c * p.wp + r, v);
       }

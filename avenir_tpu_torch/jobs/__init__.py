@@ -11,15 +11,27 @@ from typing import Dict, Type
 from avenir_tpu_torch.jobs.base import Job
 from avenir_tpu_torch.jobs.bayesian import BayesianDistribution, BayesianPredictor
 from avenir_tpu_torch.jobs.explore import MutualInformation
+from avenir_tpu_torch.jobs.tree import (
+    ClassPartitionGenerator,
+    DataPartitioner,
+    DecisionTreeBuilder,
+    SplitGenerator,
+)
 
 # reference package of each job's counterpart (for fully-qualified lookup)
 _PACKAGES: Dict[str, str] = {
     "BayesianDistribution": "bayesian",
     "BayesianPredictor": "bayesian",
     "MutualInformation": "explore",
+    "ClassPartitionGenerator": "explore",
+    "SplitGenerator": "tree",
+    "DataPartitioner": "tree",
+    "DecisionTreeBuilder": "tree",
 }
 
-JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation]
+JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
+               ClassPartitionGenerator, SplitGenerator, DataPartitioner,
+               DecisionTreeBuilder]
 
 REGISTRY: Dict[str, Type[Job]] = {}
 for _cls in JOB_CLASSES:

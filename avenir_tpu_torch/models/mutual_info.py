@@ -5,7 +5,7 @@ explore/MutualInformation.java and MutualInformationScore.java).
 One pass counts the class vector, the [F, B, C] feature-class tensor and
 the [P, B, B, C] pair-class tensor; every reference distribution family and
 MI statistic derives from them.  On CUDA the counts come from the
-co-occurrence gram kernel (``ops/hist.py``), read out once at the end; on
+co-occurrence gram kernels (``ops/hist.py``), read out once at the end; on
 the CPU, and for shapes outside every kernel gate, from the integer
 ``agg`` counts.  Both give the same counts.  MI values are in nats.
 """
@@ -128,9 +128,8 @@ class MutualInformation:
         f, b, c = meta.num_binned, meta.max_bins, meta.num_classes
         pair_index = all_pairs(f)
         acc = agg.Accumulator()
-        # kernel route: one gram per chunk, accumulated as G and read out
-        # once at the end; a CUDA shape in a per-class plan mode raises in
-        # hist.cooc_counts_cols (not ported yet) rather than falling back
+        # kernel route: one gram per chunk (B1, or B2/B3 in the per-class
+        # plan modes), accumulated as G and read out once at the end
         kernel = hist.use_kernel(f, b, c, self.device)
         gk = hist.g_key(f, b, c)
         for ds in chunks:

@@ -2,15 +2,16 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` by hand into ``build/lib<name>-<hash>.so`` on first use, then loaded
-with ``ctypes``.  The file name carries a hash of the source, so an edited
-kernel is never served from a stale library.  Nothing is built or loaded
-when this module is imported.
+with ``ctypes``.  The file name carries a hash of the source and of every
+``csrc/*.cuh`` header, so an edited kernel or header is never served from a
+stale library.  Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import glob
 import os
 import shutil
 import subprocess
@@ -40,18 +41,27 @@ def nvcc() -> str:
                        "source and need the CUDA toolkit")
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu`` and of every ``csrc/*.cuh`` header."""
+    h = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+    for path in [os.path.join(CSRC, f"{name}.cu"), *headers]:
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read() + b"\0")
+    return h.hexdigest()[:12]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
     returns the library path.  nvcc's output (the ptxas register and
-    shared-memory report) is kept beside it as ``.log``."""
+    shared-memory report) is kept beside it as ``.log``.  Builds of
+    different kernels may run in parallel threads."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    lib = os.path.join(BUILD, f"lib{name}-{digest}.so")
+    lib = os.path.join(BUILD, f"lib{name}-{source_digest(name)}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)

@@ -1,25 +1,36 @@
-"""Co-occurrence gram G = XᵀX — the count kernel behind NB + MI.
+"""Co-occurrence grams — the count kernels behind NB, MI and the tree.
 
 Port of ``avenir_tpu/ops/pallas_hist.py``.  Every NB and MI count table is a
 sub-block of G, where X is the [N, W] one-hot of the joint (feature, bin,
 class) code.  The layout helpers (:func:`plan`, :func:`clsb_tile`,
-:func:`g_key`, :func:`w_index`, :func:`counts_from_cooc`) are copied
-unchanged, so G, its checkpoint key and its read-out mean the same in both
-packages.
+:func:`g_key`, :func:`w_index`, :func:`counts_from_cooc`) and the PackGraft
+disjoint-pack helpers (:func:`pack_disjoint`, :func:`packed_codes`,
+:func:`packed_diag_index`) are copied unchanged, so G, its checkpoint key
+and its read-out mean the same in both packages.
 
-:func:`cooc_counts_cols` is the wrapper of the hand-written CUDA kernel
-``csrc/cooc.cu`` (the fmaj and jmaj modes, which replace
-``pallas_hist.py:283 _cooc_kernel``).  On a CPU tensor it runs the plain
-PyTorch version :func:`cooc_counts_cols_ref`; on a CUDA tensor it launches
-the kernel or raises — there is no fallback between them.  The per-class
-modes ``cls`` and ``clsb`` (TPU kernels B2 and B3) are not ported yet: on
-CUDA they raise ``NotImplementedError``.
+Wrappers of the hand-written CUDA kernels, each with its plain PyTorch
+version beside it:
+
+- :func:`cooc_counts_cols` → ``csrc/cooc.cu`` in the fmaj and jmaj modes
+  (replaces ``pallas_hist.py:283 _cooc_kernel``, B1) and ``csrc/cooc_cls.cu``
+  in the per-class modes cls and clsb (replaces ``:333 _cooc_cls_kernel``
+  and ``:365 _cooc_clsb_kernel``, B2 and B3); plain version
+  :func:`cooc_counts_cols_ref`;
+- :func:`cross_cooc_counts_cols` → ``csrc/cross.cu`` (replaces ``:484
+  _cross_kernel``, B4), the decision tree's level table; plain version
+  :func:`cross_cooc_counts_cols_ref`.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises — there is no fallback between them.  Each
+wrapper counts its launches in a function attribute (``launches``, and for
+the per-class modes ``cls_launches`` / ``clsb_launches``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,9 +168,8 @@ def applicable(num_feat: int, num_bins: int, num_classes: int) -> bool:
 def use_kernel(num_feat: int, num_bins: int, num_classes: int,
                device) -> bool:
     """The routing predicate of the NB + MI count path: the data lives on
-    CUDA and the shape is applicable.  A CUDA shape in a per-class mode
-    then reaches :func:`cooc_counts_cols`, which raises until B2/B3 are
-    ported."""
+    CUDA and the shape is applicable in some plan mode (fmaj/jmaj launch
+    B1, cls/clsb launch the per-class kernel)."""
     return (torch.device(device).type == "cuda"
             and applicable(num_feat, num_bins, num_classes))
 
@@ -222,20 +232,22 @@ def cooc_counts_cols_ref(codes_t: torch.Tensor, labels: torch.Tensor,
     return g
 
 
-def _check_operands(codes_t: torch.Tensor, labels: torch.Tensor) -> None:
-    if codes_t.dim() != 2 or labels.dim() != 1:
-        raise ValueError(f"codes_t must be [F, N] and labels [N], got "
-                         f"{tuple(codes_t.shape)} and {tuple(labels.shape)}")
-    if codes_t.shape[1] != labels.shape[0]:
-        raise ValueError(f"codes_t has {codes_t.shape[1]} rows, labels "
-                         f"{labels.shape[0]}")
-    if codes_t.dtype != torch.int32 or labels.dtype != torch.int32:
-        raise TypeError(f"codes_t and labels must be int32, got "
-                        f"{codes_t.dtype} and {labels.dtype}")
-    if codes_t.device != labels.device:
-        raise ValueError(f"codes_t on {codes_t.device}, labels on "
-                         f"{labels.device}")
-    check_chunk(codes_t.shape[1])
+def _check_operands(codes_t: torch.Tensor, vec: torch.Tensor,
+                    what: str = "labels") -> None:
+    """codes_t [F, N] and a per-row vector [N] (labels or selectors), both
+    int32 on one device."""
+    if codes_t.dim() != 2 or vec.dim() != 1:
+        raise ValueError(f"codes_t must be [F, N] and {what} [N], got "
+                         f"{tuple(codes_t.shape)} and {tuple(vec.shape)}")
+    if codes_t.shape[1] != vec.shape[0]:
+        raise ValueError(f"codes_t has {codes_t.shape[1]} rows, {what} "
+                         f"{vec.shape[0]}")
+    if codes_t.dtype != torch.int32 or vec.dtype != torch.int32:
+        raise TypeError(f"codes_t and {what} must be int32, got "
+                        f"{codes_t.dtype} and {vec.dtype}")
+    if codes_t.device != vec.device:
+        raise ValueError(f"codes_t on {codes_t.device}, {what} on "
+                         f"{vec.device}")
 
 
 def _splits(device: torch.device, ntiles: int, n: int) -> int:
@@ -247,14 +259,17 @@ def _splits(device: torch.device, ntiles: int, n: int) -> int:
 
 def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
                      num_bins: int, num_classes: int) -> torch.Tensor:
-    """codes_t [F, N] int32 (columnar), labels [N] int32 → G [wp, wp] int32
-    co-occurrence counts (row/col index per :func:`w_index`).
+    """codes_t [F, N] int32 (columnar), labels [N] int32 → G int32
+    co-occurrence counts (row/col index per :func:`w_index`): [wp, wp], or
+    [C, wp, wp] in the per-class modes.
 
     G[w1, w2] = #rows whose feature f1 falls in (b1, c) and f2 in (b2, c):
     all NB/MI count tables at once.  On CUDA this launches ``csrc/cooc.cu``
-    (counted in ``cooc_counts_cols.launches``); on the CPU it runs
-    :func:`cooc_counts_cols_ref`."""
+    (fmaj/jmaj, counted in ``cooc_counts_cols.launches``) or
+    ``csrc/cooc_cls.cu`` (cls/clsb, counted in ``cls_launches`` /
+    ``clsb_launches``); on the CPU it runs :func:`cooc_counts_cols_ref`."""
     _check_operands(codes_t, labels)
+    check_chunk(codes_t.shape[1])
     f, n = codes_t.shape
     dev = codes_t.device
     if dev.type == "cpu":
@@ -262,21 +277,17 @@ def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"cooc_counts_cols takes CPU or CUDA tensors, got {dev}")
     mode, jcp, wp = plan(f, num_bins, num_classes)
-    if mode in ("cls", "clsb"):
-        raise NotImplementedError(
-            f"shape F={f} B={num_bins} C={num_classes} routes to the "
-            f"per-class gram mode {mode!r} (TPU kernel "
-            f"{'B2' if mode == 'cls' else 'B3'}), which is not ported to "
-            f"CUDA yet (ROADMAP.md, Queue 2)")
     if not applicable(f, num_bins, num_classes):
         raise ValueError(f"shape F={f} B={num_bins} C={num_classes} is "
-                         f"outside the gram kernel's gates (wp {wp} > {MAX_W})")
+                         f"outside the gram kernels' gates (wp {wp} > {MAX_W})")
     if not (codes_t.is_contiguous() and labels.is_contiguous()):
         raise ValueError("cooc_counts_cols needs contiguous codes_t and labels")
+    if mode in ("cls", "clsb"):
+        return _cooc_cls(codes_t, labels, num_bins, num_classes, mode, wp)
     g = torch.zeros((wp, wp), dtype=torch.int32, device=dev)
     if n == 0:
         return g
-    lib = _kernel()
+    lib = _kernel("cooc")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cooc_gram(codes_t.data_ptr(), labels.data_ptr(), g.data_ptr(),
@@ -289,18 +300,58 @@ def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
     return g
 
 
-cooc_counts_cols.launches = 0
+def _cooc_cls(codes_t: torch.Tensor, labels: torch.Tensor, num_bins: int,
+              num_classes: int, mode: str, wp: int) -> torch.Tensor:
+    """The per-class modes on CUDA: ``csrc/cooc_cls.cu`` (B2 for cls, B3
+    for clsb) → G [C, wp, wp] int32."""
+    f, n = codes_t.shape
+    dev = codes_t.device
+    g = torch.zeros((num_classes, wp, wp), dtype=torch.int32, device=dev)
+    if n == 0:
+        return g
+    scratch = torch.zeros(2 * num_classes, dtype=torch.int32, device=dev)
+    sorted_codes = torch.empty((f, n), dtype=torch.int16, device=dev)
+    lib = _kernel("cooc_cls")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cooc_cls_gram(
+            codes_t.data_ptr(), labels.data_ptr(), g.data_ptr(),
+            scratch.data_ptr(), sorted_codes.data_ptr(), f, n, num_bins,
+            num_classes, wp, _splits(dev, -(-f * num_bins // 64), n), stream)
+    if err:
+        raise RuntimeError(f"cooc_cls_gram launch failed with CUDA error {err}")
+    if mode == "cls":
+        cooc_counts_cols.cls_launches += 1
+    else:
+        cooc_counts_cols.clsb_launches += 1
+    return g
 
 
-def _kernel() -> ctypes.CDLL:
+cooc_counts_cols.launches = 0          # B1 (fmaj, jmaj)
+cooc_counts_cols.cls_launches = 0      # B2
+cooc_counts_cols.clsb_launches = 0     # B3
+
+# each kernel's C entry point and its argument types: pointers (and the
+# stream) as c_void_p, ints as c_int
+_ENTRY = {
+    "cooc": ("cooc_gram", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p]),
+    "cooc_cls": ("cooc_cls_gram", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p]),
+    "cross": ("cross_counts", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p]),
+}
+
+
+def _kernel(name: str) -> ctypes.CDLL:
     from avenir_tpu_torch.ops import _build
 
-    lib = _build.load("cooc")
-    fn = lib.cooc_gram
+    lib = _build.load(name)
+    entry, argtypes = _ENTRY[name]
+    fn = getattr(lib, entry)
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+        fn.argtypes = argtypes
     return lib
 
 
@@ -338,3 +389,219 @@ def counts_from_cooc(g, num_feat: int, num_bins: int, num_classes: int,
     pair = g[np.broadcast_to(wi, (p, b, b, c)),
              np.broadcast_to(wj, (p, b, b, c))]
     return fbc, pair
+
+
+# ---------------------------------------------------------------------------
+# cross co-occurrence XᵀY: the decision tree's level table (B4)
+# ---------------------------------------------------------------------------
+
+MAX_SEL_CROSS = 1024
+
+
+def cross_sel_width(num_sel: int) -> int:
+    """Padded selector lane width of the JAX cross gram's dot (Y pads to
+    whole 128-lane tiles) — what ``DecisionTree.level_stats`` reports as
+    ``sel_width`` on the cross route, as the JAX package does."""
+    return _ru(max(num_sel, 1), 128)
+
+
+def cross_applicable(num_feat: int, num_bins: int, num_sel: int) -> bool:
+    """Gate of the cross kernel, the JAX package's: the X side obeys the
+    joint-gram width cap (fmaj, jcp = B rounded up to 32) and the selector
+    side stays at most 1024."""
+    if num_feat * num_bins <= 0 or num_sel <= 0:
+        return False
+    jcp = _ru(num_bins, 32)
+    wp = _ru(num_feat * jcp, 128)
+    return wp <= MAX_W and num_sel <= MAX_SEL_CROSS
+
+
+def cross_cooc_counts_cols_ref(codes_t: torch.Tensor, sel: torch.Tensor,
+                               num_bins: int, num_sel: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`cross_cooc_counts_cols`, the product
+    XᵀY of ``pallas_hist.cross_cooc_counts_cols``: X the (feature, bin)
+    one-hot, Y the selector one-hot, in row blocks of at most 2^16 whose
+    float32 products are exact, summed in int32.  A code outside [0, B)
+    gives an all-zero X cell and a selector outside [0, num_sel) an
+    all-zero Y row, so both drop out.  Runs on whatever device its inputs
+    are on."""
+    f, n = codes_t.shape
+    dev = codes_t.device
+    out = torch.zeros((f * num_bins, num_sel), dtype=torch.int32, device=dev)
+    br = _gram_block_rows(f, num_bins, num_sel)
+    bins = torch.arange(num_bins, device=dev)
+    sels = torch.arange(num_sel, device=dev)
+    for s in range(0, n, br):
+        cb = codes_t[:, s:s + br].long()                       # [F, br]
+        rows = cb.shape[1]
+        x = (cb[:, :, None] == bins).to(torch.float32)        # [F, br, B]
+        x = x.permute(1, 0, 2).reshape(rows, f * num_bins)
+        y = (sel[s:s + br].long()[:, None] == sels).to(torch.float32)
+        out += (x.T @ y).to(torch.int32)
+    return out.reshape(f, num_bins, num_sel)
+
+
+def cross_cooc_counts_cols(codes_t: torch.Tensor, sel: torch.Tensor,
+                           num_bins: int, num_sel: int) -> torch.Tensor:
+    """codes_t [F, N] int32 (columnar), sel [N] int32 → [F, B, num_sel]
+    int32 counts of each (feature, bin, selector) co-occurrence; a code
+    outside [0, B) drops its cell and a selector outside [0, num_sel)
+    (−1 included) drops the whole row.
+
+    The decision tree's [F, B, K, C] level table is this with
+    sel = node·C + class.  On CUDA this launches ``csrc/cross.cu`` (counted
+    in ``cross_cooc_counts_cols.launches``; shapes past
+    :func:`cross_applicable` raise); on the CPU it runs
+    :func:`cross_cooc_counts_cols_ref`."""
+    _check_operands(codes_t, sel, "sel")
+    f, n = codes_t.shape
+    dev = codes_t.device
+    if dev.type == "cpu":
+        return cross_cooc_counts_cols_ref(codes_t, sel, num_bins, num_sel)
+    if dev.type != "cuda":
+        raise ValueError(f"cross_cooc_counts_cols takes CPU or CUDA tensors, "
+                         f"got {dev}")
+    if not cross_applicable(f, num_bins, num_sel):
+        raise ValueError(f"shape F={f} B={num_bins} num_sel={num_sel} is "
+                         f"outside the cross kernel's gates")
+    if not (codes_t.is_contiguous() and sel.is_contiguous()):
+        raise ValueError("cross_cooc_counts_cols needs contiguous codes_t "
+                         "and sel")
+    out = torch.zeros((f, num_bins, num_sel), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    lib = _kernel("cross")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.cross_counts(codes_t.data_ptr(), sel.data_ptr(),
+                               out.data_ptr(), f, n, num_bins, num_sel, stream)
+    if err:
+        raise RuntimeError(f"cross_counts launch failed with CUDA error {err}")
+    cross_cooc_counts_cols.launches += 1
+    return out
+
+
+cross_cooc_counts_cols.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# PackGraft disjoint packs (pallas_hist.py:818-988): M row-disjoint members
+# (tree frontier nodes), each an [F, B, C] table, as one joint gram over
+# M bin stripes.  Composite codes code + m·stripe keep every cross-member
+# block structurally zero, because no row carries two members.
+# ---------------------------------------------------------------------------
+
+
+class PackMember(NamedTuple):
+    """One table riding a pack: its (F, B, C) shape plus where its block
+    starts (the bin-stripe offset of a disjoint pack)."""
+    key: str
+    num_feat: int
+    num_bins: int
+    num_classes: int
+    offset: int
+
+
+class PackPlan(NamedTuple):
+    """One packed gram: the members plus the JOINT (F, B, C) shape handed
+    to :func:`plan` and :func:`cooc_counts_cols`."""
+    members: Tuple[PackMember, ...]
+    num_feat: int
+    num_bins: int          # JOINT bins (disjoint: n_members · stripe_bins)
+    num_classes: int
+    mode: str              # plan() mode of the joint shape
+    wp: int                # padded joint width
+    band_bins: int         # clsb band size in bins (0 otherwise)
+    stripe_bins: int       # disjoint packs: per-member bin stride, else 0
+    disjoint: bool
+
+    @property
+    def signature(self) -> str:
+        """Composite pack identity, the JAX package's string."""
+        tag = "d" if self.disjoint else "x"
+        return (f"{self.mode}:{tag}{len(self.members)}:f{self.num_feat}"
+                f":b{self.num_bins}:c{self.num_classes}:w{self.wp}")
+
+    @property
+    def g_key(self) -> str:
+        """Key of the packed G: the layout of g_key(joint shape) with a
+        ``packed`` base, as the JAX package writes it."""
+        return (f"g:packed:{self.mode}:f{self.num_feat}"
+                f":b{self.num_bins}:c{self.num_classes}")
+
+
+def packed_g_key(num_feat: int, num_bins: int, num_classes: int) -> str:
+    """The packed-provenance g_key of a joint shape (same byte layout as
+    :func:`g_key`, another base string)."""
+    mode, _, _ = plan(num_feat, num_bins, num_classes)
+    return f"g:packed:{mode}:f{num_feat}:b{num_bins}:c{num_classes}"
+
+
+def pack_disjoint(num_members: int, num_feat: int, num_bins: int,
+                  num_classes: int, max_width: Optional[int] = None
+                  ) -> Optional[PackPlan]:
+    """Disjoint-pack planner: M row-disjoint members, each an [F, B, C]
+    table, as one joint gram over M·Bp bins, where Bp is B rounded up so
+    that clsb bands hold whole members.  None when the joint shape exceeds
+    every tier or the stripe↔band fixpoint does not settle in 4 steps."""
+    if num_members <= 0 or num_feat * num_bins * num_classes <= 0:
+        return None
+    bp = num_bins
+    mode = wp = None
+    for _ in range(4):                       # stripe↔band fixpoint, ≤4 hops
+        mode, _, wp = plan(num_feat, num_members * bp, num_classes)
+        if mode != "clsb":
+            break
+        tile = clsb_tile(num_feat, num_members * bp, num_classes)
+        if tile is None:
+            return None
+        k = tile[0] // num_feat              # band size in bins
+        bp2 = _ru(num_bins, k)
+        if bp2 == bp:
+            break
+        bp = bp2
+    else:
+        return None
+    cap = min(max_width or MAX_W_CLSB, MAX_W_CLSB)
+    if wp > cap or not (mode in ("cls", "clsb") or wp <= MAX_W):
+        return None
+    members = tuple(
+        PackMember(key=f"m{i}", num_feat=num_feat, num_bins=num_bins,
+                   num_classes=num_classes, offset=i * bp)
+        for i in range(num_members))
+    band = clsb_tile(num_feat, num_members * bp, num_classes) \
+        if mode == "clsb" else None
+    return PackPlan(members=members, num_feat=num_feat,
+                    num_bins=num_members * bp, num_classes=num_classes,
+                    mode=mode, wp=wp,
+                    band_bins=(band[0] // num_feat if band else 0),
+                    stripe_bins=bp, disjoint=True)
+
+
+def packed_codes(codes_t: torch.Tensor, member: torch.Tensor,
+                 stripe_bins: int, member_bins: int) -> torch.Tensor:
+    """Composite int32 codes of a disjoint pack: joint bin = code +
+    m·stripe.  The mask is against the member's OWN bin count: an
+    out-of-range local code becomes −1 (dropped by the kernels), never a
+    cell of the next member's stripe.  Rows with member −1 drop whole."""
+    ct = codes_t.to(torch.int32)
+    mem = member.to(torch.int32)
+    off = torch.where(mem >= 0, mem * stripe_bins, 0)[None, :]
+    ok = (mem >= 0)[None, :] & (ct >= 0) & (ct < member_bins)
+    return torch.where(ok, ct + off, -1).to(torch.int32)
+
+
+def packed_diag_index(pplan: PackPlan) -> np.ndarray:
+    """Host-side unpack index of a disjoint pack: w cells [F, B, M, C] such
+    that G[w, w] (per class in the cls modes) is member m's [F, B, C]
+    table."""
+    wf = w_index(pplan.num_feat, pplan.num_bins, pplan.num_classes)
+    b = pplan.members[0].num_bins
+    offs = np.array([mb.offset for mb in pplan.members], np.int64)
+    sel = offs[None, :] + np.arange(b)[:, None]              # [B, M]
+    return wf[:, sel, :]                                     # [F, B, M, C]
+
+
+def packed_applicable(pplan: PackPlan) -> bool:
+    """Kernel eligibility of the JOINT shape."""
+    return applicable(pplan.num_feat, pplan.num_bins, pplan.num_classes)

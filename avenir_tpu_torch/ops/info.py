@@ -9,6 +9,8 @@ as the JAX package computes them.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 _EPS = 1e-12
@@ -34,6 +36,55 @@ def entropy(p: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 def entropy_from_counts(counts: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return entropy(normalize(counts, axis=axis), axis=axis)
+
+
+def gini(p: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Gini impurity 1 − Σp²."""
+    return 1.0 - (p * p).sum(dim=axis)
+
+
+def gini_from_counts(counts: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return gini(normalize(counts, axis=axis), axis=axis)
+
+
+def hellinger_distance(p: torch.Tensor, q: torch.Tensor,
+                       axis: int = -1) -> torch.Tensor:
+    """Hellinger distance between two distributions along ``axis``."""
+    d = ((torch.sqrt(p) - torch.sqrt(q)) ** 2).sum(dim=axis)
+    return torch.sqrt(torch.clamp(d, min=0.0)) / math.sqrt(2.0)
+
+
+def cumulative_level_table(table: torch.Tensor) -> torch.Tensor:
+    """[F, B, K, C] level table → its inclusive prefix sum over the bin
+    axis, ``cum[f, b] = Σ_{b' ≤ b} table[f, b']`` (exact in integer
+    dtypes): every sorted threshold's left histogram is one row of it."""
+    return torch.cumsum(table, dim=1, dtype=table.dtype)
+
+
+def binary_split_histograms(cum: torch.Tensor, attr_of: torch.Tensor,
+                            thr_of: torch.Tensor) -> torch.Tensor:
+    """``cum`` [F, B, K, C] (the bin prefix sum of the level table),
+    ``attr_of`` [S], ``thr_of`` [S] (codes < t go left) → [S, 2, K, C]
+    segment×class histograms: left = cum[a, t−1], right = node total −
+    left.  Equal to :func:`split_segment_histograms` for the same (a, t)."""
+    left = cum[attr_of, thr_of - 1]                    # [S, K, C]
+    total = cum[attr_of, -1]                           # [S, K, C]
+    return torch.stack([left, total - left], dim=1)    # [S, 2, K, C]
+
+
+def split_segment_histograms(table: torch.Tensor, seg_tab: torch.Tensor,
+                             attr_of: torch.Tensor, gmax: int) -> torch.Tensor:
+    """[F, B, K, C] level table, ``seg_tab`` [S, B] bin→segment maps and
+    ``attr_of`` [S] → [S, G, K, C] per-split segment×class histograms, an
+    exact integer contraction (in float64, which holds every count exactly;
+    CUDA has no integer matmul).  Segments ≥ a split's segment count come
+    out all-zero."""
+    grange = torch.arange(gmax, dtype=seg_tab.dtype, device=seg_tab.device)
+    m = (seg_tab[:, None, :] == grange[None, :, None]).to(torch.float64)
+    t = table[attr_of].to(torch.float64)                 # [S, B, K, C]
+    s_, b, k, c = t.shape
+    h = torch.bmm(m, t.reshape(s_, b, k * c)).reshape(s_, gmax, k, c)
+    return h.to(table.dtype)
 
 
 def mutual_information(joint_counts: torch.Tensor) -> torch.Tensor:

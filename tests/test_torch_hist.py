@@ -1,11 +1,12 @@
-"""The port's co-occurrence gram and count tensors (avenir_tpu_torch.ops)
+"""The port's co-occurrence grams and count tensors (avenir_tpu_torch.ops)
 held against the JAX package on the CPU.
 
-The plain version ``cooc_counts_cols_ref`` must equal the Pallas kernel run
-through its interpreter (as tests/test_pallas_hist.py runs it) exactly; the
-layout helpers must equal the JAX copies; the ``agg`` bincounts must equal
-the JAX einsum counts.  The CUDA kernel is held against the plain version
-on the card in tests/test_torch_cuda.py.
+The plain versions ``cooc_counts_cols_ref`` and
+``cross_cooc_counts_cols_ref`` must equal the Pallas kernels run through
+their interpreter (as tests/test_pallas_hist.py runs them) exactly; the
+layout and PackGraft helpers must equal the JAX copies; the ``agg``
+bincounts must equal the JAX einsum counts.  The CUDA kernels are held
+against the plain versions on the card in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -142,7 +143,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_use_kernel_means_cuda_and_applicable():
     assert not hist.use_kernel(11, 12, 2, "cpu")
     assert hist.use_kernel(11, 12, 2, "cuda")
-    assert hist.use_kernel(20, 20, 2, "cuda")          # cls: raises at launch
+    assert hist.use_kernel(20, 20, 2, "cuda")          # cls: B2
     assert not hist.use_kernel(300, 40, 20, "cuda")    # past every gate
 
 
@@ -211,3 +212,147 @@ def test_agg_chunk_cap_and_accumulator():
     other = agg.Accumulator()
     other.load(state)
     assert other.get("x").tolist() == [4, 6]
+
+
+@pytest.mark.parametrize("n,f,b,c", [(600, 20, 20, 2), (400, 100, 20, 2)])
+def test_wrapper_per_class_modes_on_cpu(n, f, b, c):
+    """cls and clsb through the public wrapper on CPU tensors: the plain
+    version, no launch, equal to the JAX exact gram."""
+    codes, labels = _data(n, f, b, c, seed=19)
+    counters = (hist.cooc_counts_cols.launches,
+                hist.cooc_counts_cols.cls_launches,
+                hist.cooc_counts_cols.clsb_launches)
+    g = hist.cooc_counts_cols(torch.from_numpy(codes),
+                              torch.from_numpy(labels), b, c)
+    assert counters == (hist.cooc_counts_cols.launches,
+                        hist.cooc_counts_cols.cls_launches,
+                        hist.cooc_counts_cols.clsb_launches)
+    mode, _, wp = hist.plan(f, b, c)
+    assert mode == ("cls" if f == 20 else "clsb")
+    assert g.shape == (c, wp, wp) and g.dtype == torch.int32
+    want = np.asarray(ph.gram_counts_cols(jnp.asarray(codes),
+                                          jnp.asarray(labels), b, c))
+    np.testing.assert_array_equal(g.numpy(), want)
+
+
+def _cross_data(n, f, b, s, seed):
+    """codes_t [F, N], sel [N] int32 with dropped cells (-1, B, B+5) and
+    dropped rows (sel -1, num_sel, num_sel+9)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, b, size=(f, n)).astype(np.int32)
+    sel = rng.integers(0, s, size=n).astype(np.int32)
+    if n:
+        for val in (-1, b, b + 5):
+            codes[rng.integers(0, f, 8), rng.integers(0, n, 8)] = val
+        for val in (-1, s, s + 9):
+            sel[rng.integers(0, n, 5)] = val
+    return codes, sel
+
+
+@pytest.mark.parametrize("n,f,b,s", [
+    (1024, 10, 13, 2),     # the hospital tree's root, whole blocks
+    (1999, 10, 13, 54),    # a deeper level, ragged N
+    (700, 3, 40, 300),     # num_sel > 128: several selector lane tiles
+    (500, 24, 32, 7),      # X side at the gate (wp 768)
+    (0, 10, 13, 54),       # empty chunk
+])
+def test_cross_ref_matches_jax_kernel_interpret(n, f, b, s):
+    codes, sel = _cross_data(n, f, b, s, seed=n + s)
+    want = np.asarray(ph.cross_cooc_counts_cols(
+        jnp.asarray(codes), jnp.asarray(sel), b, s, block_cols=256,
+        interpret=True))
+    before = hist.cross_cooc_counts_cols.launches
+    got = hist.cross_cooc_counts_cols(torch.from_numpy(codes),
+                                      torch.from_numpy(sel), b, s)
+    assert hist.cross_cooc_counts_cols.launches == before    # CPU: no launch
+    assert got.dtype == torch.int32 and got.shape == (f, b, s)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        hist.cross_cooc_counts_cols_ref(torch.from_numpy(codes),
+                                        torch.from_numpy(sel), b, s).numpy(),
+        want)
+
+
+def test_cross_gates_and_operand_checks_match_jax():
+    for f, b, s in [(10, 13, 54), (24, 32, 1024), (24, 32, 1025),
+                    (25, 32, 2), (3, 100, 200), (0, 5, 2), (4, 5, 0)]:
+        assert hist.cross_applicable(f, b, s) == ph.cross_applicable(f, b, s)
+    for s in (1, 128, 129, 1024):
+        assert hist.cross_sel_width(s) == ph.cross_sel_width(s)
+    ct = torch.zeros((3, 10), dtype=torch.int32)
+    sel = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        hist.cross_cooc_counts_cols(ct, sel.long(), 4, 2)
+    with pytest.raises(ValueError):
+        hist.cross_cooc_counts_cols(ct, sel[:9], 4, 2)
+    with pytest.raises(ValueError):          # neither CPU nor CUDA
+        hist.cross_cooc_counts_cols(ct.to("meta"), sel.to("meta"), 4, 2)
+
+
+# the wide tree's 30 × 8 × 2 frontiers (jmaj, cls, cls, clsb), the
+# hospital shapes, and shapes past the cls gates
+PACK_SHAPES = [(k, 30, 8, 2) for k in (1, 2, 4, 8, 16)] + [
+    (k, 10, 13, 2) for k in (1, 3, 27)] + [
+    (3, 4, 5, 3), (2, 40, 40, 9), (6, 100, 20, 2), (0, 4, 5, 2),
+    (4, 0, 5, 2), (200, 30, 8, 2)]
+
+
+@pytest.mark.parametrize("m,f,b,c", PACK_SHAPES)
+def test_pack_disjoint_matches_jax(m, f, b, c):
+    got, want = hist.pack_disjoint(m, f, b, c), ph.pack_disjoint(m, f, b, c)
+    if want is None:
+        assert got is None
+        return
+    assert tuple(got) == tuple(want)
+    assert got.signature == want.signature and got.g_key == want.g_key
+    assert hist.packed_applicable(got) == ph.packed_applicable(want)
+    assert hist.packed_g_key(f, m * got.stripe_bins, c) == \
+        ph.packed_g_key(f, m * want.stripe_bins, c)
+    np.testing.assert_array_equal(hist.packed_diag_index(got),
+                                  ph.packed_diag_index(want))
+
+
+def test_wide_tree_frontiers_pack_on_jmaj_cls_clsb():
+    modes = [hist.pack_disjoint(k, 30, 8, 2) for k in (1, 2, 4, 8)]
+    assert [(p.mode, p.wp) for p in modes] == [
+        ("jmaj", 512), ("cls", 512), ("cls", 1024), ("clsb", 3840)]
+    assert modes[3].band_bins == 16
+    assert not hist.cross_applicable(30, 8, 2)
+    assert hist.cross_applicable(10, 13, 54)
+
+
+@pytest.mark.parametrize("stripe,member_bins", [(8, 8), (16, 8), (13, 13)])
+def test_packed_codes_match_jax(stripe, member_bins):
+    rng = np.random.default_rng(stripe)
+    n, f = 500, 6
+    codes = rng.integers(-2, member_bins + 3, size=(f, n)).astype(np.int32)
+    member = rng.integers(-1, 5, size=n).astype(np.int32)
+    got = hist.packed_codes(torch.from_numpy(codes), torch.from_numpy(member),
+                            stripe, member_bins)
+    want = np.asarray(ph.packed_codes(jnp.asarray(codes), jnp.asarray(member),
+                                      stripe, member_bins))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # an out-of-range local code never reaches the next member's stripe
+    assert ((got.numpy() == -1) | (got.numpy() % stripe < member_bins)).all()
+
+
+def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
+    """An edited kernel or header gives the kernel a new library name, so a
+    stale build is never loaded."""
+    from avenir_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build.source_digest("k")
+    assert _build.source_digest("k") == first
+    (tmp_path / "a.cuh").write_text("#pragma once\n// edited\n")
+    second = _build.source_digest("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k2;\n')
+    assert _build.source_digest("k") not in (first, second)
+    # the port's own kernels: each hash covers the shared one-hot header
+    monkeypatch.undo()
+    for name in ("cooc", "cooc_cls", "cross"):
+        assert len(_build.source_digest(name)) == 12

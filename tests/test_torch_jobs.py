@@ -145,8 +145,9 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax)\b"
                          r"|\bimport\s+avenir_tpu\b|\bavenir_tpu\.\w",
                          re.MULTILINE)
-    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
-    assert len(files) > 20
+    files = (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
+             + sorted(PKG.rglob("*.cuh")))
+    assert len(files) > 25
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
             for p in files for m in pattern.finditer(p.read_text())]
     assert hits == []
