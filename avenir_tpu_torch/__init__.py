@@ -1,17 +1,17 @@
 """avenir_tpu_torch — the PyTorch/CUDA port of avenir_tpu.
 
 The same jobs, properties keys and CSV-in/CSV-out contract as ``avenir_tpu``,
-run with PyTorch on an NVIDIA GPU.  Plain tensor code is PyTorch; the count
-kernel the JAX package wrote in Pallas is a hand-written CUDA kernel
-(``csrc/cooc.cu``, bound through ``ops/hist.py``).
+run with PyTorch on an NVIDIA GPU.  Plain tensor code is PyTorch; every
+kernel the JAX package wrote in Pallas on these paths is a hand-written
+CUDA kernel (``csrc/``, built on first use by ``ops/_build.py``).
 
 Layers, entry point first:
 
-  ``__main__`` / ``jobs``   the CLI contract (BayesianDistribution,
-                            BayesianPredictor, MutualInformation)
-  ``models``                NaiveBayes and MutualInformation fit/predict
+  ``__main__`` / ``jobs``   the CLI contract (NB, MI, tree and kNN jobs)
+  ``models``                NaiveBayes, MutualInformation, DecisionTree, KNN
   ``ops``                   count tensors (``agg``), statistics (``info``),
-                            the co-occurrence gram (``hist``) and its kernel
+                            the co-occurrence grams (``hist``), the kNN
+                            candidate search (``knn``) and their kernels
   ``core``                  schema, properties, CSV and encoding (numpy)
 
 Entry points run on ``cuda`` unless the caller asks for the CPU

@@ -17,6 +17,10 @@ This system has no weights: its state is count tables and model files.
   for consistency, so a tree grown by either package scores the same rows
   in the other.  The port's ``to_string()`` is the same JSON, so the way
   back is ``from_string`` on the JAX side.
+- :func:`knn_model_from_jax` takes a JAX ``KNNModel`` (its numpy arrays:
+  the reference set and its normalization range) and returns the port's
+  :class:`~avenir_tpu_torch.models.knn.KNNModel`, so that both packages
+  score the same reference set.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict
 
 import numpy as np
 
+from avenir_tpu_torch.models import knn as mknn
 from avenir_tpu_torch.models import tree as dtree
 from avenir_tpu_torch.ops import agg, hist
 
@@ -94,3 +99,43 @@ def tree_model_from_jax(model_string: str) -> dtree.DecisionTreeModel:
             raise ValueError(f"node {i}: split {sp.key!r} does not match "
                              f"its children {node.children}")
     return model
+
+
+def knn_model_from_jax(model) -> mknn.KNNModel:
+    """The port's KNNModel from a JAX ``KNNModel``, read by attribute (its
+    arrays are numpy already).  Refuses arrays whose row counts or widths
+    disagree, so a reference set is never scored with another's labels or
+    normalization range."""
+    def opt(name, dtype):
+        v = getattr(model, name)
+        return None if v is None else np.asarray(v, dtype)
+
+    codes = np.asarray(model.codes, np.int32)
+    cont = np.asarray(model.cont, np.float32)
+    out = mknn.KNNModel(
+        codes=codes, cont=cont, labels=opt("labels", np.int32),
+        values=opt("values", np.float32),
+        class_probs=opt("class_probs", np.float32),
+        n_bins=np.asarray(model.n_bins, np.int32),
+        class_values=[str(v) for v in model.class_values],
+        cont_lo=np.asarray(model.cont_lo, np.float32),
+        cont_hi=np.asarray(model.cont_hi, np.float32))
+    n = out.num_refs
+    if codes.ndim != 2 or cont.ndim != 2 or (codes.size and cont.size
+                                            and codes.shape[0] != cont.shape[0]):
+        raise ValueError(f"codes {codes.shape} and cont {cont.shape} are not "
+                         f"row-aligned [N, F] / [N, Fc]")
+    if out.n_bins.shape != (codes.shape[1],):
+        raise ValueError(f"n_bins {out.n_bins.shape} for {codes.shape[1]} "
+                         f"binned features")
+    if out.cont_lo.shape != (cont.shape[1],) or out.cont_hi.shape != (cont.shape[1],):
+        raise ValueError(f"normalization range {out.cont_lo.shape} for "
+                         f"{cont.shape[1]} continuous features")
+    for name in ("labels", "values", "class_probs"):
+        v = getattr(out, name)
+        if v is not None and v.shape[0] != n:
+            raise ValueError(f"{name} has {v.shape[0]} rows for {n} references")
+    if out.class_probs is not None and out.class_probs.shape[1] != len(out.class_values):
+        raise ValueError(f"class_probs has {out.class_probs.shape[1]} columns "
+                         f"for {len(out.class_values)} classes")
+    return out

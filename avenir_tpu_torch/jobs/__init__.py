@@ -11,6 +11,11 @@ from typing import Dict, Type
 from avenir_tpu_torch.jobs.base import Job
 from avenir_tpu_torch.jobs.bayesian import BayesianDistribution, BayesianPredictor
 from avenir_tpu_torch.jobs.explore import MutualInformation
+from avenir_tpu_torch.jobs.knn import (
+    FeatureCondProbJoiner,
+    NearestNeighbor,
+    SameTypeSimilarity,
+)
 from avenir_tpu_torch.jobs.tree import (
     ClassPartitionGenerator,
     DataPartitioner,
@@ -27,11 +32,15 @@ _PACKAGES: Dict[str, str] = {
     "SplitGenerator": "tree",
     "DataPartitioner": "tree",
     "DecisionTreeBuilder": "tree",
+    "SameTypeSimilarity": "knn",
+    "FeatureCondProbJoiner": "knn",
+    "NearestNeighbor": "knn",
 }
 
 JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
                ClassPartitionGenerator, SplitGenerator, DataPartitioner,
-               DecisionTreeBuilder]
+               DecisionTreeBuilder, SameTypeSimilarity, FeatureCondProbJoiner,
+               NearestNeighbor]
 
 REGISTRY: Dict[str, Type[Job]] = {}
 for _cls in JOB_CLASSES:

@@ -33,6 +33,13 @@ def check_chunk(n: int) -> None:
             f"{MAX_EXACT_CHUNK_ROWS}; split the stream into smaller chunks")
 
 
+def one_hot(x: torch.Tensor, k: int, dtype=torch.float32) -> torch.Tensor:
+    """One-hot encode along a new last axis of width ``k``; an
+    out-of-range index (e.g. -1) gives an all-zero row, as
+    ``jax.nn.one_hot`` does."""
+    return (x.long()[..., None] == torch.arange(k, device=x.device)).to(dtype)
+
+
 def _valid_labels(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (labels >= 0) & (labels < num_classes)
 

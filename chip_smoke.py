@@ -6,11 +6,12 @@
 Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels ``avenir_tpu_torch/csrc/{cooc,cooc_cls,cross}.cu`` (one nvcc
-   each, all started together), printing each build time and ptxas report;
-2. hold each kernel against its plain PyTorch version on the card — exact
-   int equality — and time the kernel, the plain version and a library
-   yardstick the port never calls, with CUDA events:
+   kernels ``avenir_tpu_torch/csrc/{cooc,cooc_cls,cross,knn_tourney,
+   knn_topk}.cu`` (one nvcc each, all started together), printing each
+   build time and ptxas report;
+2. hold each count kernel against its plain PyTorch version on the card —
+   exact int equality — and time the kernel, the plain version and a
+   library yardstick the port never calls, with CUDA events:
    - B1 (cooc.cu): the hospital-readmission shape 11 × 12 × 2 at 16M rows
      and the main path's 10 × 13 × 2 chunk, a jmaj shape (20 × 3 × 2) at 1M
      rows, a ragged row count with invalid codes and labels, and zero rows
@@ -41,16 +42,44 @@ Phases, in order; any failure exits non-zero:
    search, depth 4): on ``cuda`` its levels must pack onto jmaj, cls, cls
    and clsb (B1, B2, B3), on ``cpu`` take the plain route, and the trees
    agree;
-6. each kernel again at the main paths' own inputs: every call that
+6. each count kernel again at the main paths' own inputs: every call that
    phases 3–5 made on ``cuda`` to the count wrappers was recorded (the MI
    jobs' chunks, the hospital trees' levels with 2, 4, 8 and 16
    selectors, the wide tree's packed levels K = 1, 2, 4, 8), and each is
    held exactly against its plain version; the first call of each path
    and shape is timed with its plain version, yardstick and bound;
-7. print the kernels' JSON line, its numbers from the main-path cases of
-   phase 6 (B1: a hospital MI chunk; B2: a 20 × 20 × 2 MI chunk; B3: the
-   wide tree's K = 8 level; B4: the hospital tree's deepest level), then
-   the last line ``{"ok": true, "device": {...}}``.
+7. the kNN kernels against their plain versions, timed likewise
+   (yardstick: cuBLAS's bf16 A·Bᵀ per 16,384-row block with
+   ``torch.topk(3)`` per 2048-row segment for B5, ``torch.topk(kk)`` per
+   row for B6): B5 on categorical 6 × 10 data at 4,096 × 262,144 refs
+   (keys bit-equal: every d² is an integer sum), at the knn_qps shape
+   (6 × 10 + 8 continuous, 4,096 × 1M; keys within KEY_TOL + one
+   truncation step, assembled re-ranked results and certificates equal)
+   and with a short last block; B6 on categorical and mixed data at
+   4,096 × 16,384 refs with kk 18 and 128, a 12-row set and heavy
+   duplicates; and each on a categorical schema too wide to keep its
+   query tile resident in shared memory (B5 at W 896, B6 at W 2688: the
+   tile is streamed), keys and slots bit-equal;
+8. the kNN paths: (a) NearestNeighbor through the CLI on a seeded 1M-row
+   elearn training CSV and 4,096 test rows on ``cuda`` (B5 once), then
+   with ``--device cpu`` on the first 1,024 test rows: predictions
+   byte-identical but for rows the exact scan served on either device,
+   whose distances must agree within 1e-6; (b) NearestNeighbor with
+   validation and the gaussian kernel, and SameTypeSimilarity, on 10,000
+   elearn rows and 2,000 test rows on both devices (B6 once each): part
+   files byte-identical (same exception) and validation counters equal;
+   (c) ``KNN.predict`` at the knn_qps shape on ``cuda`` (B5 once) against
+   a float64 oracle on its first 256 rows.  Each prints its launch counts
+   and how many rows failed the certificate and went to the exact scan;
+9. B5 and B6 again on every call the kNN paths made on ``cuda``, held
+   against their plain versions; the first of each path and shape timed,
+   its bound over the used lanes and real rows read from the model and
+   test set the path ran;
+10. print the kernels' JSON line, its numbers from the main-path cases of
+    phases 6 and 9 (B1: a hospital MI chunk; B2: a 20 × 20 × 2 MI chunk;
+    B3: the wide tree's K = 8 level; B4: the hospital tree's deepest level;
+    B5: the 1M-row NearestNeighbor job; B6: the 10K-row NearestNeighbor
+    job), then the last line ``{"ok": true, "device": {...}}``.
 
 Each phase that drives a path sets every launch count to 0 just before it
 and reads the counts just after.  It imports nothing of JAX and nothing of
@@ -76,20 +105,32 @@ sys.path.insert(0, HERE)
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 MI_TOL = 2e-6            # MI numbers: float32 statistics printed to 6 places
 SCORE_TOL = 1e-6         # tree split scores (the tree contract)
 ROWS_E2E = 1_000_000
 CHUNK_ROWS = 250_000
-KERNEL_SOURCES = ("cooc", "cooc_cls", "cross")
-COUNTS = {"B1": ("cooc_counts_cols", "launches"),
-          "B2": ("cooc_counts_cols", "cls_launches"),
-          "B3": ("cooc_counts_cols", "clsb_launches"),
-          "B4": ("cross_cooc_counts_cols", "launches")}
+KNN_REFS = 1_000_000     # the repo's kNN width (benchmarks/knn_qps.py)
+KNN_BATCH = 4096
+KNN_CPU_ROWS = 1024      # the --device cpu run's share of the 1M-ref job
+KNN_K = 10
+DIST_TOL = 1e-6          # distances of rows the exact scan served
+PAD_D2 = 1e29            # d² of a pad reference (ops/knn.py's _PADC, 1e30)
+KEY_TOL = 1e-5           # |Δd²| of two float32 summation orders (B5, B6)
+KERNEL_SOURCES = ("cooc", "cooc_cls", "cross", "knn_tourney", "knn_topk")
+# launch counts: kernel id → (ops module, wrapper, attribute)
+COUNTS = {"B1": ("hist", "cooc_counts_cols", "launches"),
+          "B2": ("hist", "cooc_counts_cols", "cls_launches"),
+          "B3": ("hist", "cooc_counts_cols", "clsb_launches"),
+          "B4": ("hist", "cross_cooc_counts_cols", "launches"),
+          "B5": ("knn", "knn_tourney", "launches"),
+          "B6": ("knn", "knn_topk", "launches")}
 # the main path of each kernel in the kernels line: (path, which call)
 MAIN_PATH = {"B1": ("mi", "first"), "B2": ("mi_wide", "first"),
-             "B3": ("wide_tree", "first"), "B4": ("tree", "last")}
+             "B3": ("wide_tree", "first"), "B4": ("tree", "last"),
+             "B5": ("knn_job", "first"), "B6": ("knn_small_nn", "first")}
 
 
 def log(*args) -> None:
@@ -224,37 +265,50 @@ def kernel_cases(hist):
     return results
 
 
-def reset_counts(hist) -> None:
-    for fn, attr in COUNTS.values():
-        setattr(getattr(hist, fn), attr, 0)
+def ops_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"avenir_tpu_torch.ops.{name}")
 
 
-def read_counts(hist) -> dict:
-    return {k: getattr(getattr(hist, fn), attr)
-            for k, (fn, attr) in COUNTS.items()}
+def reset_counts() -> None:
+    for mod, fn, attr in COUNTS.values():
+        setattr(getattr(ops_module(mod), fn), attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(getattr(ops_module(mod), fn), attr)
+            for k, (mod, fn, attr) in COUNTS.items()}
+
+
+def only(**launches) -> dict:
+    """The counts of a run that launched these kernels and no other."""
+    return {k: launches.get(k, 0) for k in COUNTS}
 
 
 class Recorder:
-    """Keeps the arguments of every call a driven path makes to the two
-    count wrappers, which run and count as before, so that phase 6 can
-    hold each kernel against its plain version on the path's own inputs.
+    """Keeps the arguments of every call a driven path makes to the kernel
+    wrappers (the two count wrappers, B5's and B6's), which run and count
+    as before, so that phases 6 and 9 can hold each kernel against its
+    plain version on the path's own inputs.
 
     A wrapper counts its launches on its module-level name, which is the
     shim while the shim is on: the shim starts with the wrapper's counts
     (``functools.wraps`` copies them) and hands them back when it comes
     off."""
 
-    WRAPPERS = ("cooc_counts_cols", "cross_cooc_counts_cols")
+    WRAPPERS = (("hist", "cooc_counts_cols"), ("hist", "cross_cooc_counts_cols"),
+                ("knn", "knn_tourney"), ("knn", "knn_topk"))
 
-    def __init__(self, hist):
-        self.hist = hist
+    def __init__(self):
         self.calls = []                    # (wrapper name, path, args)
 
     @contextlib.contextmanager
     def on(self, path: str):
         import functools
 
-        saved = {name: getattr(self.hist, name) for name in self.WRAPPERS}
+        saved = {(mod, name): getattr(ops_module(mod), name)
+                 for mod, name in self.WRAPPERS}
 
         def shim(name, fn):
             @functools.wraps(fn)
@@ -263,16 +317,16 @@ class Recorder:
                 return fn(*args)
             return call
 
-        for name, fn in saved.items():
-            setattr(self.hist, name, shim(name, fn))
+        for (mod, name), fn in saved.items():
+            setattr(ops_module(mod), name, shim(name, fn))
         try:
             yield
         finally:
-            for name, fn in saved.items():
-                shim = getattr(self.hist, name)
+            for (mod, name), fn in saved.items():
+                shim = getattr(ops_module(mod), name)
                 for attr in vars(fn):
                     setattr(fn, attr, getattr(shim, attr))
-                setattr(self.hist, name, fn)
+                setattr(ops_module(mod), name, fn)
 
 
 def bound(nbytes: float, ops: float):
@@ -332,9 +386,9 @@ def per_class_cases(hist):
         codes, labels = make_case(n, f, b, c, invalid, seed=100 + i)
         mode, _jcp, wp = hist.plan(f, b, c)
         assert mode == ("cls" if kid == "B2" else "clsb"), (label, mode)
-        reset_counts(hist)
+        reset_counts()
         g = hist.cooc_counts_cols(codes, labels, b, c)
-        if read_counts(hist)[kid] != (1 if n else 0):
+        if read_counts()[kid] != (1 if n else 0):
             raise AssertionError(f"{kid} did not launch once on {label}")
         ref = hist.cooc_counts_cols_ref(codes, labels, b, c)
         torch.cuda.synchronize()
@@ -422,9 +476,9 @@ def cross_cases(hist):
     results = []
     for i, (label, n, f, b, s, invalid) in enumerate(cases):
         codes, sel = make_cross_case(n, f, b, s, invalid, seed=200 + i)
-        reset_counts(hist)
+        reset_counts()
         t = hist.cross_cooc_counts_cols(codes, sel, b, s)
-        if read_counts(hist)["B4"] != (1 if n else 0):
+        if read_counts()["B4"] != (1 if n else 0):
             raise AssertionError(f"B4 did not launch once on {label}")
         ref = hist.cross_cooc_counts_cols_ref(codes, sel, b, s)
         torch.cuda.synchronize()
@@ -532,7 +586,7 @@ def jobs_phase(hist, rec: Recorder, work: str):
     for dev in ("cuda", "cpu"):
         o = lambda name: os.path.join(work, f"{dev}_{name}")
         if dev == "cuda":
-            reset_counts(hist)                     # the main path's run only
+            reset_counts()                     # the main path's run only
         t0 = time.perf_counter()
         run_cli(["BayesianDistribution", *common, train, o("nb"), "--device", dev])
         t_nb = time.perf_counter() - t0
@@ -551,9 +605,9 @@ def jobs_phase(hist, rec: Recorder, work: str):
         t_mi = time.perf_counter() - t0
         chunks = counter(mi_out, "Chunks")
         if dev == "cuda":
-            counts = read_counts(hist)
+            counts = read_counts()
             launches = counts["B1"]
-            if counts != {"B1": chunks, "B2": 0, "B3": 0, "B4": 0}:
+            if counts != only(B1=chunks):
                 raise AssertionError(f"NB + MI jobs launched {counts}")
             if launches != chunks or chunks != -(-ROWS_E2E // CHUNK_ROWS):
                 raise AssertionError(f"B1 launched {launches} times for "
@@ -608,13 +662,13 @@ def mi_wide_phase(hist, rec: Recorder) -> int:
 
     ds = wide_dataset(ROWS_E2E, 20, 20, seed=12)
     chunks = [ds.slice(s, s + CHUNK_ROWS) for s in range(0, ROWS_E2E, CHUNK_ROWS)]
-    reset_counts(hist)
+    reset_counts()
     t0 = time.perf_counter()
     with rec.on("mi_wide"):
         got = mi.MutualInformation(device="cuda").fit(chunks)
     t_cuda = time.perf_counter() - t0
-    counts = read_counts(hist)
-    if counts != {"B1": 0, "B2": len(chunks), "B3": 0, "B4": 0}:
+    counts = read_counts()
+    if counts != only(B2=len(chunks)):
         raise AssertionError(f"MI 20x20x2 launched {counts} for "
                              f"{len(chunks)} chunks")
     t0 = time.perf_counter()
@@ -693,19 +747,19 @@ def tree_jobs_phase(hist, rec: Recorder, work: str, train: str, test: str,
             argv = list(argv)
             if name == "pred":
                 argv.insert(1, f"-Dtree.model.file.path={o('tree')}")
-            reset_counts(hist)
+            reset_counts()
             t0 = time.perf_counter()
             with rec.on(name) if dev == "cuda" else contextlib.nullcontext():
                 text = run_cli([*argv, o(name), "--device", dev])
             walls.append(f"{name} {time.perf_counter() - t0:.2f} s")
-            counts = read_counts(hist)
+            counts = read_counts()
             levels = tree_phase_table(text)
             if dev == "cuda":
                 # one level table per level of each fit, one for the
                 # split-scoring job; the predictor builds none
                 want = len(levels) if name.startswith("tree") else (
                     1 if name == "cpg" else 0)
-                if counts != {"B1": 0, "B2": 0, "B3": 0, "B4": want}:
+                if counts != only(B4=want):
                     raise AssertionError(f"{name} on cuda launched {counts}, "
                                          f"expected B4 {want}")
                 b4[name] = counts["B4"]
@@ -757,7 +811,7 @@ def wide_tree_phase(hist, rec: Recorder) -> dict:
         trainer = tree.DecisionTree(max_depth=4, split_search="binary",
                                     level_packed="auto",
                                     collect_phase_stats=True, device=dev)
-        reset_counts(hist)
+        reset_counts()
         t0 = time.perf_counter()
         with rec.on("wide_tree") if dev == "cuda" else contextlib.nullcontext():
             models[dev] = trainer.fit(ds).to_string()
@@ -771,11 +825,11 @@ def wide_tree_phase(hist, rec: Recorder) -> dict:
                 f"{s['table_ms']} ms, select {s['select_ms']} ms, partition "
                 f"{s['partition_ms']} ms")
         if dev == "cuda":
-            counts = read_counts(hist)
+            counts = read_counts()
             if routes != ["packed:jmaj", "packed:cls", "packed:cls",
                           "packed:clsb"]:
                 raise AssertionError(f"wide tree routes {routes}")
-            if counts != {"B1": 1, "B2": 2, "B3": 1, "B4": 0}:
+            if counts != only(B1=1, B2=2, B3=1):
                 raise AssertionError(f"wide tree launched {counts}")
         elif routes != ["plain"] * 4:
             raise AssertionError(f"wide tree routes on cpu {routes}")
@@ -794,7 +848,10 @@ def path_cases(hist, rec: Recorder) -> list:
     import torch
 
     results, timed, seen = [], set(), {}
-    for name, path, (codes, vec, b, k) in rec.calls:
+    for name, path, args in rec.calls:
+        if name not in ("cooc_counts_cols", "cross_cooc_counts_cols"):
+            continue
+        codes, vec, b, k = args
         i = seen[path] = seen.get(path, -1) + 1
         f, n = codes.shape
         cross = name == "cross_cooc_counts_cols"
@@ -847,10 +904,533 @@ def path_cases(hist, rec: Recorder) -> list:
             log(f"{kid} path case:", json.dumps(row))
         results.append(row)
         del got, want
-    rec.calls.clear()
     torch.cuda.empty_cache()
     log(f"path cases: {len(results)} recorded calls equal to their plain "
         f"versions")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# kNN: B5 (knn_tourney.cu) and B6 (knn_topk.cu)
+# ---------------------------------------------------------------------------
+
+def knn_data(n, m, f, fc, nb, seed, dup=1):
+    """Seeded references and queries as knn_qps.make_ds draws them (codes
+    uniform, continuous normal, normalized to the references' range), on
+    the card: (q_mat, r_mat, n_real, codes_q, cont01_q, codes_r, cont01_r,
+    w_used).  ``dup`` > 1 repeats the first n / dup references."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import knn as mknn
+    from avenir_tpu_torch.ops import knn as tk
+
+    rng = np.random.default_rng(seed)
+    base = -(-n // dup)
+    codes_r = np.tile(rng.integers(0, nb, (base, f)).astype(np.int32),
+                      (dup, 1))[:n]
+    cont_r = np.tile(rng.normal(size=(base, fc)).astype(np.float32),
+                     (dup, 1))[:n]
+    codes_q = rng.integers(0, nb, (m, f)).astype(np.int32)
+    cont_q = rng.normal(size=(m, fc)).astype(np.float32)
+    lo, hi = cont_r.min(0), cont_r.max(0)
+    cr01 = mknn._normalize01(cont_r, lo, hi)
+    cq01 = mknn._normalize01(cont_q, lo, hi)
+    r_mat, n_real = tk.prepare_refs(codes_r, cr01, nb)
+    q_mat, _ = tk.prepare_queries(codes_q, cq01, nb)
+    dev = torch.device("cuda")
+    return (q_mat.to(dev), r_mat.to(dev), n_real,
+            torch.from_numpy(codes_q).to(dev), torch.from_numpy(cq01).to(dev),
+            torch.from_numpy(codes_r).to(dev), torch.from_numpy(cr01).to(dev),
+            f * nb + 6 * fc + 6)
+
+
+def knn_bound(kid, q, r, m, n, w_used):
+    """(bound ms, what bounds it): 2·m·n·w bf16 operations over the used
+    lanes w = F·B + 6·Fc + 6 at 989 TFLOP/s, against the operands read once
+    and the outputs written once at 3.35 TB/s."""
+    from avenir_tpu_torch.ops import knn as tk
+
+    out = (3 * q.shape[0] * tk._round_up(r.shape[0] // tk.SEG, 128) * 4
+           if kid == "B5" else q.shape[0] * tk.SLOTS * 8)
+    nbytes = (q.numel() + r.numel()) * 2 + out
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = 2 * m * n * w_used / PEAK_BF16_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def tourney_library(q, r):
+    """The B5 yardstick: per 16,384-row block, cuBLAS's bf16 A @ Bᵀ and
+    torch.topk(3) over each 2048-row segment."""
+    from avenir_tpu_torch.ops import knn as tk
+
+    def call():
+        return [(q @ r[s0:s0 + tk.TB].T).view(q.shape[0], -1, tk.SEG)
+                .topk(3, dim=2, largest=False).values
+                for s0 in range(0, r.shape[0], tk.TB)]
+    return call
+
+
+def topk_library(q, r, kk):
+    """The B6 yardstick: per 16,384-row block, cuBLAS's bf16 A @ Bᵀ and
+    torch.topk(kk) over each row, merged across blocks by one more topk."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn as tk
+
+    def call():
+        best = None
+        for s0 in range(0, r.shape[0], tk.TB):
+            v = (q @ r[s0:s0 + tk.TB].T).topk(kk, dim=1, largest=False).values
+            best = v if best is None else torch.cat([best, v], 1).topk(
+                kk, dim=1, largest=False).values
+        return best
+    return call
+
+
+def check_tourney(q, r, got, want, what):
+    """B5 against its plain version.  Both sum the same exact bf16 products
+    in float32 in another order, so a d² may differ by ~1e-6, which near
+    zero spans several truncation steps and may swap near-tied columns.
+    Each key's truncated d² must equal the plain version's within
+    KEY_TOL + one step (2⁻¹² relative); a key whose column differs must
+    name a reference whose d², recomputed, is within the same of the
+    kernel's.  Returns (keys that differ, keys whose column differs,
+    max |Δ truncated d²| over real references)."""
+    import torch
+
+    differ = swapped = 0
+    worst = 0.0
+    seg_base = torch.arange(got[0].shape[1], device=q.device) * 2048
+    for g, w in zip(got, want):
+        dg = (g & ~2047).view(torch.float32)
+        dw = (w & ~2047).view(torch.float32)
+        real = dw < PAD_D2             # pad references sit at ~1e30
+        gap = (dg - dw).abs()
+        tol = KEY_TOL + torch.maximum(dg, dw) * 2.0 ** -12
+        if bool(((gap > tol) & real).any()):
+            raise AssertionError(f"B5 keys on {what} differ by up to "
+                                 f"{float(gap[real].max())} in d²")
+        if bool(real.any()):
+            worst = max(worst, float(gap[real].max()))
+        differ += int((g != w).sum())
+        moved = ((g & 2047) != (w & 2047)) & real
+        swapped += int(moved.sum())
+        if bool(moved.any()):
+            rows, segs = moved.nonzero(as_tuple=True)
+            refs = seg_base[segs] + (g[rows, segs] & 2047)
+            d2 = (q[rows].float() * r[refs].float()).sum(1)
+            if bool(((d2 - dg[rows, segs]).abs()
+                     > tol[rows, segs]).any()):
+                raise AssertionError(f"B5 on {what} names a reference whose "
+                                     f"d² is not its key's")
+    return differ, swapped, worst
+
+
+def check_topk(got, want, kk, exact, what):
+    """B6 against its plain version.  Exact data: equal.  Otherwise every
+    slot's d² within 1e-5 and the kept sets equal but for members within
+    2e-5 of the row's kk-th d².  Returns (rows whose sets differ, max |Δd²|
+    over the kk slots)."""
+    import torch
+
+    (d, i), (wd, wi) = got, want
+    if not (torch.equal(i[:, kk:], wi[:, kk:]) and torch.equal(d[:, kk:], wd[:, kk:])):
+        raise AssertionError(f"B6 slots past kk on {what} are not empty")
+    # pad references (d² ~1e30, a float32 ulp there ~1e23) are held by
+    # index: every pad has the same d² within one computation
+    pad = wd[:, :kk] >= PAD_D2
+    if not torch.equal(pad, d[:, :kk] >= PAD_D2) or \
+            not torch.equal(i[:, :kk][pad], wi[:, :kk][pad]):
+        raise AssertionError(f"B6 pad slots on {what} differ")
+    worst = float((d[:, :kk] - wd[:, :kk]).abs()[~pad].max())
+    if exact:
+        if not (torch.equal(d, wd) and torch.equal(i, wi)):
+            raise AssertionError(f"B6 disagrees with its plain version on {what}")
+        return 0, worst
+    if worst > KEY_TOL:
+        raise AssertionError(f"B6 d² on {what} differ by {worst}")
+    mine, theirs = i[:, :kk], wi[:, :kk]
+    in_theirs = (mine[:, :, None] == theirs[:, None, :]).any(2)
+    in_mine = (theirs[:, :, None] == mine[:, None, :]).any(2)
+    edge = torch.where(pad, -1.0, wd[:, :kk]).max(1, keepdim=True).values
+    far = (((d[:, :kk] - edge).abs() > 2e-5) & ~in_theirs).any() | \
+        (((wd[:, :kk] - edge).abs() > 2e-5) & ~in_mine).any()
+    if bool(far):
+        raise AssertionError(f"B6 kept sets on {what} differ away from the "
+                             f"kk-th d²")
+    return int((~in_theirs).any(1).sum()), worst
+
+
+def knn_cases():
+    """Phase 7: B5 and B6 against their plain versions on the card, timed
+    with the plain version, the library yardstick and the bound."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn as tk
+
+    cases = [
+        ("B5", "categorical 6x10, 4096 x 262144 refs", 262_144, 6, 0, 18, 1),
+        ("B5", "knn_qps shape 6x10 + 8 continuous, 4096 x 1M refs",
+         KNN_REFS, 6, 8, 18, 1),
+        ("B5", "short last block, n = 8*2048 + 1 (4x6 + 3 continuous)",
+         8 * 2048 + 1, 4, 3, 20, 1),
+        ("B6", "categorical 6x10, 4096 x 16384 refs, kk 18", 16_384, 6, 0, 18, 1),
+        ("B6", "categorical 6x10, 4096 x 16384 refs, kk 128", 16_384, 6, 0, 128, 1),
+        ("B6", "mixed 6x10 + 8, 4096 x 16384 refs, kk 18", 16_384, 6, 8, 18, 1),
+        ("B6", "mixed 6x10 + 8, 4096 x 16384 refs, kk 128", 16_384, 6, 8, 128, 1),
+        ("B6", "tiny set n = 12, k = 10 (pads in the slots)", 12, 3, 2, 18, 1),
+        ("B6", "heavy duplicates, 4096 x 16384 refs, kk 18", 16_384, 4, 2, 18, 160),
+        # wider than the kernels keep resident: the query tile is streamed
+        ("B5", "wide categorical 80x10 (W 896), 4096 x 65536 refs",
+         65_536, 80, 0, 18, 1),
+        ("B6", "wide categorical 268x10 (W 2688), 4096 x 16384 refs, kk 18",
+         16_384, 268, 0, 18, 1),
+    ]
+    results = []
+    for i, (kid, label, n, f, fc, kk, dup) in enumerate(cases):
+        q, r, n_real, cq, xq, cr, xr, w_used = knn_data(
+            n, KNN_BATCH, f, fc, 10, seed=300 + i, dup=dup)
+        reset_counts()
+        if kid == "B5":
+            got = tk.knn_tourney(q, r)
+            want = tk.knn_tourney_ref(q, r)
+            torch.cuda.synchronize()
+            differ, swapped, err = check_tourney(q, r, got, want, label)
+            if fc == 0 and differ:
+                raise AssertionError(f"B5 keys on exact d² differ: {label}")
+            row = {"keys_differ": differ, "columns_differ": swapped}
+            if n == KNN_REFS:
+                # assembled, re-ranked results and certificates equal
+                res = [tk.finish(cq, xq, cr, xr, n_real,
+                                 tk.assemble(o, KNN_BATCH, kk), KNN_K, f + fc)
+                       for o in (got, want)]
+                for a, b in zip(*res):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"B5 search results differ on "
+                                             f"{label}")
+                row["certified"] = int(res[0][2].sum())
+            fn = lambda: tk.knn_tourney(q, r)  # noqa: E731
+            ref = lambda: tk.knn_tourney_ref(q, r)  # noqa: E731
+            lib = tourney_library(q, r)
+        else:
+            got = tk.knn_topk(q, r, kk)
+            want = tk.knn_topk_ref(q, r, kk)
+            torch.cuda.synchronize()
+            swapped, err = check_topk(got, want, kk, fc == 0, label)
+            row = {"rows_swapped_at_kk": swapped}
+            fn = lambda: tk.knn_topk(q, r, kk)  # noqa: E731
+            ref = lambda: tk.knn_topk_ref(q, r, kk)  # noqa: E731
+            lib = topk_library(q, r, kk)
+        if read_counts()[kid] != 1:
+            raise AssertionError(f"{kid} did not launch once on {label}")
+        big = n >= KNN_REFS
+        bound_ms, bound_by = knn_bound(kid, q, r, KNN_BATCH, n_real, w_used)
+        row.update({"kernel": kid, "case": label, "n": n_real, "m": KNN_BATCH,
+                    "w": q.shape[1], "w_used": w_used, "kk": kk,
+                    "max_abs_err": err,
+                    "ms": time_ms(fn, iters=10 if big else 20),
+                    "plain_ms": time_ms(ref, iters=3, warmup=1),
+                    "library_ms": time_ms(lib, iters=5 if big else 20),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+        log(f"{kid} case:", json.dumps(row))
+        results.append(row)
+        del q, r, cq, xq, cr, xr, got, want
+        torch.cuda.empty_cache()
+    return results
+
+
+class NeighborCapture:
+    """Wraps ``models.knn.nearest_neighbors`` while on: keeps each call's
+    (distances, indices) and the rows the exact scan served in it, and in
+    ``used`` the last call's (used lanes w = F·B + 6·Fc + 6, test rows,
+    references), taken from the model and test set it was given."""
+
+    def __init__(self):
+        self.calls = []
+        self.used = None
+
+    @contextlib.contextmanager
+    def on(self):
+        from avenir_tpu_torch.models import knn as mknn
+
+        inner = mknn.nearest_neighbors
+
+        def call(*args, **kwargs):
+            import numpy as np
+
+            mknn._nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
+            model, test = args[0], args[1]
+            self.used = (model.codes.shape[1] * model.num_bins
+                         + 6 * model.cont.shape[1] + 6, test.num_rows,
+                         model.num_refs)
+            d, i = inner(*args, **kwargs)
+            self.calls.append((d, i, mknn._nearest_neighbors_kernel.last_fallback))
+            return d, i
+
+        mknn.nearest_neighbors = call
+        try:
+            yield self
+        finally:
+            mknn.nearest_neighbors = inner
+
+
+def same_but_fallback(a_path, b_path, cap_a, cap_b, per_row, what, rows=None):
+    """Part files equal line for line, but for rows the exact scan served
+    on either device, whose distances must agree within DIST_TOL; compares
+    the first ``rows`` test rows (``per_row`` lines each).  Returns the
+    number of rows the exact scan served on either device."""
+    import numpy as np
+
+    with open(a_path) as fa, open(b_path) as fb:
+        a, b = fa.read().splitlines(), fb.read().splitlines()
+    (da, _ia, fa_), (db, _ib, fb_) = cap_a.calls[-1], cap_b.calls[-1]
+    n = rows if rows is not None else len(b) // per_row
+    a, da = a[:n * per_row], da[:n]
+    if len(a) != len(b) or len(b) != n * per_row:
+        raise AssertionError(f"{what}: part files of {len(a)} and {len(b)} lines")
+    served = set(fa_[fa_ < n].tolist()) | set(fb_.tolist())
+    for r in range(n):
+        if a[r * per_row:(r + 1) * per_row] != b[r * per_row:(r + 1) * per_row]:
+            if r not in served:
+                raise AssertionError(f"{what}: row {r} differs between cuda "
+                                     f"and cpu and no scan served it")
+    if served:
+        s = sorted(served)
+        gap = float(np.abs(da[s] - db[s]).max())
+        if gap > DIST_TOL:
+            raise AssertionError(f"{what}: scan-served rows' distances differ "
+                                 f"by {gap}")
+    return len(served)
+
+
+def validation_counters(out: str) -> dict:
+    return {name: counter(out, name)
+            for name in ("accuracy", "recall", "precision", "correct",
+                         "incorrect")}
+
+
+def knn_job_phase(rec: Recorder, work: str, used: dict) -> dict:
+    """Phase 8a: NearestNeighbor through the CLI on a seeded 1M-row elearn
+    training CSV and 4,096 test rows on cuda (B5 once), then on the CPU
+    for the first 1,024 test rows; returns the launches on cuda and puts
+    the cuda run's shape (NeighborCapture.used) into ``used``."""
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.datagen.elearn import (ELEARN_SCHEMA_JSON,
+                                                 generate_elearn)
+
+    t0 = time.perf_counter()
+    rows = generate_elearn(KNN_REFS + KNN_BATCH, seed=21)
+    train = os.path.join(work, "elearn_train.csv")
+    test = os.path.join(work, "elearn_test.csv")
+    test_cpu = os.path.join(work, "elearn_test_cpu.csv")
+    write_csv(train, rows[:KNN_REFS])
+    write_csv(test, rows[KNN_REFS:])
+    write_csv(test_cpu, rows[KNN_REFS:KNN_REFS + KNN_CPU_ROWS])
+    schema = os.path.join(work, "elearn.json")
+    with open(schema, "w") as fh:
+        json.dump(ELEARN_SCHEMA_JSON, fh)
+    log(f"knn job: generated {KNN_REFS} training rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    common = [f"-Dfeature.schema.file.path={schema}",
+              f"-Dtraining.data.path={train}", f"-Dtop.match.count={KNN_K}"]
+    caps, outs, counts = {}, {}, None
+    for dev, data in (("cuda", test), ("cpu", test_cpu)):
+        out = os.path.join(work, f"{dev}_knn")
+        caps[dev] = NeighborCapture()
+        reset_counts()
+        t0 = time.perf_counter()
+        with caps[dev].on(), (rec.on("knn_job") if dev == "cuda"
+                              else contextlib.nullcontext()):
+            run_cli(["NearestNeighbor", *common, data, out, "--device", dev])
+        wall = time.perf_counter() - t0
+        fell = len(caps[dev].calls[-1][2])
+        if dev == "cuda":
+            counts = read_counts()
+            if counts != only(B5=1):
+                raise AssertionError(f"NearestNeighbor at 1M refs launched {counts}")
+            used["knn_job"] = caps[dev].used
+        log(f"knn job on {dev}: NearestNeighbor {wall:.2f} s over "
+            f"{KNN_BATCH if dev == 'cuda' else KNN_CPU_ROWS} test rows; "
+            f"launches {read_counts() if dev == 'cuda' else 'none (plain)'}; "
+            f"{fell} rows failed the certificate and went to the exact scan")
+        outs[dev] = os.path.join(out, "part-00000")
+    served = same_but_fallback(outs["cuda"], outs["cpu"], caps["cuda"],
+                               caps["cpu"], 1, "NearestNeighbor 1M",
+                               rows=KNN_CPU_ROWS)
+    log(f"knn job: the first {KNN_CPU_ROWS} predictions byte-identical cuda "
+        f"vs cpu but for {served} rows the exact scan served (distances "
+        f"within {DIST_TOL})")
+    return {"knn_job": counts["B5"]}
+
+
+def knn_small_phase(rec: Recorder, work: str, used: dict) -> dict:
+    """Phase 8b: NearestNeighbor (validation, gaussian kernel) and
+    SameTypeSimilarity on a 10,000-row elearn training CSV and 2,000 test
+    rows, on cuda (B6) and cpu; returns B6's launches per job and puts
+    each cuda run's shape into ``used``."""
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.datagen.elearn import (ELEARN_SCHEMA_JSON,
+                                                 generate_elearn)
+
+    rows = generate_elearn(12_000, seed=22)
+    train = os.path.join(work, "small_train.csv")
+    test = os.path.join(work, "small_test.csv")
+    write_csv(train, rows[:10_000])
+    write_csv(test, rows[10_000:])
+    schema = os.path.join(work, "elearn_small.json")
+    with open(schema, "w") as fh:
+        json.dump(ELEARN_SCHEMA_JSON, fh)
+    common = [f"-Dfeature.schema.file.path={schema}",
+              f"-Dtraining.data.path={train}", f"-Dtop.match.count={KNN_K}"]
+    jobs = [("knn_small_nn", ["NearestNeighbor", *common,
+                              "-Dvalidation.mode=true",
+                              "-Dkernel.function=gaussian",
+                              "-Dpositive.class.value=F"], 1),
+            ("knn_small_sts", ["SameTypeSimilarity", *common], KNN_K)]
+    b6, caps, outs, text = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        for name, argv, _per in jobs:
+            out = os.path.join(work, f"{dev}_{name}")
+            caps[dev, name] = NeighborCapture()
+            reset_counts()
+            t0 = time.perf_counter()
+            with caps[dev, name].on(), (rec.on(name) if dev == "cuda"
+                                        else contextlib.nullcontext()):
+                text[dev, name] = run_cli([*argv, test, out, "--device", dev])
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            if dev == "cuda":
+                if counts != only(B6=1):
+                    raise AssertionError(f"{name} on cuda launched {counts}")
+                b6[name] = counts["B6"]
+                used[name] = caps[dev, name].used
+            log(f"{name} on {dev}: {wall:.2f} s, launches {counts}, "
+                f"{len(caps[dev, name].calls[-1][2])} rows went to the exact "
+                f"scan")
+            outs[dev, name] = os.path.join(out, "part-00000")
+    for name, _argv, per in jobs:
+        served = same_but_fallback(outs["cuda", name], outs["cpu", name],
+                                   caps["cuda", name], caps["cpu", name], per,
+                                   name)
+        log(f"{name}: part files byte-identical cuda vs cpu but for {served} "
+            f"scan-served rows")
+    got, want = (validation_counters(text[d, "knn_small_nn"])
+                 for d in ("cuda", "cpu"))
+    if got != want:
+        raise AssertionError(f"validation counters differ: {got} vs {want}")
+    log(f"knn small: validation counters equal {got}")
+    return b6
+
+
+def knn_qps_phase(rec: Recorder, used: dict) -> dict:
+    """Phase 8c: KNN.predict at the knn_qps shape (6 × 10 categorical + 8
+    continuous, 1M references, one batch of 4,096 queries) on cuda,
+    checked against a chunked float64 oracle on its first 256 rows; puts
+    its shape into ``used``."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.encoding import EncodedDataset
+    from avenir_tpu_torch.models import knn as mknn
+
+    def make_ds(rng, n, f=6, fc=8, nb=10):
+        return EncodedDataset(
+            codes=rng.integers(0, nb, size=(n, f)).astype(np.int32),
+            cont=rng.normal(size=(n, fc)).astype(np.float32),
+            labels=rng.integers(0, 2, size=n).astype(np.int32),
+            ids=None, n_bins=np.full(f, nb, np.int32), class_values=["a", "b"],
+            binned_ordinals=list(range(f)),
+            cont_ordinals=list(range(f, f + fc)))
+
+    rng = np.random.default_rng(0)
+    est = mknn.KNN(k=KNN_K, device="cuda")
+    model = est.fit(make_ds(rng, KNN_REFS))
+    test = make_ds(rng, KNN_BATCH)
+    cap = NeighborCapture()
+    reset_counts()
+    t0 = time.perf_counter()
+    with cap.on(), rec.on("knn_qps"):
+        res = est.predict(model, test)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != only(B5=1):
+        raise AssertionError(f"KNN.predict at 1M refs launched {counts}")
+    used["knn_qps"] = cap.used
+    # the oracle: float64 d² in 16-row slices (a whole-batch broadcast
+    # against 1M references would take ~16 GB)
+    cq_all = mknn._normalize01(test.cont[:256], model.cont_lo, model.cont_hi)
+    cr = model.cont01().astype(np.float64)
+    worst = 0.0
+    for r0 in range(0, 256, 16):
+        cq = cq_all[r0:r0 + 16].astype(np.float64)
+        mism = (test.codes[r0:r0 + 16, None, :] != model.codes[None]).sum(-1)
+        d2 = mism + ((cq[:, None, :] - cr[None]) ** 2).sum(-1)
+        od = np.sqrt(np.sort(d2, axis=1)[:, :KNN_K] / 14)
+        worst = max(worst, float(np.abs(res.neighbor_dist[r0:r0 + 16] - od).max()))
+    if worst > 1e-5:
+        raise AssertionError(f"KNN.predict at 1M refs vs oracle: max |Δd| {worst}")
+    log(f"knn_qps: KNN.predict of {KNN_BATCH} queries over {KNN_REFS} refs "
+        f"on cuda {wall:.2f} s (first call: packs and uploads the refs); "
+        f"launches {counts}; {len(cap.calls[-1][2])} rows went to the exact "
+        f"scan; first 256 rows within {worst:.2e} of the float64 oracle")
+    return {"knn_qps": counts["B5"]}
+
+
+def knn_path_cases(rec: Recorder, used: dict) -> list:
+    """Phase 9: B5 and B6 against their plain versions on every call the
+    kNN paths made on cuda; the first call of each path and shape is timed
+    with its plain version, yardstick and bound, the bound over the path's
+    used lanes and real test rows and references (``used``, as the phases
+    read them from the model and test set they ran)."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn as tk
+
+    results, timed, seen = [], set(), {}
+    for name, path, args in rec.calls:
+        if name not in ("knn_tourney", "knn_topk"):
+            continue
+        i = seen[path] = seen.get(path, -1) + 1
+        q, r = args[0], args[1]
+        label = f"{path} call {i}: {q.shape[0]} x {r.shape[0]} refs, W {q.shape[1]}"
+        if name == "knn_tourney":
+            kid = "B5"
+            fn = lambda: tk.knn_tourney(q, r)  # noqa: E731
+            ref = lambda: tk.knn_tourney_ref(q, r)  # noqa: E731
+            lib = tourney_library(q, r)
+            differ, swapped, err = check_tourney(q, r, fn(), ref(), label)
+            row = {"keys_differ": differ, "columns_differ": swapped}
+        else:
+            kid, kk = "B6", args[2]
+            fn = lambda: tk.knn_topk(q, r, kk)  # noqa: E731
+            ref = lambda: tk.knn_topk_ref(q, r, kk)  # noqa: E731
+            lib = topk_library(q, r, kk)
+            swapped, err = check_topk(fn(), ref(), kk, False, label)
+            row = {"rows_swapped_at_kk": swapped, "kk": kk}
+        row.update({"kernel": kid, "path": path, "call": i, "case": label,
+                    "max_abs_err": err})
+        key = (path, tuple(q.shape), tuple(r.shape))
+        if key not in timed:
+            timed.add(key)
+            big = r.shape[0] >= KNN_REFS
+            row["ms"] = time_ms(fn, iters=10 if big else 20)
+            row["plain_ms"] = time_ms(ref, iters=3, warmup=1)
+            row["library_ms"] = time_ms(lib, iters=5 if big else 20)
+            w_used, m_real, n_real = used[path]
+            if (tk._round_up(max(m_real, tk.TM), tk.TM) != q.shape[0]
+                    or r.shape[0] < n_real):
+                raise AssertionError(f"{path}: {m_real} test rows x {n_real} "
+                                     f"refs do not fit the call's operands "
+                                     f"{tuple(q.shape)}, {tuple(r.shape)}")
+            row.update({"w_used": w_used, "m": m_real, "n": n_real})
+            row["bound_ms"], row["bound_by"] = knn_bound(
+                kid, q, r, m_real, n_real, w_used)
+            log(f"{kid} path case:", json.dumps(row))
+        results.append(row)
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+    log(f"knn path cases: {len(results)} recorded calls held against their "
+        f"plain versions")
     return results
 
 
@@ -906,16 +1486,23 @@ def main() -> int:
     cases = kernel_cases(hist)
     cls_cases = per_class_cases(hist)
     x_cases = cross_cases(hist)
-    rec = Recorder(hist)
+    rec = Recorder()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         b1_mi, train, test, schema = jobs_phase(hist, rec, work)
         b2_mi = mi_wide_phase(hist, rec)
         b4_tree = tree_jobs_phase(hist, rec, work, train, test, schema)
         wide = wide_tree_phase(hist, rec)
+        all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
+        rec.calls.clear()
+        all_cases += knn_cases()
+        used = {}
+        b5 = knn_job_phase(rec, work, used)
+        b6 = knn_small_phase(rec, work, used)
+        b5.update(knn_qps_phase(rec, used))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
+    all_cases += knn_path_cases(rec, used)
 
     src = "avenir_tpu_torch/csrc/"
     at = "avenir_tpu/ops/pallas_hist.py:"
@@ -929,6 +1516,10 @@ def main() -> int:
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),
         kernel_entry("B4", "cross_counts (B4)", src + "cross.cu", at + "484",
                      b4_tree, all_cases),
+        kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
+                     "avenir_tpu/ops/pallas_knn.py:290", b5, all_cases),
+        kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",
+                     "avenir_tpu/ops/pallas_knn.py:73", b6, all_cases),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,7 +1,10 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions, exactly: the co-occurrence gram (``csrc/cooc.cu``, B1), the
-per-class grams (``csrc/cooc_cls.cu``, B2/B3) and the cross counts
-(``csrc/cross.cu``, B4).
+versions: the co-occurrence gram (``csrc/cooc.cu``, B1), the per-class
+grams (``csrc/cooc_cls.cu``, B2/B3) and the cross counts (``csrc/cross.cu``,
+B4) exactly; the kNN candidate kernels (``csrc/knn_tourney.cu``, B5, and
+``csrc/knn_topk.cu``, B6) exactly where every d² is an integer sum and to
+the float32 summation order elsewhere; and the kNN search on ``cuda``
+against the CPU.
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -21,9 +24,11 @@ from avenir_tpu_torch.core.encoding import DatasetEncoder, EncodedDataset  # noq
 from avenir_tpu_torch.core.schema import FeatureSchema  # noqa: E402
 from avenir_tpu_torch.datagen.hosp_readmit import (  # noqa: E402
     HOSP_SCHEMA_JSON, generate_hosp_readmit)
+from avenir_tpu_torch.models import knn as mknn  # noqa: E402
 from avenir_tpu_torch.models import mutual_info as mi  # noqa: E402
 from avenir_tpu_torch.models import tree  # noqa: E402
 from avenir_tpu_torch.ops import hist  # noqa: E402
+from avenir_tpu_torch.ops import knn as tk  # noqa: E402
 
 
 @pytest.fixture()
@@ -233,3 +238,183 @@ def test_wide_tree_packs_on_the_card_and_equals_cpu(cuda):
     want = tree.DecisionTree(max_depth=4, split_search="binary",
                              device="cpu").fit(ds)
     _same_tree(got.to_string(), want.to_string())
+
+
+def _knn_operands(n, m, f, fc, nb, seed):
+    """Packed query and reference operands (CPU) of seeded mixed data."""
+    rng = np.random.default_rng(seed)
+    codes_r = rng.integers(0, nb, size=(n, f)).astype(np.int32)
+    cont_r = rng.random(size=(n, fc)).astype(np.float32)
+    codes_q = rng.integers(0, nb, size=(m, f)).astype(np.int32)
+    cont_q = rng.random(size=(m, fc)).astype(np.float32)
+    r_mat, _ = tk.prepare_refs(codes_r, cont_r, nb)
+    q_mat, _ = tk.prepare_queries(codes_q, cont_q, nb)
+    return q_mat, r_mat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,f,fc", [
+    (40_000, 600, 6, 0),           # categorical only: exact integer d²
+    (40_000, 600, 6, 8),           # the repo's kNN schema, mixed
+    (8 * 2048 + 1, 512, 4, 3),     # a short last block
+    (70_000, 1024, 0, 9),          # continuous only (the elearn shape)
+    (40_000, 512, 80, 0),          # W 896: the query tile is streamed
+])
+def test_tourney_kernel_matches_plain_version(cuda, n, m, f, fc):
+    q, r = _knn_operands(n, m, f, fc, 10, seed=n + f)
+    before = tk.knn_tourney.launches
+    got = tk.knn_tourney(q.to(cuda), r.to(cuda))
+    assert tk.knn_tourney.launches == before + 1
+    torch.cuda.synchronize()
+    want = tk.knn_tourney_ref(q, r)
+    seg_base = torch.arange(got[0].shape[1]) * tk.SEG
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == torch.int32 and g.shape == w.shape
+        if fc == 0:
+            assert torch.equal(g, w)
+            continue
+        # both sum the same exact products in float32 in another order: a
+        # d² moves by ~1e-6, which near zero spans several truncation steps
+        # and may swap near-tied columns; a swapped column must name a
+        # reference whose recomputed d² is its key's
+        dg = (g & ~2047).view(torch.float32)
+        dw = (w & ~2047).view(torch.float32)
+        real = dw < 1e29
+        tol = 1e-5 + torch.maximum(dg, dw) * 2.0 ** -12
+        assert not bool((((dg - dw).abs() > tol) & real).any())
+        assert float((g == w).float().mean()) > 0.95
+        moved = ((g & 2047) != (w & 2047)) & real
+        rows, segs = moved.nonzero(as_tuple=True)
+        refs = seg_base[segs] + (g[rows, segs] & 2047)
+        d2 = (q[rows].float() * r[refs].float()).sum(1)
+        assert not bool(((d2 - dg[rows, segs]).abs() > tol[rows, segs]).any())
+
+
+@pytest.mark.cuda
+def test_knn_wrappers_launch_nothing_on_empty_operands(cuda):
+    q, r = _knn_operands(3000, 10, 4, 2, 10, seed=2)
+    q, r = q.to(cuda), r.to(cuda)
+    before = (tk.knn_tourney.launches, tk.knn_topk.launches)
+    for got, want in ((tk.knn_topk(q[:0], r, 18), tk.knn_topk_ref(q[:0].cpu(), r.cpu(), 18)),
+                      (tk.knn_topk(q, r[:0], 18), tk.knn_topk_ref(q.cpu(), r[:0].cpu(), 18)),
+                      (tk.knn_tourney(q, r[:0]), tk.knn_tourney_ref(q.cpu(), r[:0].cpu()))):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert (tk.knn_tourney.launches, tk.knn_topk.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,fc,kk", [
+    (16_384, 6, 0, 18), (16_384, 6, 8, 18), (16_384, 6, 8, 128),
+    (12, 3, 2, 18),                # pads land in the slots
+    (3000, 0, 9, 11),
+    (16_384, 80, 0, 18),           # W 896, query tile resident
+    (16_384, 268, 0, 18),          # W 2688: the query tile is streamed
+])
+def test_topk_kernel_matches_plain_version(cuda, n, f, fc, kk):
+    q, r = _knn_operands(n, 1024, f, fc, 10, seed=n + kk)
+    before = tk.knn_topk.launches
+    d, i = tk.knn_topk(q.to(cuda), r.to(cuda), kk)
+    assert tk.knn_topk.launches == before + 1
+    torch.cuda.synchronize()
+    d, i = d.cpu(), i.cpu()
+    wd, wi = tk.knn_topk_ref(q, r, kk)
+    assert torch.equal(i[:, kk:], wi[:, kk:]) and torch.equal(d[:, kk:], wd[:, kk:])
+    if fc == 0:
+        assert torch.equal(d, wd) and torch.equal(i, wi)
+        return
+    # order statistics move by at most the largest d² perturbation; the
+    # kept sets may swap only members at the boundary
+    assert float((d[:, :kk] - wd[:, :kk]).abs().max()) <= 1e-5
+    for row in range(d.shape[0]):
+        mine, theirs = i[row, :kk], wi[row, :kk]
+        edge = float(wd[row, kk - 1])
+        only_k = d[row, :kk][~torch.isin(mine, theirs)]
+        only_p = wd[row, :kk][~torch.isin(theirs, mine)]
+        for x in (only_k, only_p):
+            assert x.numel() == 0 or float((x - edge).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,fc", [(3000, 6, 8), (70_000, 6, 8),
+                                    (70_000, 6, 0), (3000, 4, 0)])
+def test_search_on_the_card_equals_cpu(cuda, n, f, fc):
+    """``search`` through B5 (n > 16,384) or B6 on cuda and through the
+    plain versions on the CPU: rows certified on both devices agree to the
+    bit, since the re-rank is exact and the tie rule fixes the order."""
+    (d, i, c), (wd, wi, wc) = _search_on_both(cuda, n, f, fc)
+    both = c & wc
+    # categorical data through B5 certifies few rows: its ties hide in the
+    # segments' thirds, and the exact scan serves those rows
+    assert both.mean() > (0.05 if fc == 0 and n > tk.TB else 0.9)
+    np.testing.assert_array_equal(d[both], wd[both])
+    np.testing.assert_array_equal(i[both], wi[both])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,fc,certified", [
+    (20_000, 80, 2, 0.3),          # B5 at W 896 (streamed); dense d² near
+                                   # the k-th certify ~40% of rows
+    (3000, 268, 2, 0.9),           # B6 at W 2816 (streamed)
+])
+def test_search_wide_operand_on_the_card_equals_cpu(cuda, n, f, fc, certified):
+    """``search`` at widths whose query tile the kernels stream: certified
+    rows agree to the bit between cuda and the CPU."""
+    (d, i, c), (wd, wi, wc) = _search_on_both(cuda, n, f, fc)
+    both = c & wc
+    assert both.mean() > certified
+    np.testing.assert_array_equal(d[both], wd[both])
+    np.testing.assert_array_equal(i[both], wi[both])
+
+
+def _search_on_both(cuda, n, f, fc):
+    """``search`` of 700 seeded queries on cuda and on the CPU, checking
+    the launches: ((d, i, cert) on cuda, the same on the CPU) as numpy."""
+    rng = np.random.default_rng(n + fc)
+    nb, k = 10, 10
+    codes_r = rng.integers(0, nb, size=(n, f)).astype(np.int32)
+    cont_r = rng.random(size=(n, fc)).astype(np.float32)
+    codes_q = rng.integers(0, nb, size=(700, f)).astype(np.int32)
+    cont_q = rng.random(size=(700, fc)).astype(np.float32)
+    r_mat, n_real = tk.prepare_refs(codes_r, cont_r, nb)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        before = (tk.knn_tourney.launches, tk.knn_topk.launches)
+        d, i, c = tk.search(torch.from_numpy(codes_q).to(dev),
+                            torch.from_numpy(cont_q).to(dev), r_mat.to(dev),
+                            torch.from_numpy(codes_r).to(dev),
+                            torch.from_numpy(cont_r).to(dev), n_real, nb, k,
+                            f + fc)
+        after = (tk.knn_tourney.launches, tk.knn_topk.launches)
+        if dev.type == "cuda":
+            tourney = n > tk.TB
+            assert after == (before[0] + tourney, before[1] + (not tourney))
+        else:
+            assert after == before
+        out[dev.type] = (d.cpu().numpy(), i.cpu().numpy(), c.cpu().numpy())
+    return out["cuda"], out["cpu"]
+
+
+@pytest.mark.cuda
+def test_knn_predict_on_the_card_equals_cpu(cuda):
+    """KNN.predict on elearn (9 integer features, 20,000 references: B5)
+    on cuda and on the CPU; rows served by the exact scan on either device
+    may differ only where their distances agree within 1e-6."""
+    from avenir_tpu_torch.datagen.elearn import ELEARN_SCHEMA_JSON, generate_elearn
+
+    enc = DatasetEncoder(FeatureSchema.from_json(ELEARN_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_elearn(20_500, seed=9))
+    train, test = ds.slice(0, 20_000), ds.slice(20_000, 20_500)
+    res, fell = {}, {}
+    for dev in ("cuda", "cpu"):
+        est = mknn.KNN(k=10, kernel="gaussian", device=dev)
+        before = tk.knn_tourney.launches
+        res[dev] = est.predict(est.fit(train), test, validate=True)
+        assert tk.knn_tourney.launches == before + (dev == "cuda")
+        fell[dev] = set(mknn._nearest_neighbors_kernel.last_fallback.tolist())
+    a, b = res["cuda"], res["cpu"]
+    differ = np.flatnonzero((a.predicted != b.predicted)
+                            | (a.neighbor_idx != b.neighbor_idx).any(axis=1))
+    assert set(differ.tolist()) <= fell["cuda"] | fell["cpu"]
+    np.testing.assert_allclose(a.neighbor_dist, b.neighbor_dist, atol=1e-6)
