@@ -10,32 +10,42 @@
 // k); the TPU's row band in clsb is a VMEM budget device that Hopper does not
 // need, so one kernel serves both.
 //
-// A row adds only to its own class's gram.  Three launches on one stream:
+// X_c is a one-hot with exactly one 1 per feature in each row, so the gram
+// is a pair histogram: a row of class c adds one to G[c, w(b1, f1),
+// w(b2, f2)] for every feature pair, F·(F+1)/2 increments in all.  The TPU
+// multiplies the dense one-hots on its MXU; here no one-hot exists.  Three
+// launches on one stream:
 //   1. class_count_kernel   counts[c] = rows whose label is c (valid labels);
 //   2. class_scatter_kernel groups the rows by class (a counting sort): each
 //      row gets a position inside its class's range, and its codes are
-//      copied there as int16 (−1 for a code outside [0, B)), so the gram
+//      copied there as int16 (−1 for a code outside [0, B)), so the pair
 //      pass reads each class's rows contiguously and coalesced;
-//   3. cooc_cls_kernel      the gram: a block owns one upper-triangle 64×64
-//      tile pair and a row range of ONE class, builds the int8 one-hots of
-//      its rows in shared memory and multiplies them with mma.sync
-//      (onehot_mma.cuh), then adds the tile into G[c] with atomicAdd.
-// Each class's blocks walk only its own rows, so the MMA work is that of one
-// gram over all n rows, not C of them.
+//   3. pair_kernel          one block per task and row split.  A task
+//      (ops/hist.py pair_plan, handed over as an int32 table) is one class,
+//      one feature f1, a run of features f2 ≥ f1 and a band of f1's bins;
+//      its int32 table [run, band, B] lives in dynamic shared memory.  The
+//      block streams the codes of its rows once, adds one to the (bin of f1,
+//      bin of f2) cell of each f2 with a shared-memory atomic, then writes
+//      the table to G[c] and its mirror: plain stores where one block owns
+//      the class's whole row range, atomicAdd where rows are split.
 //
-// Inside the gram pass the index is feature-major, u = f·B + bin: a 64-wide
-// tile of u holds about 64/B + 1 features, where a tile of w = bin·F + f
-// would hold min(F, 64) of them, and every block re-reads the codes of the
-// features its two tiles touch.  Each output cell (u1, u2) is written to
-// G[c, w(u1), w(u2)]; the writes are element-wise atomics either way.
+// Each thread takes eight consecutive rows per step, one 16-byte load of
+// int16 codes per feature (sorted's rows are padded to a multiple of 8),
+// all loaded before the step's atomics: an eighth of the load instructions
+// of one row per thread, which measured more than twice as fast (PERF.md).
+// A table row has a stride ≡ 8 (mod 32), so that the cells a warp adds
+// spread over the 32 banks also where codes cluster in stripes, as the
+// tree's disjoint packs do.  Skew: where the table is small, each warp
+// group adds into its own copy (`copies`), as cross.cu does; combining the
+// lanes that share a cell (a ballot) before the atomic measured slower on
+// an H100 than plain atomics, skewed codes included (PERF.md).
 //
-// Bounds on an H100 SXM, e.g. 20 features × 20 bins × 2 classes (wp 512)
-// at 4M rows: the function needs one int8 multiply-add per row for each
-// upper-triangle cell of its class's F·B used lanes, F·B·(F·B+1)·n ≈ 0.64
-// TOP, 0.32 ms at 1,979 TOP/s; the codes and labels stream at 84 B a row,
-// 336 MB, 0.10 ms at 3.35 TB/s.  So it is bound by operations, as B1 is.
-// What limits this first version is the expansion and the 64×64 tiles,
-// not the MMAs (PERF.md holds the measured times).
+// Bounds on an H100 SXM, e.g. the wide tree's K = 8 level (30 features ×
+// 128 joint bins × 2 classes, wp 3840) at 1M rows: the function reads the
+// codes and labels once (4·F·n + 4·n) and writes G once (4·C·wp²), ~242 MB,
+// 0.072 ms at 3.35 TB/s; its 465 increments per row are 4.65e8 shared-memory
+// atomics, far below what the dense product of the one-hots would cost
+// (1.5e13 int8 operations, 7.5 ms at 1,979 TOP/s).  So it is bound by bytes.
 //
 // Drop-invalid contract (pallas_hist.py:346-349, 387-390): a code outside
 // [0, B) drops its cell, a label outside [0, C) drops the whole row, rows
@@ -45,14 +55,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "onehot_mma.cuh"
-
 namespace {
-
-using onehot::KB;
-using onehot::STRIDE;
-using onehot::THREADS;
-using onehot::TILE;
 
 constexpr int MAX_CLASSES = 16;     // MAX_C_CLSB in ops/hist.py
 constexpr int SORT_THREADS = 256;
@@ -80,12 +83,13 @@ class_count_kernel(const int* labels, int n, int nclass, int* counts) {
 }
 
 // Row i of class y goes to position off[y] + (its rank among class-y rows);
-// its F codes are copied to sorted[f·n + position].  A block takes
+// its F codes are copied to sorted[f·ns + position] (ns = n rounded up to
+// 8, so that every feature's codes start 16-byte aligned).  A block takes
 // SORT_THREADS·SORT_ROWS consecutive rows and reserves one range per class
 // with one atomicAdd on cursor[y]; the order inside a class is free, since
 // the gram is an integer sum.
 __global__ void __launch_bounds__(SORT_THREADS)
-class_scatter_kernel(const int* codes, const int* labels, int f, int n,
+class_scatter_kernel(const int* codes, const int* labels, int f, int n, int ns,
                      int nbins, int nclass, const int* counts, int* cursor,
                      int16_t* sorted) {
   __shared__ int off[MAX_CLASSES];
@@ -128,142 +132,172 @@ class_scatter_kernel(const int* codes, const int* labels, int f, int n,
     const size_t pos = blk[ys[r]] + rank[r];
     for (int ff = 0; ff < f; ++ff) {
       const int code = __ldg(codes + (size_t)ff * n + i);
-      sorted[(size_t)ff * n + pos] =
+      sorted[(size_t)ff * ns + pos] =
           static_cast<int16_t>(code >= 0 && code < nbins ? code : -1);
     }
   }
 }
 
+constexpr int PAIR_THREADS = 512;
+constexpr int PAIR_VEC = 8;         // rows per thread and step: one 16-byte load
+constexpr int PAIR_RUN = 8;         // f2 per task at most (PAIR_RUN in ops/hist.py)
+constexpr int TASK_INTS = 6;        // (class, f1, f2 first, f2 count, band first, band bins)
+
 struct Params {
-  const int16_t* sorted;   // [F, n] class-grouped codes, −1 = dropped cell
+  const int16_t* sorted;   // [F, ns] class-grouped codes, −1 = dropped cell
   const int* counts;       // [C] rows per class
+  const int* tasks;        // [ntasks, TASK_INTS]
   int* g;                  // [C, wp, wp] int32, zeroed by the caller
-  int f, n, nbins, nclass, width, wp, ntiles, rows_per_split;
+  int f, ns, nbins, wp, splits, copies;
 };
 
-// Set x[u - u0][k] = 1 for every valid (feature, row) whose u = f·B + code
-// falls in the tile [u0, u0 + TILE); rows at or past `end` stay 0.
-__device__ __forceinline__ void expand(const Params& p, int u0, int n0,
-                                       int end, int8_t* x) {
-  const int fbase = u0 / p.nbins;
-  const int nfeat = min(p.f - 1, (u0 + TILE - 1) / p.nbins) - fbase + 1;
-  for (int idx = threadIdx.x; idx < nfeat * KB; idx += THREADS) {
-    const int k = idx % KB;     // k fastest: neighbouring threads, neighbouring rows
-    if (n0 + k >= end) continue;
-    const int ff = fbase + idx / KB;
-    const int code = __ldg(p.sorted + (size_t)ff * p.n + (n0 + k));
-    if (code < 0) continue;
-    const int r = ff * p.nbins + code - u0;
-    if (r >= 0 && r < TILE) x[r * STRIDE + k] = 1;
+__global__ void __launch_bounds__(PAIR_THREADS) pair_kernel(const Params p) {
+  extern __shared__ int table[];                // copies × [run][band][bs]
+  const int* t = p.tasks + (size_t)blockIdx.x * TASK_INTS;
+  const int cls = t[0], f1 = t[1], f2a = t[2], nf2 = t[3], b1a = t[4],
+            nb1 = t[5];
+  // a row stride ≡ 8 (mod 32): consecutive bins of f1 step 8 banks, so the
+  // cells of a block-diagonal pack (the tree's members) use all 32 banks
+  const int bs = p.nbins + ((8 - p.nbins) & 31);
+  const int cells = nf2 * nb1 * bs;
+  for (int i = threadIdx.x; i < p.copies * cells; i += PAIR_THREADS)
+    table[i] = 0;
+
+  // this split's share of the class's rows in the sorted order
+  int start = 0;
+  for (int c = 0; c < cls; ++c) start += __ldg(p.counts + c);
+  const int cnt = __ldg(p.counts + cls);
+  const int per = (cnt + p.splits - 1) / p.splits;
+  const int r0 = start + min(cnt, (int)blockIdx.y * per);
+  const int r1 = start + min(cnt, ((int)blockIdx.y + 1) * per);
+  __syncthreads();
+
+  int* h = table + ((threadIdx.x / 32) % p.copies) * cells;
+  const int16_t* c1p = p.sorted + (size_t)f1 * p.ns;
+  const int16_t* c2p = p.sorted + (size_t)f2a * p.ns;
+  // eight rows per thread and step: one 16-byte load of eight int16 codes
+  // per feature, rows outside [r0, r1) masked
+  for (int base = r0 & ~(PAIR_VEC - 1); base < r1;
+       base += PAIR_THREADS * PAIR_VEC) {
+    const int i8 = base + threadIdx.x * PAIR_VEC;
+    if (i8 >= r1) continue;
+    int b1[PAIR_VEC];
+    const uint4 u1 = __ldg(reinterpret_cast<const uint4*>(c1p + i8));
+    const unsigned w1[4] = {u1.x, u1.y, u1.z, u1.w};
+    bool any = false;
+#pragma unroll
+    for (int e = 0; e < PAIR_VEC; ++e) {
+      const int code = static_cast<int16_t>(w1[e / 2] >> (16 * (e % 2)));
+      const int i = i8 + e;
+      b1[e] = i >= r0 && i < r1 ? code - b1a : -1;   // −1 codes fall out
+      if (b1[e] < 0 || b1[e] >= nb1) b1[e] = -1;
+      any |= b1[e] >= 0;
+    }
+    if (!any) continue;
+    uint4 u2[PAIR_RUN];
+#pragma unroll
+    for (int r = 0; r < PAIR_RUN; ++r)
+      if (r < nf2)
+        u2[r] = __ldg(reinterpret_cast<const uint4*>(c2p + (size_t)r * p.ns + i8));
+#pragma unroll
+    for (int r = 0; r < PAIR_RUN; ++r) {
+      if (r >= nf2) break;
+      const unsigned w2[4] = {u2[r].x, u2[r].y, u2[r].z, u2[r].w};
+#pragma unroll
+      for (int e = 0; e < PAIR_VEC; ++e) {
+        const int code = static_cast<int16_t>(w2[e / 2] >> (16 * (e % 2)));
+        if (b1[e] >= 0 && code >= 0)
+          atomicAdd(h + (r * nb1 + b1[e]) * bs + code, 1);
+      }
+    }
   }
-}
-
-// u = f·B + bin → the per-class index w = bin·F + f of plan()'s layout.
-__device__ __forceinline__ int w_of(const Params& p, int u) {
-  return (u % p.nbins) * p.f + u / p.nbins;
-}
-
-__global__ void __launch_bounds__(THREADS)
-cooc_cls_kernel(const Params p) {
-  __shared__ __align__(16) int8_t xa[TILE * STRIDE];
-  __shared__ __align__(16) int8_t xb[TILE * STRIDE];
-
-  // blockIdx.y → (class, row range inside that class's sorted rows); the
-  // grid has up to C more rows of blocks than ranges, and those exit
-  int y = blockIdx.y, start = 0, cls = 0, cnt = 0;
-  for (; cls < p.nclass; ++cls) {
-    cnt = __ldg(p.counts + cls);
-    const int nb = (cnt + p.rows_per_split - 1) / p.rows_per_split;
-    if (y < nb) break;
-    y -= nb;
-    start += cnt;
-  }
-  if (cls == p.nclass) return;
-  const int row_begin = start + y * p.rows_per_split;
-  const int row_end = min(start + cnt, row_begin + p.rows_per_split);
-
-  int ti, tj;
-  onehot::upper_pair(blockIdx.x, p.ntiles, ti, tj);
-  const int ua = ti * TILE, ub = tj * TILE;
-  const bool diag = ti == tj;
-
-  int acc[2][4][4];
-  onehot::zero_acc(acc);
-  for (int n0 = row_begin; n0 < row_end; n0 += KB) {
-    onehot::zero_slices(xa, xb, diag);
-    __syncthreads();
-    expand(p, ua, n0, row_end, xa);
-    if (!diag) expand(p, ub, n0, row_end, xb);
-    __syncthreads();
-    onehot::tile_mma(acc, xa, diag ? xa : xb);
-    __syncthreads();
-  }
+  __syncthreads();
 
   int* gc = p.g + (size_t)cls * p.wp * p.wp;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int v = acc[mi][ni][e];
-        if (v == 0) continue;
-        const int u1 = ua + onehot::acc_row(mi, e);
-        const int u2 = ub + onehot::acc_col(ni, e);
-        if (u1 >= p.width || u2 >= p.width) continue;
-        const int w1 = w_of(p, u1), w2 = w_of(p, u2);
-        atomicAdd(gc + (size_t)w1 * p.wp + w2, v);
-        if (!diag) atomicAdd(gc + (size_t)w2 * p.wp + w1, v);
-      }
+  for (int x = threadIdx.x; x < cells; x += PAIR_THREADS) {
+    int v = 0;
+    for (int k = 0; k < p.copies; ++k) v += table[k * cells + x];
+    if (v == 0) continue;
+    const int b2 = x % bs, rest = x / bs;     // b2 < B wherever v != 0
+    const int f2 = f2a + rest / nb1, b1 = b1a + rest % nb1;
+    const size_t w1 = (size_t)b1 * p.f + f1, w2 = (size_t)b2 * p.f + f2;
+    // the diagonal pair f1 = f2 holds only (b, b) cells, its own mirror
+    if (p.splits == 1) {
+      gc[w1 * p.wp + w2] = v;
+      if (f2 != f1) gc[w2 * p.wp + w1] = v;
+    } else {
+      atomicAdd(gc + w1 * p.wp + w2, v);
+      if (f2 != f1) atomicAdd(gc + w2 * p.wp + w1, v);
+    }
+  }
 }
 
 }  // namespace
 
+// The per-block dynamic shared memory the pair pass may take on the current
+// device (its opt-in limit), in bytes; the plan sizes its tables by it.
+extern "C" int cooc_cls_smem_limit() {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    return 0;
+  return limit;
+}
+
 // Adds the per-class grams of n rows into g (zeroed by the caller,
-// [nclass, wp, wp] int32) on `stream`.  scratch is 2·nclass int32 zeroed by
-// the caller (class counts, then cursors); sorted is [f, n] int16 scratch.
-// nclass ≤ 16; splits ≥ 1 is the number of row ranges the grid spreads over.
-// Returns the first cudaGetLastError() that is not cudaSuccess, else 0.
+// [nclass, wp, wp] int32) on `stream`.  scratch is 2·nclass int32 (class
+// counts, then cursors; zeroed here); sorted is [f, ns] int16 scratch,
+// ns = n rounded up to 8;
+// tasks is the device copy of pair_plan's [ntasks, 6] int32 table, each task
+// run `splits` times over a share of its class's rows, with `copies` tables
+// of at most `cells` ints each.  nclass ≤ 16.  Returns the first CUDA error
+// that is not cudaSuccess, else 0.
 extern "C" int cooc_cls_gram(const int* codes, const int* labels, int* g,
-                             int* scratch, int16_t* sorted, int f, int n,
-                             int nbins, int nclass, int wp, int splits,
+                             int* scratch, int16_t* sorted, const int* tasks,
+                             int f, int n, int nbins, int nclass, int wp,
+                             int ntasks, int splits, int copies, int cells,
                              void* stream) {
   if (n <= 0) return 0;
-  if (nclass < 1 || nclass > MAX_CLASSES) return cudaErrorInvalidValue;
+  if (nclass < 1 || nclass > MAX_CLASSES || ntasks < 1 || splits < 1 ||
+      splits > 65535 || copies < 1 || cells < 1 || f * nbins > wp)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* counts = scratch;
   int* cursor = scratch + nclass;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * nclass * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   const int count_blocks = min((n + SORT_THREADS - 1) / SORT_THREADS, 1024);
   class_count_kernel<<<count_blocks, SORT_THREADS, 0, st>>>(labels, n, nclass,
                                                            counts);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  const int ns = (n + 7) / 8 * 8;   // sorted's row stride
   const int per_block = SORT_THREADS * SORT_ROWS;
   class_scatter_kernel<<<(n + per_block - 1) / per_block, SORT_THREADS, 0,
-                         st>>>(codes, labels, f, n, nbins, nclass, counts,
-                               cursor, sorted);
+                         st>>>(codes, labels, f, n, ns, nbins, nclass,
+                               counts, cursor, sorted);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   Params p;
   p.sorted = sorted;
   p.counts = counts;
+  p.tasks = tasks;
   p.g = g;
   p.f = f;
-  p.n = n;
+  p.ns = ns;
   p.nbins = nbins;
-  p.nclass = nclass;
-  p.width = f * nbins;
   p.wp = wp;
-  p.ntiles = (p.width + TILE - 1) / TILE;
-  const int chunks = (n + KB - 1) / KB;
-  const int per = (chunks + splits - 1) / splits;
-  p.rows_per_split = per * KB;
-  // the class ranges cut at most nclass extra row ranges
-  const int ysplits = (chunks + per - 1) / per + nclass;
-  const dim3 grid(p.ntiles * (p.ntiles + 1) / 2, ysplits);
-  cooc_cls_kernel<<<grid, THREADS, 0, st>>>(p);
+  p.splits = splits;
+  p.copies = copies;
+  const size_t smem = (size_t)copies * cells * sizeof(int);
+  err = cudaFuncSetAttribute(pair_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pair_kernel<<<dim3(ntasks, splits), PAIR_THREADS, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

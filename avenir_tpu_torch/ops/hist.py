@@ -14,7 +14,8 @@ version beside it:
 - :func:`cooc_counts_cols` → ``csrc/cooc.cu`` in the fmaj and jmaj modes
   (replaces ``pallas_hist.py:283 _cooc_kernel``, B1) and ``csrc/cooc_cls.cu``
   in the per-class modes cls and clsb (replaces ``:333 _cooc_cls_kernel``
-  and ``:365 _cooc_clsb_kernel``, B2 and B3); plain version
+  and ``:365 _cooc_clsb_kernel``, B2 and B3: a pair histogram in shared
+  memory over the tasks of :func:`pair_plan`); plain version
   :func:`cooc_counts_cols_ref`;
 - :func:`cross_cooc_counts_cols` → ``csrc/cross.cu`` (replaces ``:484
   _cross_kernel``, B4), the decision tree's level table; plain version
@@ -29,6 +30,7 @@ the per-class modes ``cls_launches`` / ``clsb_launches``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -300,6 +302,78 @@ def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
     return g
 
 
+# the pair pass of the per-class modes (csrc/cooc_cls.cu): tasks of one
+# class, one feature f1, a run of f2 ≥ f1 and a band of f1's bins, each an
+# int32 table [run, band, B + (8 − B) mod 32] in shared memory (a row
+# stride ≡ 8 mod 32, which spreads a warp's cells over the banks)
+PAIR_RUN = 8               # f2 per task at most (the kernel's register batch)
+PAIR_COPIES = 8            # table copies per block at most
+PAIR_SMEM = 96 * 1024      # table bytes per block, so two blocks share an SM
+PAIR_BLOCKS_PER_SM = 4     # row splits aim at this many blocks per SM
+PAIR_MIN_ROWS = 4096       # rows of a class per split, at least (estimated)
+
+
+class PairPlan(NamedTuple):
+    """The pair pass's work: ``tasks`` [T, 6] int32 rows (class, f1, first
+    f2, f2 count, first bin of f1, f1 bins), each run ``splits`` times over
+    a share of its class's rows with ``copies`` tables of at most ``cells``
+    ints; ``smem`` bytes of shared memory per block."""
+    tasks: np.ndarray
+    splits: int
+    copies: int
+    cells: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def pair_plan(num_feat: int, num_bins: int, num_classes: int, n: int,
+              smem_limit: int, sms: int) -> PairPlan:
+    """Tasks of the per-class pair histogram for an [F, n] chunk on a
+    device with ``sms`` SMs and ``smem_limit`` bytes of shared memory per
+    block.  Every (class, f1 ≤ f2, bin of f1) lies in exactly one task.  A
+    pair's B × B table takes whole runs of up to PAIR_RUN f2 where it fits
+    the budget; else f1's bins are cut into bands of one f2 each.  Small
+    tables get one copy per warp group; rows are split until the grid has
+    about PAIR_BLOCKS_PER_SM blocks per SM.  Pure function of its
+    arguments (cached: the caller must not modify the tasks)."""
+    f, b, c = num_feat, num_bins, num_classes
+    budget = min(smem_limit, PAIR_SMEM) // 4              # ints per block
+    stride = b + (8 - b) % 32               # the table's row stride
+    if f < 1 or b < 1 or c < 1 or stride > budget:
+        raise ValueError(f"no pair plan for F={f} B={b} C={c} in "
+                         f"{smem_limit} bytes")
+    if b * stride <= budget:
+        run, band = min(PAIR_RUN, budget // (b * stride)), b
+    else:
+        run, band = 1, budget // stride
+    tasks = [(cls, f1, f2, min(run, f - f2), b1, min(band, b - b1))
+             for cls in range(c) for f1 in range(f)
+             for b1 in range(0, b, band) for f2 in range(f1, f, run)]
+    cells = max(t[3] * t[5] for t in tasks) * stride
+    copies = max(1, min(PAIR_COPIES, budget // cells))
+    splits = max(1, min(-(-PAIR_BLOCKS_PER_SM * sms // len(tasks)),
+                        n // (c * PAIR_MIN_ROWS)))
+    return PairPlan(np.asarray(tasks, np.int32), splits, copies, cells,
+                    4 * copies * cells)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_device(index: int) -> Tuple[int, int]:
+    """(shared memory per block, SMs) of CUDA device ``index``, which the
+    caller has made the current device."""
+    return (_kernel("cooc_cls").cooc_cls_smem_limit(),
+            torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+@functools.lru_cache(maxsize=256)
+def _pair_tasks(num_feat: int, num_bins: int, num_classes: int,
+                smem_limit: int, sms: int, dev: torch.device) -> torch.Tensor:
+    """pair_plan's task table on the device, uploaded once per shape (the
+    tasks do not depend on the row count)."""
+    pp = pair_plan(num_feat, num_bins, num_classes, 0, smem_limit, sms)
+    return torch.from_numpy(pp.tasks).to(dev)
+
+
 def _cooc_cls(codes_t: torch.Tensor, labels: torch.Tensor, num_bins: int,
               num_classes: int, mode: str, wp: int) -> torch.Tensor:
     """The per-class modes on CUDA: ``csrc/cooc_cls.cu`` (B2 for cls, B3
@@ -309,15 +383,23 @@ def _cooc_cls(codes_t: torch.Tensor, labels: torch.Tensor, num_bins: int,
     g = torch.zeros((num_classes, wp, wp), dtype=torch.int32, device=dev)
     if n == 0:
         return g
-    scratch = torch.zeros(2 * num_classes, dtype=torch.int32, device=dev)
-    sorted_codes = torch.empty((f, n), dtype=torch.int16, device=dev)
     lib = _kernel("cooc_cls")
+    # one allocation: the class-sorted int16 codes [F, ns] and, after them,
+    # the 2·C int32 class counts and cursors (the kernel zeroes those)
+    ns = _ru(n, 8)
+    sorted_codes = torch.empty(f * ns + 4 * num_classes, dtype=torch.int16,
+                               device=dev)
+    scratch = sorted_codes.data_ptr() + 2 * f * ns
     with torch.cuda.device(dev):
+        limits = _pair_device(dev.index)
+        pp = pair_plan(f, num_bins, num_classes, n, *limits)
+        tasks = _pair_tasks(f, num_bins, num_classes, *limits, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cooc_cls_gram(
             codes_t.data_ptr(), labels.data_ptr(), g.data_ptr(),
-            scratch.data_ptr(), sorted_codes.data_ptr(), f, n, num_bins,
-            num_classes, wp, _splits(dev, -(-f * num_bins // 64), n), stream)
+            scratch, sorted_codes.data_ptr(), tasks.data_ptr(), f,
+            n, num_bins, num_classes, wp, len(pp.tasks), pp.splits, pp.copies,
+            pp.cells, stream)
     if err:
         raise RuntimeError(f"cooc_cls_gram launch failed with CUDA error {err}")
     if mode == "cls":
@@ -334,22 +416,24 @@ cooc_counts_cols.clsb_launches = 0     # B3
 # each kernel's C entry point and its argument types: pointers (and the
 # stream) as c_void_p, ints as c_int
 _ENTRY = {
-    "cooc": ("cooc_gram", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p]),
-    "cooc_cls": ("cooc_cls_gram", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p]),
-    "cross": ("cross_counts", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-              + [ctypes.c_void_p]),
+    "cooc": {"cooc_gram": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+             + [ctypes.c_void_p]},
+    "cooc_cls": {"cooc_cls_gram": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                 + [ctypes.c_void_p],
+                 "cooc_cls_smem_limit": []},
+    "cross": {"cross_counts": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+              + [ctypes.c_void_p]},
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, its entry points typed."""
     from avenir_tpu_torch.ops import _build
 
     lib = _build.load(name)
-    entry, argtypes = _ENTRY[name]
-    fn = getattr(lib, entry)
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+    for entry, argtypes in _ENTRY[name].items():
+        fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib

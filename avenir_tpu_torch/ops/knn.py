@@ -27,8 +27,10 @@ version beside it:
   ``(bits(max(d², 0)) & ~2047) | column`` and the third smallest; plain
   version :func:`knn_tourney_ref`;
 - :func:`knn_topk` → ``csrc/knn_topk.cu`` (replaces ``pallas_knn.py:73
-  _knn_kernel``, B6): per query row the kk smallest (d², reference index);
-  plain version :func:`knn_topk_ref`.
+  _knn_kernel``, B6): per query row the kk smallest (d², reference index),
+  the references split into ranges (:func:`topk_splits`) whose lists a
+  second kernel merges; plain version :func:`knn_topk_ref`, and
+  :func:`knn_topk_merge_ref` for the merge alone.
 
 :func:`search` is the counterpart of ``search_fused``: query pack, B5 or
 B6 by the JAX package's route gate, assembly, exact re-rank and
@@ -49,6 +51,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -378,15 +381,64 @@ def knn_topk_ref(a: torch.Tensor, b: torch.Tensor, kk: int
     return out_d, out_i
 
 
-def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn_topk_merge_ref(part_d: torch.Tensor, part_i: torch.Tensor, kk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the merge of ``csrc/knn_topk.cu``: S
+    per-range lists part_d / part_i [S, M, kk] (each ascending by (d²,
+    index), the indices of range s all below those of range s + 1) → the
+    [M, SLOTS] outputs of :func:`knn_topk`, the kk smallest by (d², index).
+    A stable sort over the lists in range order keeps the lower index of a
+    tie."""
+    s, m, k = part_d.shape
+    cd = part_d.permute(1, 0, 2).reshape(m, s * k)
+    ci = part_i.permute(1, 0, 2).reshape(m, s * k)
+    order = torch.sort(cd, dim=1, stable=True).indices[:, :kk]
+    out_d = torch.full((m, SLOTS), _BIG, dtype=torch.float32, device=cd.device)
+    out_i = torch.full((m, SLOTS), -1, dtype=torch.int32, device=cd.device)
+    out_d[:, :kk] = torch.gather(cd, 1, order)
+    out_i[:, :kk] = torch.gather(ci, 1, order)
+    return out_d, out_i
+
+
+TOPK_MAX_SPLITS = 32    # reference ranges one merge warp takes
+TOPK_REFS_PER_SLOT = 128  # references per range and kept slot, at least
+TOPK_RESIDENT_ROWS = 32   # query rows per block where they stay resident
+
+
+def topk_splits(m: int, n: int, kk: int, rows_per_block: int, slots: int,
+                splits: Optional[int] = None) -> Tuple[int, int]:
+    """B6's reference split → (S, tiles per range): the n / 128 reference
+    tiles cut into S ranges of whole tiles, the last possibly shorter.
+    Unless ``splits`` asks for a number, the m / rows_per_block query
+    blocks times S fill the card's ``slots`` resident blocks (SMs × blocks
+    per SM): where the queries stay resident the kk-lists dominate and S
+    is the fewest ranges that fill it, a partial last wave included; where
+    they stream (64 rows per block) the MMAs dominate and S is the most
+    ranges within one wave.  Each range holds at least
+    TOPK_REFS_PER_SLOT·kk references: every range refills its own kk-list.
+    S stays within [1, min(32, tiles)]."""
+    tiles = n // 128
+    if splits is None:
+        qblocks = max(m // rows_per_block, 1)
+        fill = (-(-slots // qblocks) if rows_per_block == TOPK_RESIDENT_ROWS
+                else slots // qblocks)
+        splits = min(fill, n // (TOPK_REFS_PER_SLOT * kk))
+    s = max(1, min(splits, TOPK_MAX_SPLITS, tiles))
+    per = -(-tiles // s)
+    return -(-tiles // per), per
+
+
+def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int,
+             splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [Mpad, W] bf16 queries (Mpad a multiple of TM), b [Npad, W] bf16
     references (Npad a multiple of TN) → (d² [Mpad, SLOTS] float32, idx
     [Mpad, SLOTS] int32): per row the kk ≤ SLOTS smallest by (d², reference
     index), ascending; slots ≥ kk hold ``_BIG`` / −1.
 
     On CUDA this launches ``csrc/knn_topk.cu`` (B6, counted in
-    ``knn_topk.launches``); on the CPU it runs :func:`knn_topk_ref`."""
+    ``knn_topk.launches``) over the reference ranges of
+    :func:`topk_splits` (``splits`` forces their number), merged on the
+    card where there are several; on the CPU it runs :func:`knn_topk_ref`."""
     _check_pair(a, b, "knn_topk")
     if not 1 <= kk <= SLOTS:
         raise ValueError(f"kk must be in [1, {SLOTS}], got {kk}")
@@ -397,14 +449,22 @@ def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int
     if m == 0 or n == 0:
         return (torch.full((m, SLOTS), _BIG, dtype=torch.float32, device=a.device),
                 torch.full((m, SLOTS), -1, dtype=torch.int32, device=a.device))
-    # the kernel writes every slot
-    out_d = torch.empty((m, SLOTS), dtype=torch.float32, device=a.device)
-    out_i = torch.empty((m, SLOTS), dtype=torch.int32, device=a.device)
     lib = _kernel("knn_topk")
     with torch.cuda.device(a.device):
+        rows, slots = _topk_geometry(a.device.index, a.shape[1], kk)
+        s, per = topk_splits(m, n, kk, rows, slots, splits)
+        # the kernels write every slot; one allocation holds the outputs
+        # and, where there are several ranges, their lists
+        buf = torch.empty(2 * m * SLOTS + (2 * s * m * kk if s > 1 else 0),
+                          dtype=torch.float32, device=a.device)
+        out_d = buf[:m * SLOTS].view(m, SLOTS)
+        out_i = buf[m * SLOTS:2 * m * SLOTS].view(torch.int32).view(m, SLOTS)
+        part = buf.data_ptr() + 4 * 2 * m * SLOTS
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.knn_topk(a.data_ptr(), b.data_ptr(), out_d.data_ptr(),
-                           out_i.data_ptr(), m, n, a.shape[1], kk, stream)
+                           out_i.data_ptr(), part if s > 1 else None,
+                           part + 4 * s * m * kk if s > 1 else None,
+                           m, n, a.shape[1], kk, s, per, stream)
     if err:
         raise RuntimeError(f"knn_topk launch failed with CUDA error {err}")
     knn_topk.launches += 1
@@ -413,23 +473,37 @@ def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int
 
 knn_topk.launches = 0                  # B6
 
-# each kernel's C entry point and its argument types: pointers (and the
+
+@functools.lru_cache(maxsize=None)
+def _topk_geometry(index: int, w: int, kk: int) -> Tuple[int, int]:
+    """(query rows per block, blocks the card holds at once) of B6 on CUDA
+    device ``index`` for width w and kk slots; the caller has made it the
+    current device."""
+    lib = _kernel("knn_topk")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return (lib.knn_topk_rows_per_block(w),
+            sms * lib.knn_topk_blocks_per_sm(w, kk))
+
+# each kernel's C entry points and their argument types: pointers (and the
 # stream) as c_void_p, ints as c_int
 _ENTRY = {
-    "knn_tourney": ("knn_tourney", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p]),
-    "knn_topk": ("knn_topk", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p]),
+    "knn_tourney": {"knn_tourney": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p]},
+    "knn_topk": {"knn_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p],
+                 "knn_topk_rows_per_block": [ctypes.c_int],
+                 "knn_topk_blocks_per_sm": [ctypes.c_int] * 2},
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _kernel(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu``, its entry points typed."""
     from avenir_tpu_torch.ops import _build
 
     lib = _build.load(name)
-    entry, argtypes = _ENTRY[name]
-    fn = getattr(lib, entry)
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+    for entry, argtypes in _ENTRY[name].items():
+        fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
     return lib

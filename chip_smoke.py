@@ -17,9 +17,12 @@ Phases, in order; any failure exits non-zero:
      rows, a ragged row count with invalid codes and labels, and zero rows
      (yardstick: ``torch._int_mm`` on a materialized int8 one-hot);
    - B2 (cooc_cls.cu, cls): 20 × 20 × 2 at 4M rows and at the main path's
-     250K-row chunk, ragged/invalid, zero rows; B3 (cooc_cls.cu, clsb):
-     100 × 20 × 2 at 1M rows, ragged/invalid, zero rows (yardstick: one
-     ``torch._int_mm`` per class on its materialized int8 one-hot);
+     250K-row chunk, ragged/invalid, zero rows, and skewed (95% of codes
+     in one bin) at 1M rows; B3 (cooc_cls.cu, clsb): 100 × 20 × 2 at 1M
+     rows, ragged/invalid, zero rows, skewed at 1M rows, and 2 × 3072 × 2
+     at 100K rows, whose 3072 × 3072 pair table exceeds shared memory
+     (yardstick: one ``torch._int_mm`` per class on its materialized int8
+     one-hot);
    - B4 (cross.cu): 10 × 13 at 1M rows with 2, 18 and 54 selectors,
      1024 selectors (the gate), ragged with invalid codes and selectors,
      zero rows (yardstick: one ``torch.bincount`` over the composite index
@@ -57,9 +60,11 @@ Phases, in order; any failure exits non-zero:
    truncation step, assembled re-ranked results and certificates equal)
    and with a short last block; B6 on categorical and mixed data at
    4,096 × 16,384 refs with kk 18 and 128, a 12-row set and heavy
-   duplicates; and each on a categorical schema too wide to keep its
-   query tile resident in shared memory (B5 at W 896, B6 at W 2688: the
-   tile is streamed), keys and slots bit-equal;
+   duplicates; each on a categorical schema too wide to keep its query
+   tile resident in shared memory (B5 at W 896, B6 at W 2688: the tile is
+   streamed), keys and slots bit-equal; and B6 at the 10K path's shape
+   (2,048 × 10,240 refs, 9 continuous, kk 18) with its references in one
+   range (S = 1, no merge) beside the wrapper's ranges;
 8. the kNN paths: (a) NearestNeighbor through the CLI on a seeded 1M-row
    elearn training CSV and 4,096 test rows on ``cuda`` (B5 once), then
    with ``--device cpu`` on the first 1,024 test rows: predictions
@@ -80,6 +85,12 @@ Phases, in order; any failure exits non-zero:
     B3: the wide tree's K = 8 level; B4: the hospital tree's deepest level;
     B5: the 1M-row NearestNeighbor job; B6: the 10K-row NearestNeighbor
     job), then the last line ``{"ok": true, "device": {...}}``.
+
+Bounds: B1–B3 count the work their inputs need, a sparse product — codes
+and labels read once, G written once, over the memory rate — with the
+dense product of the one-hots beside it as ``dense_ops_bound_ms``; B4 the
+larger of its bytes and its dense XᵀY operations; B5–B6 their bf16
+operations over the used lanes.
 
 Each phase that drives a path sets every launch count to 0 just before it
 and reads the counts just after.  It imports nothing of JAX and nothing of
@@ -162,13 +173,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def make_case(n, f, b, c, invalid, seed):
+def make_case(n, f, b, c, invalid, seed, skew=0.0):
+    """Seeded codes [F, n] and labels [n] on the card; with ``skew`` > 0
+    that share of the codes is moved into one bin (b // 2)."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     codes = torch.randint(0, b, (f, n), dtype=torch.int32, device="cuda",
                           generator=gen)
+    if skew:
+        hot = torch.rand((f, n), device="cuda", generator=gen) < skew
+        codes[hot] = b // 2
     labels = torch.randint(0, c, (n,), dtype=torch.int32, device="cuda",
                            generator=gen)
     if invalid and n:
@@ -245,24 +261,28 @@ def kernel_cases(hist):
                 raise AssertionError(f"library yardstick disagrees on {label}")
             library_ms = time_ms(call, iters=5 if big else 20)
             del keep, lib_g
-        # The work the function needs: each input read once, G written once,
-        # and an int8 multiply-add per row for each cell of the upper
-        # triangle of the used w lanes (G is symmetric; pad lanes hold 0).
-        used = f * b * c
-        nbytes = 4 * f * n + 4 * n + 4 * wp * wp
-        ops = used * (used + 1) * n
-        bytes_ms = nbytes / PEAK_BYTES * 1e3
-        ops_ms = ops / PEAK_INT8_OPS * 1e3
         row = {"kernel": "B1", "case": label, "n": n, "f": f, "b": b, "c": c,
                "mode": mode,
                "wp": wp, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+               "library_ms": library_ms,
+               **gram_bound(f, n, wp * wp, f * b * c, n)}
         log("B1 case:", json.dumps(row))
         results.append(row)
         del codes, labels, g, ref
         torch.cuda.empty_cache()
     return results
+
+
+def gram_bound(f: int, n: int, g_cells: int, used: int, n_eff: int) -> dict:
+    """The bound of a one-hot gram (B1–B3) as the work these inputs need:
+    a sparse product, so the codes [F, n] and labels [n] read once and G
+    (``g_cells`` int32) written once, over the memory rate.  Beside it, as
+    ``dense_ops_bound_ms``, the dense product of the one-hots: an int8
+    multiply-add per row for each upper-triangle cell of the ``used``
+    lanes, over ``n_eff`` rows, at the int8 peak."""
+    return {"bound_ms": (4 * f * n + 4 * n + 4 * g_cells) / PEAK_BYTES * 1e3,
+            "bound_by": "bytes",
+            "dense_ops_bound_ms": used * (used + 1) * n_eff / PEAK_INT8_OPS * 1e3}
 
 
 def ops_module(name: str):
@@ -369,21 +389,30 @@ def per_class_cases(hist):
     import torch
 
     cases = [
-        ("B2", "20x20x2 at 4M rows (cls, wp 512)", 4_000_000, 20, 20, 2, False),
+        ("B2", "20x20x2 at 4M rows (cls, wp 512)", 4_000_000, 20, 20, 2, False,
+         0.0),
         ("B2", "20x20x2 at 250K rows (cls, wp 512)", CHUNK_ROWS, 20, 20, 2,
-         False),
+         False, 0.0),
         ("B2", "ragged 100003 rows, invalid codes and labels (cls)", 100_003,
-         20, 20, 2, True),
-        ("B2", "zero rows (cls)", 0, 20, 20, 2, False),
+         20, 20, 2, True, 0.0),
+        ("B2", "zero rows (cls)", 0, 20, 20, 2, False, 0.0),
         ("B3", "100x20x2 at 1M rows (clsb, wp 2000, TR 400)", 1_000_000,
-         100, 20, 2, False),
+         100, 20, 2, False, 0.0),
         ("B3", "ragged 100003 rows, invalid codes and labels (clsb)", 100_003,
-         100, 20, 2, True),
-        ("B3", "zero rows (clsb)", 0, 100, 20, 2, False),
+         100, 20, 2, True, 0.0),
+        ("B3", "zero rows (clsb)", 0, 100, 20, 2, False, 0.0),
+        # most rows in one bin: the pair tables' atomics meet on one cell
+        ("B2", "skewed 20x20x2 at 1M rows, 95% of codes in one bin (cls)",
+         1_000_000, 20, 20, 2, True, 0.95),
+        ("B3", "skewed 100x20x2 at 1M rows, 95% of codes in one bin (clsb)",
+         1_000_000, 100, 20, 2, True, 0.95),
+        # a 3072 x 3072 pair table exceeds shared memory: f1's bins in bands
+        ("B3", "banded pairs 2x3072x2 at 100K rows (clsb, wp 6144)", 100_000,
+         2, 3072, 2, True, 0.0),
     ]
     results = []
-    for i, (kid, label, n, f, b, c, invalid) in enumerate(cases):
-        codes, labels = make_case(n, f, b, c, invalid, seed=100 + i)
+    for i, (kid, label, n, f, b, c, invalid, skew) in enumerate(cases):
+        codes, labels = make_case(n, f, b, c, invalid, seed=100 + i, skew=skew)
         mode, _jcp, wp = hist.plan(f, b, c)
         assert mode == ("cls" if kid == "B2" else "clsb"), (label, mode)
         reset_counts()
@@ -409,15 +438,12 @@ def per_class_cases(hist):
                 raise AssertionError(f"library yardstick disagrees on {label}")
             library_ms = time_ms(call, iters=5 if big else 20)
             del keep
-        # each row adds one int8 multiply-add to each upper-triangle cell of
-        # its own class's F·B used lanes; inputs read once, G written once
-        used = f * b
-        bound_ms, bound_by = bound(4 * f * n + 4 * n + 4 * c * wp * wp,
-                                   used * (used + 1) * n)
+        # the dense form: each row adds one int8 multiply-add to each
+        # upper-triangle cell of its own class's F·B used lanes
         row = {"kernel": kid, "case": label, "n": n, "f": f, "b": b, "c": c,
                "mode": mode, "wp": wp, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               **gram_bound(f, n, c * wp * wp, f * b, n)}
         log(f"{kid} case:", json.dumps(row))
         results.append(row)
         del codes, labels, g, ref
@@ -893,13 +919,12 @@ def path_cases(hist, rec: Recorder) -> list:
             n_eff = int((((vec >= 0) & (vec < k))
                          & ((codes >= 0) & (codes < b)).any(0)).sum())
             if cross:      # the dense XᵀY form: 2·F·B·S multiply-adds per row
-                nbytes, ops = 4 * f * b * k, 2 * f * b * k * n_eff
+                row["bound_ms"], row["bound_by"] = bound(
+                    4 * f * n + 4 * n + 4 * f * b * k, 2 * f * b * k * n_eff)
             else:          # upper triangle of the used lanes (per class: F·B)
-                used = f * b * (k if kid == "B1" else 1)
-                nbytes = 4 * wp * wp * (1 if kid == "B1" else k)
-                ops = used * (used + 1) * n_eff
-            row["bound_ms"], row["bound_by"] = bound(
-                4 * f * n + 4 * n + nbytes, ops)
+                row.update(gram_bound(
+                    f, n, wp * wp * (1 if kid == "B1" else k),
+                    f * b * (k if kid == "B1" else 1), n_eff))
             row["n_eff"] = n_eff
             log(f"{kid} path case:", json.dumps(row))
         results.append(row)
@@ -986,6 +1011,17 @@ def topk_library(q, r, kk):
                 kk, dim=1, largest=False).values
         return best
     return call
+
+
+def topk_ranges(q, r, kk, splits=None) -> int:
+    """The number of reference ranges B6 runs for these operands."""
+    import torch
+
+    from avenir_tpu_torch.ops import knn as tk
+
+    with torch.cuda.device(q.device):
+        rows, slots = tk._topk_geometry(q.device.index, q.shape[1], kk)
+    return tk.topk_splits(q.shape[0], r.shape[0], kk, rows, slots, splits)[0]
 
 
 def check_tourney(q, r, got, want, what):
@@ -1087,10 +1123,18 @@ def knn_cases():
         ("B6", "wide categorical 268x10 (W 2688), 4096 x 16384 refs, kk 18",
          16_384, 268, 0, 18, 1),
     ]
+    # the 10K NearestNeighbor path's shape (elearn: 9 continuous, w 60),
+    # with the references in one range (no merge) and in the wrapper's
+    path_shape = [
+        ("B6", f"10K path shape 9 continuous, 2048 x 10240 refs, kk 18, {s}",
+         10_240, 0, 9, 18, 1, 2048, splits)
+        for s, splits in (("one reference range", 1),
+                          ("the wrapper's ranges", None))]
     results = []
-    for i, (kid, label, n, f, fc, kk, dup) in enumerate(cases):
+    for i, (kid, label, n, f, fc, kk, dup, m, splits) in enumerate(
+            [c + (KNN_BATCH, None) for c in cases] + path_shape):
         q, r, n_real, cq, xq, cr, xr, w_used = knn_data(
-            n, KNN_BATCH, f, fc, 10, seed=300 + i, dup=dup)
+            n, m, f, fc, 10, seed=300 + i, dup=dup)
         reset_counts()
         if kid == "B5":
             got = tk.knn_tourney(q, r)
@@ -1114,19 +1158,20 @@ def knn_cases():
             ref = lambda: tk.knn_tourney_ref(q, r)  # noqa: E731
             lib = tourney_library(q, r)
         else:
-            got = tk.knn_topk(q, r, kk)
+            got = tk.knn_topk(q, r, kk, splits=splits)
             want = tk.knn_topk_ref(q, r, kk)
             torch.cuda.synchronize()
             swapped, err = check_topk(got, want, kk, fc == 0, label)
-            row = {"rows_swapped_at_kk": swapped}
-            fn = lambda: tk.knn_topk(q, r, kk)  # noqa: E731
+            row = {"rows_swapped_at_kk": swapped,
+                   "splits": topk_ranges(q, r, kk, splits)}
+            fn = lambda: tk.knn_topk(q, r, kk, splits=splits)  # noqa: E731
             ref = lambda: tk.knn_topk_ref(q, r, kk)  # noqa: E731
             lib = topk_library(q, r, kk)
         if read_counts()[kid] != 1:
             raise AssertionError(f"{kid} did not launch once on {label}")
         big = n >= KNN_REFS
-        bound_ms, bound_by = knn_bound(kid, q, r, KNN_BATCH, n_real, w_used)
-        row.update({"kernel": kid, "case": label, "n": n_real, "m": KNN_BATCH,
+        bound_ms, bound_by = knn_bound(kid, q, r, m, n_real, w_used)
+        row.update({"kernel": kid, "case": label, "n": n_real, "m": m,
                     "w": q.shape[1], "w_used": w_used, "kk": kk,
                     "max_abs_err": err,
                     "ms": time_ms(fn, iters=10 if big else 20),
@@ -1406,7 +1451,8 @@ def knn_path_cases(rec: Recorder, used: dict) -> list:
             ref = lambda: tk.knn_topk_ref(q, r, kk)  # noqa: E731
             lib = topk_library(q, r, kk)
             swapped, err = check_topk(fn(), ref(), kk, False, label)
-            row = {"rows_swapped_at_kk": swapped, "kk": kk}
+            row = {"rows_swapped_at_kk": swapped, "kk": kk,
+                   "splits": topk_ranges(q, r, kk)}
         row.update({"kernel": kid, "path": path, "call": i, "case": label,
                     "max_abs_err": err})
         key = (path, tuple(q.shape), tuple(r.shape))
@@ -1454,6 +1500,8 @@ def kernel_entry(kid, name, source, replaces, launches_by_path, cases):
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        **({"dense_ops_bound_ms": main["dense_ops_bound_ms"]}
+           if "dense_ops_bound_ms" in main else {}),
     }
 
 

@@ -94,6 +94,32 @@ def test_kernel_matches_plain_version(cuda, n, f, b, c):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,f,b,c,skew", [
+    (20_000, 20, 20, 2, 0.95),     # cls: 95% of codes in one bin
+    (20_000, 100, 20, 2, 0.95),    # clsb
+    (6000, 30, 128, 2, 0.9),       # the wide tree's K = 8 pack
+    (3000, 2, 3072, 2, 0.0),       # clsb: a 3072 x 3072 pair table, banded
+    (3000, 2, 3072, 2, 0.95),
+])
+def test_pair_kernel_matches_plain_version_skewed_and_banded(cuda, n, f, b, c,
+                                                             skew):
+    """B2/B3 where most rows share one bin (their atomics hit one cell) and
+    where a pair's B x B table exceeds shared memory (f1's bins in bands):
+    exactly the plain version, which runs on the card here."""
+    codes, labels = _data(n, f, b, c, seed=29)
+    rng = np.random.default_rng(31)
+    codes[rng.random(codes.shape) < skew] = b // 2
+    ct, lb = torch.from_numpy(codes).to(cuda), torch.from_numpy(labels).to(cuda)
+    mode = hist.plan(f, b, c)[0]
+    before = getattr(hist.cooc_counts_cols, _COUNTERS[mode])
+    g = hist.cooc_counts_cols(ct, lb, b, c)
+    assert getattr(hist.cooc_counts_cols, _COUNTERS[mode]) == before + 1
+    want = hist.cooc_counts_cols_ref(ct, lb, b, c)
+    torch.cuda.synchronize()
+    assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
     codes, labels = _data(100, 20, 20, 2, seed=1)
     ct, lb = torch.from_numpy(codes).to(cuda), torch.from_numpy(labels).to(cuda)
@@ -334,6 +360,40 @@ def test_topk_kernel_matches_plain_version(cuda, n, f, fc, kk):
         only_p = wd[row, :kk][~torch.isin(theirs, mine)]
         for x in (only_k, only_p):
             assert x.numel() == 0 or float((x - edge).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,fc,kk,splits", [
+    (0, 9, 18, 1), (0, 9, 18, None),      # the 10K path's shape (elearn)
+    (6, 0, 1, 1), (6, 0, 1, None),        # categorical: ties everywhere
+    (6, 0, 128, 1), (6, 0, 128, None),
+    (6, 8, 128, None), (268, 0, 18, None),   # mixed; W 2688, streamed
+    (6, 0, 40, None), (6, 8, 70, 1),      # two and three list registers
+    (268, 0, 128, 3),                     # streamed, four list registers
+])
+def test_topk_kernel_reference_split(cuda, f, fc, kk, splits):
+    """B6 at m = 2,048 x n = 10,240 with one reference range (no merge) and
+    with the wrapper's ranges (merged on the card): exactly the plain
+    version on categorical data, to the float32 summation order
+    elsewhere."""
+    q, r = _knn_operands(10_240, 2048, f, fc, 10, seed=kk + f)
+    assert q.shape[0] == 2048 and r.shape[0] == 10_240
+    before = tk.knn_topk.launches
+    d, i = tk.knn_topk(q.to(cuda), r.to(cuda), kk, splits=splits)
+    assert tk.knn_topk.launches == before + 1
+    torch.cuda.synchronize()
+    d, i = d.cpu(), i.cpu()
+    wd, wi = tk.knn_topk_ref(q, r, kk)
+    assert torch.equal(i[:, kk:], wi[:, kk:]) and torch.equal(d[:, kk:], wd[:, kk:])
+    if fc == 0:
+        assert torch.equal(d, wd) and torch.equal(i, wi)
+        return
+    assert float((d[:, :kk] - wd[:, :kk]).abs().max()) <= 1e-5
+    edge = wd[:, kk - 1:kk]
+    only_k = ~(i[:, :kk, None] == wi[:, None, :kk]).any(2)
+    only_p = ~(wi[:, :kk, None] == i[:, None, :kk]).any(2)
+    assert float(((d[:, :kk] - edge).abs() * only_k).max()) <= 2e-5
+    assert float(((wd[:, :kk] - edge).abs() * only_p).max()) <= 2e-5
 
 
 @pytest.mark.cuda

@@ -337,6 +337,94 @@ def test_packed_codes_match_jax(stripe, member_bins):
     assert ((got.numpy() == -1) | (got.numpy() % stripe < member_bins)).all()
 
 
+# the pair pass of B2/B3: the wide tree's four level shapes, the MI and
+# clsb chunks of chip_smoke, a pair table past shared memory, C = 16
+PAIR_SHAPES = [(30, 8, 2), (30, 16, 2), (30, 32, 2), (30, 128, 2),
+               (20, 20, 2), (100, 20, 2), (2, 3072, 2), (8, 50, 16)]
+H100_SMEM, H100_SMS = 232_448, 132
+
+
+@pytest.mark.parametrize("f,b,c", PAIR_SHAPES)
+def test_pair_plan_covers_each_cell_once_within_budget(f, b, c):
+    pp = hist.pair_plan(f, b, c, 1_000_000, H100_SMEM, H100_SMS)
+    t = pp.tasks
+    assert t.dtype == np.int32 and t.shape[1] == 6 and len(t)
+    seen = np.zeros((c, f, f, b), np.int64)         # (class, f1, f2, bin of f1)
+    for cls, f1, f2a, nf2, b1a, nb1 in t.tolist():
+        assert 1 <= nf2 <= hist.PAIR_RUN and 1 <= nb1 and b1a + nb1 <= b
+        assert f1 <= f2a and f2a + nf2 <= f
+        seen[cls, f1, f2a:f2a + nf2, b1a:b1a + nb1] += 1
+        assert nf2 * nb1 * (b + (8 - b) % 32) <= pp.cells
+    upper = np.triu(np.ones((f, f), bool))
+    assert (seen[:, upper] == 1).all() and (seen[:, ~upper] == 0).all()
+    assert pp.smem == 4 * pp.copies * pp.cells
+    assert pp.smem <= min(H100_SMEM, hist.PAIR_SMEM)
+    assert 1 <= pp.copies <= hist.PAIR_COPIES and pp.splits >= 1
+    # a B × B table past the budget is cut into bands of f1's bins
+    banded = b * (b + (8 - b) % 32) * 4 > hist.PAIR_SMEM
+    assert (t[:, 5] < b).any() == banded
+    again = hist.pair_plan(f, b, c, 1_000_000, H100_SMEM, H100_SMS)
+    assert np.array_equal(again.tasks, t) and again[1:] == pp[1:]
+
+
+def _pair_gram(codes, labels, b, c, wp, pp):
+    """G as pair_kernel computes it from the plan: per task and row split a
+    table [run, band, B] of the class's rows, then plain stores (one split)
+    or adds into G and its mirror."""
+    f, _n = codes.shape
+    g = np.zeros((c, wp, wp), np.int64)
+    for cls, f1, f2a, nf2, b1a, nb1 in pp.tasks.tolist():
+        rows = np.flatnonzero(labels == cls)
+        per = -(-len(rows) // pp.splits)
+        for s in range(pp.splits):
+            r = rows[s * per:(s + 1) * per]
+            c1 = codes[f1, r] - b1a
+            table = np.zeros((nf2, nb1, b), np.int64)
+            for k in range(nf2):
+                c2 = codes[f2a + k, r]
+                ok = ((c1 >= 0) & (c1 < nb1) & (codes[f1, r] < b)
+                      & (c2 >= 0) & (c2 < b))
+                np.add.at(table[k], (c1[ok], c2[ok]), 1)
+            for k, bl, b2 in zip(*np.nonzero(table)):
+                f2, b1 = f2a + k, b1a + bl
+                if f2 == f1 and b1 != b2:
+                    continue
+                w1, w2 = b1 * f + f1, b2 * f + f2
+                v = table[k, bl, b2]
+                for x, y in ((w1, w2), (w2, w1)) if f2 != f1 else ((w1, w2),):
+                    if pp.splits == 1:
+                        g[cls, x, y] = v
+                    else:
+                        g[cls, x, y] += v
+    return g
+
+
+@pytest.mark.parametrize("n,f,b,c,smem,splits", [
+    (700, 20, 20, 2, H100_SMEM, None),    # run of 8 f2, copies, splits 1
+    (700, 20, 20, 2, H100_SMEM, 3),       # rows split: adds
+    (500, 14, 20, 3, 1024, None),         # 20 x 20 table past 1 KB: bands
+    (500, 14, 20, 3, 1024, 2),
+    (400, 100, 20, 2, H100_SMEM, None),   # clsb
+    (300, 8, 50, 16, H100_SMEM, 4),       # C = 16
+])
+def test_pair_plan_gram_equals_plain_version(n, f, b, c, smem, splits):
+    """The plan's tasks, counted the way pair_kernel counts them (numpy),
+    give exactly the plain version's G, invalid codes and labels
+    included."""
+    codes, labels = _data(n, f, b, c, seed=n + f)
+    mode, _jcp, wp = hist.plan(f, b, c)
+    assert mode in ("cls", "clsb")
+    pp = hist.pair_plan(f, b, c, n, smem, H100_SMS)
+    if splits is not None:
+        pp = pp._replace(splits=splits)
+    if smem < 4 * b * b:
+        assert (pp.tasks[:, 5] < b).all()
+    want = hist.cooc_counts_cols_ref(torch.from_numpy(codes),
+                                     torch.from_numpy(labels), b, c)
+    np.testing.assert_array_equal(_pair_gram(codes, labels, b, c, wp, pp),
+                                  want.numpy())
+
+
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     """An edited kernel or header gives the kernel a new library name, so a
     stale build is never loaded."""
@@ -356,3 +444,26 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     monkeypatch.undo()
     for name in ("cooc", "cooc_cls", "cross"):
         assert len(_build.source_digest(name)) == 12
+
+
+def test_entry_argtypes_match_the_c_signatures():
+    """Each ctypes declaration of a kernel's C entry point has the C
+    function's arity and kinds (a pointer or the stream as c_void_p, an int
+    as c_int), read from its source: ctypes cannot see a mismatch."""
+    import ctypes
+    import re
+
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.ops import knn as tk
+
+    for entries in (hist._ENTRY, tk._ENTRY):
+        for name, fns in entries.items():
+            with open(f"{_build.CSRC}/{name}.cu") as fh:
+                src = fh.read()
+            for fn, argtypes in fns.items():
+                sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
+                assert sig, (name, fn)
+                params = [p.strip() for p in sig.group(1).split(",") if p.strip()]
+                kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+                         for p in params]
+                assert kinds == argtypes, (name, fn, params)

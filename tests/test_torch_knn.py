@@ -190,6 +190,97 @@ def test_topk_plain_matches_jax_kernel(f, fc, kk):
     assert (np.diff(d[:, :kk], axis=1) >= 0).all()
 
 
+def _split_lists(q, r, kk, s, per):
+    """Per-range plain lists [S, M, kk] of B6's reference split: the plain
+    version on each range of ``per`` 128-row tiles, indices made global."""
+    parts = []
+    for k in range(s):
+        lo = k * per * 128
+        d, i = tk.knn_topk_ref(q, r[lo:lo + per * 128], kk)
+        parts.append((d[:, :kk], torch.where(i[:, :kk] >= 0, i[:, :kk] + lo,
+                                             i[:, :kk])))
+    return (torch.stack([d for d, _ in parts]),
+            torch.stack([i for _, i in parts]))
+
+
+@pytest.mark.parametrize("m,n,kk,rows,slots,splits", [
+    (2048, 10_240, 18, 32, 132, None),   # the 10K path: 80 tiles, 3 ranges
+    (2048, 10_240, 18, 64, 132, None),
+    (4096, 16_384, 18, 64, 264, None),   # streamed W 2688: 4 ranges, 1 wave
+    (4096, 16_384, 18, 32, 264, None),
+    (4096, 16_384, 128, 32, 264, None),  # kk 128: ranges of 16,384 refs
+    (512, 2048, 1, 32, 396, None),       # more ranges wanted than tiles
+    (2048, 10_240, 18, 32, 264, 1),      # forced: one range, no merge
+    (512, 4096, 18, 32, 264, 5),         # 32 tiles in ranges of 7
+    (4096, 1 << 20, 18, 32, 264, None),
+    (512, 8192, 18, 32, 264, 100),       # capped at 32 ranges
+    (65_536, 16_384, 18, 32, 264, None),  # the query blocks fill the card
+    (2048, 10_240, 18, 32, 0, None),     # occupancy unknown: one range
+])
+def test_topk_splits_cover_the_tiles(m, n, kk, rows, slots, splits):
+    s, per = tk.topk_splits(m, n, kk, rows, slots, splits)
+    tiles = n // 128
+    assert 1 <= s <= min(tk.TOPK_MAX_SPLITS, tiles)
+    assert (s - 1) * per < tiles <= s * per        # every range non-empty
+    qblocks = m // rows
+    cap = n // (tk.TOPK_REFS_PER_SLOT * kk)
+    if splits is None:             # fill the card; ranges of 128·kk refs
+        fill = -(-slots // qblocks) if rows == 32 else slots // qblocks
+        assert s == 1 or s <= cap
+        assert s == max(1, min(fill, cap, 32, tiles))
+        if rows == 64:             # streamed: one wave at most
+            assert s == 1 or qblocks * s <= slots
+    elif splits == 1:
+        assert (s, per) == (1, tiles)
+
+
+@pytest.mark.parametrize("f,fc,kk,splits", [
+    (6, 8, 13, 5),                 # mixed; 32 tiles in ranges of 7, 4 last
+    (4, 0, 13, None),              # categorical, ties everywhere
+    (4, 0, 1, 3),
+    (4, 0, 128, 5),
+    (0, 5, 128, None),
+])
+def test_topk_split_merge_matches_whole_and_jax(f, fc, kk, splits):
+    """B6's reference split on the CPU: the plain version on each range of
+    topk_splits, merged by knn_topk_merge_ref, equals the plain version on
+    the whole set — the lower index of a tie kept — and the JAX kernel as
+    the B6 parity tests compare it."""
+    rng = np.random.default_rng(11 + kk + fc)
+    nb = 7
+    codes_r, cont_r, codes_q, cont_q = _data(rng, 3000, 40, f, fc, nb)
+    r, _ = tk.prepare_refs(codes_r, cont_r, nb)      # 4096 rows: 32 tiles
+    q, _ = tk.prepare_queries(codes_q, cont_q, nb)
+    s, per = tk.topk_splits(q.shape[0], r.shape[0], 1, 32, 264, splits)
+    assert s > 1 and (splits != 5 or s * per > r.shape[0] // 128)  # short last
+    d, i = tk.knn_topk_merge_ref(*_split_lists(q, r, kk, s, per), kk)
+    wd, wi = tk.knn_topk_ref(q, r, kk)
+    assert d.shape == (q.shape[0], tk.SLOTS) and i.dtype == torch.int32
+    assert (i[:, kk:] == -1).all() and (d[:, kk:] == tk._BIG).all()
+    if fc == 0:                    # integer d²: the same bits and order
+        assert torch.equal(d, wd) and torch.equal(i, wi)
+    else:
+        np.testing.assert_allclose(d[:, :kk].numpy(), wd[:, :kk].numpy(),
+                                   atol=1e-5)
+    d, i = d.numpy()[:40, :kk], i.numpy()[:40, :kk]
+    if fc == 0:                    # the stable order of exact d²
+        _od, oi = _oracle(codes_q, cont_q, codes_r, cont_r, kk)
+        np.testing.assert_array_equal(i, oi)
+    with pltpu.force_tpu_interpret_mode():
+        jr, _ = pk.prepare_refs(codes_r, cont_r, nb)
+        jq, _ = pk.prepare_queries(codes_q, cont_q, nb)
+        jd, ji = pk._topk_pallas(jq, jr, kk)
+    jd, ji = np.asarray(jd)[:40], np.asarray(ji)[:40]
+    np.testing.assert_allclose(d, np.sort(jd, axis=1), atol=1e-5)
+    if fc:
+        for row in range(40):
+            assert set(ji[row].tolist()) == set(i[row].tolist()), row
+    else:                          # the JAX kernel keeps later tie members
+        for row in range(40):
+            w = d[row, -1]
+            assert set(i[row][d[row] < w]) == set(ji[row][jd[row] < w])
+
+
 def test_host_candidates_and_rerank_match_jax():
     """The host-side pair ``topk_candidates`` + ``exact_rerank``, copied
     as they are: the same candidates, distances and certificate."""
