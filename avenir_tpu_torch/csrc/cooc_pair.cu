@@ -1,20 +1,27 @@
-// Per-class co-occurrence grams G[c] = X_cᵀX_c for the wide NB + MI count
-// shapes and the decision tree's packed level tables.
+// Co-occurrence grams as pair histograms: G = XᵀX for every layout of
+// ops/hist.py plan() — the joint grams (fmaj, jmaj) of the NB + MI count
+// path and the per-class grams (cls, clsb) of the wide schemas and the
+// decision tree's packed level tables.
 //
-// Replaces two TPU kernels of avenir_tpu/ops/pallas_hist.py, the modes `cls`
-// and `clsb` of cooc_counts_cols: :333 _cooc_cls_kernel and :365
-// _cooc_clsb_kernel.  Both produce G int32 [C, wp, wp] over the per-class
-// index w = bin·F + f, laid out per plan()/clsb_tile()/w_index(), so
-// counts_from_cooc reads it unchanged.  The modes differ only in wp (cls pads
-// F·B to 128 at the end; clsb pads the bin count to a multiple of the band's
-// k); the TPU's row band in clsb is a VMEM budget device that Hopper does not
-// need, so one kernel serves both.
+// Replaces three TPU kernels of avenir_tpu/ops/pallas_hist.py, the modes of
+// cooc_counts_cols: :283 _cooc_kernel (fmaj, jmaj; B1), :333
+// _cooc_cls_kernel (cls; B2) and :365 _cooc_clsb_kernel (clsb; B3).  X has
+// exactly one 1 per feature in each row, so G is a pair histogram: a row of
+// class c adds one to G at (w(f1, b1, c), w(f2, b2, c)) for every feature
+// pair f1 ≤ f2, F·(F+1)/2 increments in all.  The TPU multiplies the dense
+// one-hots on its MXU; here no one-hot exists.  The layouts differ only in
+// where a cell lands, and every address is affine in (feature, bin) plus a
+// class offset, which the wrapper passes in (ops/hist.py pair_layout):
 //
-// X_c is a one-hot with exactly one 1 per feature in each row, so the gram
-// is a pair histogram: a row of class c adds one to G[c, w(b1, f1),
-// w(b2, f2)] for every feature pair, F·(F+1)/2 increments in all.  The TPU
-// multiplies the dense one-hots on its MXU; here no one-hot exists.  Three
-// launches on one stream:
+//   G's matrix  c·gmat         (cls, clsb: gmat = wp², one gram per class)
+//   lane        c·cs + f·fs + b·bs
+//     fmaj  w = f·jcp + b·C + c     cs = 1, fs = jcp, bs = C, gmat = 0
+//     jmaj  w = (b·C + c)·F + f     cs = F, fs = 1, bs = C·F, gmat = 0
+//     cls   w = b·F + f             cs = 0, fs = 1, bs = F, gmat = wp²
+//
+// both axes of G with the same map, so G keeps the layout of plan() and
+// w_index() and counts_from_cooc reads it unchanged.  Three launches on one
+// stream:
 //   1. class_count_kernel   counts[c] = rows whose label is c (valid labels);
 //   2. class_scatter_kernel groups the rows by class (a counting sort): each
 //      row gets a position inside its class's range, and its codes are
@@ -26,8 +33,10 @@
 //      its int32 table [run, band, B] lives in dynamic shared memory.  The
 //      block streams the codes of its rows once, adds one to the (bin of f1,
 //      bin of f2) cell of each f2 with a shared-memory atomic, then writes
-//      the table to G[c] and its mirror: plain stores where one block owns
-//      the class's whole row range, atomicAdd where rows are split.
+//      the table to G and its mirror: plain stores where one block owns
+//      the class's whole row range, atomicAdd where rows are split.  The
+//      grid runs every task of a row split before the next split, so the
+//      blocks in flight read the same rows and find them in L2.
 //
 // Each thread takes eight consecutive rows per step, one 16-byte load of
 // int16 codes per feature (sorted's rows are padded to a multiple of 8),
@@ -40,24 +49,28 @@
 // lanes that share a cell (a ballot) before the atomic measured slower on
 // an H100 than plain atomics, skewed codes included (PERF.md).
 //
-// Bounds on an H100 SXM, e.g. the wide tree's K = 8 level (30 features ×
-// 128 joint bins × 2 classes, wp 3840) at 1M rows: the function reads the
-// codes and labels once (4·F·n + 4·n) and writes G once (4·C·wp²), ~242 MB,
-// 0.072 ms at 3.35 TB/s; its 465 increments per row are 4.65e8 shared-memory
-// atomics, far below what the dense product of the one-hots would cost
-// (1.5e13 int8 operations, 7.5 ms at 1,979 TOP/s).  So it is bound by bytes.
+// Bounds on an H100 SXM: the function reads the codes and labels once
+// (4·F·n + 4·n bytes) and writes G once; e.g. the wide tree's K = 8 level
+// (30 features × 128 joint bins × 2 classes, clsb, wp 3840) at 1M rows,
+// ~242 MB, 0.072 ms at 3.35 TB/s, or a hospital MI chunk (10 × 13 × 2,
+// fmaj, wp 384, 250K rows) 11.6 MB, 0.0035 ms.  The increments (465 and 55
+// a row) are shared-memory atomics, far below what the dense product of
+// the one-hots would cost (1.5e13 and 7.2e9 int8 operations at K = 8 and
+// the chunk).  So the gram is bound by bytes; its time goes to the atomics
+// and to the code reads from L2 (PERF.md).
 //
-// Drop-invalid contract (pallas_hist.py:346-349, 387-390): a code outside
-// [0, B) drops its cell, a label outside [0, C) drops the whole row, rows
-// past n are never read, and pad rows and columns of G stay exactly 0.  The
-// caller keeps n < 2^24, so int32 counts are exact.
+// Drop-invalid contract (pallas_hist.py:346-349, 387-390, and the fmaj/jmaj
+// kernel's): a code outside [0, B) drops its cell, a label outside [0, C)
+// drops the whole row, rows past n are never read, and pad rows and
+// columns of G (fmaj's jc ≤ j < jcp, wp's tail) stay exactly 0.  The caller
+// keeps n < 2^24, so int32 counts are exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_CLASSES = 16;     // MAX_C_CLSB in ops/hist.py
+constexpr int MAX_CLASSES = 1024;  // C ≤ 768 in fmaj/jmaj (wp ≤ 768), ≤ 16 in cls/clsb
 constexpr int SORT_THREADS = 256;
 constexpr int SORT_ROWS = 8;        // rows per thread in the scatter pass
 
@@ -65,7 +78,7 @@ constexpr int SORT_ROWS = 8;        // rows per thread in the scatter pass
 __global__ void __launch_bounds__(SORT_THREADS)
 class_count_kernel(const int* labels, int n, int nclass, int* counts) {
   __shared__ int s[MAX_CLASSES];
-  if (threadIdx.x < MAX_CLASSES) s[threadIdx.x] = 0;
+  for (int c = threadIdx.x; c < nclass; c += SORT_THREADS) s[c] = 0;
   __syncthreads();
   const int lane = threadIdx.x & 31;
   // warp-uniform loop bound, so the whole warp reaches __match_any_sync
@@ -78,8 +91,8 @@ class_count_kernel(const int* labels, int n, int nclass, int* counts) {
     if (y >= 0 && lane == __ffs(peers) - 1) atomicAdd(&s[y], __popc(peers));
   }
   __syncthreads();
-  if (threadIdx.x < nclass && s[threadIdx.x])
-    atomicAdd(counts + threadIdx.x, s[threadIdx.x]);
+  for (int c = threadIdx.x; c < nclass; c += SORT_THREADS)
+    if (s[c]) atomicAdd(counts + c, s[c]);
 }
 
 // Row i of class y goes to position off[y] + (its rank among class-y rows);
@@ -101,7 +114,7 @@ class_scatter_kernel(const int* codes, const int* labels, int f, int n, int ns,
       o += counts[c];
     }
   }
-  if (threadIdx.x < MAX_CLASSES) blk[threadIdx.x] = 0;
+  for (int c = threadIdx.x; c < nclass; c += SORT_THREADS) blk[c] = 0;
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
@@ -121,9 +134,8 @@ class_scatter_kernel(const int* codes, const int* labels, int f, int n, int ns,
     rank[r] = base + __popc(peers & ((1u << lane) - 1u));
   }
   __syncthreads();
-  if (threadIdx.x < nclass && blk[threadIdx.x])
-    blk[threadIdx.x] = off[threadIdx.x] +
-                       atomicAdd(cursor + threadIdx.x, blk[threadIdx.x]);
+  for (int c = threadIdx.x; c < nclass; c += SORT_THREADS)
+    if (blk[c]) blk[c] = off[c] + atomicAdd(cursor + c, blk[c]);
   __syncthreads();
 #pragma unroll
   for (int r = 0; r < SORT_ROWS; ++r) {
@@ -147,8 +159,9 @@ struct Params {
   const int16_t* sorted;   // [F, ns] class-grouped codes, −1 = dropped cell
   const int* counts;       // [C] rows per class
   const int* tasks;        // [ntasks, TASK_INTS]
-  int* g;                  // [C, wp, wp] int32, zeroed by the caller
-  int f, ns, nbins, wp, splits, copies;
+  int* g;                  // G int32, zeroed by the caller
+  int ns, nbins, wp, splits, copies;
+  int gmat, cs, fs, bs;    // the store map: matrix c·gmat, lane c·cs + f·fs + b·bs
 };
 
 __global__ void __launch_bounds__(PAIR_THREADS) pair_kernel(const Params p) {
@@ -213,14 +226,16 @@ __global__ void __launch_bounds__(PAIR_THREADS) pair_kernel(const Params p) {
   }
   __syncthreads();
 
-  int* gc = p.g + (size_t)cls * p.wp * p.wp;
+  int* gc = p.g + (size_t)cls * p.gmat;
+  const int lane0 = cls * p.cs;
   for (int x = threadIdx.x; x < cells; x += PAIR_THREADS) {
     int v = 0;
     for (int k = 0; k < p.copies; ++k) v += table[k * cells + x];
     if (v == 0) continue;
     const int b2 = x % bs, rest = x / bs;     // b2 < B wherever v != 0
     const int f2 = f2a + rest / nb1, b1 = b1a + rest % nb1;
-    const size_t w1 = (size_t)b1 * p.f + f1, w2 = (size_t)b2 * p.f + f2;
+    const size_t w1 = lane0 + f1 * p.fs + b1 * p.bs;
+    const size_t w2 = lane0 + f2 * p.fs + b2 * p.bs;
     // the diagonal pair f1 = f2 holds only (b, b) cells, its own mirror
     if (p.splits == 1) {
       gc[w1 * p.wp + w2] = v;
@@ -236,7 +251,7 @@ __global__ void __launch_bounds__(PAIR_THREADS) pair_kernel(const Params p) {
 
 // The per-block dynamic shared memory the pair pass may take on the current
 // device (its opt-in limit), in bytes; the plan sizes its tables by it.
-extern "C" int cooc_cls_smem_limit() {
+extern "C" int cooc_pair_smem_limit() {
   int dev = 0, limit = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -245,33 +260,38 @@ extern "C" int cooc_cls_smem_limit() {
   return limit;
 }
 
-// Adds the per-class grams of n rows into g (zeroed by the caller,
-// [nclass, wp, wp] int32) on `stream`.  scratch is 2·nclass int32 (class
-// counts, then cursors; zeroed here); sorted is [f, ns] int16 scratch,
-// ns = n rounded up to 8;
-// tasks is the device copy of pair_plan's [ntasks, 6] int32 table, each task
-// run `splits` times over a share of its class's rows, with `copies` tables
-// of at most `cells` ints each.  nclass ≤ 16.  Returns the first CUDA error
-// that is not cudaSuccess, else 0.
-extern "C" int cooc_cls_gram(const int* codes, const int* labels, int* g,
-                             int* scratch, int16_t* sorted, const int* tasks,
-                             int f, int n, int nbins, int nclass, int wp,
-                             int ntasks, int splits, int copies, int cells,
-                             void* stream) {
+// Adds the gram of n rows into g (zeroed by the caller) on `stream`, each
+// cell (f1, b1, f2, b2) of class c at row c·gmat/wp + lane(f1, b1) and
+// column lane(f2, b2) of the [wp, wp] matrix, and at its mirror, with
+// lane(f, b) = c·cs + f·fs + b·bs.  scratch is 2·nclass int32 (class
+// counts, then cursors), zeroed by the caller; sorted is [f, ns] int16
+// scratch, ns = n rounded up to 8; tasks is the device copy of pair_plan's
+// [ntasks, 6] int32 table, each task run `splits` times over a share of its
+// class's rows with `copies` tables of at most `cells` ints each.
+// nclass ≤ MAX_CLASSES.  Returns the first CUDA error that is not cudaSuccess,
+// else 0.
+extern "C" int cooc_pair_gram(const int* codes, const int* labels, int* g,
+                              int* scratch, int16_t* sorted, const int* tasks,
+                              int f, int n, int nbins, int nclass, int wp,
+                              int ntasks, int splits, int copies, int cells,
+                              int gmat, int cs, int fs, int bs, void* stream) {
   if (n <= 0) return 0;
+  const long long lane_max = (long long)(nclass - 1) * cs +
+                             (long long)(f - 1) * fs +
+                             (long long)(nbins - 1) * bs;
   if (nclass < 1 || nclass > MAX_CLASSES || ntasks < 1 || splits < 1 ||
-      splits > 65535 || copies < 1 || cells < 1 || f * nbins > wp)
+      splits > 65535 || copies < 1 || cells < 1 || f < 1 || nbins < 1 ||
+      cs < 0 || fs < 1 || bs < 1 || lane_max >= wp ||
+      (gmat != 0 && gmat < wp * wp))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* counts = scratch;
   int* cursor = scratch + nclass;
-  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * nclass * sizeof(int), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
 
   const int count_blocks = min((n + SORT_THREADS - 1) / SORT_THREADS, 1024);
   class_count_kernel<<<count_blocks, SORT_THREADS, 0, st>>>(labels, n, nclass,
                                                            counts);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int ns = (n + 7) / 8 * 8;   // sorted's row stride
@@ -287,12 +307,15 @@ extern "C" int cooc_cls_gram(const int* codes, const int* labels, int* g,
   p.counts = counts;
   p.tasks = tasks;
   p.g = g;
-  p.f = f;
   p.ns = ns;
   p.nbins = nbins;
   p.wp = wp;
   p.splits = splits;
   p.copies = copies;
+  p.gmat = gmat;
+  p.cs = cs;
+  p.fs = fs;
+  p.bs = bs;
   const size_t smem = (size_t)copies * cells * sizeof(int);
   err = cudaFuncSetAttribute(pair_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -24,7 +24,8 @@
 //     precede those of range s + 1, so the lower index of a tie stays;
 //   - reference chunks (128 rows × 64 bf16) are double-buffered with
 //     cp.async, so chunk t + 1 loads while chunk t runs the MMAs and, at a
-//     tile's end, the filter;
+//     tile's end, the filter; only the first wc columns are contracted,
+//     the schema's used lanes rounded up to 64 (knn_dot.cuh);
 //   - the block's query rows are resident in shared memory (BM = 32, 16
 //     warps) up to W = 1024, else streamed beside each reference chunk
 //     (BM = 64, 8 warps with a wider warp tile), so that more MMA work
@@ -60,39 +61,12 @@ __host__ __device__ constexpr int threads_for(bool resident) {
 }
 constexpr int SB = knn::KC + knn::KPAD;   // bf16 per staged chunk row
 constexpr int DSTRIDE = knn::BN + 4;      // floats per d² row in shared memory
+constexpr int MERGE_THREADS = 256;  // merge_kernel: a warp per row
 constexpr int MAX_SPLITS = 32;      // lists one merge warp takes (TOPK_MAX_SPLITS in ops/knn.py)
 constexpr float BIG = 3.0e30f;      // empty slot (ops/knn.py's _BIG)
 
 __device__ __forceinline__ bool before(float d, int i, float d2, int i2) {
   return d < d2 || (d == d2 && i < i2);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Start copying `rows` rows of KC bf16 (row stride gstride) into a staged
-// chunk of row stride SB; TT threads.
-template <int TT>
-__device__ __forceinline__ void issue_chunk(__nv_bfloat16* s,
-                                            const __nv_bfloat16* g,
-                                            size_t gstride, int rows) {
-  constexpr int VEC = knn::KC / 8;
-  for (int i = threadIdx.x; i < rows * VEC; i += TT) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    cp_async16(s + r * SB + c, g + r * gstride + c);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A row's sorted list lives in the registers of one warp: slot s = lane +
@@ -228,8 +202,8 @@ template <int BM, bool RESIDENT, int NJ>
 __global__ void __launch_bounds__(threads_for(RESIDENT), RESIDENT ? 1 : 2)
     topk_kernel(const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ b, float* out_d, int* out_i,
-                float* part_d, int* part_i, int m, int n, int w, int kk,
-                int tiles_per) {
+                float* part_d, int* part_i, int m, int n, int w, int wc,
+                int kk, int tiles_per) {
   constexpr int TT = threads_for(RESIDENT);
   constexpr int WARPS = TT / 32;
   constexpr int MI = BM / 16;
@@ -278,13 +252,14 @@ __global__ void __launch_bounds__(threads_for(RESIDENT), RESIDENT ? 1 : 2)
     }
   }
 
-  const int kchunks = w / knn::KC;
+  const int kchunks = wc / knn::KC;   // the contracted columns
   const int nchunks = (t1 - t0) * kchunks;
   auto issue = [&](int j) {
     const int t = t0 + j / kchunks, kc = (j % kchunks) * knn::KC;
-    issue_chunk<TT>(Bs + (j % NS) * BSTAGE, b + (size_t)t * knn::BN * w + kc,
-                    w, knn::BN);
-    if (!RESIDENT) issue_chunk<TT>(Qs + (j % NS) * QSTAGE, ag + kc, w, BM);
+    knn::issue_rows<TT>(Bs + (j % NS) * BSTAGE, SB,
+                        b + (size_t)t * knn::BN * w + kc, w, knn::BN, knn::KC);
+    if (!RESIDENT)
+      knn::issue_rows<TT>(Qs + (j % NS) * QSTAGE, SB, ag + kc, w, BM, knn::KC);
   };
 
   float acc[MI][NI][4];
@@ -297,15 +272,15 @@ __global__ void __launch_bounds__(threads_for(RESIDENT), RESIDENT ? 1 : 2)
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < nchunks) issue(s);
-    cp_async_commit();
+    knn::cp_async_commit();
   }
   for (int j = 0; j < nchunks; ++j) {
-    cp_async_wait<NS - 2>();
+    knn::cp_async_wait<NS - 2>();
     // chunk j (and resident queries) visible to all; every warp is done
     // with chunk j − 1, whose stage chunk j + NS − 1 now takes
     __syncthreads();
     if (j + NS - 1 < nchunks) issue(j + NS - 1);
-    cp_async_commit();
+    knn::cp_async_commit();
     const int kc = (j % kchunks) * knn::KC;
     const __nv_bfloat16* bs = Bs + (j % NS) * BSTAGE;
     if (RESIDENT)
@@ -384,11 +359,11 @@ __global__ void __launch_bounds__(threads_for(RESIDENT), RESIDENT ? 1 : 2)
 
 // One warp per query row: the kk smallest by (d², index) of the row's S
 // sorted lists [S, m, kk]; lane s holds the head of list s.
-__global__ void __launch_bounds__(knn::THREADS)
+__global__ void __launch_bounds__(MERGE_THREADS)
     merge_kernel(const float* __restrict__ part_d,
                  const int* __restrict__ part_i, float* out_d, int* out_i,
                  int m, int kk, int splits) {
-  const int row = blockIdx.x * (knn::THREADS / 32) + threadIdx.x / 32;
+  const int row = blockIdx.x * (MERGE_THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= m) return;                       // the whole warp together
   const size_t base = ((size_t)lane * m + row) * kk;
@@ -463,8 +438,8 @@ int occupancy(int w) {
 
 template <int BM, bool RESIDENT, int NJ>
 int launch(const void* a, const void* b, float* out_d, int* out_i,
-           float* part_d, int* part_i, int m, int n, int w, int kk,
-           int splits, int tiles_per, cudaStream_t st) {
+           float* part_d, int* part_i, int m, int n, int w, int wc,
+           int kk, int splits, int tiles_per, cudaStream_t st) {
   auto kernel = topk_kernel<BM, RESIDENT, NJ>;
   size_t smem = 0;
   cudaError_t err = prepare<BM, RESIDENT, NJ>(w, &smem);
@@ -472,29 +447,29 @@ int launch(const void* a, const void* b, float* out_d, int* out_i,
   kernel<<<dim3(m / BM, splits), threads_for(RESIDENT), smem, st>>>(
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), out_d, out_i, part_d, part_i, m,
-      n, w, kk, tiles_per);
+      n, w, wc, kk, tiles_per);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  constexpr int ROWS = knn::THREADS / 32;
-  merge_kernel<<<(m + ROWS - 1) / ROWS, knn::THREADS, 0, st>>>(
+  constexpr int ROWS = MERGE_THREADS / 32;
+  merge_kernel<<<(m + ROWS - 1) / ROWS, MERGE_THREADS, 0, st>>>(
       part_d, part_i, out_d, out_i, m, kk, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, bool RESIDENT>
 int launch_kk(const void* a, const void* b, float* out_d, int* out_i,
-              float* part_d, int* part_i, int m, int n, int w, int kk,
-              int splits, int tiles_per, cudaStream_t st) {
+              float* part_d, int* part_i, int m, int n, int w, int wc,
+              int kk, int splits, int tiles_per, cudaStream_t st) {
   if (m % BM) return cudaErrorInvalidValue;
   // list registers per lane: a power of two, for the bitonic network
   if (kk <= 32)
     return launch<BM, RESIDENT, 1>(a, b, out_d, out_i, part_d, part_i, m, n,
-                                   w, kk, splits, tiles_per, st);
+                                   w, wc, kk, splits, tiles_per, st);
   if (kk <= 64)
     return launch<BM, RESIDENT, 2>(a, b, out_d, out_i, part_d, part_i, m, n,
-                                   w, kk, splits, tiles_per, st);
+                                   w, wc, kk, splits, tiles_per, st);
   return launch<BM, RESIDENT, 4>(a, b, out_d, out_i, part_d, part_i, m, n, w,
-                                 kk, splits, tiles_per, st);
+                                 wc, kk, splits, tiles_per, st);
 }
 
 template <int BM, bool RESIDENT>
@@ -520,21 +495,23 @@ extern "C" int knn_topk_blocks_per_sm(int w, int kk) {
 }
 
 // Writes out_d [m, 128] float32 and out_i [m, 128] int32 for a [m, w] and
-// b [n, w] bf16 on `stream`.  The 128-row reference tiles are cut into
-// `splits` ranges of tiles_per tiles (the last may be shorter); where
-// splits > 1, part_d / part_i are [splits, m, kk] scratch for the ranges'
-// lists, which a second kernel merges.  Requires m a multiple of
-// knn_topk_rows_per_block(w), n % 128 == 0, w % 64 == 0, 1 ≤ kk ≤ 128 and
-// 1 ≤ splits ≤ 32 with (splits − 1)·tiles_per < n / 128 ≤
-// splits·tiles_per.  Returns the first CUDA error that is not cudaSuccess,
-// else 0.
+// b [n, w] bf16 on `stream`, contracting the first wc columns (those past
+// the schema's used lanes are zero in both operands).  The 128-row
+// reference tiles are cut into `splits` ranges of tiles_per tiles (the last
+// may be shorter); where splits > 1, part_d / part_i are [splits, m, kk]
+// scratch for the ranges' lists, which a second kernel merges.  Requires m
+// a multiple of knn_topk_rows_per_block(w), n % 128 == 0, w % 64 == 0,
+// wc % 64 == 0 with 0 < wc ≤ w, 1 ≤ kk ≤ 128 and 1 ≤ splits ≤ 32 with
+// (splits − 1)·tiles_per < n / 128 ≤ splits·tiles_per.  Returns the first
+// CUDA error that is not cudaSuccess, else 0.
 extern "C" int knn_topk(const void* a, const void* b, float* out_d,
                         int* out_i, float* part_d, int* part_i, int m, int n,
-                        int w, int kk, int splits, int tiles_per,
+                        int w, int wc, int kk, int splits, int tiles_per,
                         void* stream) {
   if (m <= 0) return 0;
   const int tiles = n / knn::BN;
-  if (n <= 0 || n % knn::BN || w <= 0 || w % knn::KC || kk < 1 ||
+  if (n <= 0 || n % knn::BN || w <= 0 || w % knn::KC || wc <= 0 ||
+      wc % knn::KC || wc > w || kk < 1 ||
       kk > SLOTS || splits < 1 || splits > MAX_SPLITS || tiles_per < 1 ||
       (long long)(splits - 1) * tiles_per >= tiles ||
       (long long)splits * tiles_per < tiles ||
@@ -543,7 +520,7 @@ extern "C" int knn_topk(const void* a, const void* b, float* out_d,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (topk_resident(w))
     return launch_kk<32, true>(a, b, out_d, out_i, part_d, part_i, m, n, w,
-                               kk, splits, tiles_per, st);
+                               wc, kk, splits, tiles_per, st);
   return launch_kk<64, false>(a, b, out_d, out_i, part_d, part_i, m, n, w,
-                              kk, splits, tiles_per, st);
+                              wc, kk, splits, tiles_per, st);
 }

@@ -11,11 +11,12 @@ and its read-out mean the same in both packages.
 Wrappers of the hand-written CUDA kernels, each with its plain PyTorch
 version beside it:
 
-- :func:`cooc_counts_cols` → ``csrc/cooc.cu`` in the fmaj and jmaj modes
-  (replaces ``pallas_hist.py:283 _cooc_kernel``, B1) and ``csrc/cooc_cls.cu``
-  in the per-class modes cls and clsb (replaces ``:333 _cooc_cls_kernel``
-  and ``:365 _cooc_clsb_kernel``, B2 and B3: a pair histogram in shared
-  memory over the tasks of :func:`pair_plan`); plain version
+- :func:`cooc_counts_cols` → ``csrc/cooc_pair.cu`` in every plan mode: a
+  pair histogram in shared memory over the tasks of :func:`pair_plan`,
+  stored into G through the affine map of :func:`pair_layout` (replaces
+  ``pallas_hist.py:283 _cooc_kernel`` in the fmaj and jmaj modes, B1, and
+  ``:333 _cooc_cls_kernel`` and ``:365 _cooc_clsb_kernel`` in the per-class
+  modes cls and clsb, B2 and B3); plain version
   :func:`cooc_counts_cols_ref`;
 - :func:`cross_cooc_counts_cols` → ``csrc/cross.cu`` (replaces ``:484
   _cross_kernel``, B4), the decision tree's level table; plain version
@@ -29,6 +30,7 @@ the per-class modes ``cls_launches`` / ``clsb_launches``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -64,6 +66,7 @@ def _ru(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+@functools.lru_cache(maxsize=1024)
 def plan(num_feat: int, num_bins: int, num_classes: int):
     """Static layout plan → (mode, jcp, wp).
 
@@ -252,13 +255,6 @@ def _check_operands(codes_t: torch.Tensor, vec: torch.Tensor,
                          f"{vec.device}")
 
 
-def _splits(device: torch.device, ntiles: int, n: int) -> int:
-    """Row ranges to spread over: about eight blocks per SM in all."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    pairs = ntiles * (ntiles + 1) // 2
-    return max(1, min(-(-8 * sms // pairs), -(-n // 128)))
-
-
 def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
                      num_bins: int, num_classes: int) -> torch.Tensor:
     """codes_t [F, N] int32 (columnar), labels [N] int32 → G int32
@@ -266,10 +262,10 @@ def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
     [C, wp, wp] in the per-class modes.
 
     G[w1, w2] = #rows whose feature f1 falls in (b1, c) and f2 in (b2, c):
-    all NB/MI count tables at once.  On CUDA this launches ``csrc/cooc.cu``
-    (fmaj/jmaj, counted in ``cooc_counts_cols.launches``) or
-    ``csrc/cooc_cls.cu`` (cls/clsb, counted in ``cls_launches`` /
-    ``clsb_launches``); on the CPU it runs :func:`cooc_counts_cols_ref`."""
+    all NB/MI count tables at once.  On CUDA this launches
+    ``csrc/cooc_pair.cu``, counted in ``cooc_counts_cols.launches`` (fmaj,
+    jmaj: B1), ``cls_launches`` (B2) or ``clsb_launches`` (B3); on the CPU
+    it runs :func:`cooc_counts_cols_ref`."""
     _check_operands(codes_t, labels)
     check_chunk(codes_t.shape[1])
     f, n = codes_t.shape
@@ -278,31 +274,79 @@ def cooc_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
         return cooc_counts_cols_ref(codes_t, labels, num_bins, num_classes)
     if dev.type != "cuda":
         raise ValueError(f"cooc_counts_cols takes CPU or CUDA tensors, got {dev}")
-    mode, jcp, wp = plan(f, num_bins, num_classes)
     if not applicable(f, num_bins, num_classes):
         raise ValueError(f"shape F={f} B={num_bins} C={num_classes} is "
-                         f"outside the gram kernels' gates (wp {wp} > {MAX_W})")
+                         f"outside the gram kernels' gates (wp "
+                         f"{plan(f, num_bins, num_classes)[2]} > {MAX_W})")
     if not (codes_t.is_contiguous() and labels.is_contiguous()):
         raise ValueError("cooc_counts_cols needs contiguous codes_t and labels")
-    if mode in ("cls", "clsb"):
-        return _cooc_cls(codes_t, labels, num_bins, num_classes, mode, wp)
-    g = torch.zeros((wp, wp), dtype=torch.int32, device=dev)
-    if n == 0:
-        return g
-    lib = _kernel("cooc")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cooc_gram(codes_t.data_ptr(), labels.data_ptr(), g.data_ptr(),
-                            f, n, num_bins, num_classes, jcp, wp,
-                            int(mode == "fmaj"), _splits(dev, wp // 64, n),
-                            stream)
+    with _on_device(dev):
+        shape, tasks, args, counter = _pair_launch(f, num_bins, num_classes,
+                                                   n, dev.index)
+        cells = math.prod(shape)
+        # one allocation, zeroed by one fill: G and, after it, the 2·C int32
+        # class counts and cursors of the sort
+        buf = torch.zeros(cells + 2 * num_classes, dtype=torch.int32,
+                          device=dev)
+        g = buf[:cells].view(shape)
+        if n == 0:
+            return g
+        sorted_codes = torch.empty(f * _ru(n, 8), dtype=torch.int16,
+                                   device=dev)
+        err = _kernel("cooc_pair").cooc_pair_gram(
+            codes_t.data_ptr(), labels.data_ptr(), buf.data_ptr(),
+            buf.data_ptr() + 4 * cells, sorted_codes.data_ptr(),
+            tasks.data_ptr(), *args, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"cooc_gram launch failed with CUDA error {err}")
-    cooc_counts_cols.launches += 1
+        raise RuntimeError(f"cooc_pair_gram launch failed with CUDA error {err}")
+    setattr(cooc_counts_cols, counter, getattr(cooc_counts_cols, counter) + 1)
     return g
 
 
-# the pair pass of the per-class modes (csrc/cooc_cls.cu): tasks of one
+def _on_device(dev: torch.device):
+    """The context that makes ``dev`` the current CUDA device for a launch:
+    none where it is current already (a chunk's host work counts in its
+    time on the card, the card waiting)."""
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+@functools.lru_cache(maxsize=256)
+def _pair_launch(num_feat: int, num_bins: int, num_classes: int, n: int,
+                 index: int):
+    """What a launch of the pair pass on CUDA device ``index`` (the
+    current device) takes from the shape and row count alone → (G's shape,
+    the device task table, the C entry's int arguments, the launch
+    counter's name).  Cached, so that a chunk's host work is the
+    allocations and the call."""
+    mode, jcp, wp = plan(num_feat, num_bins, num_classes)
+    limits = _pair_device(index)
+    pp = pair_plan(num_feat, num_bins, num_classes, n, *limits)
+    tasks = _pair_tasks(num_feat, num_bins, num_classes, *limits,
+                        torch.device("cuda", index))
+    shape = ((num_classes, wp, wp) if mode in ("cls", "clsb") else (wp, wp))
+    args = (num_feat, n, num_bins, num_classes, wp, len(pp.tasks), pp.splits,
+            pp.copies, pp.cells,
+            *pair_layout(mode, num_feat, num_bins, num_classes, jcp, wp))
+    counter = {"cls": "cls_launches", "clsb": "clsb_launches"}.get(
+        mode, "launches")
+    return shape, tasks, args, counter
+
+
+def pair_layout(mode: str, num_feat: int, num_bins: int, num_classes: int,
+                jcp: int, wp: int) -> Tuple[int, int, int, int]:
+    """The store map of the pair pass for a :func:`plan` layout → (gmat,
+    cs, fs, bs): cell (f, b) of class c lies in G's matrix c (offset
+    c·gmat int32) at lane c·cs + f·fs + b·bs, which is :func:`w_index`."""
+    if mode in ("cls", "clsb"):
+        return wp * wp, 0, 1, num_feat           # w = b·F + f, per class
+    if mode == "fmaj":
+        return 0, 1, jcp, num_classes            # w = f·jcp + b·C + c
+    return 0, num_feat, 1, num_classes * num_feat  # w = (b·C + c)·F + f
+
+
+# the pair pass (csrc/cooc_pair.cu): tasks of one
 # class, one feature f1, a run of f2 ≥ f1 and a band of f1's bins, each an
 # int32 table [run, band, B + (8 − B) mod 32] in shared memory (a row
 # stride ≡ 8 mod 32, which spreads a warp's cells over the banks)
@@ -361,7 +405,7 @@ def pair_plan(num_feat: int, num_bins: int, num_classes: int, n: int,
 def _pair_device(index: int) -> Tuple[int, int]:
     """(shared memory per block, SMs) of CUDA device ``index``, which the
     caller has made the current device."""
-    return (_kernel("cooc_cls").cooc_cls_smem_limit(),
+    return (_kernel("cooc_pair").cooc_pair_smem_limit(),
             torch.cuda.get_device_properties(index).multi_processor_count)
 
 
@@ -374,41 +418,6 @@ def _pair_tasks(num_feat: int, num_bins: int, num_classes: int,
     return torch.from_numpy(pp.tasks).to(dev)
 
 
-def _cooc_cls(codes_t: torch.Tensor, labels: torch.Tensor, num_bins: int,
-              num_classes: int, mode: str, wp: int) -> torch.Tensor:
-    """The per-class modes on CUDA: ``csrc/cooc_cls.cu`` (B2 for cls, B3
-    for clsb) → G [C, wp, wp] int32."""
-    f, n = codes_t.shape
-    dev = codes_t.device
-    g = torch.zeros((num_classes, wp, wp), dtype=torch.int32, device=dev)
-    if n == 0:
-        return g
-    lib = _kernel("cooc_cls")
-    # one allocation: the class-sorted int16 codes [F, ns] and, after them,
-    # the 2·C int32 class counts and cursors (the kernel zeroes those)
-    ns = _ru(n, 8)
-    sorted_codes = torch.empty(f * ns + 4 * num_classes, dtype=torch.int16,
-                               device=dev)
-    scratch = sorted_codes.data_ptr() + 2 * f * ns
-    with torch.cuda.device(dev):
-        limits = _pair_device(dev.index)
-        pp = pair_plan(f, num_bins, num_classes, n, *limits)
-        tasks = _pair_tasks(f, num_bins, num_classes, *limits, dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cooc_cls_gram(
-            codes_t.data_ptr(), labels.data_ptr(), g.data_ptr(),
-            scratch, sorted_codes.data_ptr(), tasks.data_ptr(), f,
-            n, num_bins, num_classes, wp, len(pp.tasks), pp.splits, pp.copies,
-            pp.cells, stream)
-    if err:
-        raise RuntimeError(f"cooc_cls_gram launch failed with CUDA error {err}")
-    if mode == "cls":
-        cooc_counts_cols.cls_launches += 1
-    else:
-        cooc_counts_cols.clsb_launches += 1
-    return g
-
-
 cooc_counts_cols.launches = 0          # B1 (fmaj, jmaj)
 cooc_counts_cols.cls_launches = 0      # B2
 cooc_counts_cols.clsb_launches = 0     # B3
@@ -416,11 +425,9 @@ cooc_counts_cols.clsb_launches = 0     # B3
 # each kernel's C entry point and its argument types: pointers (and the
 # stream) as c_void_p, ints as c_int
 _ENTRY = {
-    "cooc": {"cooc_gram": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p]},
-    "cooc_cls": {"cooc_cls_gram": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
-                 + [ctypes.c_void_p],
-                 "cooc_cls_smem_limit": []},
+    "cooc_pair": {"cooc_pair_gram": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+                  + [ctypes.c_void_p],
+                  "cooc_pair_smem_limit": []},
     "cross": {"cross_counts": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
               + [ctypes.c_void_p]},
 }

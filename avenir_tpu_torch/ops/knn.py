@@ -104,6 +104,24 @@ def _width(f: int, num_bins: int, fc: int) -> int:
     return _round_up(max(f * num_bins + 6 * fc + 6, 1), 128)
 
 
+def used_lanes(f: int, num_bins: int, fc: int) -> int:
+    """Columns of the packed operands that can be non-zero, :func:`_width`'s
+    terms before its padding: F·B one-hot lanes, six limb groups of Fc
+    and six norm columns.  Every column past them is zero in both
+    operands."""
+    return f * num_bins + 6 * fc + 6
+
+
+def contraction_width(w: int, used: Optional[int]) -> int:
+    """The columns a kernel contracts of operands W wide: ``used`` rounded
+    up to the kernels' 64-column chunk, at most W (all of W where ``used``
+    is None).  The skipped columns are zero in both operands, so they add
+    exact zeros to every d²."""
+    if used is None:
+        return w
+    return min(w, _round_up(max(used, 1), 64))
+
+
 def _pack(codes: np.ndarray, cont01: np.ndarray, num_bins: int,
           rows: int, is_ref: bool, extra_norm) -> torch.Tensor:
     """Build the packed bf16 operand matrix (see module doc for layout) on
@@ -315,14 +333,15 @@ def knn_tourney_ref(a: torch.Tensor, b: torch.Tensor
     return out[0], out[1], out[2]
 
 
-def knn_tourney(a: torch.Tensor, b: torch.Tensor
+def knn_tourney(a: torch.Tensor, b: torch.Tensor, used: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """a [Mpad, W] bf16 queries (Mpad a multiple of TM), b [Npad, W] bf16
     references (Npad a multiple of SEG) → (k1, k2, k3) [Mpad, nbp] int32:
     for every query row and 2048-row reference segment the two smallest
     keys ``(bits(max(d², 0)) & ~2047) | column`` and the third smallest,
     nbp = round_up(Npad / 2048, 128); lanes past the segments hold
-    ``_PAD_KEY``.
+    ``_PAD_KEY``.  ``used`` is the operands' :func:`used_lanes`: the kernel
+    contracts only :func:`contraction_width` columns (all W where None).
 
     On CUDA this launches ``csrc/knn_tourney.cu`` (B5, counted in
     ``knn_tourney.launches``); on the CPU it runs :func:`knn_tourney_ref`."""
@@ -332,8 +351,7 @@ def knn_tourney(a: torch.Tensor, b: torch.Tensor
     _check_cuda(a, b, "knn_tourney", TM, SEG)
     m, n = a.shape[0], b.shape[0]
     nbp = _round_up(max(n // SEG, 1), 128)
-    out = [torch.full((m, nbp), _PAD_KEY, dtype=torch.int32, device=a.device)
-           for _ in range(3)]
+    out = torch.full((3, m, nbp), _PAD_KEY, dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out[0], out[1], out[2]
     lib = _kernel("knn_tourney")
@@ -341,13 +359,17 @@ def knn_tourney(a: torch.Tensor, b: torch.Tensor
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.knn_tourney(a.data_ptr(), b.data_ptr(), out[0].data_ptr(),
                               out[1].data_ptr(), out[2].data_ptr(), m, n,
-                              a.shape[1], nbp, stream)
+                              a.shape[1], contraction_width(a.shape[1], used),
+                              nbp, TOURNEY_KERNEL, stream)
     if err:
         raise RuntimeError(f"knn_tourney launch failed with CUDA error {err}")
     knn_tourney.launches += 1
     return out[0], out[1], out[2]
 
 
+# the variant of csrc/knn_tourney.cu that is the kernel; the others are the
+# decomposition probe's (probes.knn_tourney_probe)
+TOURNEY_KERNEL = 2
 knn_tourney.launches = 0               # B5
 
 
@@ -429,11 +451,13 @@ def topk_splits(m: int, n: int, kk: int, rows_per_block: int, slots: int,
 
 
 def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int,
-             splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+             splits: Optional[int] = None, used: Optional[int] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """a [Mpad, W] bf16 queries (Mpad a multiple of TM), b [Npad, W] bf16
     references (Npad a multiple of TN) → (d² [Mpad, SLOTS] float32, idx
     [Mpad, SLOTS] int32): per row the kk ≤ SLOTS smallest by (d², reference
-    index), ascending; slots ≥ kk hold ``_BIG`` / −1.
+    index), ascending; slots ≥ kk hold ``_BIG`` / −1.  ``used`` is the
+    operands' :func:`used_lanes`, as for :func:`knn_tourney`.
 
     On CUDA this launches ``csrc/knn_topk.cu`` (B6, counted in
     ``knn_topk.launches``) over the reference ranges of
@@ -464,7 +488,9 @@ def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int,
         err = lib.knn_topk(a.data_ptr(), b.data_ptr(), out_d.data_ptr(),
                            out_i.data_ptr(), part if s > 1 else None,
                            part + 4 * s * m * kk if s > 1 else None,
-                           m, n, a.shape[1], kk, s, per, stream)
+                           m, n, a.shape[1],
+                           contraction_width(a.shape[1], used), kk, s, per,
+                           stream)
     if err:
         raise RuntimeError(f"knn_topk launch failed with CUDA error {err}")
     knn_topk.launches += 1
@@ -487,9 +513,9 @@ def _topk_geometry(index: int, w: int, kk: int) -> Tuple[int, int]:
 # each kernel's C entry points and their argument types: pointers (and the
 # stream) as c_void_p, ints as c_int
 _ENTRY = {
-    "knn_tourney": {"knn_tourney": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+    "knn_tourney": {"knn_tourney": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p]},
-    "knn_topk": {"knn_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    "knn_topk": {"knn_topk": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                  + [ctypes.c_void_p],
                  "knn_topk_rows_per_block": [ctypes.c_int],
                  "knn_topk_blocks_per_sm": [ctypes.c_int] * 2},
@@ -666,10 +692,11 @@ def search(codes_q: torch.Tensor, cont01_q: torch.Tensor, r_mat: torch.Tensor,
     kk = min(k + margin, SLOTS)
     rows = _round_up(max(m, TM), TM)
     q_mat = _pack_queries_dev(codes_q, cont01_q, num_bins, rows, float(f))
+    used = used_lanes(f, num_bins, cont01_q.shape[1])
     if use_tourney(n_real, r_mat.shape[0], kk):
-        out = knn_tourney(q_mat, r_mat)
+        out = knn_tourney(q_mat, r_mat, used=used)
     else:
-        out = knn_topk(q_mat, r_mat, kk)
+        out = knn_topk(q_mat, r_mat, kk, used=used)
     return finish(codes_q, cont01_q, codes_r, cont01_r, n_real,
                   assemble(out, m, kk), k, total_attrs)
 

@@ -6,23 +6,25 @@
 Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels ``avenir_tpu_torch/csrc/{cooc,cooc_cls,cross,knn_tourney,
-   knn_topk}.cu`` (one nvcc each, all started together), printing each
+   kernels ``avenir_tpu_torch/csrc/{cooc_pair,cross,knn_tourney,knn_topk,
+   gram_probe}.cu`` (one nvcc each, all started together), printing each
    build time and ptxas report;
 2. hold each count kernel against its plain PyTorch version on the card —
    exact int equality — and time the kernel, the plain version and a
-   library yardstick the port never calls, with CUDA events:
-   - B1 (cooc.cu): the hospital-readmission shape 11 × 12 × 2 at 16M rows
-     and the main path's 10 × 13 × 2 chunk, a jmaj shape (20 × 3 × 2) at 1M
-     rows, a ragged row count with invalid codes and labels, and zero rows
-     (yardstick: ``torch._int_mm`` on a materialized int8 one-hot);
-   - B2 (cooc_cls.cu, cls): 20 × 20 × 2 at 4M rows and at the main path's
-     250K-row chunk, ragged/invalid, zero rows, and skewed (95% of codes
-     in one bin) at 1M rows; B3 (cooc_cls.cu, clsb): 100 × 20 × 2 at 1M
-     rows, ragged/invalid, zero rows, skewed at 1M rows, and 2 × 3072 × 2
-     at 100K rows, whose 3072 × 3072 pair table exceeds shared memory
-     (yardstick: one ``torch._int_mm`` per class on its materialized int8
-     one-hot);
+   library yardstick the port never calls, with CUDA events; B1, B2 and B3
+   are the pair histogram of cooc_pair.cu in the four layouts of plan():
+   - B1 (fmaj, jmaj): the hospital-readmission shape 11 × 12 × 2 at 16M
+     rows and the main path's 10 × 13 × 2 chunk, jmaj 20 × 3 × 2 at 1M
+     rows, the wide tree's K = 1 shape 30 × 8 × 2 (jmaj) at 1M rows, ragged
+     row counts with invalid codes and labels in fmaj and jmaj, skewed
+     (95% of codes in one bin) fmaj and jmaj at 1M rows, and zero rows in
+     both (yardstick: ``torch._int_mm`` on a materialized int8 one-hot);
+   - B2 (cls): 20 × 20 × 2 at 4M rows and at the main path's 250K-row
+     chunk, ragged/invalid, zero rows, and skewed at 1M rows; B3 (clsb):
+     100 × 20 × 2 at 1M rows, ragged/invalid, zero rows, skewed at 1M
+     rows, and 2 × 3072 × 2 at 100K rows, whose 3072 × 3072 pair table
+     exceeds shared memory (yardstick: one ``torch._int_mm`` per class on
+     its materialized int8 one-hot);
    - B4 (cross.cu): 10 × 13 at 1M rows with 2, 18 and 54 selectors,
      1024 selectors (the gate), ragged with invalid codes and selectors,
      zero rows (yardstick: one ``torch.bincount`` over the composite index
@@ -54,8 +56,11 @@ Phases, in order; any failure exits non-zero:
 7. the kNN kernels against their plain versions, timed likewise
    (yardstick: cuBLAS's bf16 A·Bᵀ per 16,384-row block with
    ``torch.topk(3)`` per 2048-row segment for B5, ``torch.topk(kk)`` per
-   row for B6): B5 on categorical 6 × 10 data at 4,096 × 262,144 refs
-   (keys bit-equal: every d² is an integer sum), at the knn_qps shape
+   row for B6), each kernel handed the schema's used lanes as the search
+   hands them: B5 on categorical 6 × 10 data at 4,096 × 262,144 refs
+   (keys bit-equal: every d² is an integer sum), B5 and B6 on categorical
+   5 × 10, whose 56 used lanes let them contract 64 of W = 128 columns
+   (bit-equal to the plain version over all 128), at the knn_qps shape
    (6 × 10 + 8 continuous, 4,096 × 1M; keys within KEY_TOL + one
    truncation step, assembled re-ranked results and certificates equal)
    and with a short last block; B6 on categorical and mixed data at
@@ -77,14 +82,27 @@ Phases, in order; any failure exits non-zero:
    a float64 oracle on its first 256 rows.  Each prints its launch counts
    and how many rows failed the certificate and went to the exact scan;
 9. B5 and B6 again on every call the kNN paths made on ``cuda``, held
-   against their plain versions; the first of each path and shape timed,
-   its bound over the used lanes and real rows read from the model and
-   test set the path ran;
-10. print the kernels' JSON line, its numbers from the main-path cases of
+   against their plain versions with the used lanes the search handed
+   them (which must be the schema's); the first of each path and shape
+   timed, its bound over the used lanes and real rows read from the model
+   and test set the path ran;
+10. the three TPU probes' counterparts (``avenir_tpu_torch/probes.py``),
+    one JSON line each: B5 in its variants ``dotonly``, ``dotkey``,
+    ``full`` and ``full_insert`` at 4,096 × 1M refs on the elearn (w 60)
+    and knn_qps (w 114) schemas; the one-hot MMA gram of
+    ``csrc/gram_probe.cu`` (B1's kernel before the pair histogram),
+    ``full`` and ``dotonly``, beside the pair histogram (``pair``) at a
+    hospital MI chunk, the wide tree's K = 1 shape and 11 × 12 × 2 at 16M
+    rows; its int8 ``mma.sync`` stage on X staged from [N, W] (``rows``)
+    and [W, N] (``cols``) at W 384, 16M rows.  Each full variant is held
+    against its plain version, with the plain version's time, a library
+    yardstick and the bound beside it;
+11. print the kernels' JSON line, its numbers from the main-path cases of
     phases 6 and 9 (B1: a hospital MI chunk; B2: a 20 × 20 × 2 MI chunk;
     B3: the wide tree's K = 8 level; B4: the hospital tree's deepest level;
     B5: the 1M-row NearestNeighbor job; B6: the 10K-row NearestNeighbor
-    job), then the last line ``{"ok": true, "device": {...}}``.
+    job) and one entry per probe (``launches`` 0: no path runs them), then
+    the last line ``{"ok": true, "device": {...}}``.
 
 Bounds: B1–B3 count the work their inputs need, a sparse product — codes
 and labels read once, G written once, over the memory rate — with the
@@ -130,7 +148,7 @@ KNN_K = 10
 DIST_TOL = 1e-6          # distances of rows the exact scan served
 PAD_D2 = 1e29            # d² of a pad reference (ops/knn.py's _PADC, 1e30)
 KEY_TOL = 1e-5           # |Δd²| of two float32 summation orders (B5, B6)
-KERNEL_SOURCES = ("cooc", "cooc_cls", "cross", "knn_tourney", "knn_topk")
+KERNEL_SOURCES = ("cooc_pair", "cross", "knn_tourney", "knn_topk", "gram_probe")
 # launch counts: kernel id → (ops module, wrapper, attribute)
 COUNTS = {"B1": ("hist", "cooc_counts_cols", "launches"),
           "B2": ("hist", "cooc_counts_cols", "cls_launches"),
@@ -156,21 +174,11 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median per-call ms over ``iters`` calls, each bracketed by CUDA events."""
-    import torch
+    """Median per-call ms over ``iters`` calls, each bracketed by CUDA
+    events (``avenir_tpu_torch.probes.time_ms``)."""
+    from avenir_tpu_torch.probes import time_ms as probe_time_ms
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return probe_time_ms(fn, iters, warmup)
 
 
 def make_case(n, f, b, c, invalid, seed, skew=0.0):
@@ -226,20 +234,36 @@ def kernel_cases(hist):
     import torch
 
     cases = [
-        ("hospital 16M rows (fmaj, wp 384)", 16_000_000, 11, 12, 2, False),
+        ("hospital 16M rows (fmaj, wp 384)", 16_000_000, 11, 12, 2, False, 0.0),
         # the CSV job's own shape (10 binned features × 13 bins × 2 classes,
         # also fmaj, wp 384) at the chunk the main path hands the kernel
         ("10x13x2 at 250K rows (fmaj, wp 384)", CHUNK_ROWS, 10, 13, 2,
-         False),
-        ("jmaj 20x3x2, 1M rows (wp 128)", 1 << 20, 20, 3, 2, False),
-        ("ragged 100003 rows, invalid codes and labels", 100_003, 11, 12, 2, True),
-        ("zero rows", 0, 11, 12, 2, False),
+         False, 0.0),
+        ("jmaj 20x3x2, 1M rows (wp 128)", 1 << 20, 20, 3, 2, False, 0.0),
+        # the wide tree's K = 1 level (30 features × 8 bins × 2 classes)
+        ("wide tree K = 1 shape 30x8x2, 1M rows (jmaj, wp 512)", 1_000_000,
+         30, 8, 2, False, 0.0),
+        ("ragged 100003 rows, invalid codes and labels", 100_003, 11, 12, 2,
+         True, 0.0),
+        ("jmaj 20x3x2 ragged 100003 rows, invalid codes and labels",
+         100_003, 20, 3, 2, True, 0.0),
+        ("skewed 10x13x2, 95% in one bin, 1M rows (fmaj)", 1_000_000, 10,
+         13, 2, True, 0.95),
+        ("skewed 30x8x2, 95% in one bin, 1M rows (jmaj)", 1_000_000, 30, 8,
+         2, True, 0.95),
+        ("zero rows", 0, 11, 12, 2, False, 0.0),
+        ("jmaj zero rows", 0, 20, 3, 2, False, 0.0),
     ]
     results = []
-    for i, (label, n, f, b, c, invalid) in enumerate(cases):
-        codes, labels = make_case(n, f, b, c, invalid, seed=i)
+    for i, (label, n, f, b, c, invalid, skew) in enumerate(cases):
+        codes, labels = make_case(n, f, b, c, invalid, seed=i, skew=skew)
         mode, jcp, wp = hist.plan(f, b, c)
+        assert mode in ("fmaj", "jmaj"), (label, mode)
+        reset_counts()
         g = hist.cooc_counts_cols(codes, labels, b, c)
+        if read_counts() != only(B1=1 if n else 0):
+            raise AssertionError(f"B1 did not launch once on {label}: "
+                                 f"{read_counts()}")
         ref = hist.cooc_counts_cols_ref(codes, labels, b, c)
         torch.cuda.synchronize()
         err = int((g.long() - ref.long()).abs().max()) if g.numel() else 0
@@ -262,7 +286,7 @@ def kernel_cases(hist):
             library_ms = time_ms(call, iters=5 if big else 20)
             del keep, lib_g
         row = {"kernel": "B1", "case": label, "n": n, "f": f, "b": b, "c": c,
-               "mode": mode,
+               "mode": mode, "skew": skew,
                "wp": wp, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                **gram_bound(f, n, wp * wp, f * b * c, n)}
@@ -332,9 +356,9 @@ class Recorder:
 
         def shim(name, fn):
             @functools.wraps(fn)
-            def call(*args):
-                self.calls.append((name, path, args))
-                return fn(*args)
+            def call(*args, **kwargs):
+                self.calls.append((name, path, args, kwargs))
+                return fn(*args, **kwargs)
             return call
 
         for (mod, name), fn in saved.items():
@@ -874,7 +898,7 @@ def path_cases(hist, rec: Recorder) -> list:
     import torch
 
     results, timed, seen = [], set(), {}
-    for name, path, args in rec.calls:
+    for name, path, args, _kwargs in rec.calls:
         if name not in ("cooc_counts_cols", "cross_cooc_counts_cols"):
             continue
         codes, vec, b, k = args
@@ -967,7 +991,7 @@ def knn_data(n, m, f, fc, nb, seed, dup=1):
     return (q_mat.to(dev), r_mat.to(dev), n_real,
             torch.from_numpy(codes_q).to(dev), torch.from_numpy(cq01).to(dev),
             torch.from_numpy(codes_r).to(dev), torch.from_numpy(cr01).to(dev),
-            f * nb + 6 * fc + 6)
+            tk.used_lanes(f, nb, fc))
 
 
 def knn_bound(kid, q, r, m, n, w_used):
@@ -1107,6 +1131,11 @@ def knn_cases():
 
     cases = [
         ("B5", "categorical 6x10, 4096 x 262144 refs", 262_144, 6, 0, 18, 1),
+        # 5 × 10 + 6 = 56 used lanes: the kernel contracts 64 of W = 128
+        ("B5", "categorical 5x10 (contracted 64 of W 128), 4096 x 262144 refs",
+         262_144, 5, 0, 18, 1),
+        ("B6", "categorical 5x10 (contracted 64 of W 128), 4096 x 16384 refs, "
+         "kk 18", 16_384, 5, 0, 18, 1),
         ("B5", "knn_qps shape 6x10 + 8 continuous, 4096 x 1M refs",
          KNN_REFS, 6, 8, 18, 1),
         ("B5", "short last block, n = 8*2048 + 1 (4x6 + 3 continuous)",
@@ -1136,8 +1165,9 @@ def knn_cases():
         q, r, n_real, cq, xq, cr, xr, w_used = knn_data(
             n, m, f, fc, 10, seed=300 + i, dup=dup)
         reset_counts()
+        wc = tk.contraction_width(q.shape[1], w_used)
         if kid == "B5":
-            got = tk.knn_tourney(q, r)
+            got = tk.knn_tourney(q, r, used=w_used)
             want = tk.knn_tourney_ref(q, r)
             torch.cuda.synchronize()
             differ, swapped, err = check_tourney(q, r, got, want, label)
@@ -1154,17 +1184,18 @@ def knn_cases():
                         raise AssertionError(f"B5 search results differ on "
                                              f"{label}")
                 row["certified"] = int(res[0][2].sum())
-            fn = lambda: tk.knn_tourney(q, r)  # noqa: E731
+            fn = lambda: tk.knn_tourney(q, r, used=w_used)  # noqa: E731
             ref = lambda: tk.knn_tourney_ref(q, r)  # noqa: E731
             lib = tourney_library(q, r)
         else:
-            got = tk.knn_topk(q, r, kk, splits=splits)
+            got = tk.knn_topk(q, r, kk, splits=splits, used=w_used)
             want = tk.knn_topk_ref(q, r, kk)
             torch.cuda.synchronize()
             swapped, err = check_topk(got, want, kk, fc == 0, label)
             row = {"rows_swapped_at_kk": swapped,
                    "splits": topk_ranges(q, r, kk, splits)}
-            fn = lambda: tk.knn_topk(q, r, kk, splits=splits)  # noqa: E731
+            fn = lambda: tk.knn_topk(q, r, kk, splits=splits,  # noqa: E731
+                                     used=w_used)
             ref = lambda: tk.knn_topk_ref(q, r, kk)  # noqa: E731
             lib = topk_library(q, r, kk)
         if read_counts()[kid] != 1:
@@ -1172,7 +1203,8 @@ def knn_cases():
         big = n >= KNN_REFS
         bound_ms, bound_by = knn_bound(kid, q, r, m, n_real, w_used)
         row.update({"kernel": kid, "case": label, "n": n_real, "m": m,
-                    "w": q.shape[1], "w_used": w_used, "kk": kk,
+                    "w": q.shape[1], "w_used": w_used, "w_contracted": wc,
+                    "kk": kk,
                     "max_abs_err": err,
                     "ms": time_ms(fn, iters=10 if big else 20),
                     "plain_ms": time_ms(ref, iters=3, warmup=1),
@@ -1198,6 +1230,7 @@ class NeighborCapture:
     @contextlib.contextmanager
     def on(self):
         from avenir_tpu_torch.models import knn as mknn
+        from avenir_tpu_torch.ops import knn as tk
 
         inner = mknn.nearest_neighbors
 
@@ -1206,8 +1239,8 @@ class NeighborCapture:
 
             mknn._nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
             model, test = args[0], args[1]
-            self.used = (model.codes.shape[1] * model.num_bins
-                         + 6 * model.cont.shape[1] + 6, test.num_rows,
+            self.used = (tk.used_lanes(model.codes.shape[1], model.num_bins,
+                                       model.cont.shape[1]), test.num_rows,
                          model.num_refs)
             d, i = inner(*args, **kwargs)
             self.calls.append((d, i, mknn._nearest_neighbors_kernel.last_fallback))
@@ -1432,27 +1465,34 @@ def knn_path_cases(rec: Recorder, used: dict) -> list:
     from avenir_tpu_torch.ops import knn as tk
 
     results, timed, seen = [], set(), {}
-    for name, path, args in rec.calls:
+    for name, path, args, kwargs in rec.calls:
         if name not in ("knn_tourney", "knn_topk"):
             continue
         i = seen[path] = seen.get(path, -1) + 1
         q, r = args[0], args[1]
-        label = f"{path} call {i}: {q.shape[0]} x {r.shape[0]} refs, W {q.shape[1]}"
+        wc = tk.contraction_width(q.shape[1], kwargs.get("used"))
+        label = (f"{path} call {i}: {q.shape[0]} x {r.shape[0]} refs, W "
+                 f"{q.shape[1]}, contracted {wc}")
         if name == "knn_tourney":
             kid = "B5"
-            fn = lambda: tk.knn_tourney(q, r)  # noqa: E731
+            fn = lambda: tk.knn_tourney(q, r, **kwargs)  # noqa: E731
             ref = lambda: tk.knn_tourney_ref(q, r)  # noqa: E731
             lib = tourney_library(q, r)
             differ, swapped, err = check_tourney(q, r, fn(), ref(), label)
             row = {"keys_differ": differ, "columns_differ": swapped}
         else:
             kid, kk = "B6", args[2]
-            fn = lambda: tk.knn_topk(q, r, kk)  # noqa: E731
+            fn = lambda: tk.knn_topk(q, r, kk, **kwargs)  # noqa: E731
             ref = lambda: tk.knn_topk_ref(q, r, kk)  # noqa: E731
             lib = topk_library(q, r, kk)
             swapped, err = check_topk(fn(), ref(), kk, False, label)
             row = {"rows_swapped_at_kk": swapped, "kk": kk,
                    "splits": topk_ranges(q, r, kk)}
+        if kwargs.get("used") != used[path][0]:
+            raise AssertionError(f"{path}: the search handed {kid} "
+                                 f"{kwargs.get('used')} used lanes, the "
+                                 f"schema has {used[path][0]}")
+        row["w_contracted"] = wc
         row.update({"kernel": kid, "path": path, "call": i, "case": label,
                     "max_abs_err": err})
         key = (path, tuple(q.shape), tuple(r.shape))
@@ -1478,6 +1518,123 @@ def knn_path_cases(rec: Recorder, used: dict) -> list:
     log(f"knn path cases: {len(results)} recorded calls held against their "
         f"plain versions")
     return results
+
+
+# the TPU probes and their counterparts (avenir_tpu_torch/probes.py)
+PROBE_SITES = {"knn_tourney": "benchmarks/knn_decomp_probe.py:113",
+               "onehot_gram": "benchmarks/cooc_expand_sweep.py:187,214",
+               "orient_gram": "benchmarks/dot_orient_probe.py:60,72"}
+
+
+def probe_phase() -> list:
+    """Phase 10: the three probes' counterparts at the main paths' shapes,
+    each variant timed (avenir_tpu_torch/probes.py), the kernel each
+    breaks down held against its plain version, and the plain version,
+    the library yardstick and the bound timed and computed beside it.
+    Prints one JSON line per probe; returns the kernels-line entries."""
+    import torch
+
+    from avenir_tpu_torch import probes
+    from avenir_tpu_torch.ops import hist
+    from avenir_tpu_torch.ops import knn as tk
+
+    entries = []
+    # B5 in its variants: dot only, dot + keys, the kernel, one insert a key
+    cases = []
+    for label, (n, m, f, fc, nb) in probes.KNN_SHAPES.items():
+        q, r, used = probes.knn_operands(n, m, f, fc, nb, seed=400)
+        ms = probes.knn_tourney_probe(q, r, used)
+        got = probes.knn_tourney_variant(q, r, "full", used)
+        want = tk.knn_tourney_ref(q, r)
+        torch.cuda.synchronize()
+        _differ, _swapped, err = check_tourney(q, r, got, want, label)
+        bound_ms, bound_by = knn_bound("B5", q, r, m, n, used)
+        cases.append({"case": label, "ms": ms, "max_abs_err": err,
+                      "w_contracted": tk.contraction_width(q.shape[1], used),
+                      "plain_ms": time_ms(lambda: tk.knn_tourney_ref(q, r),
+                                          iters=3, warmup=1),
+                      "library_ms": time_ms(tourney_library(q, r), iters=5),
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+        del q, r, got, want
+        torch.cuda.empty_cache()
+    entries.append(("knn_tourney", "csrc/knn_tourney.cu", "full", cases))
+    # the one-hot MMA gram (B1 until this slice) beside the pair histogram
+    cases = []
+    for label, (n, f, b, c) in [*probes.GRAM_SHAPES.items(),
+                                ("hospital 11x12x2 fmaj, 16M rows",
+                                 (16_000_000, 11, 12, 2))]:
+        codes, labels = probes.gram_operands(n, f, b, c, seed=401)
+        want = hist.cooc_counts_cols_ref(codes, labels, b, c)
+        got = probes.onehot_gram(codes, labels, b, c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"the one-hot gram disagrees on {label}")
+        call, keep = library_gram(codes, labels, b, c)
+        big = n >= 1_000_000
+        _mode, _jcp, wp = hist.plan(f, b, c)
+        cases.append({"case": label,
+                      "ms": probes.onehot_gram_probe(codes, labels, b, c,
+                                                     iters=10 if big else 20),
+                      "max_abs_err": 0,
+                      "plain_ms": time_ms(lambda: hist.cooc_counts_cols_ref(
+                          codes, labels, b, c), iters=3, warmup=1),
+                      "library_ms": time_ms(call, iters=5),
+                      **gram_bound(f, n, wp * wp, f * b * c, n)})
+        del codes, labels, want, got, keep
+        torch.cuda.empty_cache()
+    entries.append(("onehot_gram", "csrc/gram_probe.cu", "full", cases))
+    # the int8 gram's mma.sync stage on X staged from [N, W] and [W, N]
+    n, w = probes.ORIENT_SHAPE
+    x_rows, x_cols = probes.orient_operands(n, w, seed=402)
+    lib_g = torch._int_mm(x_cols, x_rows)
+    block = 1 << 22          # float32 sums of ≤ 4·2^22 stay exact
+
+    def plain():
+        g = torch.zeros((w, w), dtype=torch.int32, device="cuda")
+        for s0 in range(0, n, block):
+            xb = x_rows[s0:s0 + block].float()
+            g += (xb.T @ xb).to(torch.int32)
+        return g
+
+    for rows in (True, False):
+        if not torch.equal(probes.orient_gram(x_rows if rows else x_cols, rows),
+                           lib_g):
+            raise AssertionError(f"the oriented gram disagrees (rows={rows})")
+    if not torch.equal(plain(), lib_g):
+        raise AssertionError("the oriented gram's plain version disagrees")
+    orient_bound, orient_by = bound(n * w + 4 * w * w, w * (w + 1) * n)
+    cases = [{"case": f"W {w}, {n} rows, int8 in [-2, 2]",
+              "ms": probes.orient_gram_probe(x_rows, x_cols),
+              "max_abs_err": 0, "plain_ms": time_ms(plain, iters=3, warmup=1),
+              "library_ms": time_ms(lambda: torch._int_mm(x_cols, x_rows),
+                                    iters=3, warmup=1),
+              "bound_ms": orient_bound, "bound_by": orient_by}]
+    del x_rows, x_cols, lib_g
+    torch.cuda.empty_cache()
+    entries.append(("orient_gram", "csrc/gram_probe.cu", "rows", cases))
+
+    out = []
+    for name, source, main, cases in entries:
+        log(json.dumps({"probe": name, "replaces": PROBE_SITES[name],
+                        "cases": cases}))
+        first = cases[0]
+        out.append({
+            "name": f"{name} (probe)",
+            "route": "cuda",
+            "source": "avenir_tpu_torch/" + source,
+            "replaces": PROBE_SITES[name],
+            "launches": 0,          # on no path: the probes count none
+            "on_main_path": False,
+            "case": first["case"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "ms": first["ms"][main],
+            "ms_by_variant": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+        })
+    return out
 
 
 def kernel_entry(kid, name, source, replaces, launches_by_path, cases):
@@ -1551,16 +1708,18 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     all_cases += knn_path_cases(rec, used)
+    probes = probe_phase()
 
     src = "avenir_tpu_torch/csrc/"
     at = "avenir_tpu/ops/pallas_hist.py:"
     kernels = [
-        kernel_entry("B1", "cooc_gram (B1)", src + "cooc.cu", at + "283",
+        kernel_entry("B1", "cooc_pair_gram, fmaj/jmaj (B1)",
+                     src + "cooc_pair.cu", at + "283",
                      {"mi": b1_mi, "wide_tree": wide["B1"]}, all_cases),
-        kernel_entry("B2", "cooc_cls_gram, cls (B2)", src + "cooc_cls.cu",
+        kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},
                      all_cases),
-        kernel_entry("B3", "cooc_cls_gram, clsb (B3)", src + "cooc_cls.cu",
+        kernel_entry("B3", "cooc_pair_gram, clsb (B3)", src + "cooc_pair.cu",
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),
         kernel_entry("B4", "cross_counts (B4)", src + "cross.cu", at + "484",
                      b4_tree, all_cases),
@@ -1568,6 +1727,7 @@ def main() -> int:
                      "avenir_tpu/ops/pallas_knn.py:290", b5, all_cases),
         kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",
                      "avenir_tpu/ops/pallas_knn.py:73", b6, all_cases),
+        *probes,
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,10 +1,11 @@
 """The port's CUDA kernels on the card against their plain PyTorch
-versions: the co-occurrence gram (``csrc/cooc.cu``, B1), the per-class
-grams (``csrc/cooc_cls.cu``, B2/B3) and the cross counts (``csrc/cross.cu``,
-B4) exactly; the kNN candidate kernels (``csrc/knn_tourney.cu``, B5, and
-``csrc/knn_topk.cu``, B6) exactly where every d² is an integer sum and to
-the float32 summation order elsewhere; and the kNN search on ``cuda``
-against the CPU.
+versions: the co-occurrence grams in every layout (the pair histogram of
+``csrc/cooc_pair.cu``: B1 in fmaj/jmaj, B2/B3 per class) and the cross
+counts (``csrc/cross.cu``, B4) exactly; the kNN candidate kernels
+(``csrc/knn_tourney.cu``, B5, and ``csrc/knn_topk.cu``, B6) exactly where
+every d² is an integer sum and to the float32 summation order elsewhere;
+the kNN search on ``cuda`` against the CPU; and the probe functions of
+``avenir_tpu_torch.probes``.
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -100,12 +101,18 @@ def test_kernel_matches_plain_version(cuda, n, f, b, c):
     (6000, 30, 128, 2, 0.9),       # the wide tree's K = 8 pack
     (3000, 2, 3072, 2, 0.0),       # clsb: a 3072 x 3072 pair table, banded
     (3000, 2, 3072, 2, 0.95),
+    (20_000, 10, 13, 2, 0.95),     # fmaj (B1): the hospital MI shape
+    (20_000, 30, 8, 2, 0.95),      # jmaj (B1): the wide tree's K = 1 level
+    (20_000, 20, 3, 2, 0.95),      # jmaj
+    (5000, 2, 3, 40, 0.5),         # fmaj, C = 40
+    (0, 30, 8, 2, 0.95),           # jmaj, no rows
 ])
 def test_pair_kernel_matches_plain_version_skewed_and_banded(cuda, n, f, b, c,
                                                              skew):
-    """B2/B3 where most rows share one bin (their atomics hit one cell) and
-    where a pair's B x B table exceeds shared memory (f1's bins in bands):
-    exactly the plain version, which runs on the card here."""
+    """The pair histogram (B1–B3) where most rows share one bin (its
+    atomics hit one cell) and where a pair's B x B table exceeds shared
+    memory (f1's bins in bands): exactly the plain version, which runs on
+    the card here."""
     codes, labels = _data(n, f, b, c, seed=29)
     rng = np.random.default_rng(31)
     codes[rng.random(codes.shape) < skew] = b // 2
@@ -113,7 +120,7 @@ def test_pair_kernel_matches_plain_version_skewed_and_banded(cuda, n, f, b, c,
     mode = hist.plan(f, b, c)[0]
     before = getattr(hist.cooc_counts_cols, _COUNTERS[mode])
     g = hist.cooc_counts_cols(ct, lb, b, c)
-    assert getattr(hist.cooc_counts_cols, _COUNTERS[mode]) == before + 1
+    assert getattr(hist.cooc_counts_cols, _COUNTERS[mode]) == before + (n > 0)
     want = hist.cooc_counts_cols_ref(ct, lb, b, c)
     torch.cuda.synchronize()
     assert torch.equal(g, want)
@@ -315,6 +322,70 @@ def test_tourney_kernel_matches_plain_version(cuda, n, m, f, fc):
         refs = seg_base[segs] + (g[rows, segs] & 2047)
         d2 = (q[rows].float() * r[refs].float()).sum(1)
         assert not bool(((d2 - dg[rows, segs]).abs() > tol[rows, segs]).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,fc", [
+    (40_000, 5, 0),                # 56 used lanes: 64 of W 128 contracted
+    (40_000, 0, 9),                # the elearn schema, continuous
+    (40_000, 68, 0),               # W 768, B5's queries streamed: 704 contracted
+])
+def test_kernels_contract_only_the_used_lanes(cuda, n, f, fc):
+    """B5 and B6 handed the schema's used lanes contract round_up(used, 64)
+    columns of W: the skipped columns are zero in both operands, so the
+    keys and lists are bit-equal to the whole width's (and, on categorical
+    data, to the plain version over all W)."""
+    q, r = _knn_operands(n, 512, f, fc, 10, seed=n + fc)
+    used = tk.used_lanes(f, 10, fc)
+    assert tk.contraction_width(q.shape[1], used) < q.shape[1]
+    qc, rc = q.to(cuda), r.to(cuda)
+    cut = tk.knn_tourney(qc, rc, used=used)
+    whole = tk.knn_tourney(qc, rc)
+    lists = tk.knn_topk(qc, rc[:16_384], 18, used=used)
+    lists_whole = tk.knn_topk(qc, rc[:16_384], 18)
+    torch.cuda.synchronize()
+    for g, w in zip(cut, whole):
+        assert torch.equal(g, w)
+    for g, w in zip(lists, lists_whole):
+        assert torch.equal(g, w)
+    if fc == 0:
+        for g, w in zip(cut, tk.knn_tourney_ref(q, r)):
+            assert torch.equal(g.cpu(), w)
+        for g, w in zip(lists, tk.knn_topk_ref(q, r[:16_384], 18)):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_probes_run_and_return_finite_times(cuda):
+    """Each probe function runs its variants on the card and returns a
+    finite, positive time for each; the variants that compute the real
+    function equal its plain version."""
+    import math
+
+    from avenir_tpu_torch import probes
+
+    q, r = _knn_operands(20_000, 512, 4, 3, 10, seed=3)
+    q, r = q.to(cuda), r.to(cuda)
+    used = tk.used_lanes(4, 10, 3)
+    ms = probes.knn_tourney_probe(q, r, used, iters=2)
+    assert set(ms) == set(probes.TOURNEY_VARIANTS)
+    for variant in ("full", "full_insert"):
+        for g, w in zip(probes.knn_tourney_variant(q, r, variant, used),
+                        tk.knn_tourney(q, r, used=used)):
+            assert torch.equal(g, w)
+    codes, labels = _data(5000, 30, 8, 2, seed=4)
+    ct, lb = torch.from_numpy(codes).to(cuda), torch.from_numpy(labels).to(cuda)
+    gms = probes.onehot_gram_probe(ct, lb, 8, 2, iters=2)
+    assert set(gms) == {"full", "dotonly", "pair"}
+    assert torch.equal(probes.onehot_gram(ct, lb, 8, 2),
+                       hist.cooc_counts_cols_ref(ct, lb, 8, 2))
+    x_rows, x_cols = probes.orient_operands(4096, 128, seed=5)
+    oms = probes.orient_gram_probe(x_rows, x_cols, iters=2)
+    want = torch._int_mm(x_cols, x_rows)
+    assert torch.equal(probes.orient_gram(x_rows, True), want)
+    assert torch.equal(probes.orient_gram(x_cols, False), want)
+    for t in (*ms.values(), *gms.values(), *oms.values()):
+        assert math.isfinite(t) and t > 0
 
 
 @pytest.mark.cuda

@@ -61,18 +61,37 @@ def test_layout_helpers_match_jax(f, b, c):
     assert hist.default_block_cols(wp, mode) == ph.default_block_cols(wp, mode)
 
 
-@pytest.mark.parametrize("n,f,b,c", [
-    (4096, 11, 12, 2),     # hospital shape, whole blocks
-    (2999, 11, 12, 2),     # ragged tail
-    (1000, 4, 5, 3),       # fmaj, C = 3
-    (777, 20, 3, 2),       # jmaj
-    (300, 5, 6, 2),        # jmaj
-    (513, 3, 30, 2),       # fmaj, jcp 64
-    (0, 11, 12, 2),        # empty chunk
-    (0, 20, 3, 2),
-])
-def test_ref_matches_jax_kernel_interpret(n, f, b, c):
+# B1's fmaj and jmaj shapes, invalid codes and labels in each; the skewed
+# ones (95% of codes in one bin) put most of a pair's rows in one cell
+JAX_GRAM_CASES = [
+    (4096, 11, 12, 2, 0.0),     # hospital shape, whole blocks
+    (2999, 11, 12, 2, 0.0),     # ragged tail
+    (1000, 4, 5, 3, 0.0),       # fmaj, C = 3
+    (777, 20, 3, 2, 0.0),       # jmaj
+    (300, 5, 6, 2, 0.0),        # jmaj
+    (513, 3, 30, 2, 0.0),       # fmaj, jcp 64
+    (0, 11, 12, 2, 0.0),        # empty chunk
+    (0, 20, 3, 2, 0.0),
+    (2500, 10, 13, 2, 0.95),    # the hospital MI chunk's shape, skewed
+    (1999, 11, 12, 2, 0.95),
+    (777, 20, 3, 2, 0.95),      # jmaj, skewed
+    (1500, 30, 8, 2, 0.95),     # jmaj, the wide tree's K = 1 level
+    (1500, 30, 8, 2, 0.0),
+    (600, 2, 3, 40, 0.95),      # fmaj, C = 40
+]
+
+
+@pytest.mark.parametrize(
+    "n,f,b,c,skew", JAX_GRAM_CASES,
+    ids=[f"{n}-{f}-{b}-{c}" + (f"-skew{s}" if s else "")
+         for n, f, b, c, s in JAX_GRAM_CASES])
+def test_ref_matches_jax_kernel_interpret(n, f, b, c, skew):
     codes, labels = _data(n, f, b, c, seed=n + f)
+    if skew:
+        rng = np.random.default_rng(n + c)
+        hot = rng.random(codes.shape) < skew
+        codes[hot & (codes >= 0) & (codes < b)] = b // 2
+    assert ph.plan(f, b, c)[0] in ("fmaj", "jmaj")
     want = np.asarray(ph.cooc_counts_cols(
         jnp.asarray(codes), jnp.asarray(labels), b, c, block_cols=256,
         interpret=True))
@@ -340,7 +359,10 @@ def test_packed_codes_match_jax(stripe, member_bins):
 # the pair pass of B2/B3: the wide tree's four level shapes, the MI and
 # clsb chunks of chip_smoke, a pair table past shared memory, C = 16
 PAIR_SHAPES = [(30, 8, 2), (30, 16, 2), (30, 32, 2), (30, 128, 2),
-               (20, 20, 2), (100, 20, 2), (2, 3072, 2), (8, 50, 16)]
+               (20, 20, 2), (100, 20, 2), (2, 3072, 2), (8, 50, 16),
+               # B1's fmaj and jmaj shapes: the hospital MI chunk and bench
+               # shape, jmaj 20 × 3 × 2, 200 features of one bin, C = 100
+               (10, 13, 2), (11, 12, 2), (20, 3, 2), (200, 1, 2), (3, 2, 100)]
 H100_SMEM, H100_SMS = 232_448, 132
 
 
@@ -367,12 +389,14 @@ def test_pair_plan_covers_each_cell_once_within_budget(f, b, c):
     assert np.array_equal(again.tasks, t) and again[1:] == pp[1:]
 
 
-def _pair_gram(codes, labels, b, c, wp, pp):
+def _pair_gram(codes, labels, b, c, pp):
     """G as pair_kernel computes it from the plan: per task and row split a
     table [run, band, B] of the class's rows, then plain stores (one split)
-    or adds into G and its mirror."""
+    or adds into G and its mirror, at the addresses of pair_layout."""
     f, _n = codes.shape
-    g = np.zeros((c, wp, wp), np.int64)
+    mode, jcp, wp = hist.plan(f, b, c)
+    gmat, cs, fs, bs = hist.pair_layout(mode, f, b, c, jcp, wp)
+    g = np.zeros((c, wp, wp) if gmat else (wp, wp), np.int64)
     for cls, f1, f2a, nf2, b1a, nb1 in pp.tasks.tolist():
         rows = np.flatnonzero(labels == cls)
         per = -(-len(rows) // pp.splits)
@@ -389,13 +413,15 @@ def _pair_gram(codes, labels, b, c, wp, pp):
                 f2, b1 = f2a + k, b1a + bl
                 if f2 == f1 and b1 != b2:
                     continue
-                w1, w2 = b1 * f + f1, b2 * f + f2
+                w1 = cls * cs + f1 * fs + b1 * bs
+                w2 = cls * cs + f2 * fs + b2 * bs
                 v = table[k, bl, b2]
+                gc = g[cls] if gmat else g
                 for x, y in ((w1, w2), (w2, w1)) if f2 != f1 else ((w1, w2),):
                     if pp.splits == 1:
-                        g[cls, x, y] = v
+                        gc[x, y] = v
                     else:
-                        g[cls, x, y] += v
+                        gc[x, y] += v
     return g
 
 
@@ -406,14 +432,18 @@ def _pair_gram(codes, labels, b, c, wp, pp):
     (500, 14, 20, 3, 1024, 2),
     (400, 100, 20, 2, H100_SMEM, None),   # clsb
     (300, 8, 50, 16, H100_SMEM, 4),       # C = 16
+    (700, 10, 13, 2, H100_SMEM, None),    # fmaj: the hospital MI chunk (B1)
+    (700, 10, 13, 2, H100_SMEM, 5),
+    (600, 30, 8, 2, H100_SMEM, None),     # jmaj: the wide tree's K = 1 level
+    (600, 30, 8, 2, H100_SMEM, 3),
+    (500, 3, 30, 2, 1024, 2),             # fmaj, jcp 64, banded
+    (400, 2, 3, 40, H100_SMEM, None),     # fmaj, C = 40
 ])
 def test_pair_plan_gram_equals_plain_version(n, f, b, c, smem, splits):
-    """The plan's tasks, counted the way pair_kernel counts them (numpy),
-    give exactly the plain version's G, invalid codes and labels
-    included."""
+    """The plan's tasks, counted the way pair_kernel counts them (numpy)
+    and stored through pair_layout, give exactly the plain version's G in
+    every plan mode, invalid codes and labels included."""
     codes, labels = _data(n, f, b, c, seed=n + f)
-    mode, _jcp, wp = hist.plan(f, b, c)
-    assert mode in ("cls", "clsb")
     pp = hist.pair_plan(f, b, c, n, smem, H100_SMS)
     if splits is not None:
         pp = pp._replace(splits=splits)
@@ -421,8 +451,29 @@ def test_pair_plan_gram_equals_plain_version(n, f, b, c, smem, splits):
         assert (pp.tasks[:, 5] < b).all()
     want = hist.cooc_counts_cols_ref(torch.from_numpy(codes),
                                      torch.from_numpy(labels), b, c)
-    np.testing.assert_array_equal(_pair_gram(codes, labels, b, c, wp, pp),
+    np.testing.assert_array_equal(_pair_gram(codes, labels, b, c, pp),
                                   want.numpy())
+
+
+@pytest.mark.parametrize("f,b,c", LAYOUT_SHAPES + [(30, 8, 2), (2, 3, 40)])
+def test_pair_layout_is_w_index(f, b, c):
+    """The pair pass's store map puts cell (f, b) of class c where
+    w_index() says, in class c's matrix in the per-class modes: G keeps the
+    layout counts_from_cooc reads.  Distinct cells of one matrix land on
+    distinct lanes, inside wp."""
+    mode, jcp, wp = hist.plan(f, b, c)
+    gmat, cs, fs, bs = hist.pair_layout(mode, f, b, c, jcp, wp)
+    ff, bb, cc = np.meshgrid(np.arange(f), np.arange(b), np.arange(c),
+                             indexing="ij")
+    lanes = cc * cs + ff * fs + bb * bs
+    np.testing.assert_array_equal(lanes, hist.w_index(f, b, c))
+    assert lanes.max() < wp
+    assert gmat == (wp * wp if mode in ("cls", "clsb") else 0)
+    per_matrix = lanes if gmat else lanes.reshape(-1)
+    if gmat:                                  # per class: distinct (f, b)
+        assert len(np.unique(per_matrix[:, :, 0])) == f * b
+    else:
+        assert len(np.unique(per_matrix)) == f * b * c
 
 
 def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
@@ -440,9 +491,10 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k2;\n')
     assert _build.source_digest("k") not in (first, second)
-    # the port's own kernels: each hash covers the shared one-hot header
+    # the port's own kernels: each hash covers the shared headers
     monkeypatch.undo()
-    for name in ("cooc", "cooc_cls", "cross"):
+    for name in ("cooc_pair", "cross", "knn_tourney", "knn_topk",
+                 "gram_probe"):
         assert len(_build.source_digest(name)) == 12
 
 
@@ -453,10 +505,11 @@ def test_entry_argtypes_match_the_c_signatures():
     import ctypes
     import re
 
+    from avenir_tpu_torch import probes
     from avenir_tpu_torch.ops import _build
     from avenir_tpu_torch.ops import knn as tk
 
-    for entries in (hist._ENTRY, tk._ENTRY):
+    for entries in (hist._ENTRY, tk._ENTRY, probes._ENTRY):
         for name, fns in entries.items():
             with open(f"{_build.CSRC}/{name}.cu") as fh:
                 src = fh.read()

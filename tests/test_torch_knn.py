@@ -148,6 +148,88 @@ def test_packing_bit_equal(f, fc):
     np.testing.assert_array_equal(_u16(td), _u16(jd))
 
 
+# the kNN paths' schemas and the chip's cases: elearn (9 continuous, w 60),
+# knn_qps (6 × 10 + 8, w 114), categorical 5 × 10 (w 56) and 6 × 10 (w 66),
+# the streamed 80 × 10 (w 806), and a mixed 4 × 6 + 3 (w 48)
+CUT_SCHEMAS = [(0, 9, 10), (6, 8, 10), (5, 0, 10), (6, 0, 10), (80, 0, 10),
+               (4, 3, 6)]
+
+
+@pytest.mark.parametrize("f,fc,nb", CUT_SCHEMAS)
+def test_packed_columns_past_the_contraction_width_are_zero(f, fc, nb):
+    """The premise of the kernels' contraction cut: the JAX package's packed
+    operands (references, host queries, device queries) are zero in every
+    column ≥ round_up(used lanes, 64), so contracting only the columns
+    before it adds exact zeros to every d²."""
+    rng = np.random.default_rng(f + 7 * fc)
+    codes_r, cont_r, codes_q, cont_q = _data(rng, 2500, 40, f, fc, nb)
+    used = f * nb + 6 * fc + 6
+    wc = -(-used // 64) * 64
+    mats = [pk.prepare_refs(codes_r, cont_r, nb)[0],
+            pk.prepare_queries(codes_q, cont_q, nb)[0],
+            pk._pack_queries_dev(jnp.asarray(codes_q), jnp.asarray(cont_q), nb,
+                                 512, float(f))]
+    for mat in mats:
+        arr = np.asarray(jnp.asarray(mat).astype(jnp.float32))
+        assert arr.shape[1] == pk._width(f, nb, fc) >= wc
+        assert not arr[:, wc:].any()
+        assert arr[:, :used].any(0)[used - 6:].any()   # the norm columns are used
+
+
+@pytest.mark.parametrize("f,fc,nb", CUT_SCHEMAS)
+def test_contraction_width_from_the_width_terms(f, fc, nb):
+    """The wrappers' contracted width: _width's terms before its padding,
+    rounded up to a 64-column chunk, never past W."""
+    w = tk._width(f, nb, fc)
+    assert w == pk._width(f, nb, fc)
+    used = tk.used_lanes(f, nb, fc)
+    assert used == f * nb + 6 * fc + 6 and w == tk._round_up(used, 128)
+    wc = tk.contraction_width(w, used)
+    assert wc == tk._round_up(used, 64) and used <= wc <= w and wc % 64 == 0
+    assert tk.contraction_width(w, None) == w
+    # the elearn path contracts half of its operand
+    assert tk.contraction_width(128, tk.used_lanes(0, 10, 9)) == 64
+
+
+def test_cut_operands_give_the_same_keys_and_lists():
+    """Categorical d² are exact integer sums: the plain versions on the
+    operands cut to the contracted width give exactly the keys and lists of
+    the whole width."""
+    rng = np.random.default_rng(3)
+    f, nb = 5, 10
+    codes_r, cont_r, codes_q, cont_q = _data(rng, 20_000, 16, f, 0, nb)
+    r, _ = tk.prepare_refs(codes_r, cont_r, nb)
+    q, _ = tk.prepare_queries(codes_q, cont_q, nb)
+    wc = tk.contraction_width(q.shape[1], tk.used_lanes(f, nb, 0))
+    assert wc == 64 < q.shape[1]
+    qc, rc = q[:, :wc].contiguous(), r[:, :wc].contiguous()
+    for g, w in zip(tk.knn_tourney_ref(qc, rc), tk.knn_tourney_ref(q, r)):
+        assert torch.equal(g, w)
+    for g, w in zip(tk.knn_topk_ref(qc, rc[:4096], 18),
+                    tk.knn_topk_ref(q, r[:4096], 18)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [3000, 20_000])
+def test_search_hands_the_kernels_the_used_lanes(n, monkeypatch):
+    """search passes each kernel wrapper the schema's used lanes (B6 below
+    the tournament's gate, B5 above it)."""
+    rng = np.random.default_rng(n)
+    f, fc, nb = 3, 4, 5
+    data = _data(rng, n, 20, f, fc, nb)
+    seen = []
+    for name in ("knn_tourney", "knn_topk"):
+        inner = getattr(tk, name)
+
+        def spy(*args, inner=inner, name=name, **kwargs):
+            seen.append((name, kwargs.get("used")))
+            return inner(*args, **kwargs)
+        monkeypatch.setattr(tk, name, spy)
+    _port_search(*data, nb, 5)
+    want = "knn_tourney" if n > tk.TB else "knn_topk"
+    assert seen == [(want, tk.used_lanes(f, nb, fc))]
+
+
 def test_one_hot_matches_jax():
     x = np.array([[0, 3, -1], [4, 5, 2]], np.int32)
     got = agg.one_hot(_t(x), 5).numpy()
