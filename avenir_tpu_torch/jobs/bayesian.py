@@ -10,7 +10,8 @@ from typing import List, Optional
 import numpy as np
 
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
-from avenir_tpu_torch.jobs.base import Job, read_lines, write_output
+from avenir_tpu_torch.jobs.base import (Job, read_lines,
+                                        refuse_stream_checkpoint, write_output)
 from avenir_tpu_torch.models import naive_bayes as nb
 from avenir_tpu_torch.utils.metrics import Counters
 
@@ -31,6 +32,7 @@ class BayesianDistribution(Job):
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
         _tabular_only(conf, self.name)
+        refuse_stream_checkpoint(conf, self.name)
         nbayes = nb.NaiveBayes(laplace=conf.get_float("laplace.smoothing", 1.0),
                                device=self.device)
         enc, data, rows_fn = self.encoded_data_source(conf, input_path, counters)

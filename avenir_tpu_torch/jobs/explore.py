@@ -6,7 +6,8 @@ from __future__ import annotations
 from typing import List
 
 from avenir_tpu_torch.core.config import JobConfig
-from avenir_tpu_torch.jobs.base import Job, write_output
+from avenir_tpu_torch.jobs.base import (Job, refuse_stream_checkpoint,
+                                        write_output)
 from avenir_tpu_torch.models import mutual_info as mi
 from avenir_tpu_torch.utils.metrics import Counters
 
@@ -38,6 +39,7 @@ class MutualInformation(Job):
 
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
+        refuse_stream_checkpoint(conf, self.name)
         schema = self.load_schema(conf)
         enc, data, rows_fn = self.encoded_data_source(conf, input_path, counters)
         names = [schema.field_by_ordinal(f.ordinal).name

@@ -428,8 +428,7 @@ _ENTRY = {
     "cooc_pair": {"cooc_pair_gram": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
                   + [ctypes.c_void_p],
                   "cooc_pair_smem_limit": []},
-    "cross": {"cross_counts": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-              + [ctypes.c_void_p]},
+    "cross": {"cross_counts": [ctypes.c_void_p] * 5, "cross_setup": []},
 }
 
 
@@ -540,8 +539,9 @@ def cross_cooc_counts_cols(codes_t: torch.Tensor, sel: torch.Tensor,
     (−1 included) drops the whole row.
 
     The decision tree's [F, B, K, C] level table is this with
-    sel = node·C + class.  On CUDA this launches ``csrc/cross.cu`` (counted
-    in ``cross_cooc_counts_cols.launches``; shapes past
+    sel = node·C + class.  On CUDA this launches ``csrc/cross.cu`` as
+    :func:`cross_plan` sizes it (counted in
+    ``cross_cooc_counts_cols.launches``; shapes past
     :func:`cross_applicable` raise); on the CPU it runs
     :func:`cross_cooc_counts_cols_ref`."""
     _check_operands(codes_t, sel, "sel")
@@ -558,18 +558,145 @@ def cross_cooc_counts_cols(codes_t: torch.Tensor, sel: torch.Tensor,
     if not (codes_t.is_contiguous() and sel.is_contiguous()):
         raise ValueError("cross_cooc_counts_cols needs contiguous codes_t "
                          "and sel")
-    out = torch.zeros((f, num_bins, num_sel), dtype=torch.int32, device=dev)
+    out = codes_t.new_empty((f, num_bins, num_sel))
     if n == 0:
-        return out
-    lib = _kernel("cross")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.cross_counts(codes_t.data_ptr(), sel.data_ptr(),
-                               out.data_ptr(), f, n, num_bins, num_sel, stream)
+        return out.zero_()
+    with _on_device(dev):
+        args = _cross_launch(f, num_bins, num_sel, n, dev.index)
+        # the raw handle: torch.cuda.current_stream() builds a Stream object,
+        # several µs of host time on every level
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        err = _kernel("cross").cross_counts(
+            codes_t.data_ptr(), sel.data_ptr(), out.data_ptr(),
+            ctypes.addressof(args), stream)
     if err:
         raise RuntimeError(f"cross_counts launch failed with CUDA error {err}")
     cross_cooc_counts_cols.launches += 1
     return out
+
+
+# the cross kernel (csrc/cross.cu): a block of 256 threads stages ROWS-row
+# tiles of the selectors and of its features' codes into a ring of STAGES
+# segments of ROWS + 4 ints each, after HEAD bytes of mbarriers, and keeps
+# its table of [feat_tile, B, sel_tile] counters behind the ring.  The
+# constants are cross.cu's (tests/test_torch_hist.py reads them there).
+CROSS_ROWS = 1024
+CROSS_STAGES = 2
+CROSS_HEAD = 128
+CROSS_MAX_FEAT_TILE = 24   # the gate's widest X side (wp ≤ 768, jcp ≥ 32)
+CROSS_CLUSTER = 2          # blocks per cluster: an H100 schedules SMs by pairs
+CROSS_PACKED_ROWS = 65_532  # rows per block with 16-bit counters, at most
+
+
+class CrossPlan(NamedTuple):
+    """The cross kernel's grid: ``tiles`` tiles of ``feat_tile`` features
+    by ``sel_tile`` selectors (feature-major; the last of each may hold
+    fewer), each over ``row_blocks`` blocks of ``rows_per_block`` rows (a
+    multiple of 4; trailing blocks may hold none) in clusters of
+    ``cluster``; a block counts into int32 counters, or 16-bit ones two to
+    a word where ``packed``, and takes ``smem`` bytes of dynamic shared
+    memory."""
+    feat_tile: int
+    sel_tile: int
+    tiles: int
+    rows_per_block: int
+    row_blocks: int
+    cluster: int
+    packed: bool
+    smem: int
+
+
+def cross_smem(feat_tile: int, num_bins: int, sel_tile: int,
+               packed: bool) -> int:
+    """Dynamic shared memory of a cross block in bytes: the mbarriers, the
+    ring (the selectors and ``feat_tile`` features per stage) and the
+    table."""
+    cells = feat_tile * num_bins * sel_tile
+    words = -(-cells // 2) if packed else cells
+    return CROSS_HEAD + 4 * (CROSS_STAGES * (1 + feat_tile) * (CROSS_ROWS + 4)
+                             + words)
+
+
+def cross_plan(num_feat: int, num_bins: int, num_sel: int, n: int,
+               smem_limit: int, sms: int) -> CrossPlan:
+    """The cross kernel's grid for [F, n] codes on a device with ``sms`` SMs
+    and ``smem_limit`` bytes of dynamic shared memory per block.
+
+    A tile takes as many features as fit with every selector, balanced
+    over the tiles, so each block reads only its own features' codes; only
+    where one feature's table does not fit are the selectors cut too.
+    16-bit counters where int32 ones do not fit, or where they make fewer
+    tiles and one wave of blocks of at most CROSS_PACKED_ROWS rows covers
+    the rows.  Two blocks share an SM where two fit.  The row blocks of the
+    tiles fill one wave of the SMs, in clusters of CROSS_CLUSTER.  Pure
+    function of its arguments."""
+    f, b, s = num_feat, num_bins, num_sel
+    if f < 1 or b < 1 or s < 1:
+        raise ValueError(f"no cross plan for F={f} B={b} num_sel={s}")
+
+    def layout(packed):
+        """(feat_tile, sel_tile, tiles, blocks per SM) with these counters,
+        or None where not one feature and selector fits."""
+        fits = [ft for ft in range(1, min(f, CROSS_MAX_FEAT_TILE) + 1)
+                if cross_smem(ft, b, s, packed) <= smem_limit]
+        ft, st = (fits[-1], s) if fits else (1, min(s, (
+            smem_limit - cross_smem(1, b, 0, packed))
+            // 4 * (2 if packed else 1) // b))
+        if st < 1:
+            return None
+        ft = -(-f // -(-f // ft))
+        st = -(-s // -(-s // st))
+        # two blocks and their 1 KB reserves in one SM's shared memory
+        two = cross_smem(ft, b, st, packed) <= smem_limit // 2 - 1024
+        return ft, st, -(-f // ft) * -(-s // st), 2 if two else 1
+
+    wide, narrow = layout(False), layout(True)
+    if narrow is None:
+        raise ValueError(f"no cross plan for F={f} B={b} num_sel={s} in "
+                         f"{smem_limit} bytes")
+    packed = wide is None or (
+        narrow[2] < wide[2]
+        and n <= narrow[3] * sms // narrow[2] * CROSS_PACKED_ROWS)
+    ft, st, tiles, per_sm = narrow if packed else wide
+    blocks = max(1, min(per_sm * sms // tiles, -(-n // CROSS_ROWS)))
+    cluster = min(CROSS_CLUSTER, 1 << (blocks.bit_length() - 1))
+    row_blocks = blocks // cluster * cluster
+    if packed:
+        row_blocks = max(row_blocks, _ru(-(-n // CROSS_PACKED_ROWS), cluster))
+    rows_per_block = _ru(-(-max(n, 1) // row_blocks), 4)
+    return CrossPlan(ft, st, tiles, rows_per_block, row_blocks, cluster,
+                     packed, cross_smem(ft, b, st, packed))
+
+
+class _CrossArgs(ctypes.Structure):
+    """``CrossArgs`` of csrc/cross.cu: one launch's plan."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "f", "n", "nbins", "nsel", "feat_tile", "sel_tile", "tiles",
+        "rows_per_block", "row_blocks", "cluster", "smem", "pack")]
+
+
+@functools.lru_cache(maxsize=256)
+def _cross_launch(num_feat: int, num_bins: int, num_sel: int, n: int,
+                  index: int) -> _CrossArgs:
+    """The ``_CrossArgs`` of a launch of the cross kernel on CUDA device
+    ``index`` (the current device), which depend on the shape and row count
+    alone.  Cached, so that a level's host work is the output's allocation
+    and the call."""
+    cp = cross_plan(num_feat, num_bins, num_sel, n, *_cross_device(index))
+    return _CrossArgs(num_feat, n, num_bins, num_sel, cp.feat_tile,
+                      cp.sel_tile, cp.tiles, cp.rows_per_block, cp.row_blocks,
+                      cp.cluster, cp.smem, int(cp.packed))
+
+
+@functools.lru_cache(maxsize=None)
+def _cross_device(index: int) -> Tuple[int, int]:
+    """(dynamic shared memory per block, SMs) of CUDA device ``index``,
+    which the caller has made the current device; the first call lets the
+    kernel take that much shared memory there."""
+    limit = _kernel("cross").cross_setup()
+    if limit <= 0:
+        raise RuntimeError(f"cross_setup failed with CUDA error {-limit}")
+    return limit, torch.cuda.get_device_properties(index).multi_processor_count
 
 
 cross_cooc_counts_cols.launches = 0

@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (avenir_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --b4     # B4 alone (below)
 
 Phases, in order; any failure exits non-zero:
 
@@ -25,10 +26,14 @@ Phases, in order; any failure exits non-zero:
      rows, and 2 × 3072 × 2 at 100K rows, whose 3072 × 3072 pair table
      exceeds shared memory (yardstick: one ``torch._int_mm`` per class on
      its materialized int8 one-hot);
-   - B4 (cross.cu): 10 × 13 at 1M rows with 2, 18 and 54 selectors,
-     1024 selectors (the gate), ragged with invalid codes and selectors,
-     zero rows (yardstick: one ``torch.bincount`` over the composite index
-     built beforehand);
+   - B4 (cross.cu): 10 × 13 at 1M rows with 2, 16, 18 and 54 selectors,
+     1024 selectors (the gate; 16-bit counters), 24 × 32 × 1024 (the gate
+     on both sides), ragged with invalid codes and selectors, codes and
+     selectors as views at a 4-byte offset with 1,000,001 rows, every row
+     and 90% of rows in one bin and one selector, one row (the wrapper's
+     floor), zero rows
+     (yardstick: one ``torch.bincount`` over the composite index built
+     beforehand);
 3. generate a 1M-row hospital CSV and run BayesianDistribution,
    BayesianPredictor and MutualInformation through the port's CLI entry on
    ``cuda`` with ``stream.chunk.rows=250000``, then with ``--device cpu``;
@@ -104,11 +109,19 @@ Phases, in order; any failure exits non-zero:
     job) and one entry per probe (``launches`` 0: no path runs them), then
     the last line ``{"ok": true, "device": {...}}``.
 
-Bounds: B1–B3 count the work their inputs need, a sparse product — codes
-and labels read once, G written once, over the memory rate — with the
-dense product of the one-hots beside it as ``dense_ops_bound_ms``; B4 the
-larger of its bytes and its dense XᵀY operations; B5–B6 their bf16
-operations over the used lanes.
+Bounds: B1–B4 count the work their inputs need, a sparse product — codes
+and labels (selectors) read once, G (the level table) written once, over
+the memory rate — with the dense product of the one-hots beside it as
+``dense_ops_bound_ms``; B5–B6 their bf16 operations over the used
+lanes.
+
+``--b4`` runs B4 alone, in about a minute with its build: phase 2's B4
+cases, the hospital tree's level tables (``DecisionTree.fit`` on 1M seeded
+hospital rows, held and timed as phase 6 holds them) and the host µs of a
+1-row call, printed as one JSON line.  It measures the package beside the
+script, so to hold a change against its parent on one card, copy this
+file into an unpacked parent (``git archive``) and run both copies in one
+call: parent, change, change, parent.
 
 Each phase that drives a path sets every launch count to 0 just before it
 and reads the counts just after.  It imports nothing of JAX and nothing of
@@ -475,15 +488,24 @@ def per_class_cases(hist):
     return results
 
 
-def make_cross_case(n, f, b, s, invalid, seed):
+def make_cross_case(n, f, b, s, invalid, seed, skew=0.0, offset=0):
+    """Seeded codes [F, n] and selectors [n] on the card.  ``skew``: that
+    share of the rows has every code in one bin and one selector;
+    ``offset``: both are contiguous views that start ``offset`` int32 into
+    their buffers (4-byte aligned, not 16)."""
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    codes = torch.randint(0, b, (f, n), dtype=torch.int32, device="cuda",
-                          generator=gen)
-    sel = torch.randint(0, s, (n,), dtype=torch.int32, device="cuda",
-                        generator=gen)
+    codes = torch.empty(offset + f * n, dtype=torch.int32, device="cuda")
+    sel = torch.empty(offset + n, dtype=torch.int32, device="cuda")
+    codes, sel = codes[offset:].view(f, n), sel[offset:]
+    codes.random_(0, b, generator=gen)
+    sel.random_(0, s, generator=gen)
+    if skew and n:
+        hot = torch.rand(n, device="cuda", generator=gen) < skew
+        codes[:, hot] = b // 2
+        sel[hot] = s // 2
     if invalid and n:
         k = max(n // 50, 1)
         for val in (-1, b, b + 7):                 # dropped cells
@@ -508,24 +530,51 @@ def cross_library(codes, sel, b, s):
     return (lambda: torch.bincount(idx, minlength=f * b * s)), idx
 
 
+def cross_bound(f: int, n: int, b: int, s: int, n_eff: int) -> dict:
+    """B4's bound as the work these inputs need, a sparse product: the codes
+    [F, n] and selectors [n] read once and the [F, B, S] table written
+    once, over the memory rate.  Beside it, as ``dense_ops_bound_ms``, the
+    dense XᵀY form: 2·F·B·S int8 multiply-adds for each of the ``n_eff``
+    rows that count."""
+    return {"bound_ms": (4 * f * n + 4 * n + 4 * f * b * s) / PEAK_BYTES * 1e3,
+            "bound_by": "bytes",
+            "dense_ops_bound_ms": 2 * f * b * s * n_eff / PEAK_INT8_OPS * 1e3}
+
+
 def cross_cases(hist):
     """Phase 2: B4 against its plain version on the card."""
     import torch
 
     cases = [
+        # label, n, F, B, S, invalid codes and selectors, skewed share of
+        # the rows, view offset
         ("10x13, 2 selectors at 1M rows (hospital root)", 1_000_000, 10, 13, 2,
-         False),
-        ("10x13, 18 selectors at 1M rows", 1_000_000, 10, 13, 18, False),
-        ("10x13, 54 selectors at 1M rows", 1_000_000, 10, 13, 54, False),
+         False, 0.0, 0),
+        ("10x13, 16 selectors at 1M rows (hospital depth 4)", 1_000_000, 10,
+         13, 16, False, 0.0, 0),
+        ("10x13, 18 selectors at 1M rows", 1_000_000, 10, 13, 18, False,
+         0.0, 0),
+        ("10x13, 54 selectors at 1M rows", 1_000_000, 10, 13, 54, False,
+         0.0, 0),
         ("10x13, 1024 selectors at 1M rows (the gate)", 1_000_000, 10, 13,
-         1024, False),
+         1024, False, 0.0, 0),
+        ("24x32, 1024 selectors at 1M rows (the gate, widest X)", 1_000_000,
+         24, 32, 1024, False, 0.0, 0),
         ("ragged 100003 rows, invalid codes and selectors", 100_003, 10, 13,
-         54, True),
-        ("zero rows (cross)", 0, 10, 13, 54, False),
+         54, True, 0.0, 0),
+        ("views at a 4-byte offset, 1000001 rows, invalid", 1_000_001, 10,
+         13, 16, True, 0.0, 1),
+        ("skewed: every row in one bin and selector, 1M rows", 1_000_000, 10,
+         13, 16, False, 1.0, 0),
+        ("skewed: 90% of rows in one bin and selector, 1M rows", 1_000_000,
+         10, 13, 16, False, 0.9, 0),
+        ("one row (the wrapper's floor)", 1, 10, 13, 16, False, 0.0, 0),
+        ("zero rows (cross)", 0, 10, 13, 54, False, 0.0, 0),
     ]
     results = []
-    for i, (label, n, f, b, s, invalid) in enumerate(cases):
-        codes, sel = make_cross_case(n, f, b, s, invalid, seed=200 + i)
+    for i, (label, n, f, b, s, invalid, skew, offset) in enumerate(cases):
+        codes, sel = make_cross_case(n, f, b, s, invalid, seed=200 + i,
+                                     skew=skew, offset=offset)
         reset_counts()
         t = hist.cross_cooc_counts_cols(codes, sel, b, s)
         if read_counts()["B4"] != (1 if n else 0):
@@ -537,7 +586,7 @@ def cross_cases(hist):
             raise AssertionError(f"B4 disagrees with its plain version on "
                                  f"{label}: max |diff| {err}")
         ms = time_ms(lambda: hist.cross_cooc_counts_cols(codes, sel, b, s),
-                     iters=20)
+                     iters=50 if n < 1000 else 20)
         plain_ms = time_ms(
             lambda: hist.cross_cooc_counts_cols_ref(codes, sel, b, s),
             iters=5, warmup=1)
@@ -548,14 +597,12 @@ def cross_cases(hist):
                 raise AssertionError(f"library yardstick disagrees on {label}")
             library_ms = time_ms(call, iters=20)
             del keep
-        # the dense XᵀY form: 2·F·B·S multiply-adds per row; inputs read
-        # once, the [F, B, S] table written once
-        bound_ms, bound_by = bound(4 * f * n + 4 * n + 4 * f * b * s,
-                                   2 * f * b * s * n)
+        n_eff = int((((sel >= 0) & (sel < s))
+                     & ((codes >= 0) & (codes < b)).any(0)).sum())
         row = {"kernel": "B4", "case": label, "n": n, "f": f, "b": b,
                "num_sel": s, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               **cross_bound(f, n, b, s, n_eff)}
         log("B4 case:", json.dumps(row))
         results.append(row)
         del codes, sel, t, ref
@@ -942,9 +989,8 @@ def path_cases(hist, rec: Recorder) -> list:
             del keep, lib
             n_eff = int((((vec >= 0) & (vec < k))
                          & ((codes >= 0) & (codes < b)).any(0)).sum())
-            if cross:      # the dense XᵀY form: 2·F·B·S multiply-adds per row
-                row["bound_ms"], row["bound_by"] = bound(
-                    4 * f * n + 4 * n + 4 * f * b * k, 2 * f * b * k * n_eff)
+            if cross:
+                row.update(cross_bound(f, n, b, k, n_eff))
             else:          # upper triangle of the used lanes (per class: F·B)
                 row.update(gram_bound(
                     f, n, wp * wp * (1 if kid == "B1" else k),
@@ -957,6 +1003,64 @@ def path_cases(hist, rec: Recorder) -> list:
     log(f"path cases: {len(results)} recorded calls equal to their plain "
         f"versions")
     return results
+
+
+def hospital_tree_levels(hist) -> list:
+    """The hospital tree (``DecisionTree`` at depth 4, as the tree jobs of
+    phase 4 fit it) on 1M seeded hospital rows on cuda: its level tables
+    recorded, then held and timed as phase 6 holds them."""
+    from avenir_tpu_torch.core.encoding import DatasetEncoder
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.datagen.hosp_readmit import (HOSP_SCHEMA_JSON,
+                                                      generate_hosp_readmit)
+    from avenir_tpu_torch.models import tree
+
+    enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_hosp_readmit(ROWS_E2E, seed=11))
+    is_cat = [f.is_categorical for f in enc.binned_fields]
+    rec = Recorder()
+    with rec.on("tree"):
+        tree.DecisionTree(max_depth=4, device="cuda").fit(ds, is_cat)
+    return path_cases(hist, rec)
+
+
+def host_us(fn, calls: int = 2000) -> float:
+    """Host µs a call of ``fn`` takes, over ``calls`` calls back to back
+    (the card idle under them: each enqueues, nothing waits)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def cross_main() -> int:
+    """``--b4``: B4 alone — its build, the phase-2 cases, the hospital
+    tree's level tables (phase 6) and the host µs of a 1-row call — as one
+    JSON line.  It measures the ``avenir_tpu_torch`` beside this file, so
+    a copy of this file in another checkout measures that checkout."""
+    import torch
+
+    from avenir_tpu_torch.ops import _build, hist
+
+    card = card_line()
+    t0 = time.perf_counter()
+    _build.build("cross")
+    build_s = time.perf_counter() - t0
+    codes = torch.ones((10, 1), dtype=torch.int32, device="cuda")
+    sel = torch.ones(1, dtype=torch.int32, device="cuda")
+    one_row_us = host_us(lambda: hist.cross_cooc_counts_cols(codes, sel, 13,
+                                                             16))
+    log(json.dumps({"checkout": HERE, "card": card, "build_s": build_s,
+                    "one_row_host_us": one_row_us,
+                    "phase2": cross_cases(hist),
+                    "tree": hospital_tree_levels(hist)}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -1662,12 +1766,21 @@ def kernel_entry(kid, name, source, replaces, launches_by_path, cases):
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
+    ap.add_argument("--b4", action="store_true",
+                    help="time B4 (csrc/cross.cu) alone: phase 2's B4 cases, "
+                         "the hospital tree's levels, a 1-row call")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.b4:
+        return cross_main()
     from concurrent.futures import ThreadPoolExecutor
 
     from avenir_tpu_torch.ops import _build, hist

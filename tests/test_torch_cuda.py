@@ -163,9 +163,15 @@ def _cross_data(n, f, b, s, seed):
     (5000, 10, 13, 2),     # the hospital tree's root level
     (4099, 10, 13, 16),    # its deepest level at depth 4 (K = 8), ragged
     (4099, 10, 13, 54),    # 54 selectors, ragged
-    (3000, 6, 32, 1024),   # num_sel at the gate: several selector tiles
+    (4097, 10, 13, 16),    # N % 4 = 1: feature rows 16-byte aligned at
+    (4098, 10, 13, 16),    # ... every fourth feature (N % 4 = 2: every
+    (1, 10, 13, 16),       # ... second); one row
+    (3000, 6, 32, 1024),   # num_sel at the gate: 16-bit counters
+    (5000, 24, 32, 1024),  # the gate on both sides: eight feature tiles
     (2000, 3, 100, 200),   # jcp 128
     (1000, 24, 32, 300),   # X side at the gate (wp 768)
+    (3000, 1, 768, 1024),  # one feature's table past shared memory:
+                           # selector tiles
     (0, 10, 13, 54),       # empty: zeros, no launch
 ])
 def test_cross_kernel_matches_plain_version(cuda, n, f, b, s):
@@ -179,6 +185,83 @@ def test_cross_kernel_matches_plain_version(cuda, n, f, b, s):
     assert t.shape == (f, b, s)
     assert torch.equal(t.cpu(), hist.cross_cooc_counts_cols_ref(
         torch.from_numpy(codes), torch.from_numpy(sel), b, s))
+
+
+def _cross_check(codes, sel, b, s):
+    """One B4 launch on the card, held against the plain version on the
+    CPU."""
+    before = hist.cross_cooc_counts_cols.launches
+    t = hist.cross_cooc_counts_cols(codes, sel, b, s)
+    assert hist.cross_cooc_counts_cols.launches == before + 1
+    want = hist.cross_cooc_counts_cols_ref(codes.cpu(), sel.cpu(), b, s)
+    assert torch.equal(t.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4097, 4098, 4099, 100_003])
+def test_cross_kernel_on_views_at_a_4_byte_offset(cuda, n):
+    """codes_t and sel as contiguous views one int32 into their buffers:
+    no feature row and no selector starts on a 16-byte boundary where
+    N % 4 = 0, and the rows' alignments differ where it is not."""
+    codes, sel = _cross_data(n, 10, 13, 16, seed=n)
+    cbuf = torch.zeros(10 * n + 1, dtype=torch.int32, device=cuda)
+    sbuf = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    cbuf[1:] = torch.from_numpy(codes.reshape(-1)).to(cuda)
+    sbuf[1:] = torch.from_numpy(sel).to(cuda)
+    ct, sv = cbuf[1:].view(10, n), sbuf[1:]
+    assert ct.is_contiguous() and ct.data_ptr() % 16 == 4
+    _cross_check(ct, sv, 13, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,b,s,share", [
+    (1_000_000, 10, 13, 16, 1.0),    # int32 counters, many clusters
+    (1_000_000, 24, 32, 1024, 1.0),  # 16-bit counters: ~62,500 rows a block
+    (100_003, 10, 13, 16, 0.9),
+    (300_001, 24, 32, 1024, 0.9),    # 16-bit, the hot cell in a high half
+])
+def test_cross_kernel_skewed(cuda, n, f, b, s, share):
+    """That share of the rows in one bin and one odd selector, beside
+    dropped cells and rows: most of a block's increments hit one counter,
+    which must not wrap, and a warp's lanes mostly share a cell."""
+    codes, sel = _cross_data(n, f, b, s, seed=n)
+    hot = np.random.default_rng(n + 1).random(n) < share
+    hc, hs = codes[:, hot], sel[hot]
+    codes[:, hot] = np.where((hc >= 0) & (hc < b), b // 2, hc)
+    sel[hot] = np.where((hs >= 0) & (hs < s), s // 2 + 1, hs)
+    _cross_check(torch.from_numpy(codes).to(cuda),
+                 torch.from_numpy(sel).to(cuda), b, s)
+
+
+@pytest.mark.cuda
+def test_cross_kernel_back_to_back_and_on_another_stream(cuda):
+    """Ten calls queued without a wait, then calls on a non-default stream
+    between calls on the default one: each table is exact (the zeroing and
+    the merge of one launch never meet another's)."""
+    # one shape, so all ten share one cached plan
+    inputs = [_cross_data(50_003, 10, 13, 16, seed=i) for i in range(10)]
+    dev = [(torch.from_numpy(c).to(cuda), torch.from_numpy(v).to(cuda))
+           for c, v in inputs]
+    before = hist.cross_cooc_counts_cols.launches
+    outs = [hist.cross_cooc_counts_cols(c, v, 13, 16) for c, v in dev]
+    assert hist.cross_cooc_counts_cols.launches == before + 10
+    for (c, v), t in zip(inputs, outs):
+        want = hist.cross_cooc_counts_cols_ref(torch.from_numpy(c),
+                                               torch.from_numpy(v), 13, 16)
+        assert torch.equal(t.cpu(), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for k in range(3):
+        c, v = dev[k]
+        with torch.cuda.stream(side):
+            t_side = hist.cross_cooc_counts_cols(c, v, 13, 16)
+        t_main = hist.cross_cooc_counts_cols(*dev[k + 3], 13, 16)
+        side.synchronize()
+        torch.cuda.synchronize()
+        for t, (cn, vn) in ((t_side, inputs[k]), (t_main, inputs[k + 3])):
+            want = hist.cross_cooc_counts_cols_ref(torch.from_numpy(cn),
+                                                   torch.from_numpy(vn), 13, 16)
+            assert torch.equal(t.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -308,6 +308,114 @@ def test_cross_gates_and_operand_checks_match_jax():
         hist.cross_cooc_counts_cols(ct.to("meta"), sel.to("meta"), 4, 2)
 
 
+# (dynamic shared memory per block, SMs): an H100, and a card with less
+# shared memory and half the SMs
+CROSS_DEVICES = [(227 * 1024, 132), (99 * 1024, 66)]
+
+
+@pytest.mark.parametrize("smem,sms", CROSS_DEVICES)
+@pytest.mark.parametrize("n", [0, 1, 4099, 100_003, 1 << 24])
+@pytest.mark.parametrize("num_sel", [1, 16, 189, 190, 1024])
+@pytest.mark.parametrize("f,b", [(10, 13), (24, 32), (3, 100), (1, 1)])
+def test_cross_plan_covers_each_cell_once_within_budget(f, b, num_sel, n,
+                                                        smem, sms):
+    """Every (feature, selector) cell lies in exactly one tile, the tables
+    fit shared memory, the clusters divide the grid, the blocks cover the
+    rows, and no block counts 65,536 rows in 16-bit counters."""
+    assert hist.cross_applicable(f, b, num_sel)
+    cp = hist.cross_plan(f, b, num_sel, n, smem, sms)
+    sel_tiles = -(-num_sel // cp.sel_tile)
+    seen = np.zeros((f, num_sel), np.int64)
+    for t in range(cp.tiles):
+        f0 = t // sel_tiles * cp.feat_tile
+        s0 = t % sel_tiles * cp.sel_tile
+        assert f0 < f and s0 < num_sel                  # no empty tile
+        seen[f0:f0 + cp.feat_tile, s0:s0 + cp.sel_tile] += 1
+    assert (seen == 1).all()
+    assert 1 <= cp.feat_tile <= hist.CROSS_MAX_FEAT_TILE
+    assert cp.sel_tile == num_sel or cp.feat_tile == 1
+    assert cp.smem == hist.cross_smem(cp.feat_tile, b, cp.sel_tile,
+                                      cp.packed) <= smem
+    assert cp.cluster in (1, hist.CROSS_CLUSTER)
+    assert cp.row_blocks % cp.cluster == 0
+    assert cp.rows_per_block % 4 == 0
+    assert cp.row_blocks * cp.rows_per_block >= n
+    # one wave: every block has an SM (two where two fit), unless 16-bit
+    # counters need more blocks of at most CROSS_PACKED_ROWS rows
+    per_sm = 2 if 2 * (cp.smem + 1024) <= smem else 1
+    if cp.packed:
+        assert cp.rows_per_block <= hist.CROSS_PACKED_ROWS < 65_536
+    if not cp.packed or n <= sms * hist.CROSS_PACKED_ROWS // cp.tiles:
+        assert cp.tiles * cp.row_blocks <= max(per_sm * sms, cp.tiles)
+    assert hist.cross_plan(f, b, num_sel, n, smem, sms) == cp
+
+
+def _cross_table(codes, sel, b, s, cp):
+    """T as cross_kernel computes it from the plan (numpy): a table per
+    feature tile and row block, summed per cluster and then over the
+    clusters."""
+    f, n = codes.shape
+    out = np.zeros((f, b, s), np.int64)
+    sel_tiles = -(-s // cp.sel_tile)
+    for t in range(cp.tiles):
+        f0 = t // sel_tiles * cp.feat_tile
+        s0 = t % sel_tiles * cp.sel_tile
+        ft = min(cp.feat_tile, f - f0)
+        st = min(cp.sel_tile, s - s0)
+        parts = np.zeros((cp.row_blocks // cp.cluster, ft, b, st), np.int64)
+        for bx in range(cp.row_blocks):
+            r = np.arange(bx * cp.rows_per_block,
+                          min(n, (bx + 1) * cp.rows_per_block))
+            table = np.zeros((ft, b, st), np.int64)
+            sv = sel[r] - s0
+            for k in range(ft):
+                cv = codes[f0 + k, r]
+                ok = (sv >= 0) & (sv < st) & (cv >= 0) & (cv < b)
+                np.add.at(table[k], (cv[ok], sv[ok]), 1)
+            if cp.packed:
+                assert table.max(initial=0) < 1 << 16
+            parts[bx // cp.cluster] += table
+        out[f0:f0 + ft, :, s0:s0 + st] = parts.sum(0)
+    return out
+
+
+@pytest.mark.parametrize("n,f,b,s,smem,sms", [
+    (4099, 10, 13, 16, 227 * 1024, 132),   # the hospital tree's deepest level
+    (4099, 10, 13, 1024, 227 * 1024, 132),  # 16-bit counters, two tiles
+    (3001, 24, 32, 190, 99 * 1024, 66),    # several tiles, int32
+    (1, 10, 13, 2, 227 * 1024, 132),       # one row
+    (2050, 3, 100, 1, 20 * 1024, 8),       # one selector, ragged tiles
+    (999, 2, 100, 1024, 99 * 1024, 66),    # selector tiles: B·S past 99 KB
+])
+def test_cross_plan_table_equals_plain_version(n, f, b, s, smem, sms):
+    """The plan's tiles, row blocks and clusters, counted the way
+    cross_kernel counts them (numpy), give exactly the plain version's
+    table, invalid codes and selectors included."""
+    codes, sel = _cross_data(n, f, b, s, seed=n + s)
+    cp = hist.cross_plan(f, b, s, n, smem, sms)
+    want = hist.cross_cooc_counts_cols_ref(torch.from_numpy(codes),
+                                           torch.from_numpy(sel), b, s)
+    np.testing.assert_array_equal(_cross_table(codes, sel, b, s, cp),
+                                  want.numpy())
+
+
+def test_cross_plan_packs_where_int32_does_not_fit():
+    """The gate's widest table, 24 × 32 × 1024, takes 128 KB a feature in
+    int32: within 99 KB it needs 16-bit counters, or selector tiles where
+    one wave of 16-bit blocks does not cover the rows; the hospital shape
+    keeps int32, all its features in one tile, two blocks per SM."""
+    narrow = hist.cross_plan(24, 32, 1024, 100_000, 99 * 1024, 66)
+    assert narrow.packed and (narrow.feat_tile, narrow.sel_tile) == (1, 1024)
+    cut = hist.cross_plan(24, 32, 1024, 1_000_000, 99 * 1024, 66)
+    assert not cut.packed and (cut.feat_tile, cut.sel_tile) == (1, 512)
+    wide = hist.cross_plan(10, 13, 16, 1_000_000, 227 * 1024, 132)
+    assert not wide.packed and wide.tiles == 1
+    assert 2 * (wide.smem + 1024) <= 227 * 1024
+    assert wide.row_blocks == 264 and wide.cluster == 2
+    with pytest.raises(ValueError):
+        hist.cross_plan(10, 13, 16, 100, 1024, 132)
+
+
 # the wide tree's 30 × 8 × 2 frontiers (jmaj, cls, cls, clsb), the
 # hospital shapes, and shapes past the cls gates
 PACK_SHAPES = [(k, 30, 8, 2) for k in (1, 2, 4, 8, 16)] + [
@@ -520,3 +628,33 @@ def test_entry_argtypes_match_the_c_signatures():
                 kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
                          for p in params]
                 assert kinds == argtypes, (name, fn, params)
+    # cross_counts takes its plan as a pointer to CrossArgs: the ctypes
+    # structure has its fields, all int, in its order
+    with open(f"{_build.CSRC}/cross.cu") as fh:
+        body = re.search(r"struct CrossArgs \{([^}]*)\};", fh.read()).group(1)
+    decls = [d.split() for d in body.replace("\n", " ").split(";") if d.strip()]
+    assert all(d[0] == "int" for d in decls), decls
+    fields = [n.strip() for d in decls for n in " ".join(d[1:]).split(",")]
+    assert fields == [n for n, _ in hist._CrossArgs._fields_], fields
+    assert {t for _, t in hist._CrossArgs._fields_} == {ctypes.c_int}
+
+
+def test_cross_layout_constants_are_the_kernels():
+    """cross_plan sizes the kernel's grid and shared memory from the ring
+    and packing constants of csrc/cross.cu, copied into ops/hist.py: the
+    copies equal the source's."""
+    import re
+
+    from avenir_tpu_torch.ops import _build
+
+    with open(f"{_build.CSRC}/cross.cu") as fh:
+        src = fh.read()
+    consts = {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert {k: consts[k] for k in ("ROWS", "STAGES", "HEAD", "MAX_FEAT_TILE",
+                                   "PACKED_ROWS")} == {
+        "ROWS": hist.CROSS_ROWS, "STAGES": hist.CROSS_STAGES,
+        "HEAD": hist.CROSS_HEAD, "MAX_FEAT_TILE": hist.CROSS_MAX_FEAT_TILE,
+        "PACKED_ROWS": hist.CROSS_PACKED_ROWS}
+    # a segment is ROWS + 4 ints: the 16-byte granule ahead of a row
+    assert re.search(r"constexpr int SEG = ROWS \+ 4;", src)

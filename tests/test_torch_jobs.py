@@ -77,9 +77,9 @@ def test_nb_part_files_byte_identical(outputs, job):
     assert outputs["torch"][job] == outputs["jax"][job]
 
 
-def test_mi_part_file_equal_field_by_field(outputs):
-    got = outputs["torch"]["mi"].decode().splitlines()
-    want = outputs["jax"]["mi"].decode().splitlines()
+def _same_mi_lines(got: bytes, want: bytes) -> None:
+    """MI part files equal field by field, numbers within TOL."""
+    got, want = got.decode().splitlines(), want.decode().splitlines()
     assert len(got) == len(want) > 0
     numeric = 0
     for lg, lw in zip(got, want):
@@ -94,6 +94,10 @@ def test_mi_part_file_equal_field_by_field(outputs):
             assert abs(x - y) <= TOL, (lg, lw)
             numeric += 1
     assert numeric > 100
+
+
+def test_mi_part_file_equal_field_by_field(outputs):
+    _same_mi_lines(outputs["torch"]["mi"], outputs["jax"]["mi"])
 
 
 def test_mi_job_counts_its_chunks(outputs):
@@ -151,3 +155,69 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
             for p in files for m in pattern.finditer(p.read_text())]
     assert hits == []
+
+
+@pytest.fixture(scope="module")
+def crash_input(tmp_path_factory):
+    """3,000 hospital rows and the durability keys of a stream that crashes
+    after its second chunk, snapshotting every chunk."""
+    work = tmp_path_factory.mktemp("ckpt")
+    write_csv(str(work / "train.csv"), generate_hosp_readmit(3000, seed=3))
+    (work / "hosp.json").write_text(json.dumps(HOSP_SCHEMA_JSON))
+    keys = {"stream.chunk.rows": "700",
+            "stream.checkpoint.dir": str(work / "D"),
+            "stream.checkpoint.interval.chunks": "1",
+            "stream.fault.crash.after.chunks": "2"}
+    return work, keys
+
+
+def _argv(job, work, keys, out):
+    return [job, f"-Dfeature.schema.file.path={work / 'hosp.json'}",
+            *(f"-D{k}={v}" for k, v in keys.items()),
+            str(work / "train.csv"), str(out)]
+
+
+def test_stream_checkpoint_refused_where_jax_checkpoints(crash_input):
+    work, keys = crash_input
+    with pytest.raises(RuntimeError, match="injected crash after chunk 2"):
+        _run(jax_main, _argv("MutualInformation", work, keys, work / "jax_mi"))
+    assert sorted(os.listdir(work / "D")), "the JAX run left no snapshot"
+    assert not (work / "jax_mi" / "part-00000").exists()
+    theirs = {**keys, "stream.checkpoint.dir": str(work / "D_torch")}
+    for job in ("BayesianDistribution", "MutualInformation"):
+        out = work / f"torch_{job}"
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            _run(torch_main, _argv(job, work, theirs, out) + ["--device", "cpu"])
+        assert not (out / "part-00000").exists()
+        assert not (work / "D_torch").exists()
+
+
+NO_CHECKPOINTER = {
+    "dir without chunks": {"stream.checkpoint.dir": "D_unread",
+                           "stream.checkpoint.interval.chunks": "1",
+                           "stream.fault.crash.after.chunks": "2"},
+    "resume alone": {"stream.chunk.rows": "700", "stream.resume": "true"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(NO_CHECKPOINTER))
+def test_stream_keys_run_without_a_checkpointer(crash_input, case):
+    """With either key of the checkpointer missing, both packages ignore
+    the other durability keys, and the port gives the JAX package's part
+    files."""
+    work, _keys = crash_input
+    keys = dict(NO_CHECKPOINTER[case])
+    if "stream.checkpoint.dir" in keys:
+        keys["stream.checkpoint.dir"] = str(work / keys["stream.checkpoint.dir"])
+    parts = {}
+    for pkg, main, extra in (("jax", jax_main, []),
+                             ("torch", torch_main, ["--device", "cpu"])):
+        for job in ("BayesianDistribution", "MutualInformation"):
+            out = work / f"{pkg}_{job}_{case.replace(' ', '_')}"
+            _run(main, _argv(job, work, keys, out) + extra)
+            parts[pkg, job] = (out / "part-00000").read_bytes()
+    assert parts["torch", "BayesianDistribution"]
+    assert (parts["torch", "BayesianDistribution"]
+            == parts["jax", "BayesianDistribution"])
+    _same_mi_lines(parts["torch", "MutualInformation"],
+                   parts["jax", "MutualInformation"])
