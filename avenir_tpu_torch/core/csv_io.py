@@ -6,12 +6,13 @@ into column-major numpy string arrays in bounded-size chunks (the analog of
 HDFS-block-sized mapper inputs) so datasets stream through fixed-shape device
 batches.
 
-The port encodes through this Python path only; the JAX package's native
-C++ encoder is not ported yet and gives the same codes.
+This is the portable reader; ``runtime/native.py`` parses the same bytes
+natively where the schema is complete, with the same codes.
 """
 
 from __future__ import annotations
 
+import io
 from typing import Iterator, List, Optional, Sequence, TextIO, Union
 
 import numpy as np
@@ -59,6 +60,10 @@ def read_csv(source: Union[str, TextIO], delim: str = ",") -> np.ndarray:
     if not chunks:
         return np.empty((0, 0), dtype=object)
     return np.concatenate(chunks, axis=0) if len(chunks) > 1 else chunks[0]
+
+
+def read_csv_string(text: str, delim: str = ",") -> np.ndarray:
+    return read_csv(io.StringIO(text), delim=delim)
 
 
 def write_csv(path_or_handle: Union[str, TextIO], rows: Sequence[Sequence], delim: str = ",") -> None:

@@ -31,11 +31,12 @@ Encoded output is column-major:
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from avenir_tpu_torch.core.config import ConfigError
+from avenir_tpu_torch.core.csv_io import iter_csv_chunks
 from avenir_tpu_torch.core.schema import FeatureField, FeatureSchema
 
 OOV = "__OOV__"
@@ -47,7 +48,10 @@ class NoDataError(ValueError):
 
 @dataclass
 class EncodedDataset:
-    """A fully-encoded batch (or whole dataset) ready for device transfer."""
+    """A fully-encoded batch (or whole dataset) ready for device transfer.
+
+    ``codes``, ``cont`` and ``labels`` are numpy arrays, or torch tensors
+    once ``runtime/feeder.py`` has staged the chunk on the device."""
 
     codes: np.ndarray                       # int32 [N, Fb]
     cont: np.ndarray                        # float32 [N, Fc]
@@ -60,7 +64,7 @@ class EncodedDataset:
 
     @property
     def num_rows(self) -> int:
-        return int(self.codes.shape[0]) if self.codes.size or self.codes.shape[0] else int(self.cont.shape[0])
+        return int(self.codes.shape[0] or self.cont.shape[0])
 
     @property
     def num_binned(self) -> int:
@@ -145,6 +149,28 @@ class DatasetEncoder:
             self.class_values = list(self.class_field.cardinality)
             self.class_map = {v: i for i, v in enumerate(self.class_values)}
 
+    def max_ordinal(self, with_labels: bool = True) -> int:
+        """Largest CSV column ordinal any consumed field reads; a row must
+        have more columns than this."""
+        ords = [f.ordinal for f in self.binned_fields + self.cont_fields]
+        if self.id_field is not None:
+            ords.append(self.id_field.ordinal)
+        if with_labels and self.class_field is not None:
+            ords.append(self.class_field.ordinal)
+        return max(ords, default=-1)
+
+    def schema_complete(self, with_labels: bool = True) -> bool:
+        """True when the schema declares every vocabulary and bin range (and
+        the class values, if ``with_labels``), so :meth:`transform` needs no
+        fitting pass — the reference mappers' contract, and the native
+        encoder's condition."""
+        for f in self.binned_fields:
+            if f.ordinal not in self.vocab and f.ordinal not in self.bin_offset:
+                return False
+        if with_labels and self.class_field is not None and not self.class_values:
+            return False
+        return True
+
     # -- fitting -------------------------------------------------------------
     def fit(self, rows: np.ndarray) -> "DatasetEncoder":
         """Learn vocabularies / bin ranges not fully specified by the schema."""
@@ -211,6 +237,15 @@ class DatasetEncoder:
 
     def fit_transform(self, rows: np.ndarray, with_labels: bool = True) -> EncodedDataset:
         return self.fit(rows).transform(rows, with_labels=with_labels)
+
+    # -- streaming -----------------------------------------------------------
+    def iter_encoded(
+        self, source, chunk_rows: int = 1_000_000, delim: str = ",", with_labels: bool = True,
+    ) -> Iterator[EncodedDataset]:
+        """Stream CSV chunks through :meth:`transform` (fit must have run,
+        or the schema be complete)."""
+        for chunk in iter_csv_chunks(source, chunk_rows=chunk_rows, delim=delim):
+            yield self.transform(chunk, with_labels=with_labels)
 
     # -- state capture (ship the fitted encoding with a saved model) ---------
     def state_dict(self) -> Dict:

@@ -22,3 +22,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "available; pass device='cpu' (CLI: --device cpu) to run on the "
             "CPU")
     return dev
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A chunk array on ``device``: a numpy array is wrapped and copied, a
+    tensor the feeder already staged there is returned as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(x).to(device)

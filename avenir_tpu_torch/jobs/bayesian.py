@@ -90,7 +90,8 @@ class BayesianPredictor(Job):
         prob_only = conf.get_bool("output.feature.prob.only")
         if prob_only:                      # no echo: skip line collection
             enc, ds, _rows = self.encode_input(conf, input_path,
-                                               with_labels=validate)
+                                               with_labels=validate,
+                                               need_rows=False)
             in_lines = None
         else:
             enc, ds, in_lines = self.encode_input_with_lines(

@@ -29,11 +29,12 @@ from avenir_tpu_torch.models import naive_bayes as nb
 from avenir_tpu_torch.utils.metrics import Counters
 
 
-def _train_model(conf: JobConfig, enc=None):
+def _train_model(conf: JobConfig, enc=None, need_rows: bool = True):
     train_path = conf.get("training.data.path")
     if not train_path:
         raise ConfigError("training.data.path not set")
-    return Job.encode_input(conf, train_path, encoder=enc)
+    return Job.encode_input(conf, train_path, encoder=enc,
+                            need_rows=need_rows)
 
 
 class SameTypeSimilarity(Job):
@@ -46,9 +47,10 @@ class SameTypeSimilarity(Job):
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
         delim = conf.field_delim
-        enc, train_ds, _train_rows = _train_model(conf)
+        enc, train_ds, _train_rows = _train_model(conf, need_rows=False)
         _enc, test_ds, _test_rows = self.encode_input(
-            conf, input_path, with_labels=False, encoder=enc)
+            conf, input_path, with_labels=False, encoder=enc,
+            need_rows=False)
         model = mknn.fit_knn(train_ds)
         k = conf.get_int("top.match.count", 10)
         ids = (test_ds.ids if test_ds.ids is not None
@@ -116,7 +118,7 @@ class NearestNeighbor(Job):
         if mode not in ("exact", "approx"):
             raise ConfigError(f"unknown knn.search.mode {mode!r}; use "
                               f"exact|approx")
-        enc, train_ds, train_rows = _train_model(conf)
+        enc, train_ds, train_rows = _train_model(conf, need_rows=regression)
         if regression:
             _e, test_ds, test_rows = self.encode_input(
                 conf, input_path, with_labels=False, encoder=enc)

@@ -69,7 +69,7 @@ class ClassPartitionGenerator(Job):
 
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
-        _enc, ds, _rows = self.encode_input(conf, input_path)
+        _enc, ds, _rows = self.encode_input(conf, input_path, need_rows=False)
         p = _tree_params(conf)
         dev = self.device
         labels = torch.from_numpy(np.ascontiguousarray(ds.labels)).to(dev)
@@ -222,7 +222,7 @@ class DecisionTreeBuilder(Job):
         if conf.get("tree.model.file.path"):
             self._predict(conf, input_path, output_path, counters)
             return
-        enc, ds, _rows = self.encode_input(conf, input_path)
+        enc, ds, _rows = self.encode_input(conf, input_path, need_rows=False)
         p = _tree_params(conf)
         trainer = dtree.DecisionTree(
             algorithm=p["algorithm"], max_split=p["max_split"],

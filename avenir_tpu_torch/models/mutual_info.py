@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import EncodedDataset, peek_chunks
-from avenir_tpu_torch.device import resolve_device
+from avenir_tpu_torch.device import resolve_device, to_device
 from avenir_tpu_torch.ops import agg, hist, info
 
 
@@ -133,8 +133,8 @@ class MutualInformation:
         kernel = hist.use_kernel(f, b, c, self.device)
         gk = hist.g_key(f, b, c)
         for ds in chunks:
-            codes = torch.from_numpy(ds.codes).to(self.device)
-            labels = torch.from_numpy(ds.labels).to(self.device)
+            codes = to_device(ds.codes, self.device)
+            labels = to_device(ds.labels, self.device)
             acc.add("class", agg.class_counts(labels, c))
             if kernel:
                 acc.add(gk, hist.cooc_counts(codes, labels, b, c))

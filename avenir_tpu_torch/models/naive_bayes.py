@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import DatasetEncoder, EncodedDataset, peek_chunks
-from avenir_tpu_torch.device import resolve_device
+from avenir_tpu_torch.device import resolve_device, to_device
 from avenir_tpu_torch.ops import agg
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
 
@@ -195,13 +195,13 @@ class NaiveBayes:
             if ds.labels is None:
                 raise ValueError("fit requires labels (class attribute column)")
             c, b = ds.num_classes, ds.max_bins
-            labels = torch.from_numpy(ds.labels).to(self.device)
+            labels = to_device(ds.labels, self.device)
             if ds.num_binned:
-                codes = torch.from_numpy(ds.codes).to(self.device)
+                codes = to_device(ds.codes, self.device)
                 acc.add("bin_counts", agg.feature_class_counts(codes, labels, c, b))
             acc.add("class_counts", agg.class_counts(labels, c))
             if ds.num_cont:
-                cont = torch.from_numpy(ds.cont).to(self.device)
+                cont = to_device(ds.cont, self.device)
                 cnt, s1, s2 = agg.class_moments(cont, labels, c)
                 acc.add("cont_count", cnt)
                 acc.add("cont_sum", s1)

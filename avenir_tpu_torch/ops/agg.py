@@ -55,6 +55,16 @@ def class_counts(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return _count(labels, _valid_labels(labels, num_classes), num_classes)
 
 
+def feature_counts(codes: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """codes [N, F] → [F, B] per-feature bin histograms (feature priors)."""
+    check_chunk(codes.shape[0])
+    f = codes.shape[1]
+    codes = codes.long()
+    keep = (codes >= 0) & (codes < num_bins)
+    idx = torch.arange(f, device=codes.device)[None, :] * num_bins + codes
+    return _count(idx, keep, f * num_bins).reshape(f, num_bins)
+
+
 def feature_class_counts(codes: torch.Tensor, labels: torch.Tensor,
                          num_classes: int, num_bins: int) -> torch.Tensor:
     """codes [N, F], labels [N] → [F, B, C] class-conditional bin counts
@@ -88,19 +98,55 @@ def pair_class_counts(codes_i: torch.Tensor, codes_j: torch.Tensor,
     return _count(idx, keep, p * b * b * c).reshape(p, b, b, c)
 
 
+def pair_counts(codes_i: torch.Tensor, codes_j: torch.Tensor,
+                num_bins: int) -> torch.Tensor:
+    """codes_i [N, P], codes_j [N, P] → [P, B, B] joint histograms of P
+    feature pairs (the MI job's feature-pair distributions)."""
+    check_chunk(codes_i.shape[0])
+    p, b = codes_i.shape[1], num_bins
+    ci, cj = codes_i.long(), codes_j.long()
+    keep = (ci >= 0) & (ci < b) & (cj >= 0) & (cj < b)
+    idx = (torch.arange(p, device=ci.device)[None, :] * b + ci) * b + cj
+    return _count(idx, keep, p * b * b).reshape(p, b, b)
+
+
+def nb_mi_pipeline_step(codes: torch.Tensor, labels: torch.Tensor, ci, cj,
+                        num_classes: int, num_bins: int):
+    """The NB + MI counts of a chunk in one pass: → (fbc [F, B, C], pair
+    [P, B, B, C]) for the P pairs (ci, cj).  The F diagonal pairs (f, f)
+    ride along, since the [a, a, c] diagonal of an (f, f) joint is f's
+    class-conditional bin count."""
+    f = codes.shape[1]
+    dev = codes.device
+    diag = torch.arange(f, device=dev)
+    cia = torch.cat([torch.as_tensor(ci, device=dev).long(), diag])
+    cja = torch.cat([torch.as_tensor(cj, device=dev).long(), diag])
+    all_counts = pair_class_counts(codes[:, cia], codes[:, cja], labels,
+                                   num_classes, num_bins)
+    ar = torch.arange(num_bins, device=dev)
+    return all_counts[len(ci):, ar, ar, :], all_counts[:len(ci)]
+
+
 def class_moments(values: torch.Tensor, labels: torch.Tensor,
                   num_classes: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """values [N, Fc] float32, labels [N] → (count [C], Σx [C, Fc],
-    Σx² [C, Fc]) in float32, as the JAX package sums them.  Sums are
-    exact when every partial sum is (e.g. integer-valued data); otherwise
-    they agree to float32 rounding, since the summation order differs."""
+    Σx² [C, Fc]) summed in float64.
+
+    Where the JAX package's float32 sums are exact (every partial sum
+    representable, e.g. integer-valued data) these are the same numbers.
+    Elsewhere a float32 Σx² of a 250K-row chunk is off by ~1e-5 relative
+    in an order each device's matmul chooses, and NB's variance
+    E[x²] − mean² magnifies that (hospital weights over 1M rows: NB's std
+    1.8e-4 apart between an H100 and the CPU); in float64 the two devices
+    agree to rounding."""
     check_chunk(values.shape[0])
     oh = torch.nn.functional.one_hot(
         torch.where(_valid_labels(labels, num_classes), labels.long(),
                     num_classes), num_classes + 1)[:, :num_classes]
-    oh = oh.to(torch.float32)                                  # [N, C]
-    return oh.sum(0), oh.T @ values, oh.T @ (values * values)
+    oh = oh.to(torch.float64)                                  # [N, C]
+    x = values.to(torch.float64)
+    return oh.sum(0), oh.T @ x, oh.T @ (x * x)
 
 
 class Accumulator:

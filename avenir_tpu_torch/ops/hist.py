@@ -22,6 +22,12 @@ version beside it:
   _cross_kernel``, B4), the decision tree's level table; plain version
   :func:`cross_cooc_counts_cols_ref`.
 
+The SharedScan's chunk steps sit on these: :func:`gram_moments` (the gram
+of a chunk and its class moments, back to back) on the kernel route, and
+off it the exact one-hot product :func:`gram_counts` /
+:func:`gram_counts_moments` where :func:`pack_tables` finds one product
+cheaper than the per-table counts.
+
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises — there is no fallback between them.  Each
 wrapper counts its launches in a function attribute (``launches``, and for
@@ -453,6 +459,94 @@ def cooc_counts(codes: torch.Tensor, labels: torch.Tensor, num_bins: int,
                             num_classes)
 
 
+def gram_moments(codes: torch.Tensor, labels: torch.Tensor,
+                 cont: torch.Tensor, num_bins: int, num_classes: int):
+    """One SharedScan chunk step on the kernel route: the gram G of the
+    chunk's codes (:func:`cooc_counts`: B1, or B2/B3 in the per-class
+    modes) and the class-conditional (count, Σx, Σx²) moments of its
+    continuous block (``agg.class_moments``), issued back to back on the
+    current stream over the same resident chunk.
+
+    codes [N, F], labels [N], cont [N, Fc] → (G, cnt [C], s1 [C, Fc],
+    s2 [C, Fc])."""
+    from avenir_tpu_torch.ops import agg
+
+    g = cooc_counts(codes, labels, num_bins, num_classes)
+    cnt, s1, s2 = agg.class_moments(cont, labels, num_classes)
+    return g, cnt, s1, s2
+
+
+def gram_counts_cols(codes_t: torch.Tensor, labels: torch.Tensor,
+                     num_bins: int, num_classes: int) -> torch.Tensor:
+    """G as one exact one-hot product in every plan mode, the packed
+    fold's program (``pallas_hist.gram_counts_cols``): float32 row blocks
+    of :func:`_gram_block_rows`, each exact below 2^24, summed in int32.
+    It is not a Pallas kernel in the JAX package, and here it is
+    ``torch.matmul`` on whatever device the inputs are on — the same
+    program as :func:`cooc_counts_cols_ref`, B1's plain version."""
+    check_chunk(codes_t.shape[1])
+    return cooc_counts_cols_ref(codes_t, labels, num_bins, num_classes)
+
+
+def gram_counts(codes: torch.Tensor, labels: torch.Tensor, num_bins: int,
+                num_classes: int) -> torch.Tensor:
+    """Row-major entry of :func:`gram_counts_cols` (codes [N, F])."""
+    return gram_counts_cols(codes.t(), labels, num_bins, num_classes)
+
+
+def gram_counts_moments(codes: torch.Tensor, labels: torch.Tensor,
+                        cont: torch.Tensor, num_bins: int, num_classes: int):
+    """The packed fold's analog of :func:`gram_moments`: the one-hot gram
+    and the class moments of the same chunk."""
+    from avenir_tpu_torch.ops import agg
+
+    g = gram_counts(codes, labels, num_bins, num_classes)
+    cnt, s1, s2 = agg.class_moments(cont, labels, num_classes)
+    return g, cnt, s1, s2
+
+
+def nb_mi_step(codes: torch.Tensor, labels: torch.Tensor, ci, cj,
+               num_classes: int, num_bins: int):
+    """The gram route's counterpart of ``agg.nb_mi_pipeline_step``:
+    → (fbc [F, B, C], pair [P, B, B, C]) as numpy arrays, read out of one
+    chunk's G (which waits for the device)."""
+    g = cooc_counts(codes, labels, num_bins, num_classes)
+    return counts_from_cooc(g, codes.shape[1], num_bins, num_classes, ci, cj)
+
+
+def chunk_pipeline(num_feat: int, num_bins: int, num_classes: int, ci, cj,
+                   device, columnar: bool = False):
+    """(step, chain_scalar, is_kernel) for the per-chunk NB + MI step on
+    ``device``, routed by :func:`use_kernel`.
+
+    ``step(codes, labels)`` returns the chunk's counts (G on the kernel
+    route, (fbc, pair) on the ``agg`` route); ``chain_scalar(out)`` is a
+    zero int32 scalar taken from them, which a benchmark adds to the next
+    chunk's labels so that one final wait covers the whole chain.  With
+    ``columnar=True`` (kernel route only) ``step`` takes codes as [F, N]."""
+    if use_kernel(num_feat, num_bins, num_classes, device):
+        kernel = cooc_counts_cols if columnar else cooc_counts
+
+        def step(codes, labels):
+            return kernel(codes, labels, num_bins, num_classes)
+
+        def chain_scalar(out):
+            return (out[(0,) * out.dim()] * 0).to(torch.int32)
+
+        return step, chain_scalar, True
+
+    from avenir_tpu_torch.ops import agg
+
+    def step(codes, labels):
+        return agg.nb_mi_pipeline_step(codes, labels, ci, cj,
+                                       num_classes, num_bins)
+
+    def chain_scalar(out):
+        return (out[0][0, 0, 0] * 0).to(torch.int32)
+
+    return step, chain_scalar, False
+
+
 def counts_from_cooc(g, num_feat: int, num_bins: int, num_classes: int,
                      ci, cj):
     """Host-side (numpy) read-out of the reference-shaped count tensors
@@ -753,6 +847,38 @@ def packed_g_key(num_feat: int, num_bins: int, num_classes: int) -> str:
     :func:`g_key`, another base string)."""
     mode, _, _ = plan(num_feat, num_bins, num_classes)
     return f"g:packed:{mode}:f{num_feat}:b{num_bins}:c{num_classes}"
+
+
+def pack_tables(num_feat: int, num_bins: int, num_classes: int,
+                num_pairs: int, max_width: Optional[int] = None
+                ) -> Optional[PackPlan]:
+    """Cross-pack planner: NB's [F, B, C] table and P MI pair tables
+    ([B, B, C] each) as ONE joint gram, or None when the pack does not pay.
+
+    The JAX package's cost model, unchanged: the unpacked fold builds
+    F·B + P·B·(1 + C) one-hot-contracted cells per row; the packed gram
+    pays wp², so pack iff wp ≤ WIDTH_SLACK · (F·B + P·B·(1 + C)) and wp
+    fits the clsb ceiling (or ``max_width``)."""
+    if num_feat * num_bins * num_classes <= 0:
+        return None
+    mode, _jcp, wp = plan(num_feat, num_bins, num_classes)
+    cap = min(max_width or MAX_W_CLSB, MAX_W_CLSB)
+    if wp > cap:
+        return None
+    cells = num_feat * num_bins + num_pairs * num_bins * (1 + num_classes)
+    if wp > WIDTH_SLACK * cells:
+        return None
+    wf = w_index(num_feat, num_bins, num_classes)
+    members = tuple(
+        PackMember(key=f"f{i}", num_feat=1, num_bins=num_bins,
+                   num_classes=num_classes, offset=int(wf[i].min()))
+        for i in range(num_feat))
+    band = clsb_tile(num_feat, num_bins, num_classes) if mode == "clsb" \
+        else None
+    return PackPlan(members=members, num_feat=num_feat, num_bins=num_bins,
+                    num_classes=num_classes, mode=mode, wp=wp,
+                    band_bins=(band[0] // num_feat if band else 0),
+                    stripe_bins=0, disjoint=False)
 
 
 def pack_disjoint(num_members: int, num_feat: int, num_bins: int,

@@ -33,6 +33,10 @@ class Counters:
         with self._lock:
             self._groups.setdefault(group, {})[name] = int(value)
 
+    def get(self, group: str, name: str) -> int:
+        with self._lock:
+            return self._groups.get(group, {}).get(name, 0)
+
     def as_dict(self) -> Dict[str, Dict[str, int]]:
         with self._lock:
             return {g: dict(d) for g, d in self._groups.items()}
@@ -42,6 +46,15 @@ class Counters:
         for group, vals in other.as_dict().items():
             for name, value in vals.items():
                 self.set(group, name, value)
+        return self
+
+    def merge_add(self, other: "Counters") -> "Counters":
+        """Sum every counter from ``other`` into this one (Hadoop's counter
+        merge): a rollup of many sources keeps every contributor's
+        count."""
+        for group, vals in other.as_dict().items():
+            for name, value in vals.items():
+                self.increment(group, name, value)
         return self
 
 

@@ -8,8 +8,9 @@ Phases, in order; any failure exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels ``avenir_tpu_torch/csrc/{cooc_pair,cross,knn_tourney,knn_topk,
-   gram_probe}.cu`` (one nvcc each, all started together), printing each
-   build time and ptxas report;
+   gram_probe}.cu`` (one nvcc each) and the native CSV encoder
+   (``runtime/native/csv_encode.cpp``, g++), all started together,
+   printing each build time and ptxas report;
 2. hold each count kernel against its plain PyTorch version on the card —
    exact int equality — and time the kernel, the plain version and a
    library yardstick the port never calls, with CUDA events; B1, B2 and B3
@@ -38,8 +39,10 @@ Phases, in order; any failure exits non-zero:
    BayesianPredictor and MutualInformation through the port's CLI entry on
    ``cuda`` with ``stream.chunk.rows=250000``, then with ``--device cpu``;
    the NB model and predictions must be byte-identical, the MI part file
-   equal field by field with numbers within 2e-6, and B1 launched once per
-   MI chunk.  Then MutualInformation on a seeded 20 × 20 × 2 dataset of 1M
+   equal field by field with numbers within 2e-6, B1 launched once per
+   MI chunk, and the stream's retried tasks one per chunk and one for the
+   end of the file.  Every job here parses through the native encoder.
+   Then MutualInformation on a seeded 20 × 20 × 2 dataset of 1M
    rows in 250K-row chunks on both devices: counts byte-identical, MI
    within 2e-6, B2 launched once per chunk;
 4. the tree jobs on the same CSV through the CLI on ``cuda`` and ``cpu``:
@@ -52,9 +55,23 @@ Phases, in order; any failure exits non-zero:
    search, depth 4): on ``cuda`` its levels must pack onto jmaj, cls, cls
    and clsb (B1, B2, B3), on ``cpu`` take the plain route, and the trees
    agree;
+5b. the main path's host side on phase 3's CSV: (a) the native encoder
+   against the Python one (equal arrays, both times); (b) ``python -m
+   avenir_tpu_torch.pipeline run`` with an NB and an MI stage in 250K-row
+   chunks on ``cuda``: one SharedScan (FusedStages 2, Scans 1, Chunks 4),
+   B1 launched 4 times, NB byte-identical to phase 3's ``cuda`` and
+   ``cpu`` models, MI to its ``cuda`` file and within 2e-6 of its ``cpu``
+   file; (c) the same with ``scan.fuse=false`` and (d) with
+   ``stream.prefetch.depth=0`` and the default 2 again, files
+   byte-identical, walls printed, and the fused run's host side timed in
+   parts; (e) a mixed schema (age, weight and height continuous: 7 × 4 ×
+   2 binned + 3 continuous) fused on ``cuda`` through ``hist.gram_moments``
+   (4 calls, B1 4), its NB model byte-identical to the standalone ``cuda``
+   BayesianDistribution's and within relative 1e-5 of the fused CPU
+   run's;
 6. each count kernel again at the main paths' own inputs: every call that
-   phases 3–5 made on ``cuda`` to the count wrappers was recorded (the MI
-   jobs' chunks, the hospital trees' levels with 2, 4, 8 and 16
+   phases 3–5b made on ``cuda`` to the count wrappers was recorded (the MI
+   jobs' chunks, the pipeline's chunks, the hospital trees' levels with 2, 4, 8 and 16
    selectors, the wide tree's packed levels K = 1, 2, 4, 8), and each is
    held exactly against its plain version; the first call of each path
    and shape is timed with its plain version, yardstick and bound;
@@ -102,7 +119,9 @@ Phases, in order; any failure exits non-zero:
     and [W, N] (``cols``) at W 384, 16M rows.  Each full variant is held
     against its plain version, with the plain version's time, a library
     yardstick and the bound beside it;
-11. print the kernels' JSON line, its numbers from the main-path cases of
+11. print a ``walls_s`` JSON line (the native encoder's build, native
+    against Python encode, phases 3, 4, 5b and 8's walls) with the card's
+    name and power limit, then the kernels' JSON line, its numbers from the main-path cases of
     phases 6 and 9 (B1: a hospital MI chunk; B2: a 20 × 20 × 2 MI chunk;
     B3: the wide tree's K = 8 level; B4: the hospital tree's deepest level;
     B5: the 1M-row NearestNeighbor job; B6: the 10K-row NearestNeighbor
@@ -659,9 +678,9 @@ def same_bytes(a: str, b: str, what: str) -> None:
             raise AssertionError(f"{what} part files differ between cuda and cpu")
 
 
-def jobs_phase(hist, rec: Recorder, work: str):
+def jobs_phase(hist, rec: Recorder, work: str, walls: dict):
     """Phase 3: the three CLI jobs on cuda, then on the CPU; returns B1's
-    launches in the cuda run."""
+    launches in the cuda run and puts each job's wall into ``walls``."""
     from avenir_tpu_torch.core.csv_io import write_csv
     from avenir_tpu_torch.datagen.hosp_readmit import (HOSP_SCHEMA_JSON,
                                                       generate_hosp_readmit)
@@ -700,13 +719,22 @@ def jobs_phase(hist, rec: Recorder, work: str):
                  "-Dmutual.info.score.algorithms=mim,mifs,jmi,disr,mrmr",
                  train, o("mi"), "--device", dev])
         t_mi = time.perf_counter() - t0
-        chunks = counter(mi_out, "Chunks")
+        # the stream's chunks; each is one retried task, and so is the read
+        # that finds the end of the file
+        chunks = -(-ROWS_E2E // CHUNK_ROWS)
+        if counter(mi_out, "attempts") != chunks + 1:
+            raise AssertionError(f"MI job's stream ran "
+                                 f"{counter(mi_out, 'attempts')} tasks for "
+                                 f"{chunks} chunks")
+        walls[f"{dev} BayesianDistribution"] = t_nb
+        walls[f"{dev} BayesianPredictor"] = t_pred
+        walls[f"{dev} MutualInformation"] = t_mi
         if dev == "cuda":
             counts = read_counts()
             launches = counts["B1"]
             if counts != only(B1=chunks):
                 raise AssertionError(f"NB + MI jobs launched {counts}")
-            if launches != chunks or chunks != -(-ROWS_E2E // CHUNK_ROWS):
+            if launches != chunks:
                 raise AssertionError(f"B1 launched {launches} times for "
                                      f"{chunks} MI chunks")
         if counter(mi_out, "Processed") != ROWS_E2E:
@@ -819,10 +847,10 @@ def tree_phase_table(out: str) -> dict:
 
 
 def tree_jobs_phase(hist, rec: Recorder, work: str, train: str, test: str,
-                    schema: str) -> dict:
+                    schema: str, job_walls: dict) -> dict:
     """Phase 4: the tree jobs through the CLI on cuda and cpu; returns
     B4's launches on cuda by job (each job's counts are reset just before
-    it)."""
+    it) and puts each job's wall into ``job_walls``."""
     common = [f"-Dfeature.schema.file.path={schema}"]
     jobs = [
         ("tree", ["DecisionTreeBuilder", *common, "-Dtree.hist.phase.stats=true",
@@ -848,7 +876,8 @@ def tree_jobs_phase(hist, rec: Recorder, work: str, train: str, test: str,
             t0 = time.perf_counter()
             with rec.on(name) if dev == "cuda" else contextlib.nullcontext():
                 text = run_cli([*argv, o(name), "--device", dev])
-            walls.append(f"{name} {time.perf_counter() - t0:.2f} s")
+            job_walls[f"{dev} {name}"] = time.perf_counter() - t0
+            walls.append(f"{name} {job_walls[f'{dev} {name}']:.2f} s")
             counts = read_counts()
             levels = tree_phase_table(text)
             if dev == "cuda":
@@ -934,6 +963,265 @@ def wide_tree_phase(hist, rec: Recorder) -> dict:
     log(f"wide tree: cuda and cpu trees agree (max score diff {d}); "
         f"launches {counts}")
     return counts
+
+
+def run_pipeline(argv) -> dict:
+    """The port's pipeline CLI in this process; returns its counters as
+    {stage: {group: {name: value}}}."""
+    from avenir_tpu_torch.pipeline.__main__ import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"pipeline {argv} exited {rc}")
+    out, stage, group = {}, None, None
+    for line in buf.getvalue().splitlines():
+        if line.startswith("stage "):
+            stage = out.setdefault(line[len("stage "):], {})
+        elif line.startswith("  "):
+            group = stage.setdefault(line.strip(), {})
+        elif line.startswith("\t"):
+            k, v = line.strip().split("=", 1)
+            group[k] = int(v)
+    return out
+
+
+def pipeline_conf(work: str, name: str, train: str, schema: str) -> str:
+    """A properties file declaring the NB + MI pipeline over ``train``."""
+    props = {
+        "pipeline.stages": "nb,mi",
+        "pipeline.bind.train": train,
+        "pipeline.stage.nb.job": "BayesianDistribution",
+        "pipeline.stage.nb.input": "train",
+        "pipeline.stage.nb.output": "nb_model",
+        "pipeline.stage.mi.job": "MutualInformation",
+        "pipeline.stage.mi.input": "train",
+        "pipeline.stage.mi.output": "mi_out",
+        "feature.schema.file.path": schema,
+        "stream.chunk.rows": str(CHUNK_ROWS),
+        "mutual.info.score.algorithms": "mim,mifs,jmi,disr,mrmr",
+    }
+    path = os.path.join(work, f"{name}.properties")
+    with open(path, "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in props.items()))
+    return path
+
+
+def compare_rel(a_path: str, b_path: str, rtol: float) -> float:
+    """Field-by-field comparison of two model files: text and integer
+    fields equal, floats within ``rtol``; returns the largest relative
+    difference."""
+    with open(a_path) as fa, open(b_path) as fb:
+        a, b = fa.read().splitlines(), fb.read().splitlines()
+    if len(a) != len(b):
+        raise AssertionError(f"model files differ in length: {len(a)} vs {len(b)}")
+    worst = 0.0
+    for la, lb in zip(a, b):
+        fa_, fb_ = la.split(","), lb.split(",")
+        if len(fa_) != len(fb_):
+            raise AssertionError(f"model lines differ: {la!r} vs {lb!r}")
+        for x, y in zip(fa_, fb_):
+            if x == y:
+                continue
+            try:
+                d = abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+            except ValueError:
+                raise AssertionError(f"model lines differ: {la!r} vs {lb!r}")
+            if "." not in x + y or d > rtol:
+                raise AssertionError(f"model lines differ: {la!r} vs {lb!r}")
+            worst = max(worst, d)
+    return worst
+
+
+def pipeline_phase(rec: Recorder, work: str, train: str, schema: str,
+                   walls: dict) -> dict:
+    """Phase 5b: the main path's host side and the fused pipeline on
+    phase 3's 1M-row hospital CSV; returns B1's launches by path.
+
+    (a) the native encoder against the Python one through
+    ``Job.encode_input``; (b) ``python -m avenir_tpu_torch.pipeline run``
+    with an NB and an MI stage in 250K-row chunks on cuda (one SharedScan,
+    B1 once a chunk), its part files against phase 3's; (c) the same with
+    ``scan.fuse=false``; (d) with ``stream.prefetch.depth=0``, and with
+    the default depth 2 again, and the fused run's host side timed in
+    parts (the retried stream alone, the staging alone, the scan of
+    chunks already on the card); (e) a mixed schema (age, weight and height
+    continuous) fused on cuda (``hist.gram_moments``), against the
+    standalone BayesianDistribution on cuda and the fused run on the CPU."""
+    import copy
+
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.datagen.hosp_readmit import HOSP_SCHEMA_JSON
+    from avenir_tpu_torch.jobs.base import Job
+    from avenir_tpu_torch.ops import hist
+
+    conf = JobConfig({"feature.schema.file.path": schema})
+    t0 = time.perf_counter()
+    _e, nat, _ = Job.encode_input(conf, train, need_rows=False)
+    walls["native encode 1M"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _e, py, _ = Job.encode_input(conf, train)
+    walls["python encode 1M"] = time.perf_counter() - t0
+    for key in ("codes", "labels", "cont", "ids"):
+        a, b = getattr(nat, key), getattr(py, key)
+        if a.shape != b.shape or not np.array_equal(a.astype(b.dtype), b):
+            raise AssertionError(f"native and Python encoders differ in {key}")
+    log(f"pipeline (a): 1M rows encoded natively in "
+        f"{walls['native encode 1M']:.3f} s, by the Python encoder in "
+        f"{walls['python encode 1M']:.3f} s; arrays equal")
+    del nat, py
+
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    fused_group = {"FusedStages": 2, "Scans": 1, "Chunks": chunks}
+    path = pipeline_conf(work, "nb_mi", train, schema)
+    parts = {}
+    runs = (("fused", []), ("unfused", ["-Dscan.fuse=false"]),
+            ("depth0", ["-Dstream.prefetch.depth=0"]), ("fused again", []))
+    launches = {}
+    for name, extra in runs:
+        ws = os.path.join(work, "ws_" + name.replace(" ", "_"))
+        reset_counts()
+        t0 = time.perf_counter()
+        with rec.on("pipeline") if name == "fused" else contextlib.nullcontext():
+            counters = run_pipeline(["run", path, f"-Dpipeline.workspace={ws}",
+                                     *extra])
+        walls[f"pipeline {name}"] = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != only(B1=chunks):
+            raise AssertionError(f"pipeline {name} launched {counts}")
+        for stage in ("nb", "mi"):
+            got = counters[stage].get("SharedScan")
+            if got != (None if name == "unfused" else fused_group):
+                raise AssertionError(f"pipeline {name}: stage {stage} "
+                                     f"SharedScan counters {got}")
+            if counters[stage]["Records"]["Processed"] != ROWS_E2E:
+                raise AssertionError(f"pipeline {name}: stage {stage} did "
+                                     f"not process every row")
+        if name == "fused":
+            launches["pipeline"] = counts["B1"]
+        parts[name] = {a: os.path.join(ws, a, "part-00000")
+                       for a in ("nb_model", "mi_out")}
+        log(f"pipeline ({name}): {walls[f'pipeline {name}']:.2f} s, "
+            f"launches {counts}, counters {json.dumps(counters)}")
+    fused = parts["fused"]
+    for dev in ("cuda", "cpu"):
+        same_bytes(fused["nb_model"], os.path.join(work, f"{dev}_nb",
+                                                   "part-00000"),
+                   f"fused NB model and phase 3's {dev}")
+    same_bytes(fused["mi_out"], os.path.join(work, "cuda_mi", "part-00000"),
+               "fused MI and phase 3's cuda")
+    worst = compare_mi(fused["mi_out"], os.path.join(work, "cpu_mi",
+                                                      "part-00000"))
+    for name in ("unfused", "depth0", "fused again"):
+        for art in ("nb_model", "mi_out"):
+            same_bytes(parts[name][art], fused[art], f"pipeline {name} {art}")
+    log(f"pipeline (b)-(d): NB byte-identical to phase 3's cuda and cpu "
+        f"models, MI to phase 3's cuda file (cpu: max diff {worst}); "
+        f"scan.fuse=false and prefetch depth 0 byte-identical; walls: fused "
+        f"{walls['pipeline fused']:.2f} s and {walls['pipeline fused again']:.2f}"
+        f" s (depth 2), depth 0 {walls['pipeline depth0']:.2f} s, unfused "
+        f"{walls['pipeline unfused']:.2f} s; phase 3 on cuda: NB "
+        f"{walls['cuda BayesianDistribution']:.2f} s + MI "
+        f"{walls['cuda MutualInformation']:.2f} s")
+
+    # the host breakdown of the fused run: the retried stream alone (read,
+    # parse, encode), the staging alone (pinned copies to the card), and
+    # the scan over chunks already on the card (B1, the host accumulation
+    # each chunk waits for, the read-out and the consumers' finalize)
+    import torch
+
+    from avenir_tpu_torch.pipeline import scan
+    from avenir_tpu_torch.runtime.feeder import CudaStage
+    from avenir_tpu_torch.utils.metrics import Counters
+
+    sconf = JobConfig({"feature.schema.file.path": schema,
+                       "stream.chunk.rows": str(CHUNK_ROWS)})
+    t0 = time.perf_counter()
+    host = list(Job.iter_encoded_retrying(sconf, train, Job.encoder_for(sconf),
+                                          Counters()))
+    walls["breakdown: read + parse + encode"] = time.perf_counter() - t0
+    stage = CudaStage(torch.device("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    staged = [stage(ds) for ds in host]
+    for item in staged:
+        item.event.synchronize()
+    walls["breakdown: staging (pinned copies)"] = time.perf_counter() - t0
+    on_card = [item.item for item in staged]
+    for _ in range(2):                      # the second is the one kept
+        engine = scan.SharedScan(device="cuda")
+        engine.register(scan.NaiveBayesConsumer(name="nb"))
+        engine.register(scan.MutualInfoConsumer(name="mi"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run(on_card)
+        walls["breakdown: scan of staged chunks"] = time.perf_counter() - t0
+    log("pipeline host breakdown (s): " + json.dumps(
+        {k: v for k, v in walls.items() if k.startswith("breakdown")}))
+    del host, staged, on_card
+
+    mixed = copy.deepcopy(HOSP_SCHEMA_JSON)
+    for field in mixed["fields"][1:4]:          # age, weight, height
+        for key in ("bucketWidth", "min", "max"):
+            field.pop(key)
+    mixed_schema = os.path.join(work, "hosp_mixed.json")
+    with open(mixed_schema, "w") as fh:
+        json.dump(mixed, fh)
+    path = pipeline_conf(work, "mixed", train, mixed_schema)
+    gram_calls = []
+    real = hist.gram_moments
+
+    def spy(*args):
+        gram_calls.append(tuple(args[0].shape) + tuple(args[2].shape[1:]))
+        return real(*args)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ws = os.path.join(work, f"ws_mixed_{dev}")
+        reset_counts()
+        hist.gram_moments = spy
+        t0 = time.perf_counter()
+        try:
+            with rec.on("pipeline_mixed") if dev == "cuda" else \
+                    contextlib.nullcontext():
+                counters = run_pipeline(["run", path,
+                                         f"-Dpipeline.workspace={ws}",
+                                         "--device", dev])
+        finally:
+            hist.gram_moments = real
+        walls[f"{dev} pipeline mixed"] = time.perf_counter() - t0
+        counts = read_counts()
+        if counters["nb"].get("SharedScan") != fused_group:
+            raise AssertionError(f"mixed pipeline on {dev}: {counters}")
+        if dev == "cuda":
+            if (gram_calls != [(CHUNK_ROWS, 7, 3)] * chunks
+                    or counts != only(B1=chunks)):
+                raise AssertionError(f"mixed pipeline on cuda: gram_moments "
+                                     f"calls {gram_calls}, launches {counts}")
+            launches["pipeline_mixed"] = counts["B1"]
+            n_gram = len(gram_calls)
+        out[dev] = os.path.join(ws, "nb_model", "part-00000")
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(["BayesianDistribution", f"-Dfeature.schema.file.path={mixed_schema}",
+             f"-Dstream.chunk.rows={CHUNK_ROWS}", train,
+             os.path.join(work, "cuda_nb_mixed"), "--device", "cuda"])
+    walls["cuda BayesianDistribution mixed"] = time.perf_counter() - t0
+    same_bytes(out["cuda"], os.path.join(work, "cuda_nb_mixed", "part-00000"),
+               "mixed fused NB and standalone cuda NB")
+    rel = compare_rel(out["cuda"], out["cpu"], 1e-5)
+    log(f"pipeline (e): mixed schema 7 x 4 x 2 binned + 3 continuous fused "
+        f"on cuda through gram_moments ({n_gram} calls, B1 "
+        f"{launches['pipeline_mixed']}), {walls['cuda pipeline mixed']:.2f} "
+        f"s; NB model byte-identical to the standalone cuda "
+        f"BayesianDistribution; against the fused cpu run "
+        f"({walls['cpu pipeline mixed']:.2f} s) largest relative difference "
+        f"{rel}")
+    walls["mixed NB cuda vs cpu max rel diff"] = rel
+    return launches
 
 
 def path_cases(hist, rec: Recorder) -> list:
@@ -1047,6 +1335,7 @@ def cross_main() -> int:
     import torch
 
     from avenir_tpu_torch.ops import _build, hist
+    from avenir_tpu_torch.runtime import native
 
     card = card_line()
     t0 = time.perf_counter()
@@ -1392,7 +1681,7 @@ def validation_counters(out: str) -> dict:
                          "incorrect")}
 
 
-def knn_job_phase(rec: Recorder, work: str, used: dict) -> dict:
+def knn_job_phase(rec: Recorder, work: str, used: dict, walls: dict) -> dict:
     """Phase 8a: NearestNeighbor through the CLI on a seeded 1M-row elearn
     training CSV and 4,096 test rows on cuda (B5 once), then on the CPU
     for the first 1,024 test rows; returns the launches on cuda and puts
@@ -1425,7 +1714,7 @@ def knn_job_phase(rec: Recorder, work: str, used: dict) -> dict:
         with caps[dev].on(), (rec.on("knn_job") if dev == "cuda"
                               else contextlib.nullcontext()):
             run_cli(["NearestNeighbor", *common, data, out, "--device", dev])
-        wall = time.perf_counter() - t0
+        wall = walls[f"{dev} NearestNeighbor 1M"] = time.perf_counter() - t0
         fell = len(caps[dev].calls[-1][2])
         if dev == "cuda":
             counts = read_counts()
@@ -1446,7 +1735,7 @@ def knn_job_phase(rec: Recorder, work: str, used: dict) -> dict:
     return {"knn_job": counts["B5"]}
 
 
-def knn_small_phase(rec: Recorder, work: str, used: dict) -> dict:
+def knn_small_phase(rec: Recorder, work: str, used: dict, walls: dict) -> dict:
     """Phase 8b: NearestNeighbor (validation, gaussian kernel) and
     SameTypeSimilarity on a 10,000-row elearn training CSV and 2,000 test
     rows, on cuda (B6) and cpu; returns B6's launches per job and puts
@@ -1480,7 +1769,7 @@ def knn_small_phase(rec: Recorder, work: str, used: dict) -> dict:
             with caps[dev, name].on(), (rec.on(name) if dev == "cuda"
                                         else contextlib.nullcontext()):
                 text[dev, name] = run_cli([*argv, test, out, "--device", dev])
-            wall = time.perf_counter() - t0
+            wall = walls[f"{dev} {name}"] = time.perf_counter() - t0
             counts = read_counts()
             if dev == "cuda":
                 if counts != only(B6=1):
@@ -1784,6 +2073,7 @@ def main(argv=None) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from avenir_tpu_torch.ops import _build, hist
+    from avenir_tpu_torch.runtime import native
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1793,11 +2083,16 @@ def main(argv=None) -> int:
 
     def build(name):
         t0 = time.perf_counter()
-        return name, _build.build(name), time.perf_counter() - t0
+        lib = native.build() if name == "native" else _build.build(name)
+        return name, lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        for name, lib, secs in pool.map(build, KERNEL_SOURCES):
+    walls = {}
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        for name, lib, secs in pool.map(build, (*KERNEL_SOURCES, "native")):
             log(f"build: {name} in {secs:.2f} s")
+            if name == "native":
+                walls["native encoder build"] = secs
+                continue
             with open(lib[:-3] + ".log") as fh:
                 log(fh.read())
 
@@ -1807,16 +2102,17 @@ def main(argv=None) -> int:
     rec = Recorder()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        b1_mi, train, test, schema = jobs_phase(hist, rec, work)
+        b1_mi, train, test, schema = jobs_phase(hist, rec, work, walls)
         b2_mi = mi_wide_phase(hist, rec)
-        b4_tree = tree_jobs_phase(hist, rec, work, train, test, schema)
+        b4_tree = tree_jobs_phase(hist, rec, work, train, test, schema, walls)
         wide = wide_tree_phase(hist, rec)
+        b1_pipe = pipeline_phase(rec, work, train, schema, walls)
         all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
         rec.calls.clear()
         all_cases += knn_cases()
         used = {}
-        b5 = knn_job_phase(rec, work, used)
-        b6 = knn_small_phase(rec, work, used)
+        b5 = knn_job_phase(rec, work, used, walls)
+        b6 = knn_small_phase(rec, work, used, walls)
         b5.update(knn_qps_phase(rec, used))
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1828,7 +2124,8 @@ def main(argv=None) -> int:
     kernels = [
         kernel_entry("B1", "cooc_pair_gram, fmaj/jmaj (B1)",
                      src + "cooc_pair.cu", at + "283",
-                     {"mi": b1_mi, "wide_tree": wide["B1"]}, all_cases),
+                     {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe},
+                     all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},
                      all_cases),
@@ -1842,6 +2139,7 @@ def main(argv=None) -> int:
                      "avenir_tpu/ops/pallas_knn.py:73", b6, all_cases),
         *probes,
     ]
+    log(json.dumps({"walls_s": walls, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

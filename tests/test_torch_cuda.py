@@ -4,8 +4,10 @@ versions: the co-occurrence grams in every layout (the pair histogram of
 counts (``csrc/cross.cu``, B4) exactly; the kNN candidate kernels
 (``csrc/knn_tourney.cu``, B5, and ``csrc/knn_topk.cu``, B6) exactly where
 every d² is an integer sum and to the float32 summation order elsewhere;
-the kNN search on ``cuda`` against the CPU; and the probe functions of
-``avenir_tpu_torch.probes``.
+the kNN search on ``cuda`` against the CPU; the probe functions of
+``avenir_tpu_torch.probes``; the device feeder's staging (its own stream,
+pinned copies, the consumer's wait); and the SharedScan on ``cuda``
+against the CPU.
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -276,6 +278,109 @@ def test_mi_fit_on_the_card_equals_cpu(cuda):
     for name in ("class_counts", "feature_class_counts", "pair_class_counts"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     np.testing.assert_array_equal(got.feature_class_mi, want.feature_class_mi)
+
+
+@pytest.mark.cuda
+def test_feeder_chunks_equal_their_host_arrays_overwritten_after_staging(cuda):
+    """One host buffer, overwritten for the next chunk as soon as the
+    feeder staged the last one (the worker runs ahead by its depth): each
+    staged chunk still holds its own values."""
+    from avenir_tpu_torch.runtime.feeder import DeviceFeeder
+
+    def source():
+        buf = np.empty(1 << 20, np.int32)
+        for i in range(8):
+            buf[:] = i
+            yield (buf,)
+
+    got = []
+    for (t,) in DeviceFeeder(source(), depth=3, device=cuda):
+        assert t.is_cuda
+        got.append((int(t.min()), int(t.max())))
+    assert got == [(i, i) for i in range(8)]
+
+
+@pytest.mark.cuda
+def test_feeder_copy_lives_on_its_stream_until_the_consumer_waits(cuda):
+    """A copy queued behind a long sleep on the feeder's stream is not done
+    when the stage returns (the copy is asynchronous, from pinned memory,
+    on the feeder's own stream), and the consumer still reads the right
+    values: its stream waits on the copy's event."""
+    from avenir_tpu_torch.runtime.feeder import CudaStage, DeviceFeeder
+
+    class Slow(CudaStage):
+        def __call__(self, item):
+            with torch.cuda.stream(self.stream):
+                torch.cuda._sleep(200_000_000)
+            return super().__call__(item)
+
+    stage = Slow(cuda)
+    assert stage.stream != torch.cuda.current_stream(cuda)
+    host = np.arange(1 << 20, dtype=np.int32)
+    staged = stage(host.copy())
+    assert not staged.event.query()
+    torch.cuda.synchronize()
+    feeder = DeviceFeeder([host + k for k in range(3)], depth=2, stage=Slow(cuda),
+                          device=cuda)
+    for k, t in enumerate(feeder):
+        # read on the consumer's stream right away: the wait orders it
+        # after the copy
+        assert torch.equal(t.clone().cpu(), torch.from_numpy(host + k))
+
+
+def _scan_equal_on_both_devices(ds, chunk, counter):
+    from avenir_tpu_torch.models import naive_bayes as nb
+    from avenir_tpu_torch.pipeline import scan
+
+    chunks = [ds.slice(s, s + chunk) for s in range(0, ds.num_rows, chunk)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = scan.SharedScan(device=dev)
+        eng.register(scan.NaiveBayesConsumer(name="nb"))
+        eng.register(scan.MutualInfoConsumer(name="mi"))
+        before = getattr(hist.cooc_counts_cols, counter)
+        out[dev] = eng.run(chunks)
+        launched = getattr(hist.cooc_counts_cols, counter) - before
+        assert launched == (len(chunks) if dev == "cuda" else 0)
+        assert eng.count_path == ("kernel" if dev == "cuda"
+                                  else eng.count_path)
+    got, want = out["cuda"], out["cpu"]
+    for name in ("bin_counts", "class_counts", "cont_count", "cont_sum",
+                 "cont_sumsq"):
+        a, b = getattr(got["nb"], name), getattr(want["nb"], name)
+        if b is None:
+            assert a is None
+        else:
+            np.testing.assert_array_equal(a, b)
+    for name in ("class_counts", "feature_class_counts", "pair_class_counts",
+                 "feature_class_mi", "feature_pair_class_cond_mi"):
+        np.testing.assert_array_equal(getattr(got["mi"], name),
+                                      getattr(want["mi"], name))
+    assert got["mi"].to_lines() == want["mi"].to_lines()
+    return got, want
+
+
+@pytest.mark.cuda
+def test_shared_scan_on_the_card_equals_cpu_b1(cuda):
+    """Hospital 10 × 13 × 2 (fmaj, B1) with three float32-exact continuous
+    columns: the scan folds G and the class moments per chunk
+    (``hist.gram_moments``)."""
+    enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_hosp_readmit(5000, seed=9))
+    rng = np.random.default_rng(9)
+    ds.cont = (rng.integers(0, 16, size=(ds.num_rows, 3)) / 2).astype(
+        np.float32)
+    ds.cont_ordinals = [12, 13, 14]
+    assert hist.plan(10, 13, 2)[0] == "fmaj"
+    _scan_equal_on_both_devices(ds, 1500, "launches")
+
+
+@pytest.mark.cuda
+def test_shared_scan_on_the_card_equals_cpu_b2(cuda):
+    """20 × 20 × 2 plans to cls: the scan's G comes from B2 per chunk."""
+    assert hist.plan(20, 20, 2)[0] == "cls"
+    _scan_equal_on_both_devices(_wide(6000, 20, 20, seed=4), 2000,
+                                "cls_launches")
 
 
 def _wide(n, f, b, seed):

@@ -101,8 +101,13 @@ def test_mi_part_file_equal_field_by_field(outputs):
 
 
 def test_mi_job_counts_its_chunks(outputs):
-    assert "\tChunks=3" in outputs["torch"]["mi_counters"]
-    assert "\tProcessed=2000" in outputs["torch"]["mi_counters"]
+    """The streamed MI job's counters are the JAX package's: one task
+    attempt per chunk and one for the end of the file, one recompile for
+    the ragged last chunk, every row processed."""
+    assert outputs["torch"]["mi_counters"] == outputs["jax"]["mi_counters"]
+    assert outputs["torch"]["mi_counters"] == (
+        "Records\n\tProcessed=2000\nTask\n\tattempts=4\n"
+        "Telemetry\n\trecompiles=1\n")
 
 
 def test_cli_device_argument():
@@ -133,7 +138,11 @@ def test_cli_without_device_needs_cuda(tmp_path):
 def test_package_imports_neither_jax_nor_avenir_tpu():
     code = ("import sys, avenir_tpu_torch, avenir_tpu_torch.__main__, "
             "avenir_tpu_torch.jobs, avenir_tpu_torch.convert, "
-            "avenir_tpu_torch.ops._build\n"
+            "avenir_tpu_torch.ops._build, avenir_tpu_torch.runtime.native, "
+            "avenir_tpu_torch.runtime.feeder, avenir_tpu_torch.utils.retry, "
+            "avenir_tpu_torch.utils.locking, avenir_tpu_torch.pipeline.scan, "
+            "avenir_tpu_torch.pipeline.driver, "
+            "avenir_tpu_torch.pipeline.__main__\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -150,8 +159,10 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                          r"|\bimport\s+avenir_tpu\b|\bavenir_tpu\.\w",
                          re.MULTILINE)
     files = (sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu"))
-             + sorted(PKG.rglob("*.cuh")))
-    assert len(files) > 25
+             + sorted(PKG.rglob("*.cuh")) + sorted(PKG.rglob("*.cpp")))
+    assert PKG / "runtime" / "native" / "csv_encode.cpp" in files
+    assert PKG / "pipeline" / "scan.py" in files
+    assert len(files) > 35
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
             for p in files for m in pattern.finditer(p.read_text())]
     assert hits == []
@@ -190,6 +201,32 @@ def test_stream_checkpoint_refused_where_jax_checkpoints(crash_input):
             _run(torch_main, _argv(job, work, theirs, out) + ["--device", "cpu"])
         assert not (out / "part-00000").exists()
         assert not (work / "D_torch").exists()
+
+
+@pytest.mark.parametrize("job", ["BayesianDistribution", "MutualInformation"])
+def test_streamed_counters_equal_jax_package(crash_input, job):
+    """3,000 rows in 700-row chunks: five chunk tasks and the end-of-file
+    task, one recompile (the 200-row tail), every row, NB's model rows."""
+    from avenir_tpu.core.config import JobConfig as JConfig
+    from avenir_tpu.jobs import get_job as jget_job
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs import get_job
+
+    work, _keys = crash_input
+    props = {"feature.schema.file.path": str(work / "hosp.json"),
+             "stream.chunk.rows": "700"}
+    got = get_job(job).run(JobConfig(dict(props)), str(work / "train.csv"),
+                           str(work / f"counters_torch_{job}"),
+                           device="cpu").as_dict()
+    want = jget_job(job).run(JConfig(dict(props)), str(work / "train.csv"),
+                             str(work / f"counters_jax_{job}")).as_dict()
+    assert got == want
+    expect = {"Task": {"attempts": 6}, "Telemetry": {"recompiles": 1},
+              "Records": {"Processed": 3000}}
+    if job == "BayesianDistribution":
+        expect["Model"] = {"Rows": got["Model"]["Rows"]}
+        assert got["Model"]["Rows"] > 0
+    assert got == expect
 
 
 NO_CHECKPOINTER = {
