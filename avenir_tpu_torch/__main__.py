@@ -1,10 +1,13 @@
 """CLI — ``python -m avenir_tpu_torch <JobName> -Dconf.path=<props> <in> <out>
-[--device cpu]``, the same argument contract as ``python -m avenir_tpu``.
+[--device cpu] [--resume]``, the same argument contract as
+``python -m avenir_tpu``.
 
 Accepts the reference's fully-qualified class names or simple names and
 ``-D`` property overrides (applied over the properties file, as Hadoop's
 GenericOptionsParser does), and prints the job counters on completion.
-Jobs run on ``cuda`` unless ``--device cpu`` is given.
+Jobs run on ``cuda`` unless ``--device cpu`` is given.  ``--resume`` is
+``-Dstream.resume=true``: a streamed count job with
+``stream.checkpoint.dir`` continues from its latest snapshot.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import sys
 from typing import Dict, List, Optional, Tuple
 
 USAGE = ("usage: python -m avenir_tpu_torch <JobName> [-Dkey=value ...] "
-         "<input> <output> [--device cuda|cpu]\n"
+         "<input> <output> [--device cuda|cpu] [--resume]\n"
          "       python -m avenir_tpu_torch --list")
 
 
@@ -27,7 +30,9 @@ def parse_args(argv: List[str]) -> Tuple[str, Dict[str, str], List[str], Optiona
     device: Optional[str] = None
     args = iter(argv[1:])
     for arg in args:
-        if arg == "--device":
+        if arg == "--resume":
+            overrides["stream.resume"] = "true"
+        elif arg == "--device":
             device = next(args, None)
             if device is None:
                 raise SystemExit("--device needs a value (cuda or cpu)")

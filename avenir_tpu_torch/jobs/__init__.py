@@ -10,12 +10,17 @@ from typing import Dict, Type
 
 from avenir_tpu_torch.jobs.base import Job
 from avenir_tpu_torch.jobs.bayesian import BayesianDistribution, BayesianPredictor
-from avenir_tpu_torch.jobs.explore import MutualInformation
+from avenir_tpu_torch.jobs.explore import (
+    CramerCorrelation,
+    HeterogeneityReductionCorrelation,
+    MutualInformation,
+)
 from avenir_tpu_torch.jobs.knn import (
     FeatureCondProbJoiner,
     NearestNeighbor,
     SameTypeSimilarity,
 )
+from avenir_tpu_torch.jobs.regress import FisherDiscriminant
 from avenir_tpu_torch.jobs.tree import (
     ClassPartitionGenerator,
     DataPartitioner,
@@ -28,6 +33,8 @@ _PACKAGES: Dict[str, str] = {
     "BayesianDistribution": "bayesian",
     "BayesianPredictor": "bayesian",
     "MutualInformation": "explore",
+    "CramerCorrelation": "explore",
+    "HeterogeneityReductionCorrelation": "explore",
     "ClassPartitionGenerator": "explore",
     "SplitGenerator": "tree",
     "DataPartitioner": "tree",
@@ -35,12 +42,14 @@ _PACKAGES: Dict[str, str] = {
     "SameTypeSimilarity": "knn",
     "FeatureCondProbJoiner": "knn",
     "NearestNeighbor": "knn",
+    "FisherDiscriminant": "discriminant",
 }
 
 JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
+               CramerCorrelation, HeterogeneityReductionCorrelation,
                ClassPartitionGenerator, SplitGenerator, DataPartitioner,
                DecisionTreeBuilder, SameTypeSimilarity, FeatureCondProbJoiner,
-               NearestNeighbor]
+               NearestNeighbor, FisherDiscriminant]
 
 REGISTRY: Dict[str, Type[Job]] = {}
 for _cls in JOB_CLASSES:

@@ -11,7 +11,9 @@ for ``cpu``.
 Inputs are parsed by the native encoder (``runtime/native.py``) wherever
 the JAX package parses them natively, and streamed chunk by chunk with
 per-chunk retry (``utils/retry.py``) through the device feeder
-(``runtime/feeder.py``).
+(``runtime/feeder.py``).  A streamed count job checkpoints its totals and
+cursor with :class:`StreamCheckpointer` (``stream.checkpoint.dir``) and
+resumes from them (``stream.resume``, the CLI's ``--resume``).
 """
 
 from __future__ import annotations
@@ -78,20 +80,6 @@ def write_output(path: str, lines: Sequence[str], part: str = PART_FILE) -> str:
             fh.write(line)
             fh.write("\n")
     return target
-
-
-def refuse_stream_checkpoint(conf: JobConfig, job: str) -> None:
-    """Raise where the JAX package would checkpoint the chunk stream: with
-    ``stream.checkpoint.dir`` and ``stream.chunk.rows`` both set (the
-    condition of its ``StreamCheckpointer.from_conf``), snapshots, resume
-    and the injected crash are not ported yet.  Without either key the JAX
-    package ignores ``stream.resume`` and ``stream.fault.*`` too, so the
-    job runs."""
-    if conf.get("stream.checkpoint.dir") and conf.get("stream.chunk.rows"):
-        raise NotImplementedError(
-            f"{job}: stream checkpoints (stream.checkpoint.dir with "
-            f"stream.chunk.rows) are not ported yet (ROADMAP.md, Queue 1 "
-            f"item 5)")
 
 
 def read_lines(path: str) -> List[str]:
@@ -285,7 +273,8 @@ class Job:
         return (ds, lines) if want_lines else ds
 
     def encoded_data_source(self, conf: JobConfig, input_path: str,
-                            counters: Counters, with_labels: bool = True):
+                            counters: Counters, with_labels: bool = True,
+                            checkpointer: Optional["StreamCheckpointer"] = None):
         """(encoder, data, rows_fn) for count jobs whose model ``fit`` takes
         one EncodedDataset or a chunk iterable.
 
@@ -297,13 +286,21 @@ class Job:
         copied to ``self.device`` while chunk i is counted.  Otherwise it is
         the whole encoded input.  ``rows_fn()`` reports the rows processed,
         read from the cursor of the last chunk consumed: call it only after
-        ``fit`` has consumed the stream."""
+        ``fit`` has consumed the stream.
+
+        With a ``checkpointer`` the stream starts at its restored cursor,
+        ``rows_fn()`` adds its restored rows, and it is told of every chunk
+        the model has counted.  The cursor travels with its chunk through
+        the feeder, so a snapshot describes exactly the chunks counted,
+        never the feeder's read-ahead."""
         if conf.get("stream.chunk.rows"):
             enc = self.encoder_for(conf)
-            box = {"n": 0}
+            ckpt = checkpointer
+            base_rows = ckpt.base_rows if ckpt else 0
+            box = {"n": base_rows}
             pairs = self.iter_encoded_retrying(
                 conf, input_path, enc, counters, with_labels=with_labels,
-                emit_cursor=True)
+                start=ckpt.start if ckpt else None, emit_cursor=True)
             depth = conf.get_int("stream.prefetch.depth", 2)
             if depth > 0:
                 from avenir_tpu_torch.runtime.feeder import DeviceFeeder
@@ -311,9 +308,26 @@ class Job:
                 pairs = DeviceFeeder(pairs, depth=depth, device=self.device)
 
             def consume():
-                for ds, cur in pairs:
-                    box["n"] = cur["rows"]
+                if ckpt is None:
+                    # no lookahead: it would hold one more staged chunk on
+                    # the device than the prefetch depth, for nothing
+                    for ds, cur in pairs:
+                        box["n"] = base_rows + cur["rows"]
+                        yield ds
+                    return
+                # one-pair lookahead: the snapshot for chunk k is written
+                # only once chunk k+1 exists, so a persisted cursor never
+                # points at the end of the stream (a resume always has a
+                # chunk to read, which the models' first-chunk peek needs)
+                it = iter(pairs)
+                prev = next(it, None)
+                while prev is not None:
+                    ds, cur = prev
+                    box["n"] = base_rows + cur["rows"]
                     yield ds
+                    nxt = next(it, None)
+                    ckpt.chunk_done(cur, last=nxt is None)
+                    prev = nxt
 
             return enc, Job._chunk_telemetry(consume(), counters), \
                 lambda: box["n"]
@@ -321,6 +335,12 @@ class Job:
                                            with_labels=with_labels,
                                            need_rows=False)
         return enc, ds, lambda: ds.num_rows
+
+    @staticmethod
+    def stream_checkpointer(conf: JobConfig) -> Optional["StreamCheckpointer"]:
+        """The job's :class:`StreamCheckpointer`, or None when not
+        configured."""
+        return StreamCheckpointer.from_conf(conf)
 
     @staticmethod
     def _chunk_telemetry(chunks, counters: Counters):
@@ -341,7 +361,8 @@ class Job:
 
     @staticmethod
     def _iter_chunks_retrying(conf: JobConfig, input_path: str,
-                              counters: Counters, decode, owner=None):
+                              counters: Counters, decode, owner=None,
+                              start: Optional[dict] = None):
         """The chunk-scan and retry engine behind both streaming readers.
 
         Scans each input file by (byte offset, global chunk index); the
@@ -351,15 +372,25 @@ class Job:
         The end of each file is found by one more task that reads nothing,
         as in the JAX package, so ``Task::attempts`` counts it too.
         ``owner(chunk_index)`` assigns chunks: chunks it refuses are scanned
-        for their boundaries but never decoded or yielded.  Yields
+        for their boundaries but never decoded or yielded.  ``start``
+        resumes from a persisted cursor (``{"file", "offset", "chunk"}``,
+        the position after the last chunk counted).  Yields
         ``(file, offset_after, chunk_index_after, payload)``."""
         from avenir_tpu_torch.utils.retry import RetryPolicy, run_with_retry
 
         policy = RetryPolicy.from_conf(conf)
         chunk_rows = conf.get_int("stream.chunk.rows", 1_000_000)
-        i = 0
-        for f in input_files(input_path):
-            offset = 0
+        i = int(start["chunk"]) if start else 0
+        files = input_files(input_path)
+        if start:
+            if start["file"] not in files:
+                raise ConfigError(
+                    f"resume cursor names {start['file']!r}, which is not "
+                    f"among the input files — the input changed since the "
+                    f"checkpoint was written")
+            files = files[files.index(start["file"]):]
+        for fi, f in enumerate(files):
+            offset = int(start["offset"]) if start and fi == 0 else 0
             while True:
                 def task(path=f, off=offset, idx=i):
                     mine = owner is None or owner(idx)
@@ -410,6 +441,7 @@ class Job:
     def iter_encoded_retrying(conf: JobConfig, input_path: str,
                               encoder: DatasetEncoder, counters: Counters,
                               with_labels: bool = True,
+                              start: Optional[dict] = None,
                               emit_cursor: bool = False, owner=None):
         """Encoded chunks of ``stream.chunk.rows`` rows with per-chunk retry:
         the retried task is the read, parse and encode of one chunk,
@@ -419,9 +451,10 @@ class Job:
         enough; else the Python one does (which raises ConfigError, not
         retried, on an incomplete schema).
 
-        ``emit_cursor`` yields ``(chunk, cursor)`` pairs, the cursor
-        ``{"file", "offset", "chunk", "rows"}`` being the position after
-        the chunk and the rows yielded so far."""
+        ``start`` resumes after a persisted cursor; ``emit_cursor`` yields
+        ``(chunk, cursor)`` pairs, the cursor ``{"file", "offset", "chunk",
+        "rows"}`` being the position after the chunk and the rows yielded
+        since ``start``."""
         from avenir_tpu_torch.core.csv_io import read_csv_string
         from avenir_tpu_torch.runtime import native
 
@@ -440,10 +473,163 @@ class Job:
 
         rows_out = 0
         for f, offset, i, ds in Job._iter_chunks_retrying(
-                conf, input_path, counters, decode, owner=owner):
+                conf, input_path, counters, decode, owner=owner, start=start):
             if emit_cursor:
                 rows_out += ds.num_rows
                 yield ds, {"file": f, "offset": offset, "chunk": i,
                            "rows": rows_out}
             else:
                 yield ds
+
+
+class StreamCheckpointer:
+    """Mid-stream durability for the streamed count jobs, in one process;
+    port of the JAX package's ``StreamCheckpointer`` with its on-disk
+    snapshots, so each package resumes the other's.
+
+    The jobs accumulate count totals in memory across the whole input, so
+    without this a crash at chunk N restarts from zero.  Configured by:
+
+    - ``stream.checkpoint.dir``: the snapshot directory (enables it, with
+      ``stream.chunk.rows``);
+    - ``stream.checkpoint.interval.chunks``: a snapshot every N counted
+      chunks (default 8);
+    - ``stream.resume``: restore the latest snapshot and continue from its
+      cursor (the CLI's ``--resume``);
+    - ``stream.fault.crash.after.chunks``: raise after N counted chunks
+      (kill-and-resume testing);
+    - ``stream.run.id``: the run's identity; by default a fingerprint of
+      the properties that are not relaunch switches
+      (:meth:`run_id_from_conf`).
+
+    A snapshot is {accumulator totals, cursor (file, offset, chunk), rows,
+    run}.  The totals are int64 (or float64) host arrays, so a resumed
+    run's part file is byte-identical to an uninterrupted one.  After a
+    successful run :meth:`finish` removes the snapshots, and the directory
+    once it is empty.  The multi-process half of the JAX class (per-process
+    subdirectories tagged ``RUN_TAG``, the error handshake) and its
+    ``checkpoint.*`` telemetry events are not ported."""
+
+    def __init__(self, directory: str, interval_chunks: int = 8,
+                 resume: bool = False, crash_after_chunks: int = 0,
+                 run_id: str = "", reshard: bool = False):
+        from avenir_tpu_torch.ops import agg
+        from avenir_tpu_torch.utils import checkpoint
+
+        self.directory = directory
+        self.run_id = run_id
+        self.interval = max(int(interval_chunks), 1)
+        self.crash_after = int(crash_after_chunks)
+        self.accumulator = agg.Accumulator()
+        self.base_rows = 0
+        self.start: Optional[dict] = None      # cursor to resume from
+        self._consumed = 0                     # chunks counted in this run
+        try:
+            self.mgr = checkpoint.CheckpointManager(directory, keep=2)
+            state = self.mgr.restore() if resume else None
+        except Exception as e:
+            raise ConfigError(f"checkpointer construction in {directory!r} "
+                              f"failed: {type(e).__name__}: {e}") from e
+        if state is None:
+            return
+        snap_run = str(state.get("run", ""))
+        if snap_run and self.run_id and snap_run != self.run_id:
+            raise ConfigError(
+                f"snapshot in {directory!r} was written by run "
+                f"{snap_run!r}, not this run {self.run_id!r} — "
+                f"the configuration changed since the "
+                f"checkpoint; clear the directory and re-run")
+        try:
+            snap_sfx = checkpoint.snapshot_suffix(state)
+        except checkpoint.ReshardError as e:
+            raise ConfigError(str(e)) from e
+        if snap_sfx:
+            if reshard:
+                raise NotImplementedError(
+                    f"snapshot in {directory!r} was folded under mesh "
+                    f"topology {snap_sfx!r}: redistributing it "
+                    f"(shard.reshard.on.restore=true) is not ported yet "
+                    f"(ROADMAP.md, Queue 1 item 7)")
+            raise ConfigError(
+                f"snapshot in {directory!r} was folded "
+                f"under mesh topology {snap_sfx!r} but "
+                f"this job folds unsharded — set "
+                f"shard.reshard.on.restore=true to "
+                f"redistribute it, or clear the "
+                f"directory and re-run")
+        try:
+            self.accumulator.load(state["acc"])
+            self.base_rows = int(state["rows"])
+            self.start = {k: state["cursor"][k]
+                          for k in ("file", "offset", "chunk")}
+        except Exception as e:
+            raise ConfigError(f"checkpointer construction in {directory!r} "
+                              f"failed: {type(e).__name__}: {e}") from e
+
+    # relaunch switches and operational knobs: a crashed run and its resume
+    # keep one identity when these differ.  ``stream.chunk.rows`` stays in:
+    # it defines the chunk boundaries a persisted cursor means.
+    VOLATILE = ("stream.resume", "stream.fault.", "stream.checkpoint.",
+                "stream.prefetch.", "shard.devices", "shard.data.axis",
+                "shard.proc.", "shard.reshard.", "shard.skew.", "fault.")
+
+    @classmethod
+    def run_id_from_conf(cls, conf: JobConfig) -> str:
+        """The run's identity: ``stream.run.id`` when set, else blake2s
+        (6 bytes) over the repr of the sorted properties that are not
+        :attr:`VOLATILE` — the JAX package's id for the same properties.
+        ``--device`` is not a property, so a run crashed on ``cuda`` resumes
+        on the CPU."""
+        explicit = conf.get("stream.run.id")
+        if explicit:
+            return explicit
+        import hashlib
+
+        stable = sorted(
+            (k, v) for k, v in conf.props.items()
+            if not any(k == v0.rstrip(".") or k.startswith(v0)
+                       for v0 in cls.VOLATILE))
+        return hashlib.blake2s(repr(stable).encode(),
+                               digest_size=6).hexdigest()
+
+    @classmethod
+    def from_conf(cls, conf: JobConfig) -> Optional["StreamCheckpointer"]:
+        """A checkpointer when ``stream.checkpoint.dir`` and
+        ``stream.chunk.rows`` are both set, else None (and the other
+        durability keys are ignored, as the JAX package ignores them)."""
+        directory = conf.get("stream.checkpoint.dir")
+        if not directory or not conf.get("stream.chunk.rows"):
+            return None
+        return cls(directory,
+                   conf.get_int("stream.checkpoint.interval.chunks", 8),
+                   conf.get_bool("stream.resume", False),
+                   conf.get_int("stream.fault.crash.after.chunks", 0),
+                   run_id=cls.run_id_from_conf(conf),
+                   reshard=conf.get_bool("shard.reshard.on.restore", False))
+
+    def chunk_done(self, cursor: dict, last: bool) -> None:
+        """Called by the stream once the model has counted the chunk
+        ``cursor`` describes; snapshots on the interval, never for the last
+        chunk (the job completes and :meth:`finish` removes the state).
+        ``Accumulator.add`` copied the chunk's counts to the host already,
+        so the snapshot waits for nothing on the device."""
+        self._consumed += 1
+        total_rows = self.base_rows + int(cursor["rows"])
+        if not last and self._consumed % self.interval == 0:
+            self.mgr.save(int(cursor["chunk"]),
+                          {"acc": self.accumulator.state(),
+                           "cursor": {"file": cursor["file"],
+                                      "offset": int(cursor["offset"]),
+                                      "chunk": int(cursor["chunk"])},
+                           "rows": total_rows,
+                           "run": self.run_id})
+        if self.crash_after and self._consumed >= self.crash_after:
+            raise RuntimeError(
+                f"stream.fault.crash.after.chunks={self.crash_after}: "
+                f"injected crash after chunk {cursor['chunk']}")
+
+    def finish(self) -> None:
+        """Remove this run's snapshots after a successful run: only the
+        manager's own ``step_*`` and temporary entries, never other files
+        in the directory, and the directory itself once it is empty."""
+        self.mgr.clear()

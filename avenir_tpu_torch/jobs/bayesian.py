@@ -10,8 +10,7 @@ from typing import List, Optional
 import numpy as np
 
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
-from avenir_tpu_torch.jobs.base import (Job, read_lines,
-                                        refuse_stream_checkpoint, write_output)
+from avenir_tpu_torch.jobs.base import Job, read_lines, write_output
 from avenir_tpu_torch.models import naive_bayes as nb
 from avenir_tpu_torch.utils.metrics import Counters
 
@@ -32,13 +31,18 @@ class BayesianDistribution(Job):
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
         _tabular_only(conf, self.name)
-        refuse_stream_checkpoint(conf, self.name)
         nbayes = nb.NaiveBayes(laplace=conf.get_float("laplace.smoothing", 1.0),
                                device=self.device)
-        enc, data, rows_fn = self.encoded_data_source(conf, input_path, counters)
-        model = nbayes.fit(data)
+        # stream.checkpoint.dir persists (totals, cursor) every N chunks of
+        # a stream.chunk.rows stream, so a killed run resumes (--resume)
+        ckpt = self.stream_checkpointer(conf)
+        enc, data, rows_fn = self.encoded_data_source(
+            conf, input_path, counters, checkpointer=ckpt)
+        model = nbayes.fit(data, accumulator=ckpt.accumulator if ckpt else None)
         lines = nb.model_to_lines(model, enc, delim=conf.field_delim)
         write_output(output_path, lines)
+        if ckpt:
+            ckpt.finish()
         counters.set("Records", "Processed", rows_fn())
         counters.set("Model", "Rows", len(lines))
 

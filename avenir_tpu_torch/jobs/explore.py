@@ -1,13 +1,15 @@
-"""The MutualInformation job (explore/MutualInformation.java); port of its
-part of ``avenir_tpu/jobs/explore.py``."""
+"""The exploration count jobs — MutualInformation, CramerCorrelation and
+HeterogeneityReductionCorrelation (explore/MutualInformation.java,
+CramerCorrelation.java, HeterogeneityReductionCorrelation.java); port of
+their part of ``avenir_tpu/jobs/explore.py``, in one process."""
 
 from __future__ import annotations
 
 from typing import List
 
 from avenir_tpu_torch.core.config import JobConfig
-from avenir_tpu_torch.jobs.base import (Job, refuse_stream_checkpoint,
-                                        write_output)
+from avenir_tpu_torch.jobs.base import Job, write_output
+from avenir_tpu_torch.models import correlation as corr
 from avenir_tpu_torch.models import mutual_info as mi
 from avenir_tpu_torch.utils.metrics import Counters
 
@@ -30,6 +32,25 @@ def mi_output_lines(conf: JobConfig, result, names: List[str]) -> List[str]:
     return lines
 
 
+def correlation_plan(conf: JobConfig, schema, enc):
+    """(src_idx, dst_idx, against_class, names) of a correlation job's
+    attribute selection, shared by the jobs and the SharedScan stage.
+    ``source.attributes`` / ``dest.attributes`` are schema ordinals
+    (CramerCorrelation.java:95-100), mapped to binned indices; a dest list
+    of exactly the class ordinal selects against-class mode."""
+    binned_ords = [f.ordinal for f in enc.binned_fields]
+    names = [schema.field_by_ordinal(o).name for o in binned_ords]
+    ord_to_idx = {o: i for i, o in enumerate(binned_ords)}
+    src = conf.get_int_list("source.attributes")
+    dst = conf.get_int_list("dest.attributes")
+    class_ord = schema.class_field.ordinal if schema.class_field else None
+    against_class = dst is not None and class_ord is not None and dst == [class_ord]
+    src_idx = [ord_to_idx[o] for o in src] if src else None
+    dst_idx = (None if against_class or dst is None
+               else [ord_to_idx[o] for o in dst])
+    return src_idx, dst_idx, against_class, names
+
+
 class MutualInformation(Job):
     """One-pass distributions + MI + feature-selection scores: MI values,
     then one ranked feature subset per algorithm in
@@ -39,12 +60,60 @@ class MutualInformation(Job):
 
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
-        refuse_stream_checkpoint(conf, self.name)
         schema = self.load_schema(conf)
-        enc, data, rows_fn = self.encoded_data_source(conf, input_path, counters)
+        ckpt = self.stream_checkpointer(conf)
+        acc = ckpt.accumulator if ckpt else None
+        enc, data, rows_fn = self.encoded_data_source(
+            conf, input_path, counters, checkpointer=ckpt)
         names = [schema.field_by_ordinal(f.ordinal).name
                  for f in enc.binned_fields]
         result = mi.MutualInformation(device=self.device).fit(
-            data, feature_names=names)
+            data, feature_names=names, accumulator=acc)
         write_output(output_path, mi_output_lines(conf, result, names))
+        if ckpt:
+            ckpt.finish()
         counters.set("Records", "Processed", rows_fn())
+
+
+class _CorrelationJob(Job):
+    """A categorical correlation job: one contingency table per selected
+    attribute pair, one statistic per table, one output line per pair."""
+
+    algorithm = "cramerIndex"
+
+    def _algorithm(self, conf: JobConfig) -> str:
+        return self.algorithm
+
+    def execute(self, conf: JobConfig, input_path: str, output_path: str,
+                counters: Counters) -> None:
+        schema = self.load_schema(conf)
+        ckpt = self.stream_checkpointer(conf)
+        enc, data, rows_fn = self.encoded_data_source(
+            conf, input_path, counters, checkpointer=ckpt)
+        src_idx, dst_idx, against_class, names = correlation_plan(
+            conf, schema, enc)
+        result = corr.CategoricalCorrelation(
+            algorithm=self._algorithm(conf), device=self.device).fit(
+                data, src=src_idx, dst=dst_idx, against_class=against_class,
+                feature_names=names,
+                accumulator=ckpt.accumulator if ckpt else None)
+        write_output(output_path, result.to_lines(delim=conf.field_delim))
+        if ckpt:
+            ckpt.finish()
+        counters.set("Records", "Processed", rows_fn())
+
+
+class CramerCorrelation(_CorrelationJob):
+    name = "CramerCorrelation"
+    algorithm = "cramerIndex"
+
+
+class HeterogeneityReductionCorrelation(_CorrelationJob):
+    name = "HeterogeneityReductionCorrelation"
+
+    def _algorithm(self, conf: JobConfig) -> str:
+        # the reference's values: concentration | uncertainty
+        # (HeterogeneityReductionCorrelation.java:70-84)
+        algo = conf.get("heterogeneity.algorithm", "concentration")
+        return {"concentration": "concentrationCoeff",
+                "uncertainty": "uncertaintyCoeff"}.get(algo, algo)

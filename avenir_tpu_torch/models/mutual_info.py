@@ -121,17 +121,43 @@ class MutualInformation:
         self.device = resolve_device(device)
 
     def fit(self, data: Union[EncodedDataset, Iterable[EncodedDataset]],
-            feature_names: Optional[Sequence[str]] = None) -> MutualInfoResult:
+            feature_names: Optional[Sequence[str]] = None,
+            accumulator: Optional[agg.Accumulator] = None) -> MutualInfoResult:
+        """``accumulator``: an accumulator owned by the caller, possibly
+        restored from a snapshot (the streamed job's ``StreamCheckpointer``).
+        Its keys decide the route of a resumed run: a G total under another
+        layout's key is refused; a G total where the kernel does not apply
+        (a run crashed on ``cuda``, resumed on the CPU) becomes the ``agg``
+        route's ``fc`` / ``pcc<s>`` tensors, exactly; ``agg``-route totals
+        keep the resumed run on that route."""
         meta, chunks = peek_chunks(data)
         if meta.labels is None:
             raise ValueError("mutual information requires a class attribute")
         f, b, c = meta.num_binned, meta.max_bins, meta.num_classes
         pair_index = all_pairs(f)
-        acc = agg.Accumulator()
+        acc = accumulator if accumulator is not None else agg.Accumulator()
         # kernel route: one gram per chunk (B1, or B2/B3 in the per-class
         # plan modes), accumulated as G and read out once at the end
         kernel = hist.use_kernel(f, b, c, self.device)
         gk = hist.g_key(f, b, c)
+        if accumulator is not None:
+            stale = [k for k in accumulator.names()
+                     if (k == "g" or k.startswith("g:")) and k != gk]
+            if stale:
+                raise ValueError(
+                    f"checkpoint holds count matrix {stale[0]!r} from an "
+                    f"incompatible kernel layout (this build uses {gk!r}); "
+                    f"restart the job without --resume")
+            if gk in accumulator and not kernel:
+                g = accumulator.state()
+                fc0, pcc0 = hist.counts_from_cooc(
+                    g.pop(gk), f, b, c, pair_index[:, 0], pair_index[:, 1])
+                g["fc"] = fc0
+                for s in range(0, len(pair_index), self.pair_chunk):
+                    g[f"pcc{s}"] = pcc0[s:s + self.pair_chunk]
+                accumulator.load(g)
+            elif "fc" in accumulator and kernel:
+                kernel = False
         for ds in chunks:
             codes = to_device(ds.codes, self.device)
             labels = to_device(ds.labels, self.device)

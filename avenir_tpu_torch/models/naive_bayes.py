@@ -187,9 +187,13 @@ class NaiveBayes:
         self.laplace = laplace
         self.device = resolve_device(device)
 
-    def fit(self, data: Union[EncodedDataset, Iterable[EncodedDataset]]) -> NaiveBayesModel:
+    def fit(self, data: Union[EncodedDataset, Iterable[EncodedDataset]],
+            accumulator: Optional[agg.Accumulator] = None) -> NaiveBayesModel:
+        """``accumulator``: an accumulator owned by the caller, possibly
+        restored from a snapshot — the streamed job passes its
+        ``StreamCheckpointer``'s, so snapshots see the totals."""
         meta, chunks = peek_chunks(data)
-        acc = agg.Accumulator()
+        acc = accumulator if accumulator is not None else agg.Accumulator()
         for ds in chunks:
             meta = ds
             if ds.labels is None:

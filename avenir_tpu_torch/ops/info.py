@@ -99,6 +99,14 @@ def mutual_information(joint_counts: torch.Tensor) -> torch.Tensor:
     return (p * _safe_log(ratio)).sum(dim=(-2, -1))
 
 
+def joint_entropy(joint_counts: torch.Tensor) -> torch.Tensor:
+    """H(X, Y) in nats from joint counts [..., A, B]."""
+    c = joint_counts.to(torch.float32)
+    total = torch.clamp(c.sum(dim=(-2, -1), keepdim=True), min=_EPS)
+    p = c / total
+    return -(p * _safe_log(p)).sum(dim=(-2, -1))
+
+
 def conditional_mutual_information(joint_counts_z: torch.Tensor) -> torch.Tensor:
     """I(X;Y|Z) from counts [..., A, B, Z]: Σ_z p(z) · MI(X;Y | Z=z)."""
     c = joint_counts_z.to(torch.float32)
@@ -106,3 +114,51 @@ def conditional_mutual_information(joint_counts_z: torch.Tensor) -> torch.Tensor
     pz = c.sum(dim=(-3, -2)) / total.squeeze(-2).squeeze(-2)    # [..., Z]
     mi_given_z = mutual_information(torch.movedim(c, -1, -3))   # [..., Z]
     return (pz * mi_given_z).sum(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# categorical association coefficients (contingency matrix [..., R, C])
+# ---------------------------------------------------------------------------
+
+def cramer_index(counts: torch.Tensor) -> torch.Tensor:
+    """Cramér index χ²/(N·min(R−1, C−1)) — the reference's ``cramerIndex``
+    (util/ContingencyMatrix.java:86-123); the divisor is taken over the
+    shape given, at least 1."""
+    c = counts.to(torch.float32)
+    n = torch.clamp(c.sum(dim=(-2, -1), keepdim=True), min=_EPS)
+    pr = c.sum(dim=-1, keepdim=True) / n
+    pc = c.sum(dim=-2, keepdim=True) / n
+    p = c / n
+    e = pr * pc
+    chi2_over_n = torch.where(e > 0, (p - e) ** 2 / torch.clamp(e, min=_EPS),
+                              torch.zeros_like(e)).sum(dim=(-2, -1))
+    r, k = counts.shape[-2], counts.shape[-1]
+    dof = max(min(r - 1, k - 1), 1)
+    return chi2_over_n / dof
+
+
+def concentration_coefficient(counts: torch.Tensor) -> torch.Tensor:
+    """Goodman–Kruskal tau of the column variable given the row variable —
+    the reference's ``concentrationCoeff``
+    (util/ContingencyMatrix.java:141-163):
+    (gini(col) − E[gini(col | row)]) / gini(col)."""
+    c = counts.to(torch.float32)
+    n = torch.clamp(c.sum(dim=(-2, -1), keepdim=True), min=_EPS)
+    p = c / n                                             # [..., R, C]
+    pr = p.sum(dim=-1)                                    # [..., R]
+    pc = p.sum(dim=-2)                                    # [..., C]
+    vy = 1.0 - (pc * pc).sum(dim=-1)
+    within = (p * p).sum(dim=-1) / torch.clamp(pr, min=_EPS)
+    vy_given_x = 1.0 - within.sum(dim=-1)
+    return (vy - vy_given_x) / torch.clamp(vy, min=_EPS)
+
+
+def uncertainty_coefficient(counts: torch.Tensor) -> torch.Tensor:
+    """Theil's U of the column variable given the row variable — the
+    reference's ``uncertaintyCoeff`` (util/ContingencyMatrix.java:165-185):
+    MI / H(col)."""
+    c = counts.to(torch.float32)
+    pc = normalize(c.sum(dim=-2), axis=-1)
+    hy = entropy(pc, axis=-1)
+    mi = mutual_information(c)
+    return mi / torch.clamp(hy, min=_EPS)

@@ -197,21 +197,12 @@ class Pipeline:
         return total
 
     def _refuse(self, todo: List[Stage]) -> None:
-        """Raise before any stage runs on what the port cannot honour: a
-        refused key in the conf or a stage's props, or a fusable job it has
-        not registered yet."""
-        from avenir_tpu_torch.jobs import REGISTRY
-        from avenir_tpu_torch.pipeline.scan import FUSABLE_JOBS
-
+        """Raise before any stage runs on a key the port cannot honour, in
+        the conf or a stage's props."""
         for conf in [self.conf] + [JobConfig(s.props) for s in todo]:
             why = refused_key(conf)
             if why is not None:
                 raise NotImplementedError(f"pipeline: {why}")
-        for s in todo:
-            if s.job in FUSABLE_JOBS and s.job not in REGISTRY:
-                raise NotImplementedError(
-                    f"pipeline stage {s.name!r}: {s.job} is not ported yet "
-                    f"(ROADMAP.md, Queue 1 item 4)")
 
     def run(self, only: Optional[Sequence[str]] = None,
             resume: bool = False) -> Dict[str, Counters]:

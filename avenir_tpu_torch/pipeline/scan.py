@@ -1,7 +1,7 @@
 """SharedScan — one encode and one gram pass serving every count job of a
-pipeline; port of ``avenir_tpu/pipeline/scan.py`` (the NB and MI consumers,
-without the mesh routes, the planner's pruning and the stream windows'
-restore).
+pipeline; port of ``avenir_tpu/pipeline/scan.py`` (the NB, MI, correlation,
+Fisher and moments consumers, without the mesh routes, the planner's
+pruning and the stream windows' restore).
 
 The reference runs one MapReduce Tool per statistic, each rescanning the
 dataset.  Here the stages that read one artifact share:
@@ -16,7 +16,9 @@ dataset.  Here the stages that read one artifact share:
 
 At the end each consumer is finalized from the shared tables through the
 models' data-free constructors: NB's [F, B, C] table is G's diagonal block,
-MI's pair tensors are ``counts_from_cooc``.  The results equal each
+MI's pair tensors are ``counts_from_cooc``, a correlation stage's
+contingency tables are the class-summed pair tensors (feature pairs) or the
+[F, B, C] block (against the class), and Fisher reads the class moments.  The results equal each
 model's own ``fit`` over the same chunks (tests/test_torch_scan.py).
 
 Row-validity: rows whose label is out of range drop out of every table
@@ -145,6 +147,92 @@ class MutualInfoConsumer(ScanConsumer):
             pair_index=t.pair_index,
             pair_class_counts=pcc,
         )
+
+
+class CorrelationConsumer(ScanConsumer):
+    """Cramér / heterogeneity statistics from the shared gram: the
+    against-class contingency stack is the [F, B, C] diagonal block, the
+    feature-pair stack the class-summed pair read-out —
+    ``correlation.result_from_counts``, with the attribute selection of
+    ``CategoricalCorrelation.fit``."""
+
+    def __init__(self, algorithm: str = "cramerIndex",
+                 src: Optional[Sequence[int]] = None,
+                 dst: Optional[Sequence[int]] = None,
+                 against_class: bool = False,
+                 feature_names: Optional[Sequence[str]] = None,
+                 name: str = ""):
+        super().__init__(name)
+        from avenir_tpu_torch.models.correlation import STATS
+        if algorithm not in STATS:
+            raise ValueError(
+                f"unknown algorithm {algorithm!r}; known: {sorted(STATS)}")
+        self.algorithm = algorithm
+        self.src = src
+        self.dst = dst
+        self.against_class = against_class
+        self.feature_names = feature_names
+        self.needs_bin = against_class
+        self.needs_pairs = not against_class
+
+    def required_pairs(self, num_binned: int) -> List[Tuple[int, int]]:
+        from avenir_tpu_torch.models.correlation import select_pairs
+
+        if self.against_class:
+            return []
+        return select_pairs(num_binned, [""] * num_binned, self.src,
+                            self.dst)[0]
+
+    def finalize(self, t: ScanTables):
+        from avenir_tpu_torch.models import correlation as corr
+
+        meta = t.meta
+        f, b, c = meta.num_binned, meta.max_bins, meta.num_classes
+        names = (list(self.feature_names) if self.feature_names is not None
+                 else [f"f{o}" for o in meta.binned_ordinals])
+        pairs, pair_names = corr.select_pairs(f, names, self.src, self.dst,
+                                              self.against_class)
+        if self.against_class and t.fbc is not None:
+            cont = corr.class_tables(t.fbc, pairs, max(b, c))
+        elif self.against_class:                 # no binned feature
+            cont = np.zeros((len(pairs), max(b, c), max(b, c)), np.int64)
+        elif pairs:
+            pos = t.pair_pos()
+            sel = np.array([pos[p] for p in pairs], np.int64)
+            cont = t.pcc[sel].sum(axis=-1)               # [P, B, B] int64
+        else:
+            cont = np.zeros((0, b, b), np.int64)
+        return corr.result_from_counts(self.algorithm, pairs, pair_names,
+                                       cont, meta.n_bins, meta.num_classes)
+
+
+class FisherConsumer(ScanConsumer):
+    """Univariate Fisher discriminant from the fused class moments —
+    ``fisher.model_from_moments`` over the ``class_moments`` sums the
+    standalone fit accumulates."""
+
+    needs_moments = True
+
+    def finalize(self, t: ScanTables):
+        from avenir_tpu_torch.models import fisher
+
+        if t.moments is None:
+            raise ScanError("Fisher consumer requires continuous features")
+        cnt, s1, s2 = t.moments
+        return fisher.model_from_moments(list(t.meta.class_values),
+                                         cnt, s1, s2)
+
+
+class MomentsConsumer(ScanConsumer):
+    """The raw per-class (count, Σx, Σx²) totals of the continuous block,
+    from the same fused moment step."""
+
+    needs_moments = True
+
+    def finalize(self, t: ScanTables):
+        if t.moments is None:
+            raise ScanError("Moments consumer requires continuous features")
+        return t.moments
 
 
 class ChunkFolder:
@@ -409,11 +497,13 @@ def stages_compatible(confs) -> bool:
 
 def stage_consumer(name, job, conf, out_path, schema, enc,
                    counters: Optional[Counters] = None):
-    """``(consumer, writer)`` for one fusable stage; the writer publishes
-    the finalized result byte for byte as the standalone job writes it, and
-    ``counters`` receives NB's model-row count."""
+    """``(consumer, writer)`` for one fusable stage (NB, MI, or a
+    correlation job); the writer publishes the finalized result byte for
+    byte as the standalone job writes it, and ``counters`` receives NB's
+    model-row count."""
+    from avenir_tpu_torch.jobs import get_job
     from avenir_tpu_torch.jobs.base import write_output
-    from avenir_tpu_torch.jobs.explore import mi_output_lines
+    from avenir_tpu_torch.jobs.explore import correlation_plan, mi_output_lines
     from avenir_tpu_torch.models import naive_bayes as nb
 
     if job == "BayesianDistribution":
@@ -436,8 +526,17 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
             write_output(out_path, mi_output_lines(conf, result, names_))
 
         return consumer, write_mi
-    raise NotImplementedError(
-        f"{job} is not ported yet (ROADMAP.md, Queue 1 item 4)")
+    # CramerCorrelation / HeterogeneityReductionCorrelation
+    src_idx, dst_idx, against_class, names_ = correlation_plan(
+        conf, schema, enc)
+    consumer = CorrelationConsumer(
+        algorithm=get_job(job)._algorithm(conf), src=src_idx, dst=dst_idx,
+        against_class=against_class, feature_names=names_, name=name)
+
+    def write_corr(result):
+        write_output(out_path, result.to_lines(delim=conf.field_delim))
+
+    return consumer, write_corr
 
 
 def run_fused_stages(stages, device=None) -> Dict[str, Counters]:

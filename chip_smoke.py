@@ -19,8 +19,11 @@ Phases, in order; any failure exits non-zero:
      rows and the main path's 10 × 13 × 2 chunk, jmaj 20 × 3 × 2 at 1M
      rows, the wide tree's K = 1 shape 30 × 8 × 2 (jmaj) at 1M rows, ragged
      row counts with invalid codes and labels in fmaj and jmaj, skewed
-     (95% of codes in one bin) fmaj and jmaj at 1M rows, and zero rows in
-     both (yardstick: ``torch._int_mm`` on a materialized int8 one-hot);
+     (95% of codes in one bin) fmaj and jmaj at 1M rows, zero rows in
+     both, and at one class (C = 1, the correlation jobs' feature pairs:
+     churn 5 × 6 × 1 jmaj and hospital 10 × 13 × 1 fmaj at 250K rows,
+     ragged with invalid codes and labels) (yardstick: ``torch._int_mm``
+     on a materialized int8 one-hot);
    - B2 (cls): 20 × 20 × 2 at 4M rows and at the main path's 250K-row
      chunk, ragged/invalid, zero rows, and skewed at 1M rows; B3 (clsb):
      100 × 20 × 2 at 1M rows, ragged/invalid, zero rows, skewed at 1M
@@ -69,10 +72,34 @@ Phases, in order; any failure exits non-zero:
    (4 calls, B1 4), its NB model byte-identical to the standalone ``cuda``
    BayesianDistribution's and within relative 1e-5 of the fused CPU
    run's;
+5c. the correlation family and stream checkpoints on a 1M-row churn CSV
+   (``datagen/churn.py``: 5 categorical features, 2 classes) in 250K-row
+   chunks: (a) CramerCorrelation against the class (B1 at C = 2) and over
+   the feature pairs (B1 at C = 1), HeterogeneityReductionCorrelation
+   with ``concentration`` and ``uncertainty``, NB and MI, through the CLI
+   on ``cuda`` and then ``--device cpu``, and CramerCorrelation over the
+   feature pairs of phase 3's hospital CSV (10 × 13 × 1): part files
+   byte-identical, B1 once a chunk with its C printed, walls printed;
+   (b) ``python -m avenir_tpu_torch.pipeline run`` with NB, MI, Cramér and
+   heterogeneity stages: one SharedScan (FusedStages 4, Scans 1,
+   Chunks 4), B1 4 times, each part file byte-identical to its
+   standalone ``cuda`` job's; (c) MutualInformation and CramerCorrelation
+   crashed on ``cuda`` after chunk 2 (``stream.checkpoint.dir``, a
+   snapshot a chunk): no part file, snapshots left, B1 2; ``--resume`` on
+   ``cuda``: the uninterrupted part file, ``Records::Processed`` 1M, B1 2,
+   the snapshots gone; crashed again and resumed with ``--device cpu``:
+   MI converts the G snapshot to the same bytes, Cramér refuses it (its
+   stale-key gate, as in the JAX package); (d) FisherDiscriminant on
+   phase 5b's mixed schema on ``cuda`` and the CPU (largest relative
+   difference printed), and a SharedScan with an MI and a Fisher consumer
+   on ``cuda``: ``gram_moments`` once a chunk, the model equal to the
+   standalone fit on the same chunks;
 6. each count kernel again at the main paths' own inputs: every call that
-   phases 3–5b made on ``cuda`` to the count wrappers was recorded (the MI
-   jobs' chunks, the pipeline's chunks, the hospital trees' levels with 2, 4, 8 and 16
-   selectors, the wide tree's packed levels K = 1, 2, 4, 8), and each is
+   phases 3–5c made on ``cuda`` to the count wrappers was recorded (the MI
+   jobs' chunks, the pipelines' chunks, the correlation jobs' chunks at
+   C = 1 and 2 and the resumed runs', the hospital trees' levels with 2,
+   4, 8 and 16 selectors, the wide tree's packed levels K = 1, 2, 4, 8),
+   and each is
    held exactly against its plain version; the first call of each path
    and shape is timed with its plain version, yardstick and bound;
 7. the kNN kernels against their plain versions, timed likewise
@@ -120,7 +147,7 @@ Phases, in order; any failure exits non-zero:
     against its plain version, with the plain version's time, a library
     yardstick and the bound beside it;
 11. print a ``walls_s`` JSON line (the native encoder's build, native
-    against Python encode, phases 3, 4, 5b and 8's walls) with the card's
+    against Python encode, phases 3, 4, 5b, 5c and 8's walls) with the card's
     name and power limit, then the kernels' JSON line, its numbers from the main-path cases of
     phases 6 and 9 (B1: a hospital MI chunk; B2: a 20 × 20 × 2 MI chunk;
     B3: the wide tree's K = 8 level; B4: the hospital tree's deepest level;
@@ -285,6 +312,14 @@ def kernel_cases(hist):
          2, True, 0.95),
         ("zero rows", 0, 11, 12, 2, False, 0.0),
         ("jmaj zero rows", 0, 20, 3, 2, False, 0.0),
+        # one class, as the correlation jobs count feature pairs: churn
+        # (5 features, 6 bins with the unseen-value bin) and the hospital
+        ("C = 1: churn pairs 5x6x1 at 250K rows (jmaj, wp 128)", CHUNK_ROWS,
+         5, 6, 1, False, 0.0),
+        ("C = 1: hospital pairs 10x13x1 at 250K rows (fmaj, wp 384)",
+         CHUNK_ROWS, 10, 13, 1, False, 0.0),
+        ("C = 1: ragged 100003 rows, invalid codes and labels", 100_003, 10,
+         13, 1, True, 0.0),
     ]
     results = []
     for i, (label, n, f, b, c, invalid, skew) in enumerate(cases):
@@ -1224,6 +1259,276 @@ def pipeline_phase(rec: Recorder, work: str, train: str, schema: str,
     return launches
 
 
+def expect_raise(exc_type, match: str, fn) -> str:
+    """Call ``fn`` and return the message of the ``exc_type`` it must raise
+    with ``match`` in it; any other outcome fails the phase."""
+    try:
+        fn()
+    except exc_type as e:
+        if match not in str(e):
+            raise
+        return str(e)
+    raise AssertionError(f"expected {exc_type.__name__} ({match!r})")
+
+
+def b1_classes(rec: Recorder, path: str) -> list:
+    """The class count C of every B1-route call recorded on ``path``."""
+    return [args[3] for name, p, args, _kw in rec.calls
+            if name == "cooc_counts_cols" and p == path]
+
+
+# phase 5c's standalone jobs on the churn CSV: (name, job, -D arguments)
+CORR_JOBS = (
+    ("cramer_class", "CramerCorrelation", ["-Ddest.attributes=6"]),
+    ("cramer_pairs", "CramerCorrelation", []),
+    ("het_concentration", "HeterogeneityReductionCorrelation",
+     ["-Dheterogeneity.algorithm=concentration"]),
+    ("het_uncertainty", "HeterogeneityReductionCorrelation",
+     ["-Dheterogeneity.algorithm=uncertainty"]),
+    ("nb", "BayesianDistribution", []),
+    ("mi", "MutualInformation",
+     ["-Dmutual.info.score.algorithms=mim,mifs,jmi,disr,mrmr"]),
+)
+
+
+def correlation_phase(rec: Recorder, work: str, train: str, schema: str,
+                      walls: dict) -> dict:
+    """Phase 5c: the correlation family, the kill-and-resume of the
+    streamed count jobs and Fisher; returns B1's launches by path.
+
+    (a) the correlation jobs (and NB and MI) through the CLI on a 1M-row
+    churn CSV in 250K-row chunks, on cuda and then on the CPU: part files
+    byte-identical, B1 once a chunk (C printed), and CramerCorrelation over
+    the feature pairs of phase 3's hospital CSV; (b) a four-stage pipeline
+    (NB, MI, Cramér against the class, heterogeneity) as one SharedScan,
+    each part file byte-identical to its standalone cuda job's; (c) MI and
+    Cramér crashed on cuda after two chunks with a snapshot a chunk, then
+    resumed on cuda (the same bytes, every row counted, the snapshots
+    gone), and crashed again and resumed on the CPU (MI: G converted to
+    the agg route's tensors, the same bytes; Cramér refuses the gram
+    snapshot on its agg route, as the JAX package does); (d)
+    FisherDiscriminant on phase 5b's mixed schema on cuda and the CPU, and
+    a SharedScan with an MI and a Fisher consumer (``gram_moments`` once a
+    chunk) equal to the standalone fit on the same chunks."""
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.datagen.churn import CHURN_SCHEMA_JSON, generate_churn
+
+    t0 = time.perf_counter()
+    churn = os.path.join(work, "churn.csv")
+    write_csv(churn, generate_churn(ROWS_E2E, seed=13))
+    churn_schema = os.path.join(work, "churn.json")
+    with open(churn_schema, "w") as fh:
+        json.dump(CHURN_SCHEMA_JSON, fh)
+    log(f"correlation: generated {ROWS_E2E} churn rows in "
+        f"{time.perf_counter() - t0:.1f} s")
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    common = [f"-Dfeature.schema.file.path={churn_schema}",
+              f"-Dstream.chunk.rows={CHUNK_ROWS}"]
+    part = lambda d: os.path.join(d, "part-00000")  # noqa: E731
+    out = lambda name, dev: os.path.join(work, f"corr_{dev}_{name}")  # noqa: E731
+    launches = {}
+    runs = [(name, job, common + extra, churn) for name, job, extra in CORR_JOBS]
+    runs.append(("cramer_hosp_pairs", "CramerCorrelation",
+                 [f"-Dfeature.schema.file.path={schema}",
+                  f"-Dstream.chunk.rows={CHUNK_ROWS}"], train))
+
+    # (a) each job on cuda, then on the CPU
+    for name, job, args, data in runs:
+        for dev in ("cuda", "cpu"):
+            path = f"corr_{name}"
+            reset_counts()
+            t0 = time.perf_counter()
+            with rec.on(path) if dev == "cuda" else contextlib.nullcontext():
+                text = run_cli([job, *args, data, out(name, dev),
+                                "--device", dev])
+            walls[f"{dev} {job} {name}"] = time.perf_counter() - t0
+            counts = read_counts()
+            if counter(text, "Processed") != ROWS_E2E:
+                raise AssertionError(f"{name} on {dev} did not count every row")
+            want = only(B1=chunks if job != "BayesianDistribution" else 0)
+            if dev == "cuda":
+                if counts != want:
+                    raise AssertionError(f"{name} on cuda launched {counts}")
+                launches[path] = counts["B1"]
+            elif counts != only():
+                raise AssertionError(f"{name} on cpu launched {counts}")
+        same_bytes(part(out(name, "cuda")), part(out(name, "cpu")), name)
+        log(f"correlation (a) {name}: {job} cuda "
+            f"{walls[f'cuda {job} {name}']:.2f} s, cpu "
+            f"{walls[f'cpu {job} {name}']:.2f} s, part files byte-identical;"
+            f" B1 launches {launches[f'corr_{name}']} at C = "
+            f"{b1_classes(rec, f'corr_{name}')}")
+    for name in ("cramer_pairs", "cramer_hosp_pairs"):
+        if b1_classes(rec, f"corr_{name}") != [1] * chunks:
+            raise AssertionError(f"{name}: B1 was not run at C = 1")
+    if b1_classes(rec, "corr_cramer_class") != [2] * chunks:
+        raise AssertionError("cramer_class: B1 was not run at C = 2")
+
+    # (b) NB, MI, Cramér against the class and heterogeneity as one scan
+    props = {
+        "pipeline.stages": "nb,mi,cramer,het",
+        "pipeline.bind.train": churn,
+        "feature.schema.file.path": churn_schema,
+        "stream.chunk.rows": str(CHUNK_ROWS),
+        "mutual.info.score.algorithms": "mim,mifs,jmi,disr,mrmr",
+        "pipeline.stage.cramer.prop.dest.attributes": "6",
+        "pipeline.stage.het.prop.heterogeneity.algorithm": "concentration",
+    }
+    stages = {"nb": "BayesianDistribution", "mi": "MutualInformation",
+              "cramer": "CramerCorrelation",
+              "het": "HeterogeneityReductionCorrelation"}
+    for stage, job in stages.items():
+        props[f"pipeline.stage.{stage}.job"] = job
+        props[f"pipeline.stage.{stage}.input"] = "train"
+        props[f"pipeline.stage.{stage}.output"] = f"{stage}_out"
+    conf_path = os.path.join(work, "corr_pipeline.properties")
+    with open(conf_path, "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in props.items()))
+    ws = os.path.join(work, "ws_corr")
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec.on("pipeline_corr"):
+        counters = run_pipeline(["run", conf_path, f"-Dpipeline.workspace={ws}"])
+    walls["pipeline nb+mi+cramer+het"] = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != only(B1=chunks):
+        raise AssertionError(f"four-stage pipeline launched {counts}")
+    launches["pipeline_corr"] = counts["B1"]
+    group = {"FusedStages": 4, "Scans": 1, "Chunks": chunks}
+    for stage, alone in (("nb", "nb"), ("mi", "mi"), ("cramer", "cramer_class"),
+                         ("het", "het_concentration")):
+        if counters[stage].get("SharedScan") != group:
+            raise AssertionError(f"stage {stage}: {counters[stage]}")
+        same_bytes(part(os.path.join(ws, f"{stage}_out")),
+                   part(out(alone, "cuda")), f"fused {stage} and standalone")
+    log(f"correlation (b): NB + MI + Cramér + heterogeneity in one "
+        f"SharedScan ({json.dumps(group)}), {walls['pipeline nb+mi+cramer+het']:.2f}"
+        f" s, B1 {counts['B1']} at C = {b1_classes(rec, 'pipeline_corr')}; "
+        f"each part file byte-identical to its standalone cuda job's")
+
+    # (c) kill on cuda, resume on cuda, and on the CPU
+    ckpt = os.path.join(work, "corr_ckpt")
+    keys = [f"-Dstream.checkpoint.dir={ckpt}",
+            "-Dstream.checkpoint.interval.chunks=1"]
+    for name, job, extra in (CORR_JOBS[5], CORR_JOBS[1]):
+        args = [job, *common, *extra, *keys]
+
+        def crash(dst):
+            reset_counts()
+            expect_raise(RuntimeError, "injected crash after chunk 2",
+                         lambda: run_cli([*args,
+                                          "-Dstream.fault.crash.after.chunks=2",
+                                          churn, dst, "--device", "cuda"]))
+            if read_counts() != only(B1=2):
+                raise AssertionError(f"{name} crash run launched {read_counts()}")
+            if os.path.exists(part(dst)) or not os.listdir(ckpt):
+                raise AssertionError(f"{name}: the crash left a part file or "
+                                     f"no snapshot")
+
+        for dev in ("cuda", "cpu"):
+            dst = os.path.join(work, f"corr_resume_{name}_{dev}")
+            crash(dst)
+            reset_counts()
+            resume = [*args, churn, dst, "--device", dev, "--resume"]
+            if name == "cramer_pairs" and dev == "cpu":
+                msg = expect_raise(ValueError, "different device/kernel layout",
+                                   lambda: run_cli(resume))
+                log(f"correlation (c) {name}: a cuda snapshot resumed on the "
+                    f"cpu is refused: {msg[:90]}...")
+                shutil.rmtree(ckpt)
+                continue
+            t0 = time.perf_counter()
+            with rec.on(f"resume_{name}") if dev == "cuda" else \
+                    contextlib.nullcontext():
+                text = run_cli(resume)
+            walls[f"{dev} resume {name}"] = time.perf_counter() - t0
+            if read_counts() != only(B1=chunks - 2 if dev == "cuda" else 0):
+                raise AssertionError(f"{name} resume on {dev} launched "
+                                     f"{read_counts()}")
+            same_bytes(part(dst), part(out(name, "cuda")),
+                       f"{name} resumed on {dev} and uninterrupted")
+            if counter(text, "Processed") != ROWS_E2E or os.path.exists(ckpt):
+                raise AssertionError(f"{name} resume on {dev}: rows "
+                                     f"{counter(text, 'Processed')}, "
+                                     f"snapshots left {os.path.exists(ckpt)}")
+            log(f"correlation (c) {name}: crashed on cuda after chunk 2, "
+                f"resumed on {dev} in {walls[f'{dev} resume {name}']:.2f} s: "
+                f"byte-identical, Records::Processed {ROWS_E2E}, snapshots "
+                f"removed")
+    launches["resume_mi"] = chunks - 2
+    launches["resume_cramer_pairs"] = chunks - 2
+
+    # (d) Fisher on the mixed hospital schema
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import Job
+    from avenir_tpu_torch.models import fisher
+    from avenir_tpu_torch.ops import hist
+    from avenir_tpu_torch.pipeline import scan
+    from avenir_tpu_torch.utils.metrics import Counters
+
+    mixed_schema = os.path.join(work, "hosp_mixed.json")
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        run_cli(["FisherDiscriminant", f"-Dfeature.schema.file.path={mixed_schema}",
+                 train, out("fisher", dev), "--device", dev])
+        walls[f"{dev} FisherDiscriminant"] = time.perf_counter() - t0
+        if read_counts() != only():
+            raise AssertionError(f"Fisher on {dev} launched {read_counts()}")
+    rel = compare_rel(part(out("fisher", "cuda")), part(out("fisher", "cpu")),
+                      1e-9)
+    walls["Fisher cuda vs cpu max rel diff"] = rel
+    sconf = JobConfig({"feature.schema.file.path": mixed_schema,
+                       "stream.chunk.rows": str(CHUNK_ROWS)})
+    host = list(Job.iter_encoded_retrying(sconf, train, Job.encoder_for(sconf),
+                                          Counters()))
+    gram_calls = []
+    real = hist.gram_moments
+
+    def spy(*a):
+        gram_calls.append(tuple(a[0].shape))
+        return real(*a)
+
+    engine = scan.SharedScan(device="cuda")
+    engine.register(scan.MutualInfoConsumer(name="mi"))
+    engine.register(scan.FisherConsumer(name="fisher"))
+    reset_counts()
+    hist.gram_moments = spy
+    try:
+        with rec.on("scan_mi_fisher"):
+            res = engine.run(host)
+    finally:
+        hist.gram_moments = real
+    if read_counts() != only(B1=chunks) or len(gram_calls) != chunks:
+        raise AssertionError(f"MI + Fisher scan: launches {read_counts()}, "
+                             f"gram_moments {gram_calls}")
+    launches["scan_mi_fisher"] = chunks
+    alone = fisher.FisherDiscriminant(device="cuda").fit(host)
+    for key in ("mean", "var", "count", "pooled_var", "boundary"):
+        if not np.array_equal(getattr(res["fisher"], key), getattr(alone, key)):
+            raise AssertionError(f"scan Fisher {key} differs from the fit's")
+    names = ["age", "weight", "height"]
+    with open(part(out("fisher", "cuda"))) as fh:
+        job_lines = fh.read().splitlines()
+    worst = 0.0
+    for a, b in zip(res["fisher"].to_lines(names), job_lines):
+        for x, y in zip(a.split(",")[1:], b.split(",")[1:]):
+            worst = max(worst, abs(float(x) - float(y)) / max(abs(float(y)), 1e-30))
+    if len(job_lines) != 3 or worst > 1e-9:
+        raise AssertionError(f"scan Fisher against the job: {worst}")
+    log(f"correlation (d): FisherDiscriminant cuda "
+        f"{walls['cuda FisherDiscriminant']:.2f} s, cpu "
+        f"{walls['cpu FisherDiscriminant']:.2f} s, largest relative "
+        f"difference {rel}; MI + Fisher SharedScan on cuda: gram_moments "
+        f"{len(gram_calls)} calls, B1 {chunks}, the Fisher model equal to "
+        f"the standalone fit on the same chunks, within {worst} of the "
+        f"whole-input job")
+    del host
+    return launches
+
+
 def path_cases(hist, rec: Recorder) -> list:
     """Phase 6: each kernel against its plain version, exactly, on every
     input the driven paths gave it on cuda; the first call of each path and
@@ -2107,6 +2412,7 @@ def main(argv=None) -> int:
         b4_tree = tree_jobs_phase(hist, rec, work, train, test, schema, walls)
         wide = wide_tree_phase(hist, rec)
         b1_pipe = pipeline_phase(rec, work, train, schema, walls)
+        b1_corr = correlation_phase(rec, work, train, schema, walls)
         all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
         rec.calls.clear()
         all_cases += knn_cases()
@@ -2124,7 +2430,8 @@ def main(argv=None) -> int:
     kernels = [
         kernel_entry("B1", "cooc_pair_gram, fmaj/jmaj (B1)",
                      src + "cooc_pair.cu", at + "283",
-                     {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe},
+                     {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
+                      **b1_corr},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},

@@ -4,7 +4,9 @@ versions: the co-occurrence grams in every layout (the pair histogram of
 counts (``csrc/cross.cu``, B4) exactly; the kNN candidate kernels
 (``csrc/knn_tourney.cu``, B5, and ``csrc/knn_topk.cu``, B6) exactly where
 every d² is an integer sum and to the float32 summation order elsewhere;
-the kNN search on ``cuda`` against the CPU; the probe functions of
+the kNN search on ``cuda`` against the CPU; B1 at one class and the
+correlation job on ``cuda``, and a ``cuda`` snapshot resumed on the CPU;
+the probe functions of
 ``avenir_tpu_torch.probes``; the device feeder's staging (its own stream,
 pinned copies, the consumer's wait); and the SharedScan on ``cuda``
 against the CPU.
@@ -278,6 +280,70 @@ def test_mi_fit_on_the_card_equals_cpu(cuda):
     for name in ("class_counts", "feature_class_counts", "pair_class_counts"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     np.testing.assert_array_equal(got.feature_class_mi, want.feature_class_mi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,f,b,invalid,mode", [
+    (20_000, 5, 6, False, "jmaj"),        # churn's feature pairs (wp 128)
+    (20_000, 10, 13, False, "fmaj"),      # hospital's feature pairs (wp 384)
+    (20_000, 30, 8, False, "jmaj"),       # jmaj, wp 256
+    (100_003, 10, 13, True, "fmaj"),      # ragged, invalid codes and labels
+    (100_003, 5, 6, True, "jmaj"),
+])
+def test_b1_at_one_class_matches_plain_version(cuda, n, f, b, invalid, mode):
+    """B1 over the gram of ONE class, as the correlation jobs run it for
+    feature pairs: every label 0, so each pair's lanes collapse onto the
+    bin·1 + 0 column (invalid labels -1 and 1 drop their rows)."""
+    codes, labels = _data(n, f, b, 1, seed=41)
+    if not invalid:
+        codes = np.clip(codes, 0, b - 1)
+        labels[:] = 0
+    assert hist.plan(f, b, 1)[0] == mode
+    before = hist.cooc_counts_cols.launches
+    g = hist.cooc_counts_cols(torch.from_numpy(codes).to(cuda),
+                              torch.from_numpy(labels).to(cuda), b, 1)
+    assert hist.cooc_counts_cols.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(g.cpu(), hist.cooc_counts_cols_ref(
+        torch.from_numpy(codes), torch.from_numpy(labels), b, 1))
+
+
+@pytest.mark.cuda
+def test_correlation_on_the_card_equals_cpu_and_a_cuda_snapshot_resumes_on_the_cpu(
+        cuda, tmp_path):
+    """CramerCorrelation (B1 at C = 1) and MutualInformation on cuda give
+    the CPU's part files; a MutualInformation run crashed on cuda (a G
+    snapshot) resumes on the CPU (G converted to the agg route's tensors)
+    to the same bytes."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.datagen.churn import CHURN_SCHEMA_JSON, generate_churn
+    from avenir_tpu_torch.jobs import get_job
+
+    write_csv(str(tmp_path / "churn.csv"), generate_churn(3000, seed=2))
+    (tmp_path / "churn.json").write_text(json.dumps(CHURN_SCHEMA_JSON))
+
+    def run(job, out, dev, **extra):
+        props = {"feature.schema.file.path": str(tmp_path / "churn.json"),
+                 "stream.chunk.rows": "250", **extra}
+        get_job(job).run(JobConfig(props), str(tmp_path / "churn.csv"),
+                         str(tmp_path / out), device=dev)
+        return (tmp_path / out / "part-00000").read_bytes()
+
+    for job in ("CramerCorrelation", "MutualInformation"):
+        before = hist.cooc_counts_cols.launches
+        got = run(job, f"{job}_cuda", "cuda")
+        assert hist.cooc_counts_cols.launches == before + 12
+        assert got == run(job, f"{job}_cpu", "cpu")
+    keys = {"stream.checkpoint.dir": str(tmp_path / "D"),
+            "stream.checkpoint.interval.chunks": "1"}
+    with pytest.raises(RuntimeError, match="injected crash after chunk 5"):
+        run("MutualInformation", "crashed", "cuda",
+            **{**keys, "stream.fault.crash.after.chunks": "5"})
+    assert run("MutualInformation", "resumed", "cpu",
+               **{**keys, "stream.resume": "true"}) == \
+        (tmp_path / "MutualInformation_cpu" / "part-00000").read_bytes()
+    assert not (tmp_path / "D").exists()
 
 
 @pytest.mark.cuda

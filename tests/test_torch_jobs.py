@@ -142,7 +142,10 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.runtime.feeder, avenir_tpu_torch.utils.retry, "
             "avenir_tpu_torch.utils.locking, avenir_tpu_torch.pipeline.scan, "
             "avenir_tpu_torch.pipeline.driver, "
-            "avenir_tpu_torch.pipeline.__main__\n"
+            "avenir_tpu_torch.pipeline.__main__, "
+            "avenir_tpu_torch.models.correlation, "
+            "avenir_tpu_torch.models.fisher, avenir_tpu_torch.jobs.regress, "
+            "avenir_tpu_torch.utils.checkpoint, avenir_tpu_torch.datagen.churn\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -162,7 +165,10 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
              + sorted(PKG.rglob("*.cuh")) + sorted(PKG.rglob("*.cpp")))
     assert PKG / "runtime" / "native" / "csv_encode.cpp" in files
     assert PKG / "pipeline" / "scan.py" in files
-    assert len(files) > 35
+    for new in ("models/correlation.py", "models/fisher.py",
+                "jobs/regress.py", "utils/checkpoint.py", "datagen/churn.py"):
+        assert PKG / new in files
+    assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
             for p in files for m in pattern.finditer(p.read_text())]
     assert hits == []
@@ -189,18 +195,22 @@ def _argv(job, work, keys, out):
 
 
 def test_stream_checkpoint_refused_where_jax_checkpoints(crash_input):
+    """Where the JAX package checkpoints the stream, so does the port (the
+    refusal it had before StreamCheckpointer was ported is gone): on the
+    same input both raise the injected crash after chunk 2, write no part
+    file and leave snapshots in their directories."""
     work, keys = crash_input
-    with pytest.raises(RuntimeError, match="injected crash after chunk 2"):
-        _run(jax_main, _argv("MutualInformation", work, keys, work / "jax_mi"))
-    assert sorted(os.listdir(work / "D")), "the JAX run left no snapshot"
-    assert not (work / "jax_mi" / "part-00000").exists()
-    theirs = {**keys, "stream.checkpoint.dir": str(work / "D_torch")}
-    for job in ("BayesianDistribution", "MutualInformation"):
-        out = work / f"torch_{job}"
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            _run(torch_main, _argv(job, work, theirs, out) + ["--device", "cpu"])
-        assert not (out / "part-00000").exists()
-        assert not (work / "D_torch").exists()
+    for pkg, main, extra in (("jax", jax_main, []),
+                             ("torch", torch_main, ["--device", "cpu"])):
+        for job in ("BayesianDistribution", "MutualInformation"):
+            d = work / f"D_{pkg}_{job}"
+            theirs = {**keys, "stream.checkpoint.dir": str(d)}
+            out = work / f"{pkg}_crash_{job}"
+            with pytest.raises(RuntimeError,
+                               match="injected crash after chunk 2"):
+                _run(main, _argv(job, work, theirs, out) + extra)
+            assert not (out / "part-00000").exists()
+            assert sorted(os.listdir(d)) == ["step_1", "step_2"], (pkg, job)
 
 
 @pytest.mark.parametrize("job", ["BayesianDistribution", "MutualInformation"])

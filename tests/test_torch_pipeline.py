@@ -229,13 +229,32 @@ def test_switches_that_are_off_run(env):
 
 
 def test_unported_count_job_raises_naming_its_queue_item(env):
-    props = _props(env, **{"pipeline.stage.mi.job": "CramerCorrelation"})
+    """A Cramér stage, which the pipeline refused until the correlation
+    jobs were ported, now fuses with NB + MI into one SharedScan, and its
+    part file equals the standalone CramerCorrelation job's."""
+    from avenir_tpu_torch.jobs import get_job
+
+    props = _props(env, **{
+        "pipeline.stages": "nb,mi,cramer",
+        "pipeline.stage.cramer.job": "CramerCorrelation",
+        "pipeline.stage.cramer.input": "train",
+        "pipeline.stage.cramer.output": "cramer_out",
+        "pipeline.stage.cramer.prop.dest.attributes": "11",
+        "stream.chunk.rows": "700"})
     ws = env / "cramer"
     p = driver.Pipeline.from_conf(JobConfig(props), workspace=str(ws),
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        p.run()
-    assert not ws.exists()
+    counters = {k: v.as_dict() for k, v in p.run().items()}
+    for stage in ("nb", "mi", "cramer"):
+        assert counters[stage]["SharedScan"] == {
+            "FusedStages": 3, "Scans": 1, "Chunks": 5}
+    conf = JobConfig({"feature.schema.file.path": str(env / "hosp.json"),
+                      "stream.chunk.rows": "700", "dest.attributes": "11"})
+    get_job("CramerCorrelation").run(conf, str(env / "train.csv"),
+                                     str(env / "cramer_alone"), device="cpu")
+    got = pathlib.Path(ws, "cramer_out", "part-00000").read_bytes()
+    assert got == pathlib.Path(env, "cramer_alone", "part-00000").read_bytes()
+    assert got.decode().splitlines()[0].startswith("age,class,")
 
 
 def test_decision_tree_pipeline_equals_the_standalone_jobs(env):
