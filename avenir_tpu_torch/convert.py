@@ -21,16 +21,23 @@ This system has no weights: its state is count tables and model files.
   the reference set and its normalization range) and returns the port's
   :class:`~avenir_tpu_torch.models.knn.KNNModel`, so that both packages
   score the same reference set.
+- :func:`markov_model_from_jax`, :func:`hmm_model_from_jax` and
+  :func:`lr_model_from_jax` take a JAX ``MarkovChainModel``, ``HMMModel``
+  or ``LogisticRegressionModel`` (its numpy fields), or the lines its
+  ``to_lines()`` / ``history_lines()`` writes, and return the port's model,
+  checked for shape, so both packages decode or score with the same one.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Sequence, Union
 
 import numpy as np
 
 from avenir_tpu_torch.models import knn as mknn
+from avenir_tpu_torch.models import logistic as mlr
+from avenir_tpu_torch.models import markov as mk
 from avenir_tpu_torch.models import tree as dtree
 from avenir_tpu_torch.ops import agg, hist
 
@@ -139,3 +146,63 @@ def knn_model_from_jax(model) -> mknn.KNNModel:
         raise ValueError(f"class_probs has {out.class_probs.shape[1]} columns "
                          f"for {len(out.class_values)} classes")
     return out
+
+
+def _is_lines(src) -> bool:
+    return (isinstance(src, (list, tuple))
+            and all(isinstance(x, str) for x in src))
+
+
+def markov_model_from_jax(src: Union[Sequence[str], object]
+                          ) -> mk.MarkovChainModel:
+    """The port's MarkovChainModel from a JAX ``MarkovChainModel`` or its
+    ``to_lines()`` (read as probabilities, as ``from_lines`` reads them)."""
+    if _is_lines(src):
+        return mk.MarkovChainModel.from_lines(list(src))
+    states = [str(v) for v in src.states]
+    counts = np.asarray(src.counts, np.float64)
+    if counts.shape != (len(states), len(states)):
+        raise ValueError(f"transition counts {counts.shape} for "
+                         f"{len(states)} states")
+    return mk.MarkovChainModel(states=states, counts=counts,
+                               laplace=float(src.laplace), scale=src.scale)
+
+
+def hmm_model_from_jax(src: Union[Sequence[str], object]) -> mk.HMMModel:
+    """The port's HMMModel from a JAX ``HMMModel`` or its ``to_lines()``;
+    refuses tables whose shapes disagree with the state and observation
+    lists."""
+    if _is_lines(src):
+        model = mk.HMMModel.from_lines(list(src))
+    else:
+        model = mk.HMMModel(
+            states=[str(v) for v in src.states],
+            observations=[str(v) for v in src.observations],
+            transition=np.asarray(src.transition, np.float64),
+            emission=np.asarray(src.emission, np.float64),
+            initial=np.asarray(src.initial, np.float64))
+    s, o = len(model.states), len(model.observations)
+    for name, shape in (("transition", (s, s)), ("emission", (s, o)),
+                        ("initial", (s,))):
+        if getattr(model, name).shape != shape:
+            raise ValueError(f"{name} {getattr(model, name).shape} for "
+                             f"{s} states and {o} observations")
+    return model
+
+
+def lr_model_from_jax(src: Union[Sequence[str], object]
+                      ) -> mlr.LogisticRegressionModel:
+    """The port's LogisticRegressionModel from a JAX
+    ``LogisticRegressionModel`` or its ``history_lines()``; refuses a
+    history whose rows differ in width from the weights."""
+    if _is_lines(src):
+        return mlr.LogisticRegressionModel.from_history_lines(list(src))
+    weights = np.asarray(src.weights)
+    history = [np.asarray(h) for h in src.history]
+    if any(h.shape != weights.shape for h in history):
+        raise ValueError(f"history rows of widths "
+                         f"{sorted({h.shape for h in history})} for "
+                         f"weights {weights.shape}")
+    return mlr.LogisticRegressionModel(
+        weights=weights, history=history, converged=bool(src.converged),
+        iterations=int(src.iterations), n_rows=int(src.n_rows))

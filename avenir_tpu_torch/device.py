@@ -24,6 +24,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
+def refuse_mesh(mesh) -> None:
+    """Raise before any work when a data mesh is asked for: the port's
+    parallel plane is not built yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a data mesh is not ported yet: the port's parallel plane is "
+            "ROADMAP.md, Queue 1 item 7")
+
+
 def to_device(x, device: torch.device) -> torch.Tensor:
     """A chunk array on ``device``: a numpy array is wrapped and copied, a
     tensor the feeder already staged there is returned as it is."""

@@ -11,16 +11,23 @@ from typing import Dict, Type
 from avenir_tpu_torch.jobs.base import Job
 from avenir_tpu_torch.jobs.bayesian import BayesianDistribution, BayesianPredictor
 from avenir_tpu_torch.jobs.explore import (
+    BaggingSampler,
     CramerCorrelation,
     HeterogeneityReductionCorrelation,
     MutualInformation,
+    UnderSamplingBalancer,
 )
 from avenir_tpu_torch.jobs.knn import (
     FeatureCondProbJoiner,
     NearestNeighbor,
     SameTypeSimilarity,
 )
-from avenir_tpu_torch.jobs.regress import FisherDiscriminant
+from avenir_tpu_torch.jobs.markov import (
+    HiddenMarkovModelBuilder,
+    MarkovStateTransitionModel,
+    ViterbiStatePredictor,
+)
+from avenir_tpu_torch.jobs.regress import FisherDiscriminant, LogisticRegressionJob
 from avenir_tpu_torch.jobs.tree import (
     ClassPartitionGenerator,
     DataPartitioner,
@@ -35,6 +42,8 @@ _PACKAGES: Dict[str, str] = {
     "MutualInformation": "explore",
     "CramerCorrelation": "explore",
     "HeterogeneityReductionCorrelation": "explore",
+    "BaggingSampler": "explore",
+    "UnderSamplingBalancer": "explore",
     "ClassPartitionGenerator": "explore",
     "SplitGenerator": "tree",
     "DataPartitioner": "tree",
@@ -43,13 +52,20 @@ _PACKAGES: Dict[str, str] = {
     "FeatureCondProbJoiner": "knn",
     "NearestNeighbor": "knn",
     "FisherDiscriminant": "discriminant",
+    "MarkovStateTransitionModel": "markov",
+    "HiddenMarkovModelBuilder": "markov",
+    "ViterbiStatePredictor": "markov",
+    "LogisticRegressionJob": "regress",
 }
 
 JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
                CramerCorrelation, HeterogeneityReductionCorrelation,
                ClassPartitionGenerator, SplitGenerator, DataPartitioner,
                DecisionTreeBuilder, SameTypeSimilarity, FeatureCondProbJoiner,
-               NearestNeighbor, FisherDiscriminant]
+               NearestNeighbor, FisherDiscriminant, BaggingSampler,
+               UnderSamplingBalancer, MarkovStateTransitionModel,
+               HiddenMarkovModelBuilder, ViterbiStatePredictor,
+               LogisticRegressionJob]
 
 REGISTRY: Dict[str, Type[Job]] = {}
 for _cls in JOB_CLASSES:

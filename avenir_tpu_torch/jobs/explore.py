@@ -1,16 +1,23 @@
-"""The exploration count jobs — MutualInformation, CramerCorrelation and
-HeterogeneityReductionCorrelation (explore/MutualInformation.java,
-CramerCorrelation.java, HeterogeneityReductionCorrelation.java); port of
-their part of ``avenir_tpu/jobs/explore.py``, in one process."""
+"""The exploration jobs — MutualInformation, CramerCorrelation,
+HeterogeneityReductionCorrelation and the class samplers BaggingSampler
+and UnderSamplingBalancer (explore/MutualInformation.java,
+CramerCorrelation.java, HeterogeneityReductionCorrelation.java,
+BaggingSampler.java, UnderSamplingBalancer.java); port of
+``avenir_tpu/jobs/explore.py``, in one process."""
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+import torch
+
 from avenir_tpu_torch.core.config import JobConfig
-from avenir_tpu_torch.jobs.base import Job, write_output
+from avenir_tpu_torch.jobs.base import Job, read_lines, write_output
 from avenir_tpu_torch.models import correlation as corr
 from avenir_tpu_torch.models import mutual_info as mi
+from avenir_tpu_torch.models import samplers
+from avenir_tpu_torch.utils import prng
 from avenir_tpu_torch.utils.metrics import Counters
 
 
@@ -117,3 +124,59 @@ class HeterogeneityReductionCorrelation(_CorrelationJob):
         algo = conf.get("heterogeneity.algorithm", "concentration")
         return {"concentration": "concentrationCoeff",
                 "uncertainty": "uncertaintyCoeff"}.get(algo, algo)
+
+
+class BaggingSampler(Job):
+    """Bootstrap sample with replacement (BaggingSampler.java:100-122):
+    row-level resampling of the raw lines, ``batch.size`` lines at a time,
+    each batch with the next key of the ``seed`` key's split chain.  The
+    fields are never inspected, so nothing is parsed."""
+
+    name = "BaggingSampler"
+
+    def execute(self, conf: JobConfig, input_path: str, output_path: str,
+                counters: Counters) -> None:
+        lines = read_lines(input_path)
+        batch = conf.get_int("batch.size", 10_000)
+        key = prng.prng_key(conf.get_int("seed", 0))
+        out: List[str] = []
+        for s in range(0, len(lines), batch):
+            chunk = lines[s:s + batch]
+            key, sub = prng.split(key)
+            out.extend(chunk[i] for i in samplers.bootstrap_indices(
+                sub, len(chunk)))
+        write_output(output_path, out)
+        counters.set("Records", "Processed", len(lines))
+        counters.set("Records", "Emitted", len(out))
+
+
+class UnderSamplingBalancer(Job):
+    """Majority-class undersampler (UnderSamplingBalancer.java:92-164): keep
+    minority rows, thin the others to p = minCount / classCount.  Only the
+    class field of each raw line is read, so data the other jobs would
+    reject (sentinels in numeric columns, class values outside a declared
+    cardinality) samples as the reference's mapper sampled it.  The
+    keep-mask compare runs on the job's device."""
+
+    name = "UnderSamplingBalancer"
+
+    def execute(self, conf: JobConfig, input_path: str, output_path: str,
+                counters: Counters) -> None:
+        schema = self.load_schema(conf)
+        if schema.class_field is None:
+            raise ValueError("undersampling requires a class attribute")
+        class_ord = schema.class_field.ordinal
+        delim = conf.field_delim_regex
+        lines = read_lines(input_path)
+        labels_raw = [ln.split(delim)[class_ord] for ln in lines]
+        _values, inverse, cts = np.unique(
+            np.asarray(labels_raw, dtype=object).astype(str),
+            return_inverse=True, return_counts=True)
+        labels = torch.from_numpy(inverse.astype(np.int32)).to(self.device)
+        mask = samplers.undersample_mask(
+            prng.prng_key(conf.get_int("seed", 0)), labels,
+            cts.astype(np.float32))
+        out = [lines[i] for i in np.flatnonzero(mask.cpu().numpy())]
+        write_output(output_path, out)
+        counters.set("Records", "Processed", len(lines))
+        counters.set("Records", "Emitted", len(out))

@@ -1,12 +1,102 @@
-"""The FisherDiscriminant job (discriminant/FisherDiscriminant.java); port
-of its part of ``avenir_tpu/jobs/regress.py``."""
+"""Regression jobs — iterative logistic regression and the Fisher
+discriminant (regress/LogisticRegressionJob.java,
+discriminant/FisherDiscriminant.java); port of
+``avenir_tpu/jobs/regress.py``, in one process."""
 
 from __future__ import annotations
 
-from avenir_tpu_torch.core.config import JobConfig
+import os
+
+import torch
+
+from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.jobs.base import Job, write_output
 from avenir_tpu_torch.models import fisher as mfisher
+from avenir_tpu_torch.models import logistic as mlr
+from avenir_tpu_torch.utils.locking import FileLock, atomic_write
 from avenir_tpu_torch.utils.metrics import Counters
+
+
+class LogisticRegressionJob(Job):
+    """Batch-gradient LR to convergence, with the reference's coefficient
+    history file as the checkpoint it resumes from
+    (LogisticRegressionJob.java:238-255, 279-289): the driver loop and its
+    per-iteration MR job become one gradient loop on the device, with a
+    learning rate applied.
+
+    Properties: ``coeff.file.path`` (the history; resumed from its last
+    row if present, default ``<output>/coefficients.txt``),
+    ``iteration.limit``, ``convergence.criteria`` (all|average),
+    ``convergence.threshold`` (percent), ``learning.rate``, ``l2.weight``,
+    ``coeff.lock.timeout.sec``.  The history file is locked for the whole
+    read-resume-train-rewrite cycle, so a concurrent run raises
+    ``LockHeldError`` instead of interleaving, and rewritten atomically."""
+
+    name = "LogisticRegressionJob"
+
+    def execute(self, conf: JobConfig, input_path: str, output_path: str,
+                counters: Counters) -> None:
+        coeff_path = conf.get("coeff.file.path") or os.path.join(
+            output_path, "coefficients.txt")
+        est = mlr.LogisticRegression(
+            learning_rate=conf.get_float("learning.rate", 0.5),
+            max_iterations=conf.get_int("iteration.limit", 200),
+            convergence=conf.get("convergence.criteria", "average"),
+            threshold_pct=conf.get_float("convergence.threshold", 0.5),
+            l2=conf.get_float("l2.weight", 0.0), device=self.device)
+        os.makedirs(os.path.dirname(coeff_path) or ".", exist_ok=True)
+        lock = FileLock(coeff_path,
+                        timeout_s=conf.get_float("coeff.lock.timeout.sec", 10.0))
+        with lock:
+            resume = None
+            if os.path.exists(coeff_path):
+                with open(coeff_path) as fh:
+                    lines = [ln for ln in fh if ln.strip()]
+                if lines:
+                    resume = mlr.LogisticRegressionModel.from_history_lines(
+                        lines, delim=conf.field_delim)
+            if conf.get("stream.chunk.rows"):
+                model = self._fit_streaming(conf, input_path, counters, est,
+                                            resume)
+                n_rows = model.n_rows
+            else:
+                _enc, ds, _rows = self.encode_input(conf, input_path,
+                                                    need_rows=False)
+                x = mlr.design_matrix(ds, device=self.device)
+                y = torch.as_tensor(ds.labels).to(self.device)
+                model = est.fit(x, y, resume_from=resume)
+                n_rows = ds.num_rows
+            hist = model.history_lines(delim=conf.field_delim)
+            with atomic_write(coeff_path) as fh:
+                fh.write("\n".join(hist) + "\n")
+        status = "converged" if model.converged else "iterationLimit"
+        write_output(output_path, hist + [f"status{conf.field_delim}{status}"])
+        counters.set("Records", "Processed", n_rows)
+        counters.set("Iterations", "Run", model.iterations)
+        counters.set("Iterations", "Converged", int(model.converged))
+
+    def _fit_streaming(self, conf: JobConfig, input_path: str,
+                       counters: Counters, est, resume):
+        """Streamed LR: each ``stream.chunk.rows`` chunk is encoded once
+        into a design-matrix block that stays on the device across the
+        iterations; every iteration folds the blocks' gradient partials in
+        chunk order (``LogisticRegression.fit_chunked``), as the reference's
+        per-iteration MR job folded its mappers' partials
+        (LogisticRegressionJob.java:169-176, 279-289)."""
+        if conf.get("stream.checkpoint.dir"):
+            raise ConfigError(
+                "stream.checkpoint.dir does not apply to "
+                "LogisticRegressionJob: the coefficient history file IS "
+                "the checkpoint (every completed iteration is durable and a "
+                "re-run resumes from its last row, "
+                "LogisticRegressionJob.java:238-255) — unset the key")
+        enc = self.encoder_for(conf)
+        chunks = [(cur["chunk"] - 1,
+                   mlr.design_matrix(ds, device=self.device),
+                   torch.as_tensor(ds.labels).to(self.device))
+                  for ds, cur in self.iter_encoded_retrying(
+                      conf, input_path, enc, counters, emit_cursor=True)]
+        return est.fit_chunked(chunks, resume_from=resume)
 
 
 class FisherDiscriminant(Job):

@@ -1,5 +1,5 @@
 """Decision-tree induction — port of ``avenir_tpu/models/tree.py``
-(candidate-split search + frontier growth), everything but RandomForest.
+(candidate-split search + frontier growth) and its RandomForest.
 
 Capability parity with the reference's tree stack (explore/
 ClassPartitionGenerator.java, util/AttributeSplitStat.java,
@@ -1086,3 +1086,46 @@ class DecisionTree:
             cm.add_batch(ds.labels, pred)
             cm.publish(counters)
         return pred, distr, cm, counters
+
+
+class RandomForest:
+    """Bagged ensemble of randomK trees — port of the JAX package's
+    ``RandomForest``.  Tree ``t`` is grown by :class:`DecisionTree` on a
+    bootstrap sample drawn with ``prng.prng_key(seed * 1000 + t)`` and with
+    that seed for its attribute draws, so each tree is the JAX package's
+    tree ``t``; every level of every tree builds its table as
+    ``DecisionTree.fit`` does (B4 or B1–B3 on CUDA)."""
+
+    def __init__(self, num_trees: int = 10, seed: int = 0, device=None,
+                 **tree_kwargs):
+        tree_kwargs.setdefault("attr_strategy", "randomK")
+        self.num_trees = num_trees
+        self.seed = seed
+        self.device = resolve_device(device)
+        self.tree_kwargs = tree_kwargs
+
+    def fit(self, ds: EncodedDataset,
+            is_categorical: Optional[Sequence[bool]] = None
+            ) -> List[DecisionTreeModel]:
+        from avenir_tpu_torch.models.samplers import bagging_sample
+        from avenir_tpu_torch.utils import prng
+
+        models = []
+        for t in range(self.num_trees):
+            seed = self.seed * 1000 + t
+            sample = bagging_sample(prng.prng_key(seed), ds)
+            tree = DecisionTree(seed=seed, device=self.device,
+                                **self.tree_kwargs)
+            models.append(tree.fit(sample, is_categorical))
+        return models
+
+    def predict(self, models: List[DecisionTreeModel], ds: EncodedDataset):
+        """→ ([N] class index of the mean vote, [N, C] float32 votes)."""
+        votes = np.zeros((ds.num_rows, len(models[0].class_values)),
+                         np.float32)
+        walker = DecisionTree(device=self.device)
+        for m in models:
+            _, distr, _, _ = walker.predict(m, ds)
+            votes += distr
+        votes /= len(models)
+        return np.argmax(votes, axis=1).astype(np.int32), votes

@@ -149,6 +149,41 @@ def class_moments(values: torch.Tensor, labels: torch.Tensor,
     return oh.sum(0), oh.T @ x, oh.T @ (x * x)
 
 
+def segment_count(segments: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """[M] segment ids → [num_segments] int32 histogram."""
+    check_chunk(segments.shape[0])
+    seg = segments.long()
+    return _count(seg, (seg >= 0) & (seg < num_segments), num_segments)
+
+
+def transition_counts(a: torch.Tensor, b: torch.Tensor, num_a: int,
+                      num_b: int) -> torch.Tensor:
+    """a [M], b [M] paired codes → [num_a, num_b] int32 co-occurrence counts
+    (Markov state transitions, HMM emissions); a pair with either code out
+    of range counts nothing."""
+    check_chunk(a.shape[0])
+    a, b = a.long(), b.long()
+    keep = (a >= 0) & (a < num_a) & (b >= 0) & (b < num_b)
+    return _count(a * num_b + b, keep, num_a * num_b).reshape(num_a, num_b)
+
+
+def weighted_transition_counts(a: torch.Tensor, b: torch.Tensor,
+                               w: torch.Tensor, num_a: int, num_b: int
+                               ) -> torch.Tensor:
+    """[num_a, num_b] float32 sums of ``w`` over the pairs (a, b) — the
+    partially tagged HMM's window weights.  Summed in float64 and rounded
+    once, so the result does not hang on the order a device adds in; it is
+    the JAX package's float32 einsum wherever that is exact (the default
+    dyadic window below 2^22 pairs a cell)."""
+    check_chunk(a.shape[0])
+    a, b = a.long(), b.long()
+    keep = (a >= 0) & (a < num_a) & (b >= 0) & (b < num_b)
+    sums = torch.bincount((a * num_b + b)[keep],
+                          weights=w[keep].to(torch.float64),
+                          minlength=num_a * num_b)
+    return sums.to(torch.float32).reshape(num_a, num_b)
+
+
 class Accumulator:
     """Sums per-chunk results into int64/float64 numpy totals on the host,
     so streams of any length neither overflow nor lose counts."""

@@ -1,18 +1,26 @@
-"""Cross-process exclusion for files that several processes may write —
-port of the lock half of ``avenir_tpu/utils/locking.py``.
+"""Cross-process exclusion and atomic rewrites for files that several
+processes may write — port of ``avenir_tpu/utils/locking.py``.
 
-The native encoder's library is built on first use, and several processes
-(test workers, concurrent jobs) may reach first use together.
-:class:`FileLock` serializes them with an advisory ``flock`` on a sidecar
-``<path>.lock``; contention past ``timeout_s`` raises :class:`LockHeldError`
-instead of letting two writers interleave.
+- :class:`FileLock` serializes writers with an advisory ``flock`` on a
+  sidecar ``<path>.lock``; contention past ``timeout_s`` raises
+  :class:`LockHeldError` instead of letting two writers interleave (the
+  native encoder's first build, the LR coefficient history).
+- :func:`atomic_write` writes a same-directory temp file and
+  ``os.replace``s it, so a reader sees the old file or the new one, never a
+  torn one, and a crash mid-write leaves the old one in place (the LR
+  coefficient history's rewrite, regress/LogisticRegressionJob.java
+  :238-255).
 """
 
 from __future__ import annotations
 
+import contextlib
 import errno
+import os
+import stat
+import tempfile
 import time
-from typing import IO, Optional
+from typing import IO, Iterator, Optional
 
 try:
     import fcntl
@@ -79,3 +87,28 @@ class FileLock:
 
     def __exit__(self, *exc) -> None:
         self.release()
+
+
+@contextlib.contextmanager
+def atomic_write(path: str, mode: str = "w") -> Iterator[IO]:
+    """Write ``path`` through a same-directory temp file and
+    ``os.replace``; the file keeps its mode (a new one gets the umask's)."""
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, prefix=os.path.basename(path) + ".tmp.")
+    try:
+        try:
+            os.chmod(tmp, stat.S_IMODE(os.stat(path).st_mode))
+        except FileNotFoundError:
+            umask = os.umask(0)
+            os.umask(umask)
+            os.chmod(tmp, 0o666 & ~umask)
+        with os.fdopen(fd, mode) as fh:
+            yield fh
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise

@@ -95,10 +95,11 @@ Phases, in order; any failure exits non-zero:
    on ``cuda``: ``gram_moments`` once a chunk, the model equal to the
    standalone fit on the same chunks;
 6. each count kernel again at the main paths' own inputs: every call that
-   phases 3–5c made on ``cuda`` to the count wrappers was recorded (the MI
-   jobs' chunks, the pipelines' chunks, the correlation jobs' chunks at
-   C = 1 and 2 and the resumed runs', the hospital trees' levels with 2,
-   4, 8 and 16 selectors, the wide tree's packed levels K = 1, 2, 4, 8),
+   phases 3–5c and 11 made on ``cuda`` to the count wrappers was recorded
+   (the MI jobs' chunks, the pipelines' chunks, the correlation jobs'
+   chunks at C = 1 and 2 and the resumed runs', the hospital trees' levels
+   with 2, 4, 8 and 16 selectors, the wide tree's packed levels K = 1, 2,
+   4, 8, the forest's bagged levels),
    and each is
    held exactly against its plain version; the first call of each path
    and shape is timed with its plain version, yardstick and bound;
@@ -146,14 +147,39 @@ Phases, in order; any failure exits non-zero:
     and [W, N] (``cols``) at W 384, 16M rows.  Each full variant is held
     against its plain version, with the plain version's time, a library
     yardstick and the bound beside it;
-11. print a ``walls_s`` JSON line (the native encoder's build, native
-    against Python encode, phases 3, 4, 5b, 5c and 8's walls) with the card's
-    name and power limit, then the kernels' JSON line, its numbers from the main-path cases of
-    phases 6 and 9 (B1: a hospital MI chunk; B2: a 20 × 20 × 2 MI chunk;
-    B3: the wide tree's K = 8 level; B4: the hospital tree's deepest level;
-    B5: the 1M-row NearestNeighbor job; B6: the 10K-row NearestNeighbor
-    job) and one entry per probe (``launches`` 0: no path runs them), then
-    the last line ``{"ok": true, "device": {...}}``.
+11. the remaining families (run after 5c and before 6, so that phase 6
+    holds the forest's B4 calls): (a) ``RandomForest(num_trees=5, seed=1)``
+    on phase 3's 1M-row hospital CSV at the tree jobs' depth on ``cuda``,
+    each tree's B4 launches equal to its level tables, then the same
+    forest on its first 100K rows on ``cuda`` and the CPU (the tree
+    contract, votes within 1e-6), and BaggingSampler and
+    UnderSamplingBalancer on the CSV twice on ``cuda`` and once on the
+    CPU, part files byte-equal; (b) MarkovStateTransitionModel on 100K
+    customers' sequences of ``event_seq``'s planted matrix (drawn in bulk,
+    ``datagen/hmm_seq.py``), HiddenMarkovModelBuilder on 20K tagged
+    sequences of a planted 6-state × 12-observation HMM (and partially
+    tagged on 5K), each on ``cuda`` and the CPU, byte-identical and near
+    the planted model; ``ViterbiDecoder("scan").decode_codes`` at 80K ×
+    210 on ``cuda`` (twice), its first 2,000 records equal on the CPU scan
+    and the ``cuda`` ``"assoc"``; the ViterbiStatePredictor job on 10K of
+    those sequences (the cut: the host string work of all 16.8M tokens
+    would cost more of the script's time than it shows) on both devices,
+    byte-identical; (c) LogisticRegressionJob on the 1M-row CSV, whole and
+    in 250K-row chunks, on ``cuda`` and the CPU (histories within 1e-5 of
+    each row's largest coefficient, equal iterations and status), and
+    five iterations on ``cuda`` resumed on the CPU from the coefficient
+    file.  Only the forest launches a kernel; the phase prints each wall
+    and its own with the card's name and power limit;
+12. print a ``walls_s`` JSON line (the native encoder's build, native
+    against Python encode, phases 3, 4, 5b, 5c, 8 and 11's walls) with the
+    card's name and power limit, then the kernels' JSON line, its numbers
+    from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
+    B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
+    hospital tree's deepest level, with the forest's launches and its
+    deepest level under ``forest``; B5: the 1M-row NearestNeighbor job;
+    B6: the 10K-row NearestNeighbor job) and one entry per probe
+    (``launches`` 0: no path runs them), then the last line
+    ``{"ok": true, "device": {...}}``.
 
 Bounds: B1–B4 count the work their inputs need, a sparse product — codes
 and labels (selectors) read once, G (the level table) written once, over
@@ -1529,6 +1555,353 @@ def correlation_phase(rec: Recorder, work: str, train: str, schema: str,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the samplers and RandomForest, the Markov family, logistic
+# regression
+# ---------------------------------------------------------------------------
+
+FOREST_TREES = 5
+FOREST_CPU_ROWS = 100_000    # the forest's cuda-against-cpu check
+CHAIN_CUSTOMERS = 100_000    # MarkovStateTransitionModel's sequences
+HMM_FIT_SEQS = 20_000        # HiddenMarkovModelBuilder's tagged sequences
+VITERBI_R, VITERBI_T = 80_000, 210   # the email-marketing tutorial's decode
+ASSOC_R = 2_000              # "assoc" at a smaller R: R·T·S³ floats
+VITERBI_JOB_SEQS = 10_000    # the predictor job's CSV (host string work)
+LR_REL = 1e-5                # LR history: |Δ| ≤ LR_REL · the row's max |w|
+
+
+def forest_phase(rec: Recorder, work: str, train: str, schema: str,
+                 walls: dict) -> int:
+    """Phase 11 (a): RandomForest(num_trees=5, seed=1) on the 1M-row
+    hospital CSV on cuda at the tree jobs' depth, each tree's B4 launches
+    held to its level tables; the same forest on 100K rows on cuda and the
+    CPU (the tree contract, votes within 1e-6); BaggingSampler and
+    UnderSamplingBalancer on the CSV, twice on cuda and once on the CPU,
+    part files byte-equal.  Returns the forest's B4 launches."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import Job
+    from avenir_tpu_torch.models import tree
+
+    conf = JobConfig({"feature.schema.file.path": schema})
+    enc, ds, _ = Job.encode_input(conf, train, need_rows=False)
+    is_cat = [f.is_categorical for f in enc.binned_fields]
+    per_tree = []
+    real_fit = tree.DecisionTree.fit
+
+    def spy(self, *a, **k):
+        before = read_counts()["B4"]
+        model = real_fit(self, *a, **k)
+        routes = [s["path"] for s in self.level_stats]
+        per_tree.append((read_counts()["B4"] - before, routes))
+        return model
+
+    tree.DecisionTree.fit = spy
+    try:
+        forest = tree.RandomForest(num_trees=FOREST_TREES, seed=1,
+                                   collect_phase_stats=True, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        with rec.on("forest"):
+            models = forest.fit(ds, is_cat)
+        walls["cuda RandomForest fit"] = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        tree.DecisionTree.fit = real_fit
+    launches = counts["B4"]
+    if counts != only(B4=launches) or len(per_tree) != FOREST_TREES:
+        raise AssertionError(f"forest launched {counts} over {len(per_tree)} "
+                             f"trees")
+    for i, (n, routes) in enumerate(per_tree):
+        if not routes or routes != ["cross"] * len(routes) or n != len(routes):
+            raise AssertionError(f"forest tree {i}: B4 {n} for level routes "
+                                 f"{routes}")
+    t0 = time.perf_counter()
+    pred, votes = forest.predict(models, ds)
+    walls["cuda RandomForest predict"] = time.perf_counter() - t0
+    # each tree adds its leaf's class distribution, or zeros where a row
+    # reaches a leaf its bootstrap sample left empty
+    trees_voting = votes.sum(1) * FOREST_TREES
+    if (votes.shape != (ds.num_rows, 2) or not np.isfinite(votes).all()
+            or np.abs(trees_voting - np.rint(trees_voting)).max() > 1e-4
+            or trees_voting.max() > FOREST_TREES + 1e-4):
+        raise AssertionError("forest votes are not means of the trees' "
+                             "leaf distributions")
+    acc = float((pred == ds.labels).mean())
+    base = float(max(np.bincount(ds.labels)) / ds.num_rows)
+    log(f"forest (a): {FOREST_TREES} trees on {ds.num_rows} rows on cuda in "
+        f"{walls['cuda RandomForest fit']:.2f} s (predict "
+        f"{walls['cuda RandomForest predict']:.2f} s), B4 per tree "
+        f"{[n for n, _ in per_tree]} = {launches}, nodes "
+        f"{[len(m.nodes) for m in models]}, training accuracy {acc:.4f} "
+        f"(majority {base:.4f})")
+    small = ds.slice(0, FOREST_CPU_ROWS)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        f = tree.RandomForest(num_trees=FOREST_TREES, seed=1, device=dev)
+        t0 = time.perf_counter()
+        ms = f.fit(small, is_cat)
+        walls[f"{dev} RandomForest fit {FOREST_CPU_ROWS}"] = \
+            time.perf_counter() - t0
+        fits[dev] = (ms, f.predict(ms, small)[1])
+    worst = max(same_tree(a.to_string(), b.to_string(), f"forest tree {i}")
+                for i, (a, b) in enumerate(zip(fits["cuda"][0],
+                                               fits["cpu"][0])))
+    dv = float(np.abs(fits["cuda"][1] - fits["cpu"][1]).max())
+    if dv > 1e-6:
+        raise AssertionError(f"forest votes differ cuda vs cpu by {dv}")
+    log(f"forest (a): {FOREST_CPU_ROWS} rows, cuda and cpu trees agree (max "
+        f"score diff {worst}), votes within {dv}; cuda "
+        f"{walls[f'cuda RandomForest fit {FOREST_CPU_ROWS}']:.2f} s, cpu "
+        f"{walls[f'cpu RandomForest fit {FOREST_CPU_ROWS}']:.2f} s")
+    common = [f"-Dfeature.schema.file.path={schema}"]
+    for job, keys in (("BaggingSampler", ["-Dseed=7"]),
+                      ("UnderSamplingBalancer", ["-Dseed=7"])):
+        parts = []
+        for run, dev in enumerate(("cuda", "cuda", "cpu")):
+            out = os.path.join(work, f"{job}_{run}")
+            reset_counts()
+            t0 = time.perf_counter()
+            text = run_cli([job, *common, *keys, train, out, "--device", dev])
+            walls[f"{dev} {job} run {run}"] = time.perf_counter() - t0
+            if read_counts() != only():
+                raise AssertionError(f"{job} launched {read_counts()}")
+            parts.append(os.path.join(out, "part-00000"))
+        same_bytes(parts[0], parts[1], f"{job} (two cuda runs)")
+        same_bytes(parts[0], parts[2], job)
+        log(f"forest (a): {job} processed {counter(text, 'Processed')} "
+            f"emitted {counter(text, 'Emitted')}; cuda "
+            f"{walls[f'cuda {job} run 0']:.2f} s and "
+            f"{walls[f'cuda {job} run 1']:.2f} s, cpu "
+            f"{walls[f'cpu {job} run 2']:.2f} s; part files byte-equal")
+    return launches
+
+
+def write_rows(path: str, rows) -> None:
+    with open(path, "w") as fh:
+        for r in rows:
+            fh.write(",".join(r))
+            fh.write("\n")
+
+
+def markov_phase(work: str, walls: dict) -> None:
+    """Phase 11 (b): MarkovStateTransitionModel on 100K customers' state
+    sequences drawn from event_seq's planted matrix; HiddenMarkovModelBuilder
+    on 20K tagged sequences of a planted 6-state × 12-observation HMM (and
+    partially tagged on 5K); ViterbiDecoder("scan").decode_codes at 80K ×
+    210 on cuda, its first 2,000 records against the CPU and "assoc"; the
+    ViterbiStatePredictor job on 10K sequences.  Every job on cuda and the
+    CPU, part files byte-identical; no count kernel launched."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.datagen import hmm_seq
+    from avenir_tpu_torch.datagen.event_seq import (STATES,
+                                                    planted_transition_matrix)
+    from avenir_tpu_torch.models import markov as mk
+
+    def both(name, argv):
+        outs = []
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"{name}_{dev}")
+            reset_counts()
+            t0 = time.perf_counter()
+            text = run_cli([*argv, out, "--device", dev])
+            walls[f"{dev} {name}"] = time.perf_counter() - t0
+            if read_counts() != only():
+                raise AssertionError(f"{name} launched {read_counts()}")
+            outs.append(os.path.join(out, "part-00000"))
+        same_bytes(outs[0], outs[1], name)
+        return outs[0], text
+
+    trans = planted_transition_matrix(7)
+    chain = hmm_seq.sample_chain(trans, np.full(9, 1 / 9), CHAIN_CUSTOMERS,
+                                 10, 40, seed=3)
+    chain_csv = os.path.join(work, "chain.csv")
+    write_rows(chain_csv, hmm_seq.code_rows(chain, STATES))
+    part, text = both("MarkovStateTransitionModel",
+                      ["MarkovStateTransitionModel",
+                       f"-Dmodel.states={','.join(STATES)}", chain_csv])
+    with open(part) as fh:
+        model = mk.MarkovChainModel.from_lines(fh.read().splitlines())
+    err = float(np.abs(model.transition_probs() - trans).max())
+    if err > 0.02:
+        raise AssertionError(f"Markov chain is {err} from the planted matrix")
+    log(f"markov (b): MarkovStateTransitionModel on "
+        f"{counter(text, 'Processed')} sequences "
+        f"({int((chain >= 0).sum())} states): cuda "
+        f"{walls['cuda MarkovStateTransitionModel']:.2f} s, cpu "
+        f"{walls['cpu MarkovStateTransitionModel']:.2f} s, byte-identical, "
+        f"max |P - planted| {err:.4f}")
+
+    a, b, pi = hmm_seq.planted_hmm(6, 12, seed=2)
+    s_names = [f"S{i}" for i in range(6)]
+    o_names = [f"O{i}" for i in range(12)]
+    states, obs = hmm_seq.sample_hmm(a, b, pi, HMM_FIT_SEQS, 10, 40, seed=4)
+    tagged_csv = os.path.join(work, "tagged.csv")
+    write_rows(tagged_csv, hmm_seq.tagged_rows(states, obs, s_names, o_names))
+    vocab = [f"-Dmodel.states={','.join(s_names)}",
+             f"-Dmodel.observations={','.join(o_names)}"]
+    part, _ = both("HiddenMarkovModelBuilder",
+                   ["HiddenMarkovModelBuilder", *vocab, tagged_csv])
+    with open(part) as fh:
+        hmm = mk.HMMModel.from_lines(fh.read().splitlines())
+    err = max(float(np.abs(hmm.transition - a).max()),
+              float(np.abs(hmm.emission - b).max()))
+    if err > 0.03:
+        raise AssertionError(f"HMM is {err} from the planted model")
+    partial_csv = os.path.join(work, "partial.csv")
+    write_rows(partial_csv, hmm_seq.partial_rows(states[:5000], obs[:5000],
+                                                 s_names, o_names))
+    both("HiddenMarkovModelBuilder partial",
+         ["HiddenMarkovModelBuilder", *vocab, "-Dpartially.tagged=true",
+          partial_csv])
+    log(f"markov (b): HiddenMarkovModelBuilder on {HMM_FIT_SEQS} tagged "
+        f"sequences: cuda {walls['cuda HiddenMarkovModelBuilder']:.2f} s, "
+        f"cpu {walls['cpu HiddenMarkovModelBuilder']:.2f} s, byte-identical, "
+        f"max |A, B - planted| {err:.4f}; partially tagged on 5000: cuda "
+        f"{walls['cuda HiddenMarkovModelBuilder partial']:.2f} s, "
+        f"byte-identical")
+
+    tstates, tobs = hmm_seq.sample_hmm(a, b, pi, VITERBI_R, VITERBI_T,
+                                       VITERBI_T, seed=5)
+    gpu = mk.ViterbiDecoder(hmm, method="scan", device="cuda")
+    obs_dev = torch.from_numpy(tobs).cuda()
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(2):
+        t0 = time.perf_counter()
+        paths = gpu.decode_codes(obs_dev)
+        walls[f"cuda Viterbi scan {VITERBI_R}x{VITERBI_T} run {i}"] = \
+            time.perf_counter() - t0
+    if read_counts() != only():
+        raise AssertionError(f"Viterbi launched {read_counts()}")
+    acc = float((paths == tstates).mean())
+    if paths.shape != tobs.shape or paths.min() < 0 or acc < 0.6:
+        raise AssertionError(f"Viterbi paths {paths.shape}, accuracy {acc}")
+    sub = tobs[:ASSOC_R]
+    cpu = mk.ViterbiDecoder(hmm, method="scan", device="cpu").decode_codes(sub)
+    t0 = time.perf_counter()
+    assoc = mk.ViterbiDecoder(hmm, method="assoc",
+                              device="cuda").decode_codes(sub)
+    walls[f"cuda Viterbi assoc {ASSOC_R}x{VITERBI_T}"] = \
+        time.perf_counter() - t0
+    if not (np.array_equal(cpu, paths[:ASSOC_R])
+            and np.array_equal(assoc, cpu)):
+        raise AssertionError("Viterbi paths differ between cuda scan, cpu "
+                             "scan and cuda assoc")
+    log(f"markov (b): Viterbi scan at {VITERBI_R} x {VITERBI_T} on cuda "
+        f"{walls[f'cuda Viterbi scan {VITERBI_R}x{VITERBI_T} run 0']:.3f} s, "
+        f"again {walls[f'cuda Viterbi scan {VITERBI_R}x{VITERBI_T} run 1']:.3f}"
+        f" s, state accuracy {acc:.4f}; first {ASSOC_R} records equal on the "
+        f"cpu scan and the cuda assoc "
+        f"({walls[f'cuda Viterbi assoc {ASSOC_R}x{VITERBI_T}']:.3f} s)")
+    obs_csv = os.path.join(work, "obs.csv")
+    write_rows(obs_csv, hmm_seq.code_rows(tobs[:VITERBI_JOB_SEQS], o_names))
+    model_dir = os.path.dirname(part)
+    part, _ = both("ViterbiStatePredictor",
+                   ["ViterbiStatePredictor",
+                    f"-Dhmm.model.file.path={model_dir}", obs_csv])
+    with open(part) as fh:
+        lines = fh.read().splitlines()
+    want = [",".join([f"C{r:07d}"] + [s_names[c] for c in row])
+            for r, row in enumerate(paths[:VITERBI_JOB_SEQS])]
+    if lines != want:
+        raise AssertionError("ViterbiStatePredictor lines differ from "
+                             "decode_codes")
+    log(f"markov (b): ViterbiStatePredictor on {VITERBI_JOB_SEQS} sequences "
+        f"(the cut: {VITERBI_JOB_SEQS} of {VITERBI_R} rows, the host string "
+        f"work of 16.8M tokens costing more than it shows): cuda "
+        f"{walls['cuda ViterbiStatePredictor']:.2f} s, cpu "
+        f"{walls['cpu ViterbiStatePredictor']:.2f} s, byte-identical and "
+        f"equal to decode_codes")
+
+
+def lr_history(path: str):
+    import numpy as np
+
+    with open(path) as fh:
+        lines = [ln for ln in fh.read().splitlines() if ln]
+    return [np.array([float(v) for v in ln.split(",")]) for ln in lines
+            if not ln.startswith("status")], lines[-1]
+
+
+def close_histories(got, want, what: str) -> float:
+    """Rows pairwise within LR_REL of the row's largest coefficient;
+    returns the largest such relative difference."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} vs {len(want)} iterations")
+    worst = 0.0
+    for g, w in zip(got, want):
+        d = float(np.abs(g - w).max() / np.abs(w).max())
+        if d > LR_REL:
+            raise AssertionError(f"{what}: histories differ by {d}")
+        worst = max(worst, d)
+    return worst
+
+
+def lr_phase(work: str, train: str, schema: str, walls: dict) -> None:
+    """Phase 11 (c): LogisticRegressionJob on the 1M-row hospital CSV,
+    whole input and in 250K-row chunks, on cuda and the CPU; then five
+    iterations on cuda resumed from the coefficient file on the CPU."""
+    common = [f"-Dfeature.schema.file.path={schema}"]
+    hists = {}
+    for mode, keys in (("whole", []),
+                       ("streamed", [f"-Dstream.chunk.rows={CHUNK_ROWS}"])):
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"lr_{mode}_{dev}")
+            reset_counts()
+            t0 = time.perf_counter()
+            text = run_cli(["LogisticRegressionJob", *common, *keys, train,
+                            out, "--device", dev])
+            walls[f"{dev} LogisticRegressionJob {mode}"] = \
+                time.perf_counter() - t0
+            if read_counts() != only():
+                raise AssertionError(f"LR launched {read_counts()}")
+            hists[mode, dev] = (*lr_history(os.path.join(out, "part-00000")),
+                                counter(text, "Run"))
+        (g, gs, gn), (w, ws, wn) = hists[mode, "cuda"], hists[mode, "cpu"]
+        if gs != ws or gn != wn:
+            raise AssertionError(f"LR {mode}: {gs}/{gn} vs {ws}/{wn}")
+        d = close_histories(g, w, f"LR {mode}")
+        log(f"lr (c): LogisticRegressionJob {mode} on {ROWS_E2E} rows: cuda "
+            f"{walls[f'cuda LogisticRegressionJob {mode}']:.2f} s, cpu "
+            f"{walls[f'cpu LogisticRegressionJob {mode}']:.2f} s, {gn} "
+            f"iterations, {gs}; histories within {d:.2e} of each row's "
+            f"largest coefficient")
+    coeff = os.path.join(work, "lr_resume_coeff.txt")
+    keys = [*common, f"-Dcoeff.file.path={coeff}"]
+    run_cli(["LogisticRegressionJob", *keys, "-Diteration.limit=5", train,
+             os.path.join(work, "lr_first"), "--device", "cuda"])
+    run_cli(["LogisticRegressionJob", *keys, train,
+             os.path.join(work, "lr_rest"), "--device", "cpu"])
+    got, status = lr_history(os.path.join(work, "lr_rest", "part-00000"))
+    want, want_status = hists["whole", "cuda"][:2]
+    if status != want_status:
+        raise AssertionError(f"resumed LR {status} vs {want_status}")
+    d = close_histories(got, want, "resumed LR")
+    log(f"lr (c): 5 iterations on cuda resumed on the cpu from the "
+        f"coefficient file: {len(got)} iterations, {status}, within {d:.2e} "
+        f"of the straight cuda run")
+
+
+def families_phase(rec: Recorder, work: str, train: str, schema: str,
+                   walls: dict) -> int:
+    """Phase 11: (a), (b) and (c) above; returns the forest's B4
+    launches."""
+    t0 = time.perf_counter()
+    b4 = forest_phase(rec, work, train, schema, walls)
+    markov_phase(work, walls)
+    lr_phase(work, train, schema, walls)
+    walls["families phase"] = time.perf_counter() - t0
+    log(f"families: phase 11 in {walls['families phase']:.1f} s on "
+        f"{card_line()}")
+    return b4
+
+
 def path_cases(hist, rec: Recorder) -> list:
     """Phase 6: each kernel against its plain version, exactly, on every
     input the driven paths gave it on cuda; the first call of each path and
@@ -2413,6 +2786,7 @@ def main(argv=None) -> int:
         wide = wide_tree_phase(hist, rec)
         b1_pipe = pipeline_phase(rec, work, train, schema, walls)
         b1_corr = correlation_phase(rec, work, train, schema, walls)
+        b4_forest = families_phase(rec, work, train, schema, walls)
         all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
         rec.calls.clear()
         all_cases += knn_cases()
@@ -2427,6 +2801,8 @@ def main(argv=None) -> int:
 
     src = "avenir_tpu_torch/csrc/"
     at = "avenir_tpu/ops/pallas_hist.py:"
+    forest = [c for c in all_cases if c["kernel"] == "B4"
+              and c.get("path") == "forest" and "ms" in c][-1]
     kernels = [
         kernel_entry("B1", "cooc_pair_gram, fmaj/jmaj (B1)",
                      src + "cooc_pair.cu", at + "283",
@@ -2439,13 +2815,16 @@ def main(argv=None) -> int:
         kernel_entry("B3", "cooc_pair_gram, clsb (B3)", src + "cooc_pair.cu",
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),
         kernel_entry("B4", "cross_counts (B4)", src + "cross.cu", at + "484",
-                     b4_tree, all_cases),
+                     {**b4_tree, "forest": b4_forest}, all_cases),
         kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
                      "avenir_tpu/ops/pallas_knn.py:290", b5, all_cases),
         kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",
                      "avenir_tpu/ops/pallas_knn.py:73", b6, all_cases),
         *probes,
     ]
+    kernels[3]["forest"] = {"launches": b4_forest, **{
+        k: forest[k] for k in ("case", "ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms")}}
     log(json.dumps({"walls_s": walls, "card": card}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

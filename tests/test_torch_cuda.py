@@ -8,8 +8,10 @@ the kNN search on ``cuda`` against the CPU; B1 at one class and the
 correlation job on ``cuda``, and a ``cuda`` snapshot resumed on the CPU;
 the probe functions of
 ``avenir_tpu_torch.probes``; the device feeder's staging (its own stream,
-pinned copies, the consumer's wait); and the SharedScan on ``cuda``
-against the CPU.
+pinned copies, the consumer's wait); the SharedScan on ``cuda``
+against the CPU; RandomForest's B4 calls against the plain version and
+its trees against the CPU forest; Viterbi (scan and assoc) and logistic
+regression on ``cuda`` against the CPU.
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -803,3 +805,81 @@ def test_knn_predict_on_the_card_equals_cpu(cuda):
                             | (a.neighbor_idx != b.neighbor_idx).any(axis=1))
     assert set(differ.tolist()) <= fell["cuda"] | fell["cpu"]
     np.testing.assert_allclose(a.neighbor_dist, b.neighbor_dist, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_random_forest_b4_inputs_match_plain_version_and_cpu(cuda):
+    """RandomForest on 20,000 hospital rows: every level table of every
+    bagged tree goes through B4, each call held exactly against the plain
+    version on its own inputs; the trees equal the CPU forest's (the tree
+    contract) and the votes agree within 1e-6."""
+    enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_hosp_readmit(20000, seed=5))
+    is_cat = [f.is_categorical for f in enc.binned_fields]
+    calls = []
+    real = hist.cross_cooc_counts_cols
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    spy.launches = real.launches
+    hist.cross_cooc_counts_cols = spy
+    try:
+        forest = tree.RandomForest(num_trees=3, seed=1, max_depth=4)
+        got = forest.fit(ds, is_cat)
+    finally:
+        hist.cross_cooc_counts_cols = real
+    assert calls
+    for codes, sel, b, s in calls:
+        assert torch.equal(real(codes, sel, b, s).cpu(),
+                           hist.cross_cooc_counts_cols_ref(codes.cpu(),
+                                                           sel.cpu(), b, s))
+    cpu = tree.RandomForest(num_trees=3, seed=1, max_depth=4, device="cpu")
+    want = cpu.fit(ds, is_cat)
+    for g, w in zip(got, want):
+        _same_tree(g.to_string(), w.to_string())
+    np.testing.assert_allclose(forest.predict(got, ds)[1],
+                               cpu.predict(want, ds)[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["scan", "assoc"])
+def test_viterbi_on_the_card_equals_cpu(cuda, method):
+    from avenir_tpu_torch.datagen import hmm_seq
+    from avenir_tpu_torch.models import markov as mk
+
+    a, b, pi = hmm_seq.planted_hmm(6, 12, seed=2)
+    states, obs = hmm_seq.sample_hmm(a, b, pi, 3000, 20, 210, seed=5)
+    model = mk.HMMModel([f"s{i}" for i in range(6)],
+                        [f"o{i}" for i in range(12)], a, b, pi)
+    rows = 3000 if method == "scan" else 300
+    got = mk.ViterbiDecoder(model, method=method).decode_codes(obs[:rows])
+    want = mk.ViterbiDecoder(model, device="cpu").decode_codes(obs[:rows])
+    np.testing.assert_array_equal(got, want)
+    assert (got == states[:rows]).mean() > 0.6
+
+
+@pytest.mark.cuda
+def test_logistic_regression_on_the_card_equals_cpu(cuda):
+    """float32 fit and float64 chunked fit on cuda against the CPU: each
+    iteration within 1e-5 of its largest coefficient, equal iterations and
+    status (TF32 is held off while a step runs)."""
+    from avenir_tpu_torch.models import logistic as mlr
+
+    enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_hosp_readmit(50000, seed=3))
+    x = mlr.design_matrix(ds, device="cpu").numpy()
+    y = ds.labels.astype(np.float32)
+    chunks = [(i, x[s:s + 12000], y[s:s + 12000])
+              for i, s in enumerate(range(0, len(y), 12000))]
+    for how in ("fit", "fit_chunked"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            est = mlr.LogisticRegression(learning_rate=1.0, device=dev)
+            res[dev] = (est.fit(x, y) if how == "fit"
+                        else est.fit_chunked(chunks))
+        g, w = res["cuda"], res["cpu"]
+        assert (g.iterations, g.converged) == (w.iterations, w.converged)
+        for gr, wr in zip(g.history, w.history):
+            assert np.abs(gr - wr).max() <= 1e-5 * np.abs(wr).max()

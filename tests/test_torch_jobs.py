@@ -122,6 +122,31 @@ def test_cli_device_argument():
         parse_args(["X", "in", "out", "--bogus"])
 
 
+NEW_JOBS = [("BaggingSampler", "explore"), ("UnderSamplingBalancer", "explore"),
+            ("MarkovStateTransitionModel", "markov"),
+            ("HiddenMarkovModelBuilder", "markov"),
+            ("ViterbiStatePredictor", "markov"),
+            ("LogisticRegressionJob", "regress")]
+
+
+@pytest.mark.parametrize("job,pkg", NEW_JOBS)
+def test_new_jobs_registered_and_need_cuda_or_cpu(tmp_path, job, pkg):
+    """Reachable by short and ``org.avenir.<pkg>.`` name, listed by
+    ``--list``; without CUDA each raises unless ``--device cpu`` is given,
+    before writing anything."""
+    from avenir_tpu_torch.jobs import REGISTRY
+
+    assert REGISTRY[job] is REGISTRY[f"org.avenir.{pkg}.{job}"]
+    assert job in _run(torch_main, ["--list"]).split()
+    if torch.cuda.is_available():
+        return
+    (tmp_path / "in.csv").write_text("C1,a,b\n")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_main([f"org.avenir.{pkg}.{job}", str(tmp_path / "in.csv"),
+                    str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
+
+
 def test_cli_without_device_needs_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is valid here")
@@ -145,7 +170,12 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.pipeline.__main__, "
             "avenir_tpu_torch.models.correlation, "
             "avenir_tpu_torch.models.fisher, avenir_tpu_torch.jobs.regress, "
-            "avenir_tpu_torch.utils.checkpoint, avenir_tpu_torch.datagen.churn\n"
+            "avenir_tpu_torch.utils.checkpoint, avenir_tpu_torch.datagen.churn, "
+            "avenir_tpu_torch.utils.prng, avenir_tpu_torch.models.samplers, "
+            "avenir_tpu_torch.models.markov, avenir_tpu_torch.models.logistic, "
+            "avenir_tpu_torch.jobs.markov, avenir_tpu_torch.datagen.event_seq, "
+            "avenir_tpu_torch.datagen.buy_xaction, "
+            "avenir_tpu_torch.datagen.hmm_seq\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -166,7 +196,10 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
     assert PKG / "runtime" / "native" / "csv_encode.cpp" in files
     assert PKG / "pipeline" / "scan.py" in files
     for new in ("models/correlation.py", "models/fisher.py",
-                "jobs/regress.py", "utils/checkpoint.py", "datagen/churn.py"):
+                "jobs/regress.py", "utils/checkpoint.py", "datagen/churn.py",
+                "utils/prng.py", "models/samplers.py", "models/markov.py",
+                "models/logistic.py", "jobs/markov.py", "datagen/event_seq.py",
+                "datagen/buy_xaction.py", "datagen/hmm_seq.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
