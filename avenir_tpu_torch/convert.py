@@ -26,10 +26,18 @@ This system has no weights: its state is count tables and model files.
   or ``LogisticRegressionModel`` (its numpy fields), or the lines its
   ``to_lines()`` / ``history_lines()`` writes, and return the port's model,
   checked for shape, so both packages decode or score with the same one.
+- :func:`learner_state_from_jax` takes the JSON that the JAX package's
+  ``ReinforcementLearnerServer.checkpoint()`` writes (or the dict
+  ``get_state()`` returns) and returns the state the port's learner
+  restores (``set_state``, or ``ReinforcementLearnerServer.restore`` of
+  its JSON), so a server checkpointed in ``avenir_tpu`` resumes in the
+  port and emits the same next actions.  The bandit jobs carry their
+  state in their ``group,item,count,reward`` rows and need no conversion.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Dict, Sequence, Union
 
@@ -206,3 +214,25 @@ def lr_model_from_jax(src: Union[Sequence[str], object]
     return mlr.LogisticRegressionModel(
         weights=weights, history=history, converged=bool(src.converged),
         iterations=int(src.iterations), n_rows=int(src.n_rows))
+
+
+def learner_state_from_jax(blob_or_dict: Union[str, bytes, Dict]) -> Dict:
+    """The port's online-learner state from a JAX server checkpoint.
+    Refuses a state without per-action reward lists, or with an interval
+    estimator's annealing fields of the wrong type."""
+    state = (json.loads(blob_or_dict) if isinstance(blob_or_dict, (str, bytes))
+             else blob_or_dict)
+    rewards = state.get("rewards") if isinstance(state, dict) else None
+    if not isinstance(rewards, dict):
+        raise ValueError("learner state has no per-action 'rewards' mapping")
+    out: Dict = {"rewards": {str(a): [float(r) for r in rs]
+                             for a, rs in rewards.items()}}
+    extra = set(state) - {"rewards"}
+    if extra:
+        if extra != {"cur_confidence", "last_round"}:
+            raise ValueError(f"learner state has unknown fields {sorted(extra)}")
+        out["cur_confidence"] = float(state["cur_confidence"])
+        if int(state["last_round"]) != state["last_round"]:
+            raise ValueError("learner state's last_round is not an integer")
+        out["last_round"] = int(state["last_round"])
+    return out

@@ -1,7 +1,8 @@
 """Job registry — reference Tool class names → the port's jobs.
 
 Jobs are addressable by the reference's fully-qualified class name
-(``org.avenir.bayesian.BayesianDistribution``) or the simple name.
+(``org.avenir.bayesian.BayesianDistribution``; the chombo jobs the runbooks
+call between avenir jobs as ``org.chombo.mr.<Name>``) or the simple name.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import Dict, Type
 
 from avenir_tpu_torch.jobs.base import Job
 from avenir_tpu_torch.jobs.bayesian import BayesianDistribution, BayesianPredictor
+from avenir_tpu_torch.jobs.chombo import NumericalAttrStats, Projection, RunningAggregator
 from avenir_tpu_torch.jobs.explore import (
     BaggingSampler,
     CramerCorrelation,
@@ -28,6 +30,13 @@ from avenir_tpu_torch.jobs.markov import (
     ViterbiStatePredictor,
 )
 from avenir_tpu_torch.jobs.regress import FisherDiscriminant, LogisticRegressionJob
+from avenir_tpu_torch.jobs.reinforce import (
+    AuerDeterministic,
+    GreedyRandomBandit,
+    RandomFirstGreedyBandit,
+    SoftMaxBandit,
+)
+from avenir_tpu_torch.jobs.text import WordCounter
 from avenir_tpu_torch.jobs.tree import (
     ClassPartitionGenerator,
     DataPartitioner,
@@ -56,7 +65,15 @@ _PACKAGES: Dict[str, str] = {
     "HiddenMarkovModelBuilder": "markov",
     "ViterbiStatePredictor": "markov",
     "LogisticRegressionJob": "regress",
+    "GreedyRandomBandit": "reinforce",
+    "AuerDeterministic": "reinforce",
+    "SoftMaxBandit": "reinforce",
+    "RandomFirstGreedyBandit": "reinforce",
+    "WordCounter": "text",
 }
+
+# chombo sibling-library jobs, addressable by their org.chombo.mr names
+_CHOMBO_JOBS = {"RunningAggregator", "Projection", "NumericalAttrStats"}
 
 JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
                CramerCorrelation, HeterogeneityReductionCorrelation,
@@ -65,12 +82,17 @@ JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
                NearestNeighbor, FisherDiscriminant, BaggingSampler,
                UnderSamplingBalancer, MarkovStateTransitionModel,
                HiddenMarkovModelBuilder, ViterbiStatePredictor,
-               LogisticRegressionJob]
+               LogisticRegressionJob, GreedyRandomBandit, AuerDeterministic,
+               SoftMaxBandit, RandomFirstGreedyBandit, WordCounter,
+               RunningAggregator, Projection, NumericalAttrStats]
 
 REGISTRY: Dict[str, Type[Job]] = {}
 for _cls in JOB_CLASSES:
     REGISTRY[_cls.name] = _cls
-    REGISTRY[f"org.avenir.{_PACKAGES[_cls.name]}.{_cls.name}"] = _cls
+    if _cls.name in _CHOMBO_JOBS:
+        REGISTRY[f"org.chombo.mr.{_cls.name}"] = _cls
+    else:
+        REGISTRY[f"org.avenir.{_PACKAGES[_cls.name]}.{_cls.name}"] = _cls
 
 
 def get_job(name: str) -> Job:

@@ -127,6 +127,9 @@ def nb_mi_pipeline_step(codes: torch.Tensor, labels: torch.Tensor, ci, cj,
     return all_counts[len(ci):, ar, ar, :], all_counts[:len(ci)]
 
 
+MOMENT_BLOCK_ROWS = 1024
+
+
 def class_moments(values: torch.Tensor, labels: torch.Tensor,
                   num_classes: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -138,15 +141,26 @@ def class_moments(values: torch.Tensor, labels: torch.Tensor,
     Elsewhere a float32 Σx² of a 250K-row chunk is off by ~1e-5 relative
     in an order each device's matmul chooses, and NB's variance
     E[x²] − mean² magnifies that (hospital weights over 1M rows: NB's std
-    1.8e-4 apart between an H100 and the CPU); in float64 the two devices
-    agree to rounding."""
+    1.8e-4 apart between an H100 and the CPU).  In float64 each block of
+    MOMENT_BLOCK_ROWS rows is one product, and the blocks' sums are added
+    after: however a device orders a block, a sum of positive terms is
+    within ~(1024 + N/1024)·2⁻⁵³ of exact, so the two devices agree to
+    ~1e-13 relative where one product over 1M rows left Σx² 1.3e-12
+    apart (NumericalAttrStats on the hospital CSV on an H100, PERF.md
+    §6)."""
     check_chunk(values.shape[0])
     oh = torch.nn.functional.one_hot(
         torch.where(_valid_labels(labels, num_classes), labels.long(),
                     num_classes), num_classes + 1)[:, :num_classes]
     oh = oh.to(torch.float64)                                  # [N, C]
     x = values.to(torch.float64)
-    return oh.sum(0), oh.T @ x, oh.T @ (x * x)
+    nb = -(-values.shape[0] // MOMENT_BLOCK_ROWS)
+    pad = (0, 0, 0, nb * MOMENT_BLOCK_ROWS - values.shape[0])
+    ohb = torch.nn.functional.pad(oh, pad).view(
+        nb, MOMENT_BLOCK_ROWS, num_classes).transpose(1, 2)   # [nb, C, blk]
+    xb = torch.nn.functional.pad(x, pad).view(nb, MOMENT_BLOCK_ROWS, x.shape[1])
+    return (oh.sum(0), torch.bmm(ohb, xb).sum(0),
+            torch.bmm(ohb, xb * xb).sum(0))
 
 
 def segment_count(segments: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Validation metrics, arbitration and counters.
+"""Validation metrics, arbitration, counters and latency tracking.
 
 The reference's validation-mode machinery: the confusion matrix with ×100
 integer accuracy/recall/precision published as Hadoop counters
@@ -6,6 +6,10 @@ integer accuracy/recall/precision published as Hadoop counters
 bayesian/BayesianPredictor.java:170-180), the misclassification-cost
 arbitrator (util/CostBasedArbitrator.java:35-45), and the counter channel
 itself (a plain named-counter object returned alongside results).
+
+:class:`LatencyTracker` and :func:`serving_stats` are the stats schema of
+the in-process RL serving loop (``pipeline/streaming.py``), the JAX
+package's shared serving schema.
 """
 
 from __future__ import annotations
@@ -14,6 +18,15 @@ import threading
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+
+def percentile_of(values, q: float) -> float:
+    """The one percentile definition: numpy's linear interpolation over the
+    given samples (0.0 for none)."""
+    arr = np.asarray(values, np.float64)
+    if arr.size == 0:
+        return 0.0
+    return float(np.percentile(arr, q))
 
 
 class Counters:
@@ -58,6 +71,71 @@ class Counters:
         return self
 
 
+class LatencyTracker:
+    """Per-request latency percentiles over a bounded ring of recent samples
+    (default 8192), so a long-lived serving loop does not grow host memory
+    per request.  Thread-safe."""
+
+    def __init__(self, capacity: int = 8192):
+        self._buf = np.zeros(max(int(capacity), 1), np.float64)
+        self._next = 0
+        self._filled = 0
+        self.count = 0                      # total samples ever recorded
+        self._lock = threading.Lock()
+
+    def record(self, seconds: float) -> None:
+        with self._lock:
+            self._buf[self._next] = seconds
+            self._next = (self._next + 1) % len(self._buf)
+            self._filled = min(self._filled + 1, len(self._buf))
+            self.count += 1
+
+    def percentile(self, q: float) -> float:
+        """q-th percentile in seconds over the retained window (0.0 when
+        no sample was recorded yet)."""
+        with self._lock:
+            if not self._filled:
+                return 0.0
+            return percentile_of(self._buf[:self._filled], q)
+
+    @property
+    def p50_ms(self) -> float:
+        return self.percentile(50.0) * 1e3
+
+    @property
+    def p99_ms(self) -> float:
+        return self.percentile(99.0) * 1e3
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"p50_ms": round(self.p50_ms, 4),
+                "p99_ms": round(self.p99_ms, 4),
+                "latency_samples": self.count}
+
+
+def serving_stats(counters: Counters,
+                  latency: Dict[str, LatencyTracker]) -> Dict[str, dict]:
+    """Per served model, the ``Serving.<name>`` counter group merged with
+    its latency percentiles.  Counter names inside the group: ``requests``,
+    ``batches``, ``shed`` and the batched-size histogram ``bucket.<n>``
+    (the RL loop, which dispatches one event at a time, reports everything
+    under ``bucket.1``).  Covers the union of the trackers and the
+    ``Serving.<name>`` groups (a model with counters and no tracker reports
+    zeroed latency).  The JAX package's ``identity`` argument (fleet
+    replica labels) waits for the port's telemetry."""
+    groups = counters.as_dict()
+    prefix = "Serving."
+    names = set(latency) | {g[len(prefix):] for g in groups
+                            if g.startswith(prefix)}
+    out: Dict[str, dict] = {}
+    for name in sorted(names):
+        stats = dict(groups.get(f"Serving.{name}", {}))
+        tracker = latency.get(name)
+        stats.update(tracker.snapshot() if tracker is not None else
+                     {"p50_ms": 0.0, "p99_ms": 0.0, "latency_samples": 0})
+        out[name] = stats
+    return out
+
+
 class ConfusionMatrix:
     """Multi-class confusion counts with the reference's binary metrics
     (exposed for a designated positive class)."""
@@ -67,6 +145,9 @@ class ConfusionMatrix:
         self.pos_class = pos_class if pos_class is not None else (self.class_values[0] if self.class_values else None)
         k = len(self.class_values)
         self.matrix = np.zeros((k, k), dtype=np.int64)   # [actual, predicted]
+
+    def add(self, actual: int, predicted: int, count: int = 1) -> None:
+        self.matrix[actual, predicted] += count
 
     def add_batch(self, actual: np.ndarray, predicted: np.ndarray) -> None:
         k = len(self.class_values)

@@ -26,6 +26,16 @@ The layout copied is jax 0.9.0's with ``jax_threefry_partitionable = True``
   the mantissa of a float in [1, 2), minus 1, then ``u·(max−min) + min``,
   which XLA on the CPU fuses into one multiply-add: it is taken here in
   float64 and rounded once (the product is exact there).
+- :func:`gumbel` is ``random._gumbel`` in its default ``"low"`` mode,
+  ``-log(-log(uniform(key, shape, tiny, 1)))`` in float32: the uniform
+  bits are :func:`uniform`'s, bit for bit, but each ``log`` is taken in
+  float64 and rounded once to float32, where XLA's float32 ``log`` is a
+  polynomial of its own.  The values stay within abs 1e-6 of
+  ``jax.random.gumbel``'s, not bit for bit.
+- :func:`categorical` is ``random.categorical`` with ``replace=True`` on
+  the last axis: the first maximum of ``gumbel(key, logits.shape) +
+  logits``.  Its indices equal ``jax.random``'s except where two entries
+  lie within about 1e-6 of each other.
 
 A JAX release that changes this layout makes the two packages draw
 different numbers; ``tests/test_torch_prng.py`` holds every function here
@@ -141,3 +151,19 @@ def uniform(key: np.ndarray, shape: Shape, minval: float = 0.0,
     lo, hi = np.float32(minval), np.float32(maxval)
     fused = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
     return np.maximum(lo, fused.astype(np.float32))
+
+
+def gumbel(key: np.ndarray, shape: Shape) -> np.ndarray:
+    """``jax.random.gumbel(key, shape)`` (float32, ``mode="low"``), each
+    ``log`` correctly rounded to float32 (see the module docstring)."""
+    u = uniform(key, shape, float(np.finfo(np.float32).tiny), 1.0)
+    inner = np.log(u.astype(np.float64)).astype(np.float32)
+    return -np.log(-inner.astype(np.float64)).astype(np.float32)
+
+
+def categorical(key: np.ndarray, logits: np.ndarray) -> np.ndarray:
+    """``jax.random.categorical(key, logits)`` over the last axis → int64
+    indices, the first maximum of the perturbed logits."""
+    logits = np.asarray(logits)
+    perturbed = gumbel(key, logits.shape) + logits.astype(np.float32)
+    return np.argmax(perturbed, axis=-1)

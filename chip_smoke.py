@@ -170,8 +170,42 @@ Phases, in order; any failure exits non-zero:
     five iterations on ``cuda`` resumed on the CPU from the coefficient
     file.  Only the forest launches a kernel; the phase prints each wall
     and its own with the card's name and power limit;
+11b. the bandit family, the chombo and text jobs and the online learners
+    (after 11; no kernel runs on these paths, so the phase resets the
+    launch counts before it and fails unless they read 0 after it):
+    (a) ``epsilon_greedy_select``, ``ucb1_select`` and ``softmax_select``
+    at 1M groups × 12 arms (half the groups ragged, ~5% of arms untried) on
+    ``cuda`` and the CPU, selections equal, the host draw (numpy threefry,
+    12M Gumbel words) timed apart from the device selection; (b) the four
+    bandit jobs through the CLI on 100K groups × 12 arms (a tenth of the
+    groups ragged: 1.15M rows, read by ``GroupState.from_rows``'s Python
+    loop) on ``cuda`` and ``--device cpu``, part files byte-identical;
+    (c) the tutorial's
+    price-optimisation loop (bandit job, the ``price_opt`` revenue
+    oracle's ``inc_<round>`` file, RunningAggregator) at its 100 products
+    for 20 rounds with GreedyRandomBandit and SoftMaxBandit on both
+    devices, every round's files byte-identical (20 rounds, not the
+    tutorial's open-ended loop: each round is a few job runs of host
+    string work, and 20 already cover the ε decay and the state's growth);
+    (d) NumericalAttrStats on phase 3's 1M-row CSV, conditioned on the
+    class column and not, whole and in 250K-row chunks, on both devices:
+    count, min and max equal, the float64 moments within rtol 1e-12, the
+    largest gap printed; (e) WordCounter and NB's text path (train, then
+    validate on 50K held-out lines) on a seeded two-class corpus of 200K
+    lines × 12 words from a Zipf vocabulary of 20K words that the script
+    writes itself (the JAX package has no text generator), on both
+    devices, part files byte-identical, without stemming (the Porter
+    stemmer is ~10 µs of Python a token: stemming 2.4M tokens four times
+    would cost the phase about 100 s and show nothing the CPU tests do
+    not); (f) the ``lead_gen`` closed loop through
+    ``ReinforcementLearnerServer`` for each of the four learners at 10K
+    events (the cut: IntervalEstimator takes a percentile over every
+    reward it has kept on every event, so its cost grows with the square
+    of the events), each converging to page3, with events/s and p50/p99
+    latency.  Every wall is printed with the card's name and power limit.
+    The phase takes ~2.5 min, all host Python (PERF.md §5);
 12. print a ``walls_s`` JSON line (the native encoder's build, native
-    against Python encode, phases 3, 4, 5b, 5c, 8 and 11's walls) with the
+    against Python encode, phases 3, 4, 5b, 5c, 8, 11 and 11b's walls) with the
     card's name and power limit, then the kernels' JSON line, its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
@@ -1902,6 +1936,376 @@ def families_phase(rec: Recorder, work: str, train: str, schema: str,
     return b4
 
 
+# phase 11b: the bandit family and its price loop, NumericalAttrStats,
+# the text jobs and the online learners; sizes in the module docstring
+BANDIT_GROUPS = 1_000_000
+BANDIT_ARMS = 12
+BANDIT_JOB_GROUPS = 100_000
+PRICE_PRODUCTS = 100
+PRICE_ROUNDS = 20
+TEXT_LINES = 200_000
+TEXT_VALIDATE = 50_000
+TEXT_WORDS = 12
+TEXT_VOCAB = 20_000
+RL_EVENTS = 10_000
+MOMENT_RTOL = 1e-12
+
+
+def bandit_state(g: int, k: int, seed: int, ragged: float):
+    """counts, mean rewards and valid mask [g, k]: a share ``ragged`` of the
+    groups with 2..k arms, the rest with k; about 5% of the valid arms
+    untried."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, 50, (g, k)).astype(np.float64)
+    counts[rng.random((g, k)) < 0.05] = 0
+    arms = np.where(rng.random(g) < ragged, rng.integers(2, k + 1, g), k)
+    valid = np.arange(k)[None, :] < arms[:, None]
+    counts[~valid] = 0
+    rewards = np.where(counts > 0, rng.random((g, k)) * 100.0, 0.0)
+    return counts, rewards, valid
+
+
+def selection_phase(walls: dict) -> None:
+    """Phase 11b (a): the three device selection functions at 1M groups ×
+    12 arms on cuda and the CPU, selections equal.  Each is called twice:
+    the first call draws on the host (numpy threefry, timed inside) and
+    selects on the device; the second finds its draws kept from the
+    first, so its wall is the device selection with its copies."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.models import bandits
+    from avenir_tpu_torch.utils import prng
+
+    g, k = BANDIT_GROUPS, BANDIT_ARMS
+    counts, rewards, valid = bandit_state(g, k, seed=31, ragged=0.5)
+    key = prng.prng_key(7)
+    kept, draw_s = {}, [0.0]
+
+    def keep(fn):
+        def call(key, shape, *args):
+            at = (fn.__name__, key.tobytes(), tuple(np.atleast_1d(shape)), args)
+            if at not in kept:
+                t0 = time.perf_counter()
+                kept[at] = fn(key, shape, *args)
+                draw_s[0] += time.perf_counter() - t0
+            return kept[at]
+        return call
+
+    eps = np.random.default_rng(3).random(g).astype(np.float32) * 0.5
+    picks, row = {}, {}
+    bandits.prng = types.SimpleNamespace(split=prng.split,
+                                         uniform=keep(prng.uniform),
+                                         gumbel=keep(prng.gumbel))
+    try:
+        for dev in ("cuda", "cpu"):
+            c, r, v = bandits._state_tensors(counts, rewards, valid,
+                                             torch.device(dev))
+            e = torch.from_numpy(eps).to(dev)
+            fns = {"epsilon_greedy": lambda: bandits.epsilon_greedy_select(key, c, r, v, e),
+                   "ucb1": lambda: bandits.ucb1_select(key, c, r, v),
+                   "softmax": lambda: bandits.softmax_select(key, c, r, v, 0.1)}
+            for name, fn in fns.items():
+                kept.clear()
+                draw_s[0] = 0.0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn().cpu()
+                row[f"{dev} {name} s"] = time.perf_counter() - t0
+                row[f"{dev} {name} host draw s"] = draw_s[0]
+                t0 = time.perf_counter()
+                picks[dev, name] = fn().cpu().numpy()
+                row[f"{dev} {name} device selection s"] = time.perf_counter() - t0
+    finally:
+        bandits.prng = prng
+    for name in ("epsilon_greedy", "ucb1", "softmax"):
+        if not np.array_equal(picks["cuda", name], picks["cpu", name]):
+            n = int((picks["cuda", name] != picks["cpu", name]).sum())
+            raise AssertionError(f"{name}: {n} selections differ cuda vs cpu")
+    walls.update({f"bandit select {n}": s for n, s in row.items()})
+    log(f"bandits (a): {g} groups x {k} arms, selections equal cuda vs cpu; "
+        f"{json.dumps(row)} on {card_line()}")
+
+
+def write_lines(path: str, lines) -> None:
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines))
+        fh.write("\n")
+
+
+BANDIT_JOBS = [("GreedyRandomBandit", ["-Dprob.reduction.algorithm=auer",
+                                       "-Dauer.greedy.constant=2"]),
+               ("AuerDeterministic", []),
+               ("SoftMaxBandit", ["-Dtemp.constant=0.1"]),
+               ("RandomFirstGreedyBandit", ["-Dexploration.count.factor=2"])]
+
+
+def bandit_jobs_phase(work: str, walls: dict) -> None:
+    """Phase 11b (b): the four bandit jobs through the CLI on 100K groups ×
+    12 arms on cuda and the CPU, part files byte-identical."""
+    counts, rewards, valid = bandit_state(BANDIT_JOB_GROUPS, BANDIT_ARMS,
+                                          seed=32, ragged=0.1)
+    data = os.path.join(work, "bandit_state.csv")
+    write_lines(data, (f"grp{gi:06d},item{ai},{int(counts[gi, ai])},"
+                       f"{rewards[gi, ai]:.4f}"
+                       for gi, ai in zip(*valid.nonzero())))
+    row = {}
+    for job, props in BANDIT_JOBS:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"{dev}_{job}")
+            t0 = time.perf_counter()
+            text = run_cli([f"org.avenir.reinforce.{job}", *props, "-Dseed=3",
+                            "-Dcurrent.round.num=4", data, out, "--device", dev])
+            row[f"{dev} {job}"] = time.perf_counter() - t0
+            if counter(text, "Selected") != BANDIT_JOB_GROUPS:
+                raise AssertionError(f"{job} selected for {counter(text, 'Selected')} groups")
+            outs[dev] = os.path.join(out, "part-00000")
+        same_bytes(outs["cuda"], outs["cpu"], job)
+    walls.update({f"bandit job {n}": s for n, s in row.items()})
+    log(f"bandits (b): {int(valid.sum())} rows of {BANDIT_JOB_GROUPS} groups, "
+        f"the four jobs byte-identical cuda vs cpu; walls s {json.dumps(row)} "
+        f"on {card_line()}")
+
+
+def price_loop(work: str, tag: str, job: str, props: dict, dev: str):
+    """The tutorial's round loop, file for file, on ``dev`` → (every round's
+    (selection, aggregate) bytes, how many products the last round priced
+    at or next to their optimum)."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.datagen.price_opt import generate_price_opt
+    from avenir_tpu_torch.jobs import get_job
+
+    sim = generate_price_opt(n_products=PRICE_PRODUCTS, seed=5)
+    base = os.path.join(work, f"price_{tag}_{dev}")
+    indir = os.path.join(base, "input")
+    os.makedirs(indir)
+    write_lines(os.path.join(indir, "agg.txt"),
+                [f"{pid},{price},0,0,0" for pid, p in sim.products.items()
+                 for price in p.prices])
+    files = []
+    for rnd in range(1, PRICE_ROUNDS + 1):
+        conf = JobConfig({"current.round.num": str(rnd), "count.ordinal": "2",
+                          "reward.ordinal": "4", "seed": str(100 + rnd), **props})
+        get_job(job).run(conf, indir, os.path.join(base, "select"), device=dev)
+        with open(os.path.join(base, "select", "part-00000"), "rb") as fh:
+            sel = fh.read()
+        picks = [ln.split(",") for ln in sel.decode().splitlines()]
+        write_lines(os.path.join(indir, f"inc_{rnd}.txt"),
+                    [f"{pid},{price},{sim.reward(pid, price):.3f}"
+                     for pid, price in picks])
+        get_job("org.chombo.mr.RunningAggregator").run(
+            JobConfig({"quantity.attr": "2", "incremental.file.prefix": "inc"}),
+            indir, os.path.join(base, "agg_out"), device=dev)
+        with open(os.path.join(base, "agg_out", "part-00000"), "rb") as fh:
+            agg_bytes = fh.read()
+        files.append((sel, agg_bytes))
+        shutil.rmtree(indir)
+        os.makedirs(indir)
+        with open(os.path.join(indir, "agg.txt"), "wb") as fh:
+            fh.write(agg_bytes)
+    near = 0
+    for pid, price in picks:
+        p = sim.products[pid]
+        near += abs(p.prices.index(int(price)) - p.prices.index(p.optimal_price)) <= 1
+    return files, near
+
+
+def price_phase(work: str, walls: dict) -> None:
+    """Phase 11b (c): the price-optimisation loop at the tutorial's 100
+    products for 20 rounds with GreedyRandomBandit and SoftMaxBandit on
+    cuda and the CPU, every round's files byte-identical."""
+    row = {}
+    for tag, job, props in (
+            ("greedy", "org.avenir.reinforce.GreedyRandomBandit",
+             {"prob.reduction.algorithm": "linear",
+              "random.selection.prob": "0.5", "prob.reduction.constant": "8.0"}),
+            ("softmax", "org.avenir.reinforce.SoftMaxBandit",
+             {"temp.constant": "0.05"})):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            runs[dev] = price_loop(work, tag, job, props, dev)
+            row[f"{dev} {tag}"] = time.perf_counter() - t0
+        for rnd, (a, b) in enumerate(zip(runs["cuda"][0], runs["cpu"][0]), 1):
+            if a != b:
+                raise AssertionError(f"price loop {tag}: round {rnd} differs "
+                                     f"cuda vs cpu")
+        row[f"{tag} near-optimal of {PRICE_PRODUCTS}"] = runs["cuda"][1]
+    walls.update({f"price loop {n}": s for n, s in row.items()
+                  if n.endswith(("greedy", "softmax"))})
+    log(f"bandits (c): price loop {PRICE_PRODUCTS} products x {PRICE_ROUNDS} "
+        f"rounds, every round's selection and aggregate byte-identical cuda "
+        f"vs cpu; {json.dumps(row)} on {card_line()}")
+
+
+def numerical_stats_phase(work: str, train: str, schema: str,
+                          walls: dict) -> None:
+    """Phase 11b (d): NumericalAttrStats on phase 3's 1M-row hospital CSV,
+    conditioned on the class column and not, whole and in 250K-row chunks,
+    on cuda and the CPU: count, min and max equal, moments within rtol
+    1e-12, the largest gap printed."""
+    import numpy as np
+
+    row, worst = {}, 0.0
+    for cond in (True, False):
+        for chunk in (None, CHUNK_ROWS):
+            tag = f"{'cond' if cond else 'all'} {'chunked' if chunk else 'whole'}"
+            props = [f"-Dfeature.schema.file.path={schema}"]
+            props += ["-Dcond.attr.ord=11"] if cond else []
+            props += [f"-Dstream.chunk.rows={chunk}"] if chunk else []
+            files = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(work, f"nas_{dev}_{len(props)}_{bool(chunk)}")
+                t0 = time.perf_counter()
+                text = run_cli(["org.chombo.mr.NumericalAttrStats", *props,
+                                train, out, "--device", dev])
+                row[f"{dev} {tag}"] = time.perf_counter() - t0
+                if counter(text, "Processed") != ROWS_E2E:
+                    raise AssertionError(f"NumericalAttrStats {tag} counted "
+                                         f"{counter(text, 'Processed')} rows")
+                with open(os.path.join(out, "part-00000")) as fh:
+                    files[dev] = fh.read().splitlines()
+            if len(files["cuda"]) != len(files["cpu"]) or len(files["cuda"]) != (6 if cond else 3):
+                raise AssertionError(f"NumericalAttrStats {tag}: {len(files['cuda'])} "
+                                     f"and {len(files['cpu'])} lines")
+            for a, b in zip(files["cuda"], files["cpu"]):
+                fa, fb = a.split(","), b.split(",")
+                if fa[:-7] != fb[:-7] or fa[-2:] != fb[-2:]:
+                    raise AssertionError(f"NumericalAttrStats {tag}: {a!r} vs {b!r}")
+                x = np.array([float(v) for v in fa[-7:-2]])
+                y = np.array([float(v) for v in fb[-7:-2]])
+                gap = float(np.max(np.abs(x - y) / np.maximum(np.abs(y), 1e-300)))
+                if gap > MOMENT_RTOL:
+                    raise AssertionError(f"NumericalAttrStats {tag}: moments "
+                                         f"{gap} apart: {a!r} vs {b!r}")
+                worst = max(worst, gap)
+    walls.update({f"NumericalAttrStats {n}": s for n, s in row.items()})
+    log(f"stats (d): NumericalAttrStats on {ROWS_E2E} rows, count/min/max "
+        f"equal cuda vs cpu, moments at most {worst:.3e} apart (relative); "
+        f"walls s {json.dumps(row)} on {card_line()}")
+
+
+def zipf_corpus(path: str, lines: int, seed: int) -> None:
+    """``text,class`` lines of TEXT_WORDS words drawn from a Zipf vocabulary
+    of TEXT_VOCAB words (letters with English suffixes); class ``spam``
+    shifts the ranks, so the classes differ."""
+    import numpy as np
+
+    suffixes = ["", "s", "ing", "ed", "ation", "ness"]
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    idx = np.arange(TEXT_VOCAB)
+    stems = ["".join(letters[[(i // 26 ** p) % 26 for p in range(4)]]) for i in idx]
+    vocab = np.array([s + suffixes[i % len(suffixes)] for i, s in enumerate(stems)])
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 2, lines)
+    ranks = np.minimum(rng.zipf(1.3, (lines, TEXT_WORDS)), TEXT_VOCAB) - 1
+    ranks = (ranks + 97 * cls[:, None]) % TEXT_VOCAB
+    words = vocab[ranks]
+    names = np.array(["ham", "spam"])[cls]
+    write_lines(path, (" ".join(w) + "," + c for w, c in zip(words, names)))
+
+
+def text_phase(work: str, walls: dict) -> None:
+    """Phase 11b (e): WordCounter, then NB text train and validate, on a
+    seeded two-class Zipf corpus, on cuda and the CPU; part files
+    byte-identical."""
+    corpus = os.path.join(work, "corpus.txt")
+    held = os.path.join(work, "corpus_validate.txt")
+    t0 = time.perf_counter()
+    zipf_corpus(corpus, TEXT_LINES, seed=41)
+    zipf_corpus(held, TEXT_VALIDATE, seed=42)
+    row = {"corpus generation": time.perf_counter() - t0}
+    outs, texts = {}, {}
+    for dev in ("cuda", "cpu"):
+        steps = [
+            ("WordCounter", ["org.avenir.text.WordCounter",
+                             "-Dtext.field.ordinal=0", corpus]),
+            ("NB text train", ["BayesianDistribution", "-Dtabular.input=false",
+                               corpus]),
+            ("NB text validate", [
+                "BayesianPredictor", "-Dtabular.input=false",
+                "-Dprediction.mode=validation",
+                "-Dpositive.class.value=spam",
+                f"-Dbayesian.model.file.path={os.path.join(work, dev + '_NB_text_train')}",
+                held])]
+        for name, argv in steps:
+            out = os.path.join(work, f"{dev}_{name.replace(' ', '_')}")
+            t0 = time.perf_counter()
+            texts[dev, name] = run_cli([*argv, out, "--device", dev])
+            row[f"{dev} {name}"] = time.perf_counter() - t0
+            outs[dev, name] = os.path.join(out, "part-00000")
+    for name in ("WordCounter", "NB text train", "NB text validate"):
+        same_bytes(outs["cuda", name], outs["cpu", name], name)
+        if texts["cuda", name] != texts["cpu", name]:
+            raise AssertionError(f"{name}: counters differ cuda vs cpu")
+    acc = counter(texts["cuda", "NB text validate"], "accuracy")
+    if acc < 70:
+        raise AssertionError(f"NB text validation accuracy {acc}")
+    distinct = counter(texts["cuda", "WordCounter"], "Distinct")
+    walls.update({f"text {n}": s for n, s in row.items()})
+    log(f"text (e): {TEXT_LINES} lines x {TEXT_WORDS} words, {distinct} "
+        f"distinct words, NB validation accuracy {acc} on {TEXT_VALIDATE} "
+        f"held-out lines; part files byte-identical cuda vs cpu; walls s "
+        f"{json.dumps(row)} on {card_line()}")
+
+
+def learners_phase(walls: dict) -> None:
+    """Phase 11b (f): the lead_gen closed loop through
+    ReinforcementLearnerServer for each learner at RL_EVENTS events, each
+    converging to page3; events/s and p50/p99 latency."""
+    from avenir_tpu_torch.datagen.lead_gen import BEST_ACTION, LeadGenSimulator
+    from avenir_tpu_torch.models.online_rl import LEARNER_REGISTRY, create_learner
+    from avenir_tpu_torch.pipeline import ReinforcementLearnerServer
+
+    rows = {}
+    for name in sorted(LEARNER_REGISTRY):
+        sim = LeadGenSimulator(n_events=RL_EVENTS, seed=3)
+        learner = create_learner(name, sim.actions, {
+            "min.sample": 20, "min.reward.distr.sample": 20,
+            "prob.reduction.constant": 30.0, "max.reward": 100.0}, seed=5)
+        srv = ReinforcementLearnerServer(learner, events=sim, rewards=sim,
+                                         actions=sim)
+        t0 = time.perf_counter()
+        n = srv.run()
+        wall = time.perf_counter() - t0
+        stats = srv.stats()["rl"]
+        if n != RL_EVENTS or stats["requests"] != RL_EVENTS:
+            raise AssertionError(f"{name}: served {n} of {RL_EVENTS} events")
+        if sim.best_selected() != BEST_ACTION:
+            raise AssertionError(f"{name} converged to {sim.best_selected()}: "
+                                 f"{sim.selections}")
+        rows[name] = {"events_per_s": RL_EVENTS / wall, "wall_s": wall,
+                      "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                      "share_page3": sim.selections[BEST_ACTION] / RL_EVENTS}
+        walls[f"rl {name}"] = wall
+    log(f"learners (f): lead_gen {RL_EVENTS} events each, all converged to "
+        f"{BEST_ACTION}: {json.dumps(rows)} on {card_line()}")
+
+
+def bandit_text_phase(work: str, train: str, schema: str, walls: dict) -> None:
+    """Phase 11b: (a)-(f) above, between a reset and a read of the launch
+    counts: no kernel runs on these paths."""
+    t0 = time.perf_counter()
+    reset_counts()
+    selection_phase(walls)
+    bandit_jobs_phase(work, walls)
+    price_phase(work, walls)
+    numerical_stats_phase(work, train, schema, walls)
+    text_phase(work, walls)
+    learners_phase(walls)
+    counts = read_counts()
+    if counts != only():
+        raise AssertionError(f"phase 11b launched kernels: {counts}")
+    walls["phase 11b"] = time.perf_counter() - t0
+    log(f"phase 11b in {walls['phase 11b']:.1f} s, launches {json.dumps(counts)} "
+        f"on {card_line()}")
+
+
 def path_cases(hist, rec: Recorder) -> list:
     """Phase 6: each kernel against its plain version, exactly, on every
     input the driven paths gave it on cuda; the first call of each path and
@@ -2787,6 +3191,7 @@ def main(argv=None) -> int:
         b1_pipe = pipeline_phase(rec, work, train, schema, walls)
         b1_corr = correlation_phase(rec, work, train, schema, walls)
         b4_forest = families_phase(rec, work, train, schema, walls)
+        bandit_text_phase(work, train, schema, walls)
         all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
         rec.calls.clear()
         all_cases += knn_cases()

@@ -11,7 +11,9 @@ the probe functions of
 pinned copies, the consumer's wait); the SharedScan on ``cuda``
 against the CPU; RandomForest's B4 calls against the plain version and
 its trees against the CPU forest; Viterbi (scan and assoc) and logistic
-regression on ``cuda`` against the CPU.
+regression on ``cuda`` against the CPU; the bandit selections,
+``WordCount`` and NumericalAttrStats on ``cuda`` against the CPU (no
+kernel of their own: plain torch ops on the card).
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -883,3 +885,73 @@ def test_logistic_regression_on_the_card_equals_cpu(cuda):
         assert (g.iterations, g.converged) == (w.iterations, w.converged)
         for gr, wr in zip(g.history, w.history):
             assert np.abs(gr - wr).max() <= 1e-5 * np.abs(wr).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kwargs", [
+    ("greedyRandomLinear", {"epsilon": 0.5}), ("auerGreedy", {}),
+    ("auerDeterministic", {}), ("softMax", {"tau": 0.1}),
+    ("randomFirstGreedy", {})])
+def test_bandit_selection_on_the_card_equals_cpu(cuda, name, kwargs):
+    """Ragged groups and untried arms at 200K groups × 12 arms: the same
+    host draws and correctly rounded device arithmetic select the same
+    arms on cuda and the CPU."""
+    from avenir_tpu_torch.models import bandits
+    from avenir_tpu_torch.utils import prng
+
+    rng = np.random.default_rng(4)
+    g, k = 200_000, 12
+    counts = rng.integers(1, 50, (g, k)).astype(np.float64)
+    counts[rng.random((g, k)) < 0.05] = 0
+    valid = np.arange(k)[None, :] < rng.integers(2, k + 1, g)[:, None]
+    counts[~valid] = 0
+    rewards = np.where(counts > 0, rng.random((g, k)) * 100.0, 0.0)
+    for rnd in (1, 30):
+        got, want = (bandits.ALGORITHM_REGISTRY[name](device=dev, **kwargs)
+                     .select(prng.prng_key(rnd), counts, rewards, valid, rnd)
+                     for dev in ("cuda", "cpu"))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_wordcount_on_the_card_equals_cpu(cuda):
+    from avenir_tpu_torch.text import WordCount
+
+    rng = np.random.default_rng(2)
+    vocab = [f"w{i}ing" for i in range(5000)]
+    lines = [" ".join(vocab[r] for r in np.minimum(rng.zipf(1.2, 12), 5000) - 1)
+             for _ in range(20000)]
+    counters = [WordCount(stem=True, device=dev) for dev in ("cuda", "cpu")]
+    for wc in counters:
+        for lo in range(0, 20000, 6000):
+            wc.add_lines(lines[lo:lo + 6000])
+    assert counters[0].vocab == counters[1].vocab
+    np.testing.assert_array_equal(counters[0].counts, counters[1].counts)
+    assert counters[0].counts.sum() == 240000
+
+
+@pytest.mark.cuda
+def test_numerical_attr_stats_on_the_card_equals_cpu(cuda, tmp_path):
+    """Whole and streamed, conditioned: count, min and max equal, the
+    float64 moments within rtol 1e-12 of the CPU's."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs import get_job
+
+    rng = np.random.default_rng(6)
+    rows = [f"{rng.normal(1e4, 3.0):.4f},{'xyz'[rng.integers(0, 3)]},"
+            f"{rng.normal(-2.0, 0.5):.6f}" for _ in range(30000)]
+    (tmp_path / "d.txt").write_text("\n".join(rows) + "\n")
+    for extra in ({}, {"stream.chunk.rows": "7000"}):
+        files = {}
+        for dev in ("cuda", "cpu"):
+            conf = JobConfig({"attr.list": "0,2", "cond.attr.ord": "1", **extra})
+            out = tmp_path / f"{dev}{len(extra)}"
+            get_job("NumericalAttrStats").run(conf, str(tmp_path / "d.txt"),
+                                              str(out), device=dev)
+            files[dev] = (out / "part-00000").read_text().splitlines()
+        assert len(files["cuda"]) == len(files["cpu"]) == 6
+        for a, b in zip(files["cuda"], files["cpu"]):
+            fa, fb = a.split(","), b.split(",")
+            assert fa[:3] == fb[:3] and fa[-2:] == fb[-2:]
+            np.testing.assert_allclose([float(v) for v in fa[3:-2]],
+                                       [float(v) for v in fb[3:-2]], rtol=1e-12)

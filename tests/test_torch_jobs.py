@@ -126,7 +126,10 @@ NEW_JOBS = [("BaggingSampler", "explore"), ("UnderSamplingBalancer", "explore"),
             ("MarkovStateTransitionModel", "markov"),
             ("HiddenMarkovModelBuilder", "markov"),
             ("ViterbiStatePredictor", "markov"),
-            ("LogisticRegressionJob", "regress")]
+            ("LogisticRegressionJob", "regress"),
+            ("GreedyRandomBandit", "reinforce"), ("AuerDeterministic", "reinforce"),
+            ("SoftMaxBandit", "reinforce"),
+            ("RandomFirstGreedyBandit", "reinforce"), ("WordCounter", "text")]
 
 
 @pytest.mark.parametrize("job,pkg", NEW_JOBS)
@@ -175,7 +178,14 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.models.markov, avenir_tpu_torch.models.logistic, "
             "avenir_tpu_torch.jobs.markov, avenir_tpu_torch.datagen.event_seq, "
             "avenir_tpu_torch.datagen.buy_xaction, "
-            "avenir_tpu_torch.datagen.hmm_seq\n"
+            "avenir_tpu_torch.datagen.hmm_seq, avenir_tpu_torch.text, "
+            "avenir_tpu_torch.jobs.text, avenir_tpu_torch.jobs.reinforce, "
+            "avenir_tpu_torch.jobs.chombo, avenir_tpu_torch.models.bandits, "
+            "avenir_tpu_torch.models.online_rl, "
+            "avenir_tpu_torch.pipeline.streaming, avenir_tpu_torch.datagen, "
+            "avenir_tpu_torch.datagen.lead_gen, "
+            "avenir_tpu_torch.datagen.price_opt, "
+            "avenir_tpu_torch.datagen.disease\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -199,7 +209,12 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                 "jobs/regress.py", "utils/checkpoint.py", "datagen/churn.py",
                 "utils/prng.py", "models/samplers.py", "models/markov.py",
                 "models/logistic.py", "jobs/markov.py", "datagen/event_seq.py",
-                "datagen/buy_xaction.py", "datagen/hmm_seq.py"):
+                "datagen/buy_xaction.py", "datagen/hmm_seq.py",
+                "text/__init__.py", "text/analyzer.py", "text/wordcount.py",
+                "jobs/text.py", "jobs/reinforce.py", "jobs/chombo.py",
+                "models/bandits.py", "models/online_rl.py",
+                "pipeline/streaming.py", "datagen/lead_gen.py",
+                "datagen/price_opt.py", "datagen/disease.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
