@@ -75,5 +75,10 @@ def main(argv: List[str]) -> int:
     return 0
 
 
-if __name__ == "__main__":
+def cli() -> None:
+    """Console-script entry point (``avenir-tpu-torch``, pyproject.toml)."""
     raise SystemExit(main(sys.argv[1:]))
+
+
+if __name__ == "__main__":
+    cli()

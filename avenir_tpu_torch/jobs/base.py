@@ -33,6 +33,22 @@ from avenir_tpu_torch.utils.metrics import Counters
 PART_FILE = "part-00000"
 
 
+def refused_tenant_key(conf: JobConfig) -> Optional[str]:
+    """Why the port cannot run this conf's tenancy, or None.  ``tenant.id``
+    alone is a label (the JAX package's arbiter is a no-op without a
+    contract); any other ``tenant.*`` key — a ``tenant.<id>.*`` contract,
+    ``tenant.pool.concurrency``, ``tenant.queue.*``, bare or under the
+    conf's prefix — asks for the arbiter, which is not ported."""
+    pref = conf.prefix + "."
+    bare = {k: k[len(pref):] if k.startswith(pref) else k for k in conf.props}
+    keys = sorted(k for k, b in bare.items()
+                  if b.startswith("tenant.") and b != "tenant.id")
+    if not keys:
+        return None
+    return (f"{keys[0]} is not ported yet (the tenancy arbiter, tenancy/: "
+            f"ROADMAP.md, Queue 1 item 7f)")
+
+
 def input_files(path: str) -> List[str]:
     """Resolve a job input path (file, or dir of part files) to a file list;
     directory reads skip hidden files and ``_SUCCESS`` markers."""
@@ -99,9 +115,45 @@ class Job:
 
     def run(self, conf: JobConfig, input_path: str, output_path: str,
             device=None) -> Counters:
+        """Run the job under the conf's telemetry, as the JAX package's
+        ``Job.run``: ``trace.*`` / ``profile.*`` / ``blackbox.*``
+        configure the tracer, the profiler and the flight recorder;
+        ``tenant.id`` labels every event and names the journal shard.  A
+        ``tenant.*`` contract key is refused before anything is written
+        (:func:`refused_tenant_key`)."""
+        from avenir_tpu_torch.telemetry import blackbox
+        from avenir_tpu_torch.telemetry import profile as _profile
+        from avenir_tpu_torch.telemetry import spans as tel
+
+        why = refused_tenant_key(conf)
+        if why is not None:
+            raise NotImplementedError(f"{self.name or type(self).__name__}: "
+                                      f"{why}")
         self.device = resolve_device(device)
+        tracer = tel.configure(conf)
         counters = Counters()
-        self.execute(conf, input_path, output_path, counters)
+        name = self.name or type(self).__name__
+        # the conf fingerprint ties the span to the configuration that
+        # ran, the identity checkpoint snapshots carry; built only when
+        # tracing is on (it sorts and hashes every property)
+        attrs = None
+        if tracer.enabled:
+            attrs = {"conf": StreamCheckpointer.run_id_from_conf(conf),
+                     "input": input_path, "output": output_path}
+        tenant = conf.get("tenant.id")
+        with tel.label_scope(tenant=tenant), \
+                tracer.span(f"job.{name}", attrs=attrs), \
+                blackbox.watchdog_guard(f"job.{name}"):
+            self.execute(conf, input_path, output_path, counters)
+        # the final counter snapshot, only when this job is the outermost
+        # traced unit: nested in a pipeline stage, the driver snapshots
+        # the stage, and a second series would double the CLI's deltas
+        if tracer.enabled and tracer.current() is None:
+            with tel.label_scope(tenant=tenant):
+                tracer.counters(name, counters)
+        # a one-shot CLI run never reaches Tracer.disable: flush program
+        # totals here (a no-op when profiling is off)
+        _profile.profiler().flush()
         return counters
 
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
@@ -329,7 +381,8 @@ class Job:
                     ckpt.chunk_done(cur, last=nxt is None)
                     prev = nxt
 
-            return enc, Job._chunk_telemetry(consume(), counters), \
+            return enc, Job._chunk_telemetry(consume(), counters,
+                                             device=self.device), \
                 lambda: box["n"]
         enc, ds, _rows = self.encode_input(conf, input_path,
                                            with_labels=with_labels,
@@ -343,21 +396,43 @@ class Job:
         return StreamCheckpointer.from_conf(conf)
 
     @staticmethod
-    def _chunk_telemetry(chunks, counters: Counters):
-        """Pass a streamed chunk source through, counting
-        ``Telemetry::recompiles``: the chunks whose (codes, labels, cont)
-        shapes differ from every shape seen before, after the first — a
-        steady stream counts at most one, for its ragged tail."""
-        seen = set()
-        for ds in chunks:
-            key = tuple((tuple(a.shape), str(a.dtype))
-                        for a in (ds.codes, ds.labels, ds.cont)
-                        if a is not None)
-            if key not in seen:
-                if seen:
-                    counters.increment("Telemetry", "recompiles")
-                seen.add(key)
+    def _chunk_telemetry(chunks, counters: Counters, device=None):
+        """Per-chunk telemetry around a streamed chunk source, as the JAX
+        package's: ``Telemetry::recompiles`` counts the chunks whose
+        (codes, labels, cont) shapes differ from every shape seen before,
+        after the first (a steady stream counts at most one, for its
+        ragged tail); with tracing on, a retroactive ``chunk`` span covers
+        the consumer's work on each chunk, parented to the span current
+        when the stream starts; under ``profile.on`` each chunk shape is a
+        ``stream`` program, the consumer's wall is sampled against it and
+        ``device``'s memory at the chunk boundary."""
+        import time
+
+        from avenir_tpu_torch.telemetry import profile as _profile
+        from avenir_tpu_torch.telemetry import spans as tel
+
+        tracer = tel.tracer()
+        prof = _profile.profiler()
+        monitor = tel.CompileKeyMonitor(counters, scope="stream",
+                                        auto_prime=True)
+        parent = tracer.current()
+        for k, ds in enumerate(chunks):
+            key = tel.CompileKeyMonitor.shape_key(ds.codes, ds.labels, ds.cont)
+            monitor.observe([key])
+            if not (tracer.enabled or prof.enabled):
+                yield ds
+                continue
+            attrs = {"chunk": k, "rows": ds.num_rows}
+            if prof.enabled:
+                attrs["program"] = _profile.program_id("stream", key)
+            t0 = time.perf_counter()
             yield ds
+            dur_s = time.perf_counter() - t0
+            if prof.enabled:
+                prof.sample(key, "stream", dur_s)
+                prof.sample_device_memory(
+                    "chunk", None if device is None else [device])
+            tracer.emit_span("chunk", dur_s, parent=parent, attrs=attrs)
 
     @staticmethod
     def _iter_chunks_retrying(conf: JobConfig, input_path: str,
@@ -506,9 +581,10 @@ class StreamCheckpointer:
     run}.  The totals are int64 (or float64) host arrays, so a resumed
     run's part file is byte-identical to an uninterrupted one.  After a
     successful run :meth:`finish` removes the snapshots, and the directory
-    once it is empty.  The multi-process half of the JAX class (per-process
-    subdirectories tagged ``RUN_TAG``, the error handshake) and its
-    ``checkpoint.*`` telemetry events are not ported."""
+    once it is empty.  Each save and restore journals ``checkpoint.save``
+    / ``checkpoint.restore`` (with tracing on).  The multi-process half of
+    the JAX class (per-process subdirectories tagged ``RUN_TAG``, the
+    error handshake) is not ported."""
 
     def __init__(self, directory: str, interval_chunks: int = 8,
                  resume: bool = False, crash_after_chunks: int = 0,
@@ -565,6 +641,11 @@ class StreamCheckpointer:
         except Exception as e:
             raise ConfigError(f"checkpointer construction in {directory!r} "
                               f"failed: {type(e).__name__}: {e}") from e
+        from avenir_tpu_torch.telemetry import spans as tel
+
+        tel.tracer().event("checkpoint.restore", dir=self.directory,
+                           run=self.run_id, rows=self.base_rows,
+                           chunk=int(self.start["chunk"]))
 
     # relaunch switches and operational knobs: a crashed run and its resume
     # keep one identity when these differ.  ``stream.chunk.rows`` stays in:
@@ -623,6 +704,11 @@ class StreamCheckpointer:
                                       "chunk": int(cursor["chunk"])},
                            "rows": total_rows,
                            "run": self.run_id})
+            from avenir_tpu_torch.telemetry import spans as tel
+
+            tel.tracer().event("checkpoint.save", dir=self.directory,
+                               run=self.run_id, rows=total_rows,
+                               chunk=int(cursor["chunk"]))
         if self.crash_after and self._consumed >= self.crash_after:
             raise RuntimeError(
                 f"stream.fault.crash.after.chunks={self.crash_after}: "

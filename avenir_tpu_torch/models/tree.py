@@ -42,6 +42,8 @@ import torch
 from avenir_tpu_torch.core.encoding import EncodedDataset
 from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg, hist, info
+from avenir_tpu_torch.telemetry import profile as _profile
+from avenir_tpu_torch.telemetry.spans import CompileKeyMonitor
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, Counters
 
 ALGORITHMS = ("entropy", "giniIndex", "hellingerDistance", "classConfidenceRatio")
@@ -927,14 +929,27 @@ class DecisionTree:
                 top_k = min(max(self.top_n, 1), flat.seg_tab_dev.shape[0])
                 allow_dev = torch.as_tensor(flat.allow_vector(attrs_lv),
                                             device=dev)
+                thr_dev = flat.thr_dev if use_cum else None
+                statics = dict(algorithm=self.algorithm, gmax=flat.gmax,
+                               top_k=top_k, chunk=flat.chunk, binary=use_cum)
+                prof = _profile.profiler()
+                pkey = None
+                if prof.enabled:
+                    # the level-selection program, keyed on its shapes and
+                    # statics; plain torch, so shapes only (no kernel cost)
+                    pkey = CompileKeyMonitor.shape_key(
+                        table_dev, flat.seg_tab_dev, thr_dev) + (
+                        tuple(sorted(statics.items())),)
+                    prof.observe(pkey, site="tree.level")
+                    t_disp = time.perf_counter()
                 vals, idx, whist = _device_select_splits(
                     table_dev, flat.seg_tab_dev, flat.attr_dev,
-                    flat.nseg_dev, allow_dev,
-                    flat.thr_dev if use_cum else None,
-                    algorithm=self.algorithm, gmax=flat.gmax, top_k=top_k,
-                    chunk=flat.chunk, binary=use_cum)
+                    flat.nseg_dev, allow_dev, thr_dev, **statics)
                 vals, idx, whist = (vals.cpu().numpy(), idx.cpu().numpy(),
                                     whist.cpu().numpy())
+                if pkey is not None:
+                    prof.sample(pkey, "tree.level",
+                                time.perf_counter() - t_disp)
                 for ki in range(k):
                     for p in range(top_k):
                         s = float(vals[ki, p])

@@ -136,6 +136,41 @@ def g_key(num_feat: int, num_bins: int, num_classes: int) -> str:
     return f"g:{mode}:f{num_feat}:b{num_bins}:c{num_classes}"
 
 
+def gram_cells(num_feat: int, num_bins: int,
+               num_classes: int) -> Tuple[int, int]:
+    """(int32 cells of G, used lanes a gram contracts) in this shape's
+    ``plan()`` mode: [wp, wp] over F·B·C lanes (fmaj, jmaj), or one
+    [wp, wp] per class over F·B lanes (cls, clsb)."""
+    mode, _jcp, wp = plan(num_feat, num_bins, num_classes)
+    if mode in ("cls", "clsb"):
+        return num_classes * wp * wp, num_feat * num_bins
+    return wp * wp, num_feat * num_bins * num_classes
+
+
+def gram_work(num_feat: int, n: int, g_cells: int, used: int,
+              n_eff: int) -> Tuple[int, int]:
+    """(bytes, operations) of a one-hot gram (B1–B3) as the work its
+    inputs need — the one count behind PERF.md §6's bound and the
+    profiler's analytic ``scan.chunk`` cost.  Bytes: a sparse product, so
+    the int32 codes [F, n] and labels [n] read once and G (``g_cells``
+    int32) written once.  Operations: the dense product of the one-hots,
+    an int8 multiply and add per row for each upper-triangle cell of the
+    ``used`` lanes, over the ``n_eff`` rows that count."""
+    return (4 * num_feat * n + 4 * n + 4 * g_cells,
+            used * (used + 1) * n_eff)
+
+
+def cross_work(num_feat: int, n: int, num_bins: int, num_sel: int,
+               n_eff: int) -> Tuple[int, int]:
+    """(bytes, operations) of the cross table (B4) as the work its inputs
+    need: the int32 codes [F, n] and selectors [n] read once and the
+    [F, B, S] int32 table written once; the dense XᵀY form, an int8
+    multiply and add per (feature, bin, selector) for each of the
+    ``n_eff`` rows that count."""
+    return (4 * num_feat * n + 4 * n + 4 * num_feat * num_bins * num_sel,
+            2 * num_feat * num_bins * num_sel * n_eff)
+
+
 def w_index(num_feat: int, num_bins: int, num_classes: int) -> np.ndarray:
     """[F, B, C] int64 array of each cell's row/col index in G (layout per
     :func:`plan`).  In the per-class modes the index is within class c's

@@ -66,7 +66,7 @@ def main(argv: List[str]) -> int:
     if verb == "plan":
         raise NotImplementedError(
             "pipeline plan: the planner (pipeline/plan.py) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+            "(ROADMAP.md, Queue 1 item 7c)")
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.pipeline.driver import Pipeline
 

@@ -1,5 +1,5 @@
 """In-process pipeline driver — port of ``avenir_tpu/pipeline/driver.py``
-(the staged loop, without the planner, tracing, tenancy and shard
+(the staged loop, without the planner, the tenancy arbiter and the shard
 topology, whose keys it refuses).
 
 The reference's multi-stage pipelines are shell scripts staging files
@@ -9,10 +9,17 @@ job bound to input/output artifact names, consecutive count stages over
 one artifact fuse into one SharedScan (``pipeline/scan.py``), and the
 driver collects per-stage counters.  Every stage and the scan run on the
 pipeline's device: ``cuda`` unless the caller asks for the CPU.
+
+Telemetry as in the JAX package: a ``pipeline.run`` root span, a span per
+stage (``stage.<name>``) or fused group (``scan.fused``), each stage's
+counter snapshot, ``stage.skipped`` on a resume, and with
+``trace.xla.dir`` each executed stage or group under
+``utils/profiling.trace`` into ``<trace.xla.dir>/<stage name>/``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence
@@ -22,33 +29,29 @@ from avenir_tpu_torch.utils.metrics import Counters
 
 # conf keys that change what the JAX package executes or writes, with the
 # ROADMAP.md item that will honour each; the port refuses them before any
-# stage runs rather than run without them
+# stage runs rather than run without them.  Every tenant.* key but
+# tenant.id (a label) is refused by jobs.base.refused_tenant_key.
 _REFUSED = {
-    "plan.on": "the planner, pipeline/plan.py: Queue 1 item 7",
-    "shard.": "the shard.* topology, parallel/: Queue 1 item 7",
-    "trace.on": "tracing, telemetry/: Queue 1 item 7",
-    "profile.on": "profiling, telemetry/: Queue 1 item 7",
-    "tenant.id": "tenancy, tenancy/: Queue 1 item 7",
+    "plan.on": "the planner, pipeline/plan.py: ROADMAP.md, Queue 1 item 7c",
+    "shard.": "the shard.* topology, parallel/: ROADMAP.md, Queue 1 item 7g",
 }
 
 
 def refused_key(conf: JobConfig) -> Optional[str]:
     """Why the port cannot run this conf, naming the first refused key
-    and the ROADMAP.md item that will honour it, or None: ``plan.on``,
-    ``trace.on`` or ``profile.on`` true, any ``shard.*`` key, or a
+    and the ROADMAP.md item that will honour it, or None: ``plan.on``
+    true, any ``shard.*`` key, or a ``tenant.*`` key other than
     ``tenant.id``."""
+    from avenir_tpu_torch.jobs.base import refused_tenant_key
+
     shard = sorted(k for k in conf.props
                    if k.startswith(("shard.", f"{conf.prefix}.shard.")))
-    hits = {"plan.on": conf.get_bool("plan.on"),
-            "shard.": bool(shard),
-            "trace.on": conf.get_bool("trace.on"),
-            "profile.on": conf.get_bool("profile.on"),
-            "tenant.id": bool(conf.get("tenant.id"))}
+    hits = {"plan.on": conf.get_bool("plan.on"), "shard.": bool(shard)}
     for key, item in _REFUSED.items():
         if hits[key]:
             name = shard[0] if key == "shard." else key
             return f"{name} is not ported yet ({item})"
-    return None
+    return refused_tenant_key(conf)
 
 
 @dataclass
@@ -224,36 +227,86 @@ class Pipeline:
             todo = [s for s in self.stages if s.name in needed]
         self._refuse(todo)
         from avenir_tpu_torch.device import resolve_device
+        from avenir_tpu_torch.telemetry import profile as _profile
+        from avenir_tpu_torch.telemetry import spans as tel
 
         self.device = resolve_device(self.device)
+        tracer = tel.configure(self.conf)
+        tenant = self.conf.get("tenant.id")
+        run_attrs = {"workspace": self.workspace, "stages": len(todo),
+                     "resume": bool(resume)}
+        if tenant:
+            run_attrs["tenant"] = tenant
         os.makedirs(self.workspace, exist_ok=True)
-        self._run_stages(todo, resume)
+        with tel.label_scope(tenant=tenant), \
+                tracer.span("pipeline.run", attrs=run_attrs):
+            self._run_stages(todo, resume, tracer)
+            tracer.counters("pipeline", self.rollup())
+        # fused-scan samples never pass through Job.run: flush here so the
+        # journal's program totals are complete at the pipeline's end
+        _profile.profiler().flush()
         return self.counters
 
-    def _mark_skipped(self, stage: Stage) -> None:
-        """A resume-satisfied stage still appears in the run report, marked
-        in place when it already has counters."""
+    def _xla_trace(self, name: str, tracer):
+        """The device trace of one executed stage or fused group: with
+        ``trace.xla.dir`` set, ``utils/profiling.trace`` records it into
+        ``<trace.xla.dir>/<stage name>/`` (a ``torch.profiler`` Chrome
+        trace where the JAX package writes an XProf capture) and the path
+        is journaled as ``xla.trace``, the JAX package's event.  Unset: a
+        null context."""
+        xla_dir = self.conf.get("trace.xla.dir")
+        if not xla_dir:
+            return contextlib.nullcontext()
+        from avenir_tpu_torch.utils import profiling
+
+        path = os.path.join(xla_dir, name)
+        tracer.event("xla.trace", stage=name, dir=path)
+        return profiling.trace(path, device=self.device)
+
+    def _mark_skipped(self, stage: Stage, tracer) -> None:
+        """A resume-satisfied stage still appears in the run report (and
+        the journal), marked in place when it already has counters."""
         marked = self.counters.setdefault(stage.name, Counters())
         marked.set("Pipeline", "skipped", 1)
+        tracer.event("stage.skipped", stage=stage.name,
+                     output=self.path(stage.output))
 
-    def _run_single(self, stage: Stage, conf: JobConfig) -> None:
-        self.counters[stage.name] = stage.run(
-            conf, self.path(stage.input), self.path(stage.output),
-            device=self.device)
+    def _run_single(self, stage: Stage, conf: JobConfig, tracer) -> None:
+        out = self.path(stage.output)
+        attrs = {"job": (stage.job if isinstance(stage.job, str)
+                         else getattr(stage.job, "__name__", "callable")),
+                 "output": out}
+        with tracer.span(f"stage.{stage.name}", attrs=attrs), \
+                self._xla_trace(stage.name, tracer):
+            self.counters[stage.name] = stage.run(
+                conf, self.path(stage.input), out, device=self.device)
+            tracer.counters(stage.name, self.counters[stage.name])
 
-    def _run_fused(self, group: List[Stage], gconfs: List[JobConfig]) -> None:
+    def _run_fused(self, group: List[Stage], gconfs: List[JobConfig],
+                   tracer) -> None:
         from avenir_tpu_torch.pipeline import scan
 
-        self.counters.update(scan.run_fused_stages(
-            [(s.name, s.job, self.path(s.input), self.path(s.output), conf)
-             for s, conf in zip(group, gconfs)], device=self.device))
+        attrs = {"stages": [s.name for s in group],
+                 "input": self.path(group[0].input)}
+        with tracer.span("scan.fused", attrs=attrs) as sp, \
+                self._xla_trace(group[0].name, tracer):
+            fused = scan.run_fused_stages(
+                [(s.name, s.job, self.path(s.input), self.path(s.output),
+                  conf) for s, conf in zip(group, gconfs)],
+                device=self.device)
+            self.counters.update(fused)
+            first = fused[group[0].name]
+            sp.set("chunks", first.get("SharedScan", "Chunks"))
+            sp.set("rows", first.get("Records", "Processed"))
+            for s in group:
+                tracer.counters(s.name, fused[s.name])
 
-    def _run_stages(self, todo: List[Stage], resume: bool) -> None:
+    def _run_stages(self, todo: List[Stage], resume: bool, tracer) -> None:
         i = 0
         while i < len(todo):
             stage = todo[i]
             if resume and os.path.exists(self.path(stage.output)):
-                self._mark_skipped(stage)
+                self._mark_skipped(stage, tracer)
                 i += 1
                 continue
             # consecutive count jobs reading the same artifact with a
@@ -261,11 +314,11 @@ class Pipeline:
             # (scan.fuse=false opts a stage or the whole pipeline out)
             group, gconfs, fuse = self._scan_group(todo, i, resume)
             if fuse:
-                self._run_fused(group, gconfs)
+                self._run_fused(group, gconfs, tracer)
                 i += len(group)
                 continue
             self._run_single(stage, gconfs[0] if gconfs
-                             else self._stage_conf(stage))
+                             else self._stage_conf(stage), tracer)
             i += 1
 
 

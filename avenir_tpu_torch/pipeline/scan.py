@@ -294,9 +294,31 @@ class ChunkFolder:
             return f"packed:{self.pack.signature}"
         return self.step
 
+    def cost(self, ds: EncodedDataset):
+        """The analytic cost of this chunk's fold on the kernel route
+        (``telemetry.profile.kernel_cost``), or None on the plain routes,
+        which record their shapes only."""
+        if self.step != "kernel":
+            return None
+        from avenir_tpu_torch.telemetry import profile as _profile
+
+        return _profile.kernel_cost(
+            "scan.chunk", self.f, self.b, self.c, ds.num_rows,
+            num_cont=self.meta.num_cont if self.needs_moments else 0)
+
     def fold(self, ds: EncodedDataset, acc: agg.Accumulator) -> None:
         """One chunk's device pass and its 64-bit host accumulation into
-        ``acc`` (which waits for the device once per chunk)."""
+        ``acc`` (which waits for the device once per chunk), inside a
+        ``blackbox.watchdog_guard`` (one attribute check when
+        ``blackbox.watchdog.sec`` is unset).  The JAX package also takes
+        a tenancy slot here; the port has no arbiter (ROADMAP.md, Queue 1
+        item 7f)."""
+        from avenir_tpu_torch.telemetry import blackbox
+
+        with blackbox.watchdog_guard("fold"):
+            self._fold(ds, acc)
+
+    def _fold(self, ds: EncodedDataset, acc: agg.Accumulator) -> None:
         from avenir_tpu_torch.ops import hist
 
         labels = to_device(ds.labels, self.device)
@@ -428,14 +450,47 @@ class SharedScan:
         folder = ChunkFolder(self._consumers, meta, self.device,
                              pair_chunk=self.pair_chunk, pack_on=self.pack_on,
                              pack_max_width=self.pack_max_width)
+        import time
+
+        from avenir_tpu_torch.telemetry import profile as _profile
+        from avenir_tpu_torch.telemetry import spans as tel
+        from avenir_tpu_torch.utils import profiling
+
+        tracer = tel.tracer()
+        prof = _profile.profiler()
         acc = agg.Accumulator()
         rows = 0
         self.chunks_seen = 0
         self.count_path = folder.program_tag or "moments"
-        for ds in chunks:
-            folder.fold(ds, acc)
-            rows += ds.num_rows
-            self.chunks_seen += 1
+        attrs = {"consumers": [x.name for x in self._consumers],
+                 "path": self.count_path}
+        # the scan is a range of its own in a trace.xla.dir device trace
+        with tracer.span("scan", attrs=attrs) as scan_span, \
+                profiling.region("scan"):
+            for ds in chunks:
+                chunk_attrs = {"chunk": self.chunks_seen, "rows": ds.num_rows}
+                pkey = None
+                if prof.enabled:
+                    # the fold program: the chunk's shapes and routing,
+                    # with the kernel's analytic cost on the kernel route
+                    pkey = tel.CompileKeyMonitor.shape_key(
+                        ds.codes, ds.labels, ds.cont) + (self.count_path,)
+                    chunk_attrs["program"] = prof.observe(
+                        pkey, site="scan.chunk", cost=folder.cost(ds))
+                with tracer.span("scan.chunk", attrs=chunk_attrs):
+                    # the host accumulation inside waits for the device,
+                    # so the chunk span and the sample are synced
+                    t0 = time.perf_counter()
+                    folder.fold(ds, acc)
+                    if pkey is not None:
+                        prof.sample(pkey, "scan.chunk",
+                                    time.perf_counter() - t0)
+                if prof.enabled:
+                    prof.sample_device_memory("scan", [self.device])
+                rows += ds.num_rows
+                self.chunks_seen += 1
+            scan_span.set("chunks", self.chunks_seen)
+            scan_span.set("rows", rows)
         return folder.finalize(acc, rows)
 
 

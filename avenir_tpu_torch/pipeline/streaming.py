@@ -402,10 +402,9 @@ class ServerSupervisor:
       event over exactly once, so replay would need producer cooperation.
 
     ``server_factory`` builds a fresh server (learner + queue bindings);
-    the supervisor restores the last checkpoint into it before resuming.
-    The JAX package's ``checkpoint.save``/``checkpoint.restore``/
-    ``server.restart`` telemetry events wait for the port's telemetry
-    (ROADMAP.md Queue 1 item 7).
+    the supervisor restores the last checkpoint into it before resuming,
+    journaling ``checkpoint.save`` / ``checkpoint.restore`` /
+    ``server.restart`` as the JAX package does (with tracing on).
     """
 
     def __init__(self, server_factory: Callable[[], ReinforcementLearnerServer],
@@ -427,6 +426,10 @@ class ServerSupervisor:
             self._server = self.server_factory()
             if self.last_checkpoint is not None:
                 self._server.restore(self.last_checkpoint)
+                from avenir_tpu_torch.telemetry import spans as tel
+
+                tel.tracer().event("checkpoint.restore", scope="rl",
+                                   events=self.events_processed)
         return self._server
 
     def run(self, max_events: Optional[int] = None) -> int:
@@ -447,10 +450,19 @@ class ServerSupervisor:
                     self.restarts = 0      # stable again: refill the budget
                 if self.events_processed % self.checkpoint_interval == 0:
                     self.last_checkpoint = srv.checkpoint()
-            except Exception:
+                    from avenir_tpu_torch.telemetry import spans as tel
+
+                    tel.tracer().event("checkpoint.save", scope="rl",
+                                       events=self.events_processed)
+            except Exception as exc:
                 self.restarts += 1
                 self._events_since_crash = 0
                 self._server = None        # next access builds + restores
+                from avenir_tpu_torch.telemetry import spans as tel
+
+                tel.tracer().event("server.restart", scope="rl",
+                                   restarts=self.restarts,
+                                   error=type(exc).__name__)
                 if self.restarts > self.max_restarts:
                     raise
         # final checkpoint so a subsequent supervisor resumes precisely

@@ -1,6 +1,6 @@
 """Device feeder — chunk i+1 read, encoded and copied to the card while
 chunk i is counted; port of ``avenir_tpu/runtime/feeder.py`` (without its
-sharded stage and its trace spans).
+sharded stage).
 
 A worker thread pulls the source (whose lazy readers do the parse and
 encode), stages each item, and hands it over through a bounded queue of
@@ -13,6 +13,11 @@ its memory to a later chunk while the consumer's work is queued.  Without
 the pinned source the copy would run synchronously, and without the side
 stream it would queue behind the counts.  On ``cpu`` the stage is the
 identity.
+
+With tracing on, each staged item is a retroactive ``feeder.stage`` span
+(the source pull, where the lazy readers parse and encode, plus the copy,
+waited for), parented to the span current where the feeder was built;
+under ``profile.on`` each stage samples the device's memory.
 """
 
 from __future__ import annotations
@@ -120,6 +125,67 @@ class CudaStage:
         return Staged(staged, event)
 
 
+def _identity(item):
+    return item
+
+
+def _traced_pipeline(source, stage, device: torch.device):
+    """(source, stage) wrapped for telemetry, or returned as they are when
+    tracing and profiling are off (no wrapper frame on the hot path).
+
+    With tracing on, each item is a retroactive ``feeder.stage`` span
+    covering the source pull and the stage, with the staged copies
+    waited for before the close (the copy is asynchronous: an unsynced
+    span would time the enqueue).  The worker thread never holds the
+    consumer's context, so the parent is captured here, on the
+    constructing thread.  Pull and stage run one after the other on the
+    one worker thread, so the shared time box needs no lock.  Under
+    ``profile.on`` the stage also samples ``device``'s memory."""
+    from avenir_tpu_torch.telemetry import profile as _profile
+    from avenir_tpu_torch.telemetry import spans as tel
+
+    tracer = tel.tracer()
+    prof = _profile.profiler()
+    if not tracer.enabled and not prof.enabled:
+        return source, stage
+    inner = stage or _identity
+    if not tracer.enabled:
+        def profiled_stage(item):
+            out = inner(item)
+            prof.sample_device_memory("feeder", [device])
+            return out
+
+        return source, profiled_stage
+    parent = tracer.current()
+    box = {"t0": None, "chunk": 0}
+
+    def timed_source():
+        it = iter(source)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            box["t0"] = t0
+            yield item
+
+    def traced_stage(item):
+        out = inner(item)
+        if isinstance(out, Staged):
+            out.event.synchronize()
+        t0 = box["t0"] if box["t0"] is not None else time.perf_counter()
+        box["t0"] = None
+        tracer.emit_span("feeder.stage", time.perf_counter() - t0,
+                         parent=parent, attrs={"chunk": box["chunk"]})
+        box["chunk"] += 1
+        if prof.enabled:
+            prof.sample_device_memory("feeder", [device])
+        return out
+
+    return timed_source(), traced_stage
+
+
 def _tensors(item):
     """The tensors of a staged item."""
     found = []
@@ -143,6 +209,7 @@ class DeviceFeeder:
         self.device = _indexed(resolve_device(device))
         if stage is None and self.device.type == "cuda":
             stage = CudaStage(self.device)
+        source, stage = _traced_pipeline(source, stage, self.device)
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._err_box: dict = {}
         self._stop = threading.Event()
@@ -151,7 +218,7 @@ class DeviceFeeder:
         # fire while it runs; the finalizer must not reference self either
         self._thread = threading.Thread(
             target=_produce,
-            args=(iter(source), stage or (lambda item: item), self._q,
+            args=(iter(source), stage or _identity, self._q,
                   self._stop, self._err_box, self.device),
             daemon=True)
         self._finalizer = weakref.finalize(self, self._stop.set)

@@ -29,6 +29,24 @@ def percentile_of(values, q: float) -> float:
     return float(np.percentile(arr, q))
 
 
+def percentile_summary(samples_ms,
+                       percentiles=(50.0, 95.0, 99.0)) -> Dict[str, float]:
+    """The shared wall-time summary: ``count``, ``mean_ms``,
+    ``p50_ms``/``p95_ms``/``p99_ms`` (configurable), ``max_ms``."""
+    arr = np.asarray(list(samples_ms), np.float64)
+    out: Dict[str, float] = {"count": int(arr.size)}
+    if not arr.size:
+        out["mean_ms"] = out["max_ms"] = 0.0
+        for q in percentiles:
+            out[f"p{q:g}_ms"] = 0.0
+        return out
+    out["mean_ms"] = float(arr.mean())
+    for q in percentiles:
+        out[f"p{q:g}_ms"] = percentile_of(arr, q)
+    out["max_ms"] = float(arr.max())
+    return out
+
+
 class Counters:
     """Named counters — the in-process stand-in for Hadoop job counters.
     Mutations take a lock, so one Counters may be shared across threads."""

@@ -204,9 +204,31 @@ Phases, in order; any failure exits non-zero:
     of the events), each converging to page3, with events/s and p50/p99
     latency.  Every wall is printed with the card's name and power limit.
     The phase takes ~2.5 min, all host Python (PERF.md §5);
-12. print a ``walls_s`` JSON line (the native encoder's build, native
+12. (after 5b, before 5c; ~25 s) the telemetry plane on the card, over
+    phase 3's CSV and phase 5b's pipeline: (a) the NB + MI pipeline with
+    ``trace.on``, ``profile.on`` and ``tenant.id=smoke`` between two
+    untraced runs: part files byte-identical to phase 5b's, B1 4 each
+    time, the journal ``run-<id>.proc-0-smoke.jsonl`` with the span tree
+    pipeline.run → scan.fused → scan → 4 scan.chunk, one analytic
+    ``scan.chunk`` program whose bytes are B1's bound
+    (``hist.gram_work``) with 4 dispatches, ``cuda:0`` memory gauges, and
+    every event in the golden schema; the traced and untraced walls and
+    their ratio printed; (b) with ``trace.xla.dir``: one Chrome trace of
+    the fused stage, B1's ``pair_kernel`` in it 4 times (no CUDA kernel
+    event fails the phase), and the device's busy and idle share of the
+    scan's and the stage's windows; (c) DecisionTreeBuilder as in phase 4
+    with ``trace.on`` and ``profile.on``: the model byte-identical to
+    phase 4's, one ``tree.level`` program per key, dispatches equal to
+    the levels, B4 as untraced; (d) BayesianDistribution with
+    ``blackbox.dir`` and ``blackbox.watchdog.sec`` in a fresh process:
+    exit 0, no live bundle left, a capture taken inside the run rendered
+    by ``telemetry bundle``; (e) ``python -m avenir_tpu_torch.telemetry``
+    ``tree``, ``profile --peak-tflops 989`` (printed), ``metrics`` and
+    ``diff`` on (a)'s journals, each exit 0;
+13. print a ``walls_s`` JSON line (the native encoder's build, native
     against Python encode, phases 3, 4, 5b, 5c, 8, 11 and 11b's walls) with the
-    card's name and power limit, then the kernels' JSON line, its numbers
+    card's name and power limit, then the kernels' JSON line (B1's and
+    B4's launches also by phase 12's traced paths), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
     hospital tree's deepest level, with the forest's launches and its
@@ -425,15 +447,18 @@ def kernel_cases(hist):
 
 
 def gram_bound(f: int, n: int, g_cells: int, used: int, n_eff: int) -> dict:
-    """The bound of a one-hot gram (B1–B3) as the work these inputs need:
-    a sparse product, so the codes [F, n] and labels [n] read once and G
-    (``g_cells`` int32) written once, over the memory rate.  Beside it, as
-    ``dense_ops_bound_ms``, the dense product of the one-hots: an int8
-    multiply-add per row for each upper-triangle cell of the ``used``
-    lanes, over ``n_eff`` rows, at the int8 peak."""
-    return {"bound_ms": (4 * f * n + 4 * n + 4 * g_cells) / PEAK_BYTES * 1e3,
-            "bound_by": "bytes",
-            "dense_ops_bound_ms": used * (used + 1) * n_eff / PEAK_INT8_OPS * 1e3}
+    """The bound of a one-hot gram (B1–B3) as the work these inputs need
+    (``hist.gram_work``, which the profiler's analytic ``scan.chunk`` cost
+    reads too): a sparse product, so the codes [F, n] and labels [n] read
+    once and G (``g_cells`` int32) written once, over the memory rate.
+    Beside it, as ``dense_ops_bound_ms``, the dense product of the
+    one-hots: an int8 multiply-add per row for each upper-triangle cell of
+    the ``used`` lanes, over ``n_eff`` rows, at the int8 peak."""
+    from avenir_tpu_torch.ops import hist
+
+    nbytes, ops = hist.gram_work(f, n, g_cells, used, n_eff)
+    return {"bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "dense_ops_bound_ms": ops / PEAK_INT8_OPS * 1e3}
 
 
 def ops_module(name: str):
@@ -645,14 +670,16 @@ def cross_library(codes, sel, b, s):
 
 
 def cross_bound(f: int, n: int, b: int, s: int, n_eff: int) -> dict:
-    """B4's bound as the work these inputs need, a sparse product: the codes
-    [F, n] and selectors [n] read once and the [F, B, S] table written
-    once, over the memory rate.  Beside it, as ``dense_ops_bound_ms``, the
-    dense XᵀY form: 2·F·B·S int8 multiply-adds for each of the ``n_eff``
-    rows that count."""
-    return {"bound_ms": (4 * f * n + 4 * n + 4 * f * b * s) / PEAK_BYTES * 1e3,
-            "bound_by": "bytes",
-            "dense_ops_bound_ms": 2 * f * b * s * n_eff / PEAK_INT8_OPS * 1e3}
+    """B4's bound as the work these inputs need (``hist.cross_work``), a
+    sparse product: the codes [F, n] and selectors [n] read once and the
+    [F, B, S] table written once, over the memory rate.  Beside it, as
+    ``dense_ops_bound_ms``, the dense XᵀY form: 2·F·B·S int8
+    multiply-adds for each of the ``n_eff`` rows that count."""
+    from avenir_tpu_torch.ops import hist
+
+    nbytes, ops = hist.cross_work(f, n, b, s, n_eff)
+    return {"bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "dense_ops_bound_ms": ops / PEAK_INT8_OPS * 1e3}
 
 
 def cross_cases(hist):
@@ -1316,6 +1343,303 @@ def pipeline_phase(rec: Recorder, work: str, train: str, schema: str,
         f"({walls['cpu pipeline mixed']:.2f} s) largest relative difference "
         f"{rel}")
     walls["mixed NB cuda vs cpu max rel diff"] = rel
+    return launches
+
+
+def journal_of(directory: str) -> str:
+    """The one journal file a traced run wrote under ``directory``."""
+    names = [n for n in os.listdir(directory) if n.endswith(".jsonl")]
+    if len(names) != 1:
+        raise AssertionError(f"{directory}: expected one journal, got {names}")
+    return os.path.join(directory, names[0])
+
+
+def check_schema(events: list, what: str) -> None:
+    """Every event's key set is one of the golden schema's shapes (the
+    writer stamp, the tenant and replica labels and a retroactive ``at``
+    set aside; ``trace``/``span`` absent outside any span)."""
+    from avenir_tpu_torch.telemetry import schema
+
+    free = lambda keys: (set(keys) - schema.STAMP_KEYS  # noqa: E731
+                         - {"replica", "tenant", "at"}) | {"trace", "span"}
+    for e in events:
+        if free(e) not in [free(s) for s in schema.event_shapes(e["ev"])]:
+            raise AssertionError(f"{what}: {e['ev']} keys {sorted(e)} are "
+                                 f"not in the golden schema")
+
+
+def span_children(events: list) -> dict:
+    """span id → (name, parent id, [child span ids]) from a journal."""
+    spans = {}
+    for e in events:
+        if e["ev"] == "span.open":
+            spans[e["span"]] = (e["name"], e.get("parent"), [])
+    for sid, (_name, parent, _kids) in spans.items():
+        if parent in spans:
+            spans[parent][2].append(sid)
+    return spans
+
+
+def device_busy(trace_path: str, window: str) -> dict:
+    """From a ``torch.profiler`` Chrome trace: the ``window`` range (a
+    stage's or ``scan``'s ``record_function``), the CUDA kernels inside it,
+    and the share of the window the union of their intervals covers."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e.get("name") == window and e.get("ph") == "X"]
+    if len(ranges) != 1:
+        raise AssertionError(f"{trace_path}: {len(ranges)} {window!r} ranges")
+    t0, t1 = ranges[0]["ts"], ranges[0]["ts"] + ranges[0]["dur"]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                     if e.get("cat") == "kernel" and e.get("ph") == "X")
+    if not kernels:
+        raise AssertionError(f"{trace_path}: the trace holds no CUDA kernel "
+                             f"event (CUPTI recorded no kernel activity)")
+    inside = [(max(a, t0), min(b, t1), n) for a, b, n in kernels
+              if b > t0 and a < t1]
+    busy, end = 0.0, t0
+    for a, b, _n in inside:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0), "idle_share": 1 - busy / (t1 - t0),
+            "kernels": len(inside),
+            "pair_kernel": sum("pair_kernel" in n for _a, _b, n in inside),
+            "pair_kernel_in_trace": sum("pair_kernel" in n
+                                        for _a, _b, n in kernels)}
+
+
+def telemetry_phase(work: str, train: str, schema: str, b4_tree: dict,
+                    walls: dict) -> dict:
+    """Phase 12: the telemetry plane on the card, over phase 3's CSV and
+    phase 5b's pipeline; returns B1's and B4's launches by path.
+
+    (a) the NB + MI pipeline traced and profiled (``tenant.id=smoke``)
+    between two untraced runs: part files and B1 launches as untraced,
+    the journal's span tree, its analytic ``scan.chunk`` program (the bytes
+    of B1's bound), its dispatches and ``cuda:0`` memory gauges, every
+    event in the golden schema; (b) with ``trace.xla.dir``: one Chrome
+    trace per stage, B1's ``pair_kernel`` in it once a chunk, and the
+    device's busy share of the scan's and the stage's windows; (c) the
+    exhaustive tree traced and profiled: phase 4's model bytes, one
+    ``tree.level`` program per key, dispatches equal to the levels, B4's
+    launches as untraced; (d) a ``blackbox.dir`` job in a fresh process:
+    exit 0, no live bundle left, a capture taken inside it rendered by
+    ``telemetry bundle``; (e) the telemetry CLI's ``tree``, ``profile``,
+    ``metrics`` and ``diff`` on (a)'s journals."""
+    from avenir_tpu_torch.ops import hist
+    from avenir_tpu_torch.telemetry import spans as tel
+    from avenir_tpu_torch.telemetry.journal import read_events
+
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    path = pipeline_conf(work, "nb_mi", train, schema)
+    untraced = os.path.join(work, "ws_fused")
+    launches = {}
+
+    # (a) traced pipeline, between two untraced runs on the same card
+    traced_walls, plain_walls = [], []
+    for name in ("plain", "traced_a", "traced_b", "plain_again"):
+        ws = os.path.join(work, f"ws_tel_{name}")
+        extra = [] if name.startswith("plain") else [
+            "-Dtrace.on=true", "-Dprofile.on=true", "-Dtenant.id=smoke",
+            f"-Dtrace.journal.dir={os.path.join(work, 'tel_' + name)}"]
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            run_pipeline(["run", path, f"-Dpipeline.workspace={ws}", *extra])
+        finally:
+            tel.tracer().disable()
+        wall = time.perf_counter() - t0
+        (plain_walls if name.startswith("plain") else traced_walls).append(wall)
+        counts = read_counts()
+        if counts != only(B1=chunks):
+            raise AssertionError(f"telemetry (a) {name} launched {counts}")
+        for art in ("nb_model", "mi_out"):
+            same_bytes(os.path.join(ws, art, "part-00000"),
+                       os.path.join(untraced, art, "part-00000"),
+                       f"telemetry (a) {name} {art} against phase 5b's")
+    launches["pipeline_traced"] = chunks
+    journal = journal_of(os.path.join(work, "tel_traced_a"))
+    if not (os.path.basename(journal).startswith("run-")
+            and os.path.basename(journal).endswith(".proc-0-smoke.jsonl")):
+        raise AssertionError(f"telemetry (a): journal name {journal}")
+    events = read_events(journal)
+    check_schema(events, "telemetry (a)")
+    spans = span_children(events)
+    roots = [s for s, (n, p, _k) in spans.items() if n == "pipeline.run"
+             and p is None]
+    fused = [k for k in spans[roots[0]][2] if spans[k][0] == "scan.fused"] \
+        if len(roots) == 1 else []
+    scans = [k for k in spans[fused[0]][2] if spans[k][0] == "scan"] \
+        if len(fused) == 1 else []
+    chunk_spans = [k for k in spans[scans[0]][2]
+                   if spans[k][0] == "scan.chunk"] if len(scans) == 1 else []
+    if len(chunk_spans) != chunks:
+        raise AssertionError(f"telemetry (a): span tree pipeline.run "
+                             f"{roots} → scan.fused {fused} → scan {scans} → "
+                             f"scan.chunk {chunk_spans}")
+    compiled = [e for e in events if e["ev"] == "program.compiled"
+                and e["site"] == "scan.chunk"]
+    want_bytes = hist.gram_work(10, CHUNK_ROWS, *hist.gram_cells(10, 13, 2),
+                                CHUNK_ROWS)[0]
+    if (len(compiled) != 1 or compiled[0]["source"] != "analytic"
+            or compiled[0]["bytes_accessed"] != want_bytes):
+        raise AssertionError(f"telemetry (a): scan.chunk programs {compiled}, "
+                             f"want one analytic at {want_bytes} bytes")
+    profiles = [e for e in events if e["ev"] == "program.profile"
+                and e["key"] == compiled[0]["key"]]
+    if not profiles or profiles[-1]["dispatches"] != chunks:
+        raise AssertionError(f"telemetry (a): scan.chunk profile {profiles}")
+    mem = [e for e in events if e["ev"] == "device.memory"
+           and e["device"] == "cuda:0" and e["bytes_in_use"] > 0]
+    if not mem:
+        raise AssertionError("telemetry (a): no device.memory for cuda:0")
+    walls["phase 12 pipeline untraced"] = statistics.mean(plain_walls)
+    walls["phase 12 pipeline traced"] = statistics.mean(traced_walls)
+    walls["tracing overhead ratio"] = (statistics.mean(traced_walls)
+                                       / statistics.mean(plain_walls))
+    log(f"telemetry (a): untraced {plain_walls} s, traced {traced_walls} s, "
+        f"ratio {walls['tracing overhead ratio']:.3f}; {len(events)} events "
+        f"in {os.path.basename(journal)}, span tree pipeline.run → "
+        f"scan.fused → scan → {chunks} scan.chunk, scan.chunk program "
+        f"{compiled[0]['key']} analytic {want_bytes} bytes, "
+        f"{profiles[-1]['dispatches']} dispatches, "
+        f"{profiles[-1]['wall_ms']} ms; {len(mem)} cuda:0 memory samples "
+        f"(peak {max(e['peak_bytes'] for e in mem)} bytes)")
+
+    # (b) the device trace of the fused stage
+    xla = os.path.join(work, "xla")
+    ws = os.path.join(work, "ws_tel_xla")
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        run_pipeline(["run", path, f"-Dpipeline.workspace={ws}",
+                      f"-Dtrace.xla.dir={xla}"])
+    finally:
+        tel.tracer().disable()
+    walls["phase 12 pipeline with device trace"] = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != only(B1=chunks):
+        raise AssertionError(f"telemetry (b) launched {counts}")
+    launches["pipeline_xla"] = chunks
+    if sorted(os.listdir(xla)) != ["nb"]:
+        raise AssertionError(f"telemetry (b): stage traces {os.listdir(xla)}")
+    traces = os.listdir(os.path.join(xla, "nb"))
+    if len(traces) != 1 or not traces[0].endswith(".pt.trace.json"):
+        raise AssertionError(f"telemetry (b): traces {traces}")
+    trace_path = os.path.join(xla, "nb", traces[0])
+    scan_busy = device_busy(trace_path, "scan")
+    stage_busy = device_busy(trace_path, "nb")
+    if scan_busy["pair_kernel"] != chunks or \
+            stage_busy["pair_kernel_in_trace"] != chunks:
+        raise AssertionError(f"telemetry (b): pair_kernel {scan_busy}, "
+                             f"{stage_busy}")
+    walls["device busy share, fused scan"] = scan_busy["busy_share"]
+    walls["device busy share, fused stage"] = stage_busy["busy_share"]
+    log("telemetry (b): device trace " + json.dumps(
+        {"scan": scan_busy, "stage": stage_busy}))
+    log(f"device busy share {scan_busy['busy_share']:.4f} / idle share "
+        f"{scan_busy['idle_share']:.4f} of the fused scan "
+        f"({scan_busy['window_ms']:.2f} ms); busy "
+        f"{stage_busy['busy_share']:.4f} / idle {stage_busy['idle_share']:.4f}"
+        f" of the whole stage ({stage_busy['window_ms']:.2f} ms)")
+
+    # (c) the traced tree
+    tel_tree = os.path.join(work, "tel_tree")
+    reset_counts()
+    try:
+        text = run_cli(["DecisionTreeBuilder",
+                        f"-Dfeature.schema.file.path={schema}",
+                        "-Dtree.hist.phase.stats=true", "-Dtrace.on=true",
+                        "-Dprofile.on=true", f"-Dtrace.journal.dir={tel_tree}",
+                        train, os.path.join(work, "tel_tree_model"),
+                        "--device", "cuda"])
+    finally:
+        tel.tracer().disable()
+    counts = read_counts()
+    levels = len(tree_phase_table(text))
+    if counts != only(B4=b4_tree["tree"]):
+        raise AssertionError(f"telemetry (c): traced tree launched {counts}, "
+                             f"untraced B4 {b4_tree['tree']}")
+    launches["tree_traced"] = counts["B4"]
+    same_bytes(os.path.join(work, "tel_tree_model", "part-00000"),
+               os.path.join(work, "cuda_tree", "part-00000"),
+               "telemetry (c) traced tree and phase 4's cuda tree")
+    events = read_events(journal_of(tel_tree))
+    check_schema(events, "telemetry (c)")
+    compiled = [e for e in events if e["ev"] == "program.compiled"
+                and e["site"] == "tree.level"]
+    totals = {e["key"]: e["dispatches"] for e in events
+              if e["ev"] == "program.profile" and e["site"] == "tree.level"}
+    if (len({e["key"] for e in compiled}) != len(compiled)
+            or set(totals) != {e["key"] for e in compiled}
+            or sum(totals.values()) != levels):
+        raise AssertionError(f"telemetry (c): tree.level programs "
+                             f"{compiled}, dispatches {totals}, levels "
+                             f"{levels}")
+    log(f"telemetry (c): traced tree byte-identical to phase 4's, B4 "
+        f"{counts['B4']} as untraced, {len(compiled)} tree.level programs, "
+        f"{sum(totals.values())} dispatches over {levels} levels")
+
+    # (d) the flight recorder in a fresh process
+    bb = os.path.join(work, "bb")
+    driver = (
+        "import sys\n"
+        "from avenir_tpu_torch.__main__ import main\n"
+        "from avenir_tpu_torch.jobs import get_job\n"
+        "from avenir_tpu_torch.telemetry import blackbox\n"
+        "job = type(get_job('BayesianDistribution'))\n"
+        "run = job.execute\n"
+        "def execute(self, *a):\n"
+        "    run(self, *a)\n"
+        "    print('CAPTURE', blackbox.capture('smoke'))\n"
+        "job.execute = execute\n"
+        "sys.exit(main(sys.argv[1:]))\n")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-c", driver, "BayesianDistribution",
+         f"-Dfeature.schema.file.path={schema}",
+         f"-Dstream.chunk.rows={CHUNK_ROWS}", f"-Dblackbox.dir={bb}",
+         "-Dblackbox.watchdog.sec=600", "-Dtrace.run.id=smoke", train,
+         os.path.join(work, "bb_nb"), "--device", "cuda"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    walls["phase 12 blackbox job"] = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"telemetry (d) exited {res.returncode}:\n"
+                             f"{res.stdout}\n{res.stderr}")
+    capture = next((ln.split(" ", 1)[1] for ln in res.stdout.splitlines()
+                    if ln.startswith("CAPTURE ")), "None")
+    left = sorted(os.listdir(bb))
+    if capture == "None" or left != [os.path.basename(capture)]:
+        raise AssertionError(f"telemetry (d): capture {capture}, left {left}")
+    same_bytes(os.path.join(work, "bb_nb", "part-00000"),
+               os.path.join(work, "cuda_nb", "part-00000"),
+               "telemetry (d) NB and phase 3's cuda")
+    cli = [sys.executable, "-m", "avenir_tpu_torch.telemetry"]
+    out = subprocess.run([*cli, "bundle", capture], cwd=HERE,
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0 or "reason=smoke" not in out.stdout:
+        raise AssertionError(f"telemetry (d): bundle rc {out.returncode}:\n"
+                             f"{out.stdout}\n{out.stderr}")
+    log(f"telemetry (d): blackbox job exit 0 in "
+        f"{walls['phase 12 blackbox job']:.2f} s, no live bundle left, "
+        f"capture {os.path.basename(capture)} rendered")
+
+    # (e) the CLI on the card's journals
+    jb = journal_of(os.path.join(work, "tel_traced_b"))
+    for argv in (["tree", journal], ["profile", journal, "--peak-tflops",
+                                     "989"],
+                 ["metrics", journal], ["diff", journal, jb]):
+        out = subprocess.run([*cli, *argv], cwd=HERE, capture_output=True,
+                             text=True, timeout=120)
+        if out.returncode != 0 or not out.stdout:
+            raise AssertionError(f"telemetry (e) {argv[0]} rc "
+                                 f"{out.returncode}:\n{out.stderr}")
+        if argv[0] == "profile":
+            log("telemetry (e) profile:\n" + out.stdout.rstrip())
+    log("telemetry (e): tree, profile, metrics and diff exit 0")
     return launches
 
 
@@ -2362,9 +2686,7 @@ def path_cases(hist, rec: Recorder) -> list:
             if cross:
                 row.update(cross_bound(f, n, b, k, n_eff))
             else:          # upper triangle of the used lanes (per class: F·B)
-                row.update(gram_bound(
-                    f, n, wp * wp * (1 if kid == "B1" else k),
-                    f * b * (k if kid == "B1" else 1), n_eff))
+                row.update(gram_bound(f, n, *hist.gram_cells(f, b, k), n_eff))
             row["n_eff"] = n_eff
             log(f"{kid} path case:", json.dumps(row))
         results.append(row)
@@ -3189,6 +3511,7 @@ def main(argv=None) -> int:
         b4_tree = tree_jobs_phase(hist, rec, work, train, test, schema, walls)
         wide = wide_tree_phase(hist, rec)
         b1_pipe = pipeline_phase(rec, work, train, schema, walls)
+        traced = telemetry_phase(work, train, schema, b4_tree, walls)
         b1_corr = correlation_phase(rec, work, train, schema, walls)
         b4_forest = families_phase(rec, work, train, schema, walls)
         bandit_text_phase(work, train, schema, walls)
@@ -3212,7 +3535,8 @@ def main(argv=None) -> int:
         kernel_entry("B1", "cooc_pair_gram, fmaj/jmaj (B1)",
                      src + "cooc_pair.cu", at + "283",
                      {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
-                      **b1_corr},
+                      "pipeline_traced": traced["pipeline_traced"],
+                      "pipeline_xla": traced["pipeline_xla"], **b1_corr},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},
@@ -3220,7 +3544,8 @@ def main(argv=None) -> int:
         kernel_entry("B3", "cooc_pair_gram, clsb (B3)", src + "cooc_pair.cu",
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),
         kernel_entry("B4", "cross_counts (B4)", src + "cross.cu", at + "484",
-                     {**b4_tree, "forest": b4_forest}, all_cases),
+                     {**b4_tree, "tree_traced": traced["tree_traced"],
+                      "forest": b4_forest}, all_cases),
         kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
                      "avenir_tpu/ops/pallas_knn.py:290", b5, all_cases),
         kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",

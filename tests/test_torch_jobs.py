@@ -185,7 +185,17 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.pipeline.streaming, avenir_tpu_torch.datagen, "
             "avenir_tpu_torch.datagen.lead_gen, "
             "avenir_tpu_torch.datagen.price_opt, "
-            "avenir_tpu_torch.datagen.disease\n"
+            "avenir_tpu_torch.datagen.disease, "
+            "avenir_tpu_torch.telemetry, avenir_tpu_torch.telemetry.schema, "
+            "avenir_tpu_torch.telemetry.journal, "
+            "avenir_tpu_torch.telemetry.blackbox, "
+            "avenir_tpu_torch.telemetry.spans, "
+            "avenir_tpu_torch.telemetry.profile, "
+            "avenir_tpu_torch.telemetry.export, "
+            "avenir_tpu_torch.telemetry.slo, "
+            "avenir_tpu_torch.telemetry.sentinel, "
+            "avenir_tpu_torch.telemetry.__main__, "
+            "avenir_tpu_torch.utils.profiling\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -214,7 +224,13 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                 "jobs/text.py", "jobs/reinforce.py", "jobs/chombo.py",
                 "models/bandits.py", "models/online_rl.py",
                 "pipeline/streaming.py", "datagen/lead_gen.py",
-                "datagen/price_opt.py", "datagen/disease.py"):
+                "datagen/price_opt.py", "datagen/disease.py",
+                "telemetry/schema.py", "telemetry/journal.py",
+                "telemetry/blackbox.py", "telemetry/spans.py",
+                "telemetry/profile.py", "telemetry/export.py",
+                "telemetry/slo.py", "telemetry/sentinel.py",
+                "telemetry/__init__.py", "telemetry/__main__.py",
+                "utils/profiling.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"

@@ -205,10 +205,17 @@ def test_cli_arguments_and_the_plan_verb(env):
 REFUSED = {
     "plan": {"plan.on": "true"},
     "shard": {"shard.devices": "2"},
+    "tenant": {"tenant.alpha.share": "2"},
+    "tenant pool": {"avenir.tenant.pool.concurrency": "2"},
+    "stage shard": {"pipeline.stage.mi.prop.shard.data.axis": "data"},
+    "stage tenant": {"pipeline.stage.mi.prop.tenant.queue.depth": "4"},
+}
+# keys the pipeline refused until the port's telemetry honoured them
+HONOURED = {
     "trace": {"trace.on": "true"},
     "profile": {"profile.on": "true"},
-    "tenant": {"tenant.id": "alpha"},
-    "stage shard": {"pipeline.stage.mi.prop.shard.data.axis": "data"},
+    "tenant id": {"tenant.id": "alpha"},
+    "trace.xla.dir": {"trace.xla.dir": "xla"},
 }
 
 
@@ -220,6 +227,26 @@ def test_refused_keys_raise_before_anything_is_written(env, case):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         p.run()
     assert not ws.exists()
+
+
+@pytest.mark.parametrize("case", sorted(HONOURED))
+def test_honoured_keys_run_with_the_same_part_files(env, case, tmp_path):
+    """Each telemetry key the pipeline once refused now runs, its part
+    files equal to the untraced run's; the tracer and profiler it enabled
+    are turned off again."""
+    from avenir_tpu_torch.telemetry import spans as tel
+
+    extra = dict(HONOURED[case])
+    extra["trace.journal.dir"] = str(tmp_path / "tel")
+    if "trace.xla.dir" in extra:
+        extra["trace.xla.dir"] = str(tmp_path / "xla")
+    try:
+        _p, counters, parts = _run_port(env, f"honoured_{case}", **extra)
+    finally:
+        tel.tracer().disable()
+    _p0, counters0, parts0 = _run_port(env, f"honoured_{case}_off")
+    assert parts == parts0
+    assert counters == counters0
 
 
 def test_switches_that_are_off_run(env):
