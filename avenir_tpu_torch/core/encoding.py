@@ -95,6 +95,30 @@ class EncodedDataset:
         )
 
 
+def pad_ballast(ds: EncodedDataset, n_target: int,
+                fill: int = -1) -> EncodedDataset:
+    """Pad the batch axis with ballast rows up to ``n_target``, as the JAX
+    package's ``pad_ballast``: integer codes take ``fill`` (−1 by default:
+    dropped by every count table, the drop-invalid contract), floats 0,
+    labels always −1.  Scoring callers that slice their outputs back to the
+    real rows pass ``fill=0`` so a pad row stays in the vocabulary."""
+    pad = n_target - ds.num_rows
+    if pad < 0:
+        raise ValueError(f"n_target {n_target} < batch {ds.num_rows}")
+    if pad == 0:
+        return ds
+
+    def grow(a, val):
+        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1),
+                      constant_values=val)
+
+    return EncodedDataset(
+        codes=grow(ds.codes, fill), cont=grow(ds.cont, 0),
+        labels=None if ds.labels is None else grow(ds.labels, -1), ids=None,
+        n_bins=ds.n_bins, class_values=ds.class_values,
+        binned_ordinals=ds.binned_ordinals, cont_ordinals=ds.cont_ordinals)
+
+
 def peek_chunks(data):
     """(meta, lazy chunk iterable) for the Union[EncodedDataset,
     Iterable[EncodedDataset]] fit contract: peek the first chunk for shape

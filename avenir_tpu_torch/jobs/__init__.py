@@ -43,6 +43,7 @@ from avenir_tpu_torch.jobs.tree import (
     DecisionTreeBuilder,
     SplitGenerator,
 )
+from avenir_tpu_torch.serving.replay import ScoringPlane
 
 # reference package of each job's counterpart (for fully-qualified lookup)
 _PACKAGES: Dict[str, str] = {
@@ -84,14 +85,16 @@ JOB_CLASSES = [BayesianDistribution, BayesianPredictor, MutualInformation,
                HiddenMarkovModelBuilder, ViterbiStatePredictor,
                LogisticRegressionJob, GreedyRandomBandit, AuerDeterministic,
                SoftMaxBandit, RandomFirstGreedyBandit, WordCounter,
-               RunningAggregator, Projection, NumericalAttrStats]
+               RunningAggregator, Projection, NumericalAttrStats,
+               # the serving plane's replay stage (no reference analog)
+               ScoringPlane]
 
 REGISTRY: Dict[str, Type[Job]] = {}
 for _cls in JOB_CLASSES:
     REGISTRY[_cls.name] = _cls
     if _cls.name in _CHOMBO_JOBS:
         REGISTRY[f"org.chombo.mr.{_cls.name}"] = _cls
-    else:
+    elif _cls.name in _PACKAGES:
         REGISTRY[f"org.avenir.{_PACKAGES[_cls.name]}.{_cls.name}"] = _cls
 
 

@@ -93,11 +93,16 @@ def predict_batch(model_or_weights, x, threshold: float = 0.5,
                   device=None) -> Tuple[np.ndarray, np.ndarray]:
     """([N] float32 probabilities, [N] int32 0/1 labels) scored on
     ``device``, from a :class:`LogisticRegressionModel` or a weight
-    vector."""
+    vector; a tensor operand already on ``device`` is used as it is."""
     dev = resolve_device(device)
     w = getattr(model_or_weights, "weights", model_or_weights)
-    w = torch.as_tensor(np.array(w, np.float32)).to(dev)
-    xt = torch.as_tensor(np.array(x, np.float32)).to(dev)
+
+    def on_device(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev, torch.float32)
+        return torch.as_tensor(np.array(a, np.float32)).to(dev)
+
+    w, xt = on_device(w), on_device(x)
     with _full_fp32():
         probs = _sigmoid_scores(w, xt).cpu().numpy()
     return probs, (probs >= threshold).astype(np.int32)

@@ -52,6 +52,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -363,9 +364,14 @@ def knn_tourney(a: torch.Tensor, b: torch.Tensor, used: Optional[int] = None
                               nbp, TOURNEY_KERNEL, stream)
     if err:
         raise RuntimeError(f"knn_tourney launch failed with CUDA error {err}")
-    knn_tourney.launches += 1
+    with _COUNT_LOCK:
+        knn_tourney.launches += 1
     return out[0], out[1], out[2]
 
+
+# the launch counters are read-modify-write: a serving pool's replicas
+# launch from several dispatcher threads
+_COUNT_LOCK = threading.Lock()
 
 # the variant of csrc/knn_tourney.cu that is the kernel; the others are the
 # decomposition probe's (probes.knn_tourney_probe)
@@ -493,7 +499,8 @@ def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int,
                            stream)
     if err:
         raise RuntimeError(f"knn_topk launch failed with CUDA error {err}")
-    knn_topk.launches += 1
+    with _COUNT_LOCK:
+        knn_topk.launches += 1
     return out_d, out_i
 
 

@@ -3,13 +3,18 @@
 
 ::
 
+    python -m avenir_tpu_torch.pipeline plan [explain] <conf> [-Dkey=value ...] [--resume] [--device cpu]
     python -m avenir_tpu_torch.pipeline run <conf> [-Dkey=value ...] [--resume] [--device cpu]
 
-``run`` loads the pipeline the ``pipeline.*`` properties declare
-(``Pipeline.from_conf``), runs it on ``cuda`` unless ``--device cpu`` is
-given, and prints each stage's counters.  ``-D`` overrides apply over the
-properties file, as in ``python -m avenir_tpu_torch``.  The ``plan`` verb
-(the planner's explain) is not ported yet and raises.
+``plan`` (and its ``plan explain`` alias) loads the pipeline the
+``pipeline.*`` properties declare (``Pipeline.from_conf``), lowers it
+through the planner (``pipeline/plan.py``) and prints the plan tree —
+each unit's cost and which rewrites fired — without running a stage (it
+times the pack candidates over a peeked sample on the device).  ``run``
+runs the pipeline on ``cuda`` unless ``--device cpu`` is given and prints
+each stage's counters; ``plan.on=true`` (conf or ``-D``) runs the planned
+program.  ``-D`` overrides apply over the properties file, as in
+``python -m avenir_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ USAGE = (
     "usage: python -m avenir_tpu_torch.pipeline run <conf> "
     "[-Dkey=value ...] [--resume] [--device cuda|cpu]\n"
     "       python -m avenir_tpu_torch.pipeline plan [explain] <conf> "
-    "[-Dkey=value ...]   (not ported yet)")
+    "[-Dkey=value ...] [--resume] [--device cuda|cpu]")
 
 
 def parse_args(argv: List[str]
@@ -63,17 +68,19 @@ def parse_args(argv: List[str]
 
 def main(argv: List[str]) -> int:
     verb, conf_path, overrides, resume, device = parse_args(argv)
-    if verb == "plan":
-        raise NotImplementedError(
-            "pipeline plan: the planner (pipeline/plan.py) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7c)")
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.pipeline.driver import Pipeline
 
     conf = JobConfig.from_file(conf_path)
     for k, v in overrides.items():
         conf.set(k, v)
-    counters = Pipeline.from_conf(conf, device=device).run(resume=resume)
+    pipeline = Pipeline.from_conf(conf, device=device)
+    if verb == "plan":
+        from avenir_tpu_torch.pipeline import plan as plan_mod
+
+        print(plan_mod.plan_pipeline(pipeline, resume=resume).explain())
+        return 0
+    counters = pipeline.run(resume=resume)
     for name in counters:
         print(f"stage {name}")
         for group, vals in sorted(counters[name].as_dict().items()):

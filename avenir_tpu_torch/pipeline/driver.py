@@ -1,6 +1,6 @@
 """In-process pipeline driver — port of ``avenir_tpu/pipeline/driver.py``
-(the staged loop, without the planner, the tenancy arbiter and the shard
-topology, whose keys it refuses).
+(the staged loop and the planner's route, without the tenancy arbiter and
+the shard topology, whose keys it refuses).
 
 The reference's multi-stage pipelines are shell scripts staging files
 through HDFS (resource/knn.sh:16-137).  Here a :class:`Pipeline` is an
@@ -9,6 +9,9 @@ job bound to input/output artifact names, consecutive count stages over
 one artifact fuse into one SharedScan (``pipeline/scan.py``), and the
 driver collects per-stage counters.  Every stage and the scan run on the
 pipeline's device: ``cuda`` unless the caller asks for the CPU.
+``plan.on=true`` runs the planned program instead (``pipeline/plan.py``:
+non-adjacent fusion, share-gram, prune, encode-once, pack), with the same
+output bytes.
 
 Telemetry as in the JAX package: a ``pipeline.run`` root span, a span per
 stage (``stage.<name>``) or fused group (``scan.fused``), each stage's
@@ -27,30 +30,23 @@ from typing import Callable, Dict, List, Optional, Sequence
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.utils.metrics import Counters
 
-# conf keys that change what the JAX package executes or writes, with the
-# ROADMAP.md item that will honour each; the port refuses them before any
-# stage runs rather than run without them.  Every tenant.* key but
-# tenant.id (a label) is refused by jobs.base.refused_tenant_key.
-_REFUSED = {
-    "plan.on": "the planner, pipeline/plan.py: ROADMAP.md, Queue 1 item 7c",
-    "shard.": "the shard.* topology, parallel/: ROADMAP.md, Queue 1 item 7g",
-}
+# the shard.* topology changes what the JAX package executes; the port
+# refuses it before any stage runs rather than run without it.  Every
+# tenant.* key but tenant.id (a label) is refused by
+# jobs.base.refused_tenant_key.
+_SHARD_ITEM = "the shard.* topology, parallel/: ROADMAP.md, Queue 1 item 7g"
 
 
 def refused_key(conf: JobConfig) -> Optional[str]:
     """Why the port cannot run this conf, naming the first refused key
-    and the ROADMAP.md item that will honour it, or None: ``plan.on``
-    true, any ``shard.*`` key, or a ``tenant.*`` key other than
-    ``tenant.id``."""
+    and the ROADMAP.md item that will honour it, or None: any ``shard.*``
+    key, or a ``tenant.*`` key other than ``tenant.id``."""
     from avenir_tpu_torch.jobs.base import refused_tenant_key
 
     shard = sorted(k for k in conf.props
                    if k.startswith(("shard.", f"{conf.prefix}.shard.")))
-    hits = {"plan.on": conf.get_bool("plan.on"), "shard.": bool(shard)}
-    for key, item in _REFUSED.items():
-        if hits[key]:
-            name = shard[0] if key == "shard." else key
-            return f"{name} is not ported yet ({item})"
+    if shard:
+        return f"{shard[0]} is not ported yet ({_SHARD_ITEM})"
     return refused_tenant_key(conf)
 
 
@@ -240,7 +236,16 @@ class Pipeline:
         os.makedirs(self.workspace, exist_ok=True)
         with tel.label_scope(tenant=tenant), \
                 tracer.span("pipeline.run", attrs=run_attrs):
-            self._run_stages(todo, resume, tracer)
+            if self.conf.get_bool("plan.on", False):
+                # the planned program: same output bytes as the staged
+                # loop below, which stays the default
+                from avenir_tpu_torch.pipeline import plan as plan_mod
+
+                pl = plan_mod.plan_pipeline(self, todo, resume=resume)
+                plan_mod.journal_plan(pl.summary(), tracer)
+                plan_mod.run_plan(self, pl, tracer)
+            else:
+                self._run_stages(todo, resume, tracer)
             tracer.counters("pipeline", self.rollup())
         # fused-scan samples never pass through Job.run: flush here so the
         # journal's program totals are complete at the pipeline's end
@@ -272,6 +277,8 @@ class Pipeline:
                      output=self.path(stage.output))
 
     def _run_single(self, stage: Stage, conf: JobConfig, tracer) -> None:
+        """One stage on its own job path: the staged loop's per-stage body,
+        shared with the planner's staged units."""
         out = self.path(stage.output)
         attrs = {"job": (stage.job if isinstance(stage.job, str)
                          else getattr(stage.job, "__name__", "callable")),
@@ -283,17 +290,23 @@ class Pipeline:
             tracer.counters(stage.name, self.counters[stage.name])
 
     def _run_fused(self, group: List[Stage], gconfs: List[JobConfig],
-                   tracer) -> None:
+                   tracer, extra_attrs: Optional[dict] = None,
+                   **fused_kwargs) -> None:
+        """A stage group through ONE SharedScan: the staged loop's fused
+        branch, shared with the planner's scan units, which pass their
+        span attrs and prune / pack / encode-cache decisions."""
         from avenir_tpu_torch.pipeline import scan
 
         attrs = {"stages": [s.name for s in group],
                  "input": self.path(group[0].input)}
+        if extra_attrs:
+            attrs.update(extra_attrs)
         with tracer.span("scan.fused", attrs=attrs) as sp, \
                 self._xla_trace(group[0].name, tracer):
             fused = scan.run_fused_stages(
                 [(s.name, s.job, self.path(s.input), self.path(s.output),
                   conf) for s, conf in zip(group, gconfs)],
-                device=self.device)
+                device=self.device, **fused_kwargs)
             self.counters.update(fused)
             first = fused[group[0].name]
             sp.set("chunks", first.get("SharedScan", "Chunks"))

@@ -1,7 +1,7 @@
 """SharedScan — one encode and one gram pass serving every count job of a
 pipeline; port of ``avenir_tpu/pipeline/scan.py`` (the NB, MI, correlation,
-Fisher and moments consumers, without the mesh routes, the planner's
-pruning and the stream windows' restore).
+Fisher and moments consumers and the planner's seams, without the mesh
+routes and the stream windows' restore).
 
 The reference runs one MapReduce Tool per statistic, each rescanning the
 dataset.  Here the stages that read one artifact share:
@@ -294,6 +294,26 @@ class ChunkFolder:
             return f"packed:{self.pack.signature}"
         return self.step
 
+    def cost_probe(self, ds: EncodedDataset):
+        """(fn, args) of this folder's one per-chunk program over ``ds`` on
+        the folder's device — what the planner times (``pipeline/plan.py``):
+        the kernel route's gram (B1–B3, with the moments beside it) or the
+        packed one-hot product.  None on the einsum route, which is several
+        programs a chunk."""
+        from avenir_tpu_torch.ops import hist
+
+        if self.step not in ("kernel", "packed"):
+            return None
+        codes = to_device(ds.codes, self.device)
+        labels = to_device(ds.labels, self.device)
+        kernel = self.step == "kernel"
+        if self.needs_moments:
+            fn = hist.gram_moments if kernel else hist.gram_counts_moments
+            return fn, (codes, labels, to_device(ds.cont, self.device),
+                        self.b, self.c)
+        fn = hist.cooc_counts if kernel else hist.gram_counts
+        return fn, (codes, labels, self.b, self.c)
+
     def cost(self, ds: EncodedDataset):
         """The analytic cost of this chunk's fold on the kernel route
         (``telemetry.profile.kernel_cost``), or None on the plain routes,
@@ -551,17 +571,23 @@ def stages_compatible(confs) -> bool:
 
 
 def stage_consumer(name, job, conf, out_path, schema, enc,
-                   counters: Optional[Counters] = None):
+                   counters: Optional[Counters] = None,
+                   keep: Optional[Sequence[int]] = None):
     """``(consumer, writer)`` for one fusable stage (NB, MI, or a
     correlation job); the writer publishes the finalized result byte for
     byte as the standalone job writes it, and ``counters`` receives NB's
-    model-row count."""
+    model-row count.  The planner builds consumers here without data.
+    ``keep`` (the sorted binned positions the planner's prune keeps)
+    remaps a correlation stage's attribute selection into the pruned
+    space; NB and MI read every column and refuse it."""
     from avenir_tpu_torch.jobs import get_job
     from avenir_tpu_torch.jobs.base import write_output
     from avenir_tpu_torch.jobs.explore import correlation_plan, mi_output_lines
     from avenir_tpu_torch.models import naive_bayes as nb
 
     if job == "BayesianDistribution":
+        if keep is not None:
+            raise ScanError("NB reads every binned column; cannot prune")
         consumer = NaiveBayesConsumer(
             laplace=conf.get_float("laplace.smoothing", 1.0), name=name)
 
@@ -573,6 +599,8 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
 
         return consumer, write_nb
     if job == "MutualInformation":
+        if keep is not None:
+            raise ScanError("MI aggregates every pair; cannot prune")
         names_ = [schema.field_by_ordinal(fld.ordinal).name
                   for fld in enc.binned_fields]
         consumer = MutualInfoConsumer(feature_names=names_, name=name)
@@ -584,6 +612,13 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
     # CramerCorrelation / HeterogeneityReductionCorrelation
     src_idx, dst_idx, against_class, names_ = correlation_plan(
         conf, schema, enc)
+    if keep is not None:
+        # the full-space selection remapped into the pruned space; a None
+        # selection means every column, which the planner never prunes
+        pos = {int(c): k for k, c in enumerate(keep)}
+        src_idx = None if src_idx is None else [pos[i] for i in src_idx]
+        dst_idx = None if dst_idx is None else [pos[i] for i in dst_idx]
+        names_ = [names_[int(c)] for c in keep]
     consumer = CorrelationConsumer(
         algorithm=get_job(job)._algorithm(conf), src=src_idx, dst=dst_idx,
         against_class=against_class, feature_names=names_, name=name)
@@ -594,7 +629,50 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
     return consumer, write_corr
 
 
-def run_fused_stages(stages, device=None) -> Dict[str, Counters]:
+def consumer_columns(consumer, num_binned: int) -> Optional[set]:
+    """The binned columns a consumer reads, or None for all of them — the
+    planner's dead-column rewrite.  NB and MI cover every column; a
+    correlation stage restricted to explicit source and dest attributes
+    touches only their union (each pair's statistic is sliced to its true
+    ``n_bins`` support, so a narrower gram gives the same bytes)."""
+    if not isinstance(consumer, CorrelationConsumer):
+        return None
+    if consumer.against_class:
+        return None if consumer.src is None else set(int(i)
+                                                     for i in consumer.src)
+    if consumer.src is None or consumer.dst is None:
+        return None
+    cols: set = set()
+    for i, j in consumer.required_pairs(num_binned):
+        cols.add(int(i))
+        cols.add(int(j))
+    return cols
+
+
+# conf keys that shape the encoded bytes of a whole-input read: the
+# planner's encode-once cache key
+_ENCODE_KEYS = ("feature.schema.file.path", "field.delim.regex",
+                "field.delim")
+
+
+def pruned_view(ds: EncodedDataset, keep: np.ndarray) -> EncodedDataset:
+    """The dead-column rewrite on one chunk: the kept binned columns'
+    codes, cardinalities and ordinals, everything else as it is (a host
+    gather; the fold then builds the narrower gram)."""
+    return EncodedDataset(
+        codes=ds.codes[:, keep], cont=ds.cont, labels=ds.labels, ids=ds.ids,
+        n_bins=np.asarray(ds.n_bins)[keep],
+        class_values=ds.class_values,
+        binned_ordinals=[ds.binned_ordinals[int(k)] for k in keep],
+        cont_ordinals=ds.cont_ordinals)
+
+
+def run_fused_stages(stages, device=None,
+                     prune: Optional[Sequence[int]] = None,
+                     pack_on: Optional[bool] = None,
+                     pack_max_width: Optional[int] = None,
+                     encode_cache: Optional[dict] = None
+                     ) -> Dict[str, Counters]:
     """Run a group of fusable pipeline stages as ONE SharedScan on
     ``device``.
 
@@ -604,7 +682,15 @@ def run_fused_stages(stages, device=None) -> Dict[str, Counters]:
     consumer per stage, runs the scan and writes each stage's output as
     its standalone job does.  Returns per-stage Counters, each with a
     ``SharedScan`` group; the first stage's also carries the stream's
-    ``Task`` and ``Telemetry`` counters."""
+    ``Task`` and ``Telemetry`` counters.
+
+    The planner (``pipeline/plan.py``) passes its decisions: ``prune``
+    folds only the listed binned columns (consumers remapped into the
+    pruned space), ``pack_on`` / ``pack_max_width`` replace the runtime
+    pack heuristic (the conf's ``scan.pack.on=false`` still wins), and
+    ``encode_cache`` shares one whole-input encode among the units that
+    read the same artifact under the same encode keys (only without
+    ``stream.chunk.rows``)."""
     from avenir_tpu_torch.device import resolve_device
     from avenir_tpu_torch.jobs.base import Job
 
@@ -614,17 +700,37 @@ def run_fused_stages(stages, device=None) -> Dict[str, Counters]:
     job_obj.device = resolve_device(device)
     schema = Job.load_schema(first_conf)
     counters = {name: Counters() for name, *_ in stages}
-    enc, data, rows_fn = job_obj.encoded_data_source(
-        first_conf, in_path, counters[stages[0][0]])
+    ckey = None
+    if encode_cache is not None and not first_conf.get("stream.chunk.rows"):
+        ckey = (in_path,) + tuple(first_conf.get(k) for k in _ENCODE_KEYS)
+    if ckey is not None and ckey in encode_cache:
+        enc, data = encode_cache[ckey]
+        rows_fn = (lambda d=data: d.num_rows)
+    else:
+        enc, data, rows_fn = job_obj.encoded_data_source(
+            first_conf, in_path, counters[stages[0][0]])
+        if ckey is not None and isinstance(data, EncodedDataset):
+            encode_cache[ckey] = (enc, data)
+    keep = None
+    if prune is not None:
+        keep = np.asarray(sorted(int(c) for c in prune), np.int64)
+        if keep.size == len(enc.binned_fields):
+            keep = None            # nothing dead: fold the full width
+    conf_pack = first_conf.get_bool("scan.pack.on", True)
     engine = SharedScan(
         device=job_obj.device,
-        pack_on=first_conf.get_bool("scan.pack.on", True),
-        pack_max_width=first_conf.get_int("scan.pack.max.width", 0) or None)
+        pack_on=conf_pack if pack_on is None else pack_on and conf_pack,
+        pack_max_width=(first_conf.get_int("scan.pack.max.width", 0) or None
+                        if pack_max_width is None else pack_max_width))
     writers = {}
     for name, job, _inp, out_path, conf in stages:
         consumer, writers[name] = stage_consumer(
-            name, job, conf, out_path, schema, enc, counters=counters[name])
+            name, job, conf, out_path, schema, enc, counters=counters[name],
+            keep=None if keep is None else [int(k) for k in keep])
         engine.register(consumer)
+    if keep is not None:
+        data = (pruned_view(data, keep) if isinstance(data, EncodedDataset)
+                else (pruned_view(ds, keep) for ds in data))
     results = engine.run(data)
     rows = rows_fn()
     for name, _job, _inp, _out, _conf in stages:
@@ -633,4 +739,7 @@ def run_fused_stages(stages, device=None) -> Dict[str, Counters]:
         counters[name].set("SharedScan", "FusedStages", len(stages))
         counters[name].set("SharedScan", "Scans", 1)
         counters[name].set("SharedScan", "Chunks", engine.chunks_seen)
+        if keep is not None:
+            counters[name].set("SharedScan", "PrunedCols",
+                               len(enc.binned_fields) - int(keep.size))
     return counters

@@ -131,15 +131,18 @@ class LatencyTracker:
 
 
 def serving_stats(counters: Counters,
-                  latency: Dict[str, LatencyTracker]) -> Dict[str, dict]:
+                  latency: Dict[str, LatencyTracker],
+                  identity: Optional[Dict[str, str]] = None
+                  ) -> Dict[str, dict]:
     """Per served model, the ``Serving.<name>`` counter group merged with
     its latency percentiles.  Counter names inside the group: ``requests``,
     ``batches``, ``shed`` and the batched-size histogram ``bucket.<n>``
     (the RL loop, which dispatches one event at a time, reports everything
     under ``bucket.1``).  Covers the union of the trackers and the
     ``Serving.<name>`` groups (a model with counters and no tracker reports
-    zeroed latency).  The JAX package's ``identity`` argument (fleet
-    replica labels) waits for the port's telemetry."""
+    zeroed latency).  ``identity`` (``telemetry.export.fleet_identity``:
+    process index and replica suffix) merges into every row, so stats
+    federated from several replicas never collide on a model name."""
     groups = counters.as_dict()
     prefix = "Serving."
     names = set(latency) | {g[len(prefix):] for g in groups
@@ -150,6 +153,8 @@ def serving_stats(counters: Counters,
         tracker = latency.get(name)
         stats.update(tracker.snapshot() if tracker is not None else
                      {"p50_ms": 0.0, "p99_ms": 0.0, "latency_samples": 0})
+        if identity:
+            stats.update(identity)
         out[name] = stats
     return out
 

@@ -1,6 +1,4 @@
-"""Task retry and fault injection — port of ``avenir_tpu/utils/retry.py``
-(all but ``FaultPlan`` and ``HeartbeatMonitor``, which wait for stream
-durability).
+"""Task retry and fault injection — port of ``avenir_tpu/utils/retry.py``.
 
 The reference leaves failure handling to Hadoop, which re-runs a failed
 map task on its input split up to ``mapred.map.max.attempts`` times
@@ -11,16 +9,20 @@ failures and exhaustions are published as ``Task`` counters, as Hadoop
 publishes task retries.
 
 :class:`FaultInjector` raises on scheduled calls, so tests can show that a
-transient fault is retried and a persistent one exhausts the policy.
+transient fault is retried and a persistent one exhausts the policy;
+:class:`FaultPlan` arms the serving plane's replica kills from ``fault.*``
+keys, and :class:`HeartbeatMonitor` tracks a host loop's liveness.
 """
 
 from __future__ import annotations
 
 import logging
 import random
+import threading
 import time
-from dataclasses import dataclass
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, TypeVar
+from dataclasses import dataclass, field
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence, Tuple,
+                    TypeVar)
 
 from avenir_tpu_torch.utils.metrics import Counters
 
@@ -188,3 +190,109 @@ class FaultInjector:
             self.faults_fired += 1
             raise self._exc()
         return self._fn(*args, **kwargs)
+
+
+class FaultPlan:
+    """Conf-driven deterministic fault schedule — the ``fault.*`` family:
+    named sites any seam can consult, so a drill arms crashes from
+    configuration alone.
+
+    - ``fault.serve.dispatch.crash.after`` — raise on the N-th serving
+      batch dispatch, before any request of the batch scores (the batcher
+      treats it as replica-fatal: the replica dies mid-batch and its
+      in-flight requests fail over);
+    - ``fault.serve.heartbeat.crash.after`` — wedge the serving dispatcher
+      on its N-th loop wake: the thread exits without finishing pending
+      work, so the pool's heartbeat deadline has to catch it;
+    - ``fault.fold.crash.after``, ``fault.checkpoint.save.crash.after``,
+      ``fault.checkpoint.restore.crash.after`` — the stream plane's sites
+      (``StreamAnalytics``, ROADMAP.md, Queue 1 item 7e); no port seam
+      consults them yet, as no serving seam of the JAX package does.
+
+    ``fault.tenant.flood.after`` arms the tenancy arbiter's noisy-tenant
+    drill, which the port does not have: :meth:`from_conf` refuses it
+    before anything runs (ROADMAP.md, Queue 1 item 7f).
+
+    Each firing journals ``fault.injected`` (site, 1-based hit number).
+    Counts are per plan; a replica pool shares one plan across its
+    replicas, so "kill the N-th dispatch" is pool-wide (``from_conf``
+    returns None when no ``fault.*`` key is armed)."""
+
+    SITES = ("fold", "checkpoint.save", "checkpoint.restore",
+             "serve.dispatch", "serve.heartbeat", "tenant.flood")
+
+    def __init__(self, schedule: Dict[str, int]):
+        unknown = set(schedule) - set(self.SITES)
+        if unknown:
+            raise ValueError(f"unknown fault sites {sorted(unknown)}; "
+                             f"known: {self.SITES}")
+        self.schedule = {site: int(n) for site, n in schedule.items()
+                         if int(n) > 0}
+        self.hits = {site: 0 for site in self.SITES}
+        self.faults_fired = 0
+        # hit() runs on every replica's dispatcher thread of a pool
+        self._lock = threading.Lock()
+
+    @classmethod
+    def from_conf(cls, conf) -> Optional["FaultPlan"]:
+        if conf.get_int("fault.tenant.flood.after", 0):
+            raise NotImplementedError(
+                "fault.tenant.flood.after is not ported yet (the tenancy "
+                "arbiter's noisy-tenant drill, tenancy/: ROADMAP.md, "
+                "Queue 1 item 7f)")
+        sched = {
+            "fold": conf.get_int("fault.fold.crash.after", 0) or 0,
+            "checkpoint.save":
+                conf.get_int("fault.checkpoint.save.crash.after", 0) or 0,
+            "checkpoint.restore":
+                conf.get_int("fault.checkpoint.restore.crash.after", 0) or 0,
+            "serve.dispatch":
+                conf.get_int("fault.serve.dispatch.crash.after", 0) or 0,
+            "serve.heartbeat":
+                conf.get_int("fault.serve.heartbeat.crash.after", 0) or 0,
+        }
+        plan = cls(sched)
+        return plan if plan.schedule else None
+
+    def hit(self, site: str) -> None:
+        """Count one pass through ``site``; raise :class:`InjectedFault`
+        (journaled first) when the schedule says this is the one."""
+        if site not in self.hits:
+            raise ValueError(f"unknown fault site {site!r}; "
+                             f"known: {self.SITES}")
+        with self._lock:
+            self.hits[site] += 1
+            n = self.hits[site]
+            fire = n == self.schedule.get(site, 0)
+            if fire:
+                self.faults_fired += 1
+        if fire:
+            from avenir_tpu_torch.telemetry import spans as tel
+
+            tel.tracer().event("fault.injected", site=site, hit=n)
+            raise InjectedFault(
+                f"fault.{site}.crash.after={n}: injected crash at {site} "
+                f"boundary {n}")
+
+
+@dataclass
+class HeartbeatMonitor:
+    """Failure detection for long-running host loops: callers beat on
+    progress; :meth:`stalled` reports whether the loop has been silent for
+    longer than ``timeout_s``.  Bookkeeping only — the policy (restart,
+    alert) belongs to whoever polls it."""
+
+    timeout_s: float = 600.0
+    clock: Callable[[], float] = time.monotonic
+    last_beat: float = field(default=0.0)
+    beats: int = 0
+
+    def __post_init__(self):
+        self.last_beat = self.clock()
+
+    def beat(self) -> None:
+        self.beats += 1
+        self.last_beat = self.clock()
+
+    def stalled(self) -> bool:
+        return (self.clock() - self.last_beat) > self.timeout_s

@@ -225,10 +225,37 @@ Phases, in order; any failure exits non-zero:
     by ``telemetry bundle``; (e) ``python -m avenir_tpu_torch.telemetry``
     ``tree``, ``profile --peak-tflops 989`` (printed), ``metrics`` and
     ``diff`` on (a)'s journals, each exit 0;
+12b. (after 12; ~10 s) the planner on the card over phase 3's CSV:
+    NB | BayesianPredictor | MI | Cramér (Cramér's ``uses`` edge naming
+    the NB model) through ``python -m avenir_tpu_torch.pipeline run``
+    staged and with ``plan.on=true``: part files byte-identical, B1 4 in
+    each run (one per 250K-row chunk), the planned unit of 3 stages on the
+    kernel route with fuse and share-gram fired (``plan explain``
+    printed); a correlation-only pipeline planned through the pruned B1
+    width (2 of 10 binned columns), byte-identical to staged; the same
+    without ``stream.chunk.rows`` (two units over one input) with
+    encode-once, B1 once a unit; the walls printed;
+12c. (after 8c, whose elearn CSVs it reads; ~25 s) the serving plane on
+    the card: ``ScoringPlane`` replays of NB (phase 3's model, 2,000 test
+    rows), the tree (phase 4's), LR (phase 11's coefficients), the HMM
+    (phase 11's, 300 sequences padded to 256 steps), kNN over phase 8a's
+    1M references (512 rows, B5) and over 8b's 10K (2,000 rows, B6,
+    gaussian kernel), each byte-identical to its batch job's part file
+    (LR: ``predict_batch`` over the file), B5 / B6 launched once per
+    dispatch of the batch-size histogram plus once per warmed bucket,
+    0 recompiles; a ``ScoreHTTPServer`` on 127.0.0.1 over the six models
+    (``/score`` equal to the replays, ``/healthz``, ``/stats``,
+    ``/metrics``); a ``ReplicaPool`` of 2 replicas on cuda:0 with one
+    killed at its 2nd dispatch (every response byte-identical, none lost
+    or doubled); B5 alone at buckets 1, 8 and 64 against the 1M
+    references (CUDA events) beside the whole dispatch; one JSON line of
+    requests/s, p50/p99 ms and launches per model. Its B5/B6 calls are
+    held in phase 9;
 13. print a ``walls_s`` JSON line (the native encoder's build, native
-    against Python encode, phases 3, 4, 5b, 5c, 8, 11 and 11b's walls) with the
-    card's name and power limit, then the kernels' JSON line (B1's and
-    B4's launches also by phase 12's traced paths), its numbers
+    against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b and 12c's
+    walls) with the card's name and power limit, then the kernels' JSON
+    line (B1's and B4's launches also by phase 12's traced paths, B1's by
+    12b's planned paths, B5's and B6's by 12c's serving paths), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
     hospital tree's deepest level, with the forest's launches and its
@@ -3251,6 +3278,458 @@ def knn_qps_phase(rec: Recorder, used: dict) -> dict:
     return {"knn_qps": counts["B5"]}
 
 
+def planner_conf(work: str, name: str, train: str, test: str, schema: str,
+                 **extra) -> str:
+    """Phase 5b's pipeline conf declared as NB, a non-fusable stage (the NB
+    predictor over the test rows, reading the model through ``@nb_model``),
+    MI and Cramér (whose ``uses`` edge names the NB model), over phase 3's
+    CSV in 250K-row chunks."""
+    props = {
+        "pipeline.stages": "nb,pred,mi,cramer",
+        "pipeline.bind.train": train,
+        "pipeline.bind.test": test,
+        "pipeline.stage.nb.job": "BayesianDistribution",
+        "pipeline.stage.nb.input": "train",
+        "pipeline.stage.nb.output": "nb_model",
+        "pipeline.stage.pred.job": "BayesianPredictor",
+        "pipeline.stage.pred.input": "test",
+        "pipeline.stage.pred.output": "nb_pred",
+        "pipeline.stage.pred.prop.bayesian.model.file.path": "@nb_model",
+        "pipeline.stage.mi.job": "MutualInformation",
+        "pipeline.stage.mi.input": "train",
+        "pipeline.stage.mi.output": "mi_out",
+        "pipeline.stage.cramer.job": "CramerCorrelation",
+        "pipeline.stage.cramer.input": "train",
+        "pipeline.stage.cramer.output": "cramer_out",
+        "pipeline.stage.cramer.prop.dest.attributes": "11",
+        "pipeline.stage.cramer.uses": "nb_model",
+        "feature.schema.file.path": schema,
+        "stream.chunk.rows": str(CHUNK_ROWS),
+        "mutual.info.score.algorithms": "mim,mifs,jmi,disr,mrmr",
+        **extra,
+    }
+    path = os.path.join(work, f"{name}.properties")
+    with open(path, "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in props.items()
+                         if v is not None))
+    return path
+
+
+def corr_conf(work: str, name: str, train: str, schema: str,
+              **extra) -> str:
+    """A correlation-only pipeline whose members read two of the hospital
+    schema's ten binned columns (ordinals 4 and 5): Cramér of employment
+    and family status against the class (ordinal 11), and heterogeneity
+    of employment against family status."""
+    props = {
+        "pipeline.stages": "cramer,het",
+        "pipeline.bind.train": train,
+        "pipeline.stage.cramer.job": "CramerCorrelation",
+        "pipeline.stage.cramer.input": "train",
+        "pipeline.stage.cramer.output": "cramer_out",
+        "pipeline.stage.cramer.prop.source.attributes": "4,5",
+        "pipeline.stage.cramer.prop.dest.attributes": "11",
+        "pipeline.stage.het.job": "HeterogeneityReductionCorrelation",
+        "pipeline.stage.het.input": "train",
+        "pipeline.stage.het.output": "het_out",
+        "pipeline.stage.het.prop.source.attributes": "4",
+        "pipeline.stage.het.prop.dest.attributes": "5",
+        "pipeline.stage.het.prop.heterogeneity.algorithm": "uncertainty",
+        "feature.schema.file.path": schema,
+        "stream.chunk.rows": str(CHUNK_ROWS),
+        **extra,
+    }
+    path = os.path.join(work, f"{name}.properties")
+    with open(path, "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in props.items()
+                         if v is not None))
+    return path
+
+
+def planner_phase(rec: Recorder, work: str, train: str, test: str,
+                  schema: str, walls: dict) -> dict:
+    """Phase 12b: the planner on the card over phase 3's 1M-row CSV;
+    returns B1's launches by path.
+
+    (a) NB | BayesianPredictor | MI | Cramér staged and with ``plan.on``:
+    part files byte-identical, the planned unit on the kernel route with
+    fuse and share-gram fired, B1 once a 250K-row chunk in both runs;
+    (b) the plan verb's explain printed; (c) a correlation-only pipeline
+    planned through the pruned B1 width (2 of 10 binned columns), its part
+    files byte-identical to the staged run's; (d) the same conf without
+    ``stream.chunk.rows`` and with the heterogeneity stage opted out of
+    packing (two units over one input) shows encode-once, B1 once a unit,
+    part files byte-identical."""
+    from avenir_tpu_torch.ops import hist
+
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    launches = {}
+
+    def run(name, path, record=None, extra=()):
+        ws = os.path.join(work, "ws_" + name)
+        reset_counts()
+        t0 = time.perf_counter()
+        with rec.on(record) if record else contextlib.nullcontext():
+            counters = run_pipeline(["run", path, f"-Dpipeline.workspace={ws}",
+                                     *extra])
+        walls[f"pipeline {name}"] = time.perf_counter() - t0
+        return ws, counters, read_counts()
+
+    def explain(path, extra=()):
+        buf = io.StringIO()
+        from avenir_tpu_torch.pipeline.__main__ import main as pmain
+
+        with contextlib.redirect_stdout(buf):
+            if pmain(["plan", "explain", path, *extra]) != 0:
+                raise AssertionError("plan explain failed")
+        return buf.getvalue()
+
+    path = planner_conf(work, "planner", train, test, schema)
+    ws_s, _c, staged = run("planner_staged", path)
+    ws_p, counters, planned = run("planner_planned", path, "pipeline_planned",
+                                  ["-Dplan.on=true"])
+    for counts, what in ((staged, "staged"), (planned, "planned")):
+        if counts != only(B1=chunks):
+            raise AssertionError(f"planner {what} run launched {counts}")
+    for a in ("nb_model", "nb_pred", "mi_out", "cramer_out"):
+        same_bytes(os.path.join(ws_s, a, "part-00000"),
+                   os.path.join(ws_p, a, "part-00000"), f"planner {a}")
+    group = counters["mi"]["SharedScan"]
+    if group != {"FusedStages": 3, "Scans": 1, "Chunks": chunks}:
+        raise AssertionError(f"planned unit counters {group}")
+    text = explain(path)
+    log("planner (b): plan explain on cuda:\n" + text.rstrip())
+    if ("rewrites: fuse, share-gram" not in text
+            or "program: kernel" not in text
+            or "stage pred: job=BayesianPredictor -- not a fusable count job"
+            not in text):
+        raise AssertionError("planner explain lacks the fired rewrites, the "
+                             "kernel route or the staged predictor")
+    launches["pipeline_planned"] = planned["B1"]
+    log(f"planner (a): NB | predictor | MI | Cramer staged "
+        f"{walls['pipeline planner_staged']:.2f} s (B1 {staged['B1']}), "
+        f"planned {walls['pipeline planner_planned']:.2f} s (B1 "
+        f"{planned['B1']}, one unit of 3 stages, fuse + share-gram); part "
+        f"files byte-identical")
+
+    cpath = corr_conf(work, "planner_corr", train, schema)
+    ws_cs, _c, cstaged = run("corr_staged", cpath)
+    ws_cp, ccount, cplanned = run("corr_planned", cpath, "pipeline_pruned",
+                                  ["-Dplan.on=true"])
+    for a in ("cramer_out", "het_out"):
+        same_bytes(os.path.join(ws_cs, a, "part-00000"),
+                   os.path.join(ws_cp, a, "part-00000"), f"pruned {a}")
+    ctext = explain(cpath)
+    pruned_calls = [args for name, p, args, _kw in rec.calls
+                    if p == "pipeline_pruned"]
+    if ("prune: 10 -> 2 binned columns" not in ctext
+            or ccount["cramer"]["SharedScan"].get("PrunedCols") != 8
+            or cplanned != only(B1=chunks)
+            or {a[0].shape[0] for a in pruned_calls} != {2}):
+        raise AssertionError(f"pruned unit: {ctext!r}, counters {ccount}, "
+                             f"launches {cplanned}")
+    launches["pipeline_pruned"] = cplanned["B1"]
+    log(f"planner (c): correlation-only pipeline staged "
+        f"{walls['pipeline corr_staged']:.2f} s (B1 {cstaged['B1']}), planned "
+        f"through the pruned width {walls['pipeline corr_planned']:.2f} s "
+        f"(B1 {cplanned['B1']} at {pruned_calls[0][0].shape[0]} x "
+        f"{pruned_calls[0][2]} x {pruned_calls[0][3]}, plan "
+        f"{hist.plan(*(int(x) for x in (pruned_calls[0][0].shape[0], pruned_calls[0][2], pruned_calls[0][3])))}); part "
+        f"files byte-identical\n" + ctext.rstrip())
+
+    epath = corr_conf(work, "planner_enc", train, schema,
+                      **{"stream.chunk.rows": None,
+                         "pipeline.stage.het.prop.scan.pack.on": "false"})
+    etext = explain(epath)
+    if "encode-once" not in etext or etext.count("scan unit") != 2:
+        raise AssertionError(f"encode-once did not fire: {etext!r}")
+    ws_es, _c, estaged = run("enc_staged", epath)
+    ws_ep, _c, eplanned = run("enc_planned", epath, "pipeline_encode_once",
+                              ["-Dplan.on=true"])
+    for a in ("cramer_out", "het_out"):
+        same_bytes(os.path.join(ws_es, a, "part-00000"),
+                   os.path.join(ws_ep, a, "part-00000"), f"encode-once {a}")
+    if eplanned != only(B1=2):
+        raise AssertionError(f"encode-once run launched {eplanned}")
+    launches["pipeline_encode_once"] = eplanned["B1"]
+    log(f"planner (d): whole-input correlation pipeline staged "
+        f"{walls['pipeline enc_staged']:.2f} s, planned with encode-once "
+        f"across 2 units {walls['pipeline enc_planned']:.2f} s (B1 "
+        f"{eplanned['B1']}); part files byte-identical\n" + etext.rstrip())
+    return launches
+
+
+SERVE_ROWS = 2000            # request rows replayed per family
+SERVE_KNN_1M_ROWS = 512      # of phase 8a's test rows, against 1M refs
+SERVE_BUCKETS = (1, 8, 64)
+
+
+class FirstCapture(NeighborCapture):
+    """NeighborCapture keeping in ``used`` the FIRST call's shape (the call
+    knn_path_cases times)."""
+
+    def __setattr__(self, key, value):
+        if key == "used" and getattr(self, "used", None) is not None:
+            return
+        super().__setattr__(key, value)
+
+
+def serving_phase(rec: Recorder, work: str, test: str, schema: str,
+                  used: dict, walls: dict) -> dict:
+    """Phase 12c: the serving plane on the card; returns B5's and B6's
+    launches by path.
+
+    (a) ``ScoringPlane`` replays on cuda for NB (phase 3's model), the tree
+    (phase 4's), LR (phase 11's coefficients), the HMM (phase 11's, its
+    sequences padded to 256 steps), kNN over phase 8a's 1M elearn
+    references (B5) and over phase 8b's 10K (B6, gaussian kernel), each
+    byte-identical to the batch job's part file on the same rows (LR: to
+    ``predict_batch`` over the whole file, as it has no batch job); B5 and
+    B6 launched once per dispatch of the batcher's histogram plus once
+    per warmed bucket, 0 recompiles; (b) a ``ScoreHTTPServer`` on
+    127.0.0.1 over all six models: POSTed rows equal the replay's lines,
+    ``/healthz``, ``/stats`` and ``/metrics`` answered; (c) a
+    ``ReplicaPool`` of 2 replicas on cuda:0 with
+    ``fault.serve.dispatch.crash.after=2``: every NB response
+    byte-identical, none lost, none scored twice (``requests`` = rows);
+    (d) B5 alone at buckets 1, 8 and 64 against the 1M references (CUDA
+    events), beside each bucket's whole dispatch; requests/s and p50/p99
+    per model printed."""
+    import functools
+    import urllib.request
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs import get_job
+    from avenir_tpu_torch.jobs.base import Job, read_lines
+    from avenir_tpu_torch.models import logistic as mlr
+    from avenir_tpu_torch.ops import knn as tk
+    from avenir_tpu_torch.serving import (BucketedMicrobatcher,
+                                          ModelRegistry, ReplicaPool,
+                                          ScoreHTTPServer)
+
+    def head(src, dst, n):
+        with open(src) as fi, open(dst, "w") as fo:
+            for i, line in enumerate(fi):
+                if i >= n:
+                    break
+                fo.write(line)
+        return dst
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    hosp = head(test, j("serve_hosp.csv"), SERVE_ROWS)
+    obs = head(j("obs.csv"), j("serve_obs.csv"), 300)
+    knn1m = head(j("elearn_test.csv"), j("serve_knn1m.csv"),
+                 SERVE_KNN_1M_ROWS)
+    elearn = {"feature.schema.file.path": j("elearn.json"),
+              "training.data.path": j("elearn_train.csv"),
+              "top.match.count": str(KNN_K)}
+    small = {"feature.schema.file.path": j("elearn_small.json"),
+             "training.data.path": j("small_train.csv"),
+             "top.match.count": str(KNN_K), "kernel.function": "gaussian"}
+    hospc = {"feature.schema.file.path": schema}
+    families = {
+        "naiveBayes": ({**hospc, "bayesian.model.file.path": j("cuda_nb")},
+                       hosp),
+        "tree": ({**hospc, "tree.model.file.path": j("cuda_tree")}, hosp),
+        "logistic": ({**hospc, "coeff.file.path": j("lr_resume_coeff.txt")},
+                     hosp),
+        "viterbi": ({"hmm.model.file.path":
+                     j("HiddenMarkovModelBuilder_cuda"),
+                     "serve.sequence.pad.len": "256"}, obs),
+        "knn": (elearn, knn1m),
+        "knn10k": (small, j("small_test.csv")),
+    }
+    # the batch jobs' part files on the same rows, on cuda
+    t0 = time.perf_counter()
+    oracle = {}
+    run_cli(["BayesianPredictor", *[f"-D{k}={v}" for k, v in
+                                    families["naiveBayes"][0].items()],
+             hosp, j("serve_nb_pred"), "--device", "cuda"])
+    oracle["naiveBayes"] = read_lines(j("serve_nb_pred"))
+    run_cli(["DecisionTreeBuilder", *[f"-D{k}={v}" for k, v in
+                                      families["tree"][0].items()],
+             hosp, j("serve_tree_pred"), "--device", "cuda"])
+    oracle["tree"] = read_lines(j("serve_tree_pred"))
+    conf = JobConfig(dict(families["logistic"][0]))
+    _e, ds, _ = Job.encode_input(conf, hosp, with_labels=False,
+                                 need_rows=False)
+    model = mlr.LogisticRegressionModel.from_history_lines(
+        read_lines(j("lr_resume_coeff.txt")))
+    probs, pred = mlr.predict_batch(
+        model, mlr.design_matrix(ds, device="cuda"), device="cuda")
+    oracle["logistic"] = [f"{ln},{int(pred[i])},{probs[i]:.6f}"
+                          for i, ln in enumerate(read_lines(hosp))]
+    oracle["viterbi"] = read_lines(j("ViterbiStatePredictor_cuda"))[:300]
+    oracle["knn"] = read_lines(j("cuda_knn"))[:SERVE_KNN_1M_ROWS]
+    run_cli(["NearestNeighbor", *[f"-D{k}={v}" for k, v in small.items()],
+             j("small_test.csv"), j("serve_knn10k_pred"), "--device", "cuda"])
+    oracle["knn10k"] = read_lines(j("serve_knn10k_pred"))
+    walls["serve oracles"] = time.perf_counter() - t0
+
+    launches, stats_line, replayed = {}, {}, {}
+    for name, (props, rows) in families.items():
+        family = "knn" if name.startswith("knn") else name
+        path = {"knn": "serve_knn_1m", "knn10k": "serve_knn_10k"}.get(name)
+        cap = FirstCapture()
+        reset_counts()
+        t0 = time.perf_counter()
+        with (rec.on(path) if path else contextlib.nullcontext()), cap.on():
+            # a replay queues every row at once: the request timeout is
+            # a latency limit for online clients, not for the replay
+            counters = get_job("ScoringPlane").run(
+                JobConfig({**props, "serve.models": family,
+                           "serve.request.timeout.ms": "60000"}), rows,
+                j(f"serve_{name}_replay"), device="cuda")
+        wall = walls[f"serve {name} replay"] = time.perf_counter() - t0
+        counts = read_counts()
+        got = replayed[name] = read_lines(j(f"serve_{name}_replay"))
+        if got != oracle[name]:
+            bad = next(i for i, (a, b) in enumerate(zip(got, oracle[name]))
+                       if a != b) if len(got) == len(oracle[name]) else -1
+            raise AssertionError(f"serving {name}: replay differs from the "
+                                 f"batch job at row {bad}")
+        grp = counters.as_dict()[f"Serving.{family}"]
+        batches = sum(v for k, v in grp.items() if k.startswith("bucket."))
+        warmed = 7                          # serve.bucket.sizes 1, 2, ..., 64
+        kid = {"knn": "B5", "knn10k": "B6"}.get(name)
+        want = only(**({kid: batches + warmed} if kid else {}))
+        if counts != want or grp.get("recompiles", 0) != 0 \
+                or grp["requests"] != len(got) or grp["batches"] != batches:
+            raise AssertionError(f"serving {name}: launches {counts} (want "
+                                 f"{want}), counters {grp}")
+        if path:
+            launches[path] = counts[kid]
+            used[path] = cap.used
+        stats_line[name] = {
+            "rows": len(got), "batches": batches, "wall_s": round(wall, 4),
+            "requests_per_s": round(len(got) / wall, 1),
+            "p50_ms": grp["p50_us"] / 1e3, "p99_ms": grp["p99_us"] / 1e3,
+            "launches": counts[kid] if kid else 0,
+            "histogram": {k: v for k, v in grp.items()
+                          if k.startswith("bucket.")}}
+        log(f"serving (a): {name} replay of {len(got)} rows on cuda "
+            f"byte-identical to the batch job; {json.dumps(stats_line[name])}")
+
+    # (b) the HTTP frontend in this process, on the loopback
+    conf_all = {**hospc, **families["naiveBayes"][0], **families["tree"][0],
+                **families["logistic"][0]}
+    registry = ModelRegistry()
+    for name, (props, _rows) in families.items():
+        family = "knn" if name.startswith("knn") else name
+        from avenir_tpu_torch.serving.registry import FAMILIES
+
+        registry.add(name, FAMILIES[family].from_conf(
+            JobConfig({**conf_all, **props}) if family != "knn"
+            else JobConfig(dict(props)), device="cuda"))
+    batcher = BucketedMicrobatcher.from_conf(registry, JobConfig({}))
+    srv = ScoreHTTPServer(batcher, host="127.0.0.1", port=0).start()
+    try:
+        base = "http://%s:%d" % srv.address
+
+        def call(path, payload=None):
+            data = None if payload is None else json.dumps(payload).encode()
+            req = urllib.request.Request(base + path, data=data)
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status, resp.read()
+
+        for name, (_props, rows) in families.items():
+            sent = read_lines(rows)[:5]
+            status, body = call("/score", {"model": name, "rows": sent})
+            if status != 200 or json.loads(body)["results"] != \
+                    replayed[name][:5]:
+                raise AssertionError(f"HTTP /score {name}: {status} {body!r}")
+        status, body = call("/healthz")
+        health = json.loads(body)
+        if status != 200 or sorted(health["models"]) != sorted(families):
+            raise AssertionError(f"/healthz {status} {health}")
+        status, body = call("/stats")
+        stats = json.loads(body)
+        if status != 200 or any(stats[m]["requests"] != 5 or
+                                stats[m].get("recompiles", 0) != 0
+                                for m in families):
+            raise AssertionError(f"/stats {stats}")
+        status, body = call("/metrics")
+        if status != 200 or b'process="0"' not in body:
+            raise AssertionError(f"/metrics {status}")
+        log(f"serving (b): HTTP on {base}: /score for the six models equal to "
+            f"the replays, /healthz ready, /stats 5 requests each and 0 "
+            f"recompiles, /metrics {len(body.splitlines())} lines")
+    finally:
+        srv.stop()
+        batcher.close()
+
+    # (c) a pool of two replicas on the one card, one killed mid-replay
+    rows = read_lines(hosp)[:256]
+    pool = ReplicaPool.from_conf(JobConfig({
+        **families["naiveBayes"][0], "serve.models": "naiveBayes",
+        "pool.replicas": "2", "pool.monitor.interval.ms": "40",
+        "pool.failover.retries": "1", "serve.flush.deadline.ms": "20",
+        "fault.serve.dispatch.crash.after": "2"}), device="cuda")
+    try:
+        t0 = time.perf_counter()
+        reqs = [pool.submit_nowait("naiveBayes", ln) for ln in rows]
+        got = [r.wait(120.0) for r in reqs]
+        wall = time.perf_counter() - t0
+        pstats = pool.stats()
+    finally:
+        pool.close()
+    if got != oracle["naiveBayes"][:256]:
+        raise AssertionError("pool responses differ from the batch job")
+    if pstats["pool"].get("replicas.lost") != 1 \
+            or pstats["pool"].get("failovers", 0) < 1 \
+            or pstats["naiveBayes"]["requests"] != len(rows):
+        raise AssertionError(f"pool stats {pstats}")
+    log(f"serving (c): ReplicaPool x2 on cuda:0, one replica killed at its "
+        f"2nd dispatch: {len(rows)} responses byte-identical in {wall:.3f} s, "
+        f"{pstats['pool']['failovers']} failed over, requests "
+        f"{pstats['naiveBayes']['requests']} (none lost or doubled)")
+
+    # (d) B5 alone per bucket against the 1M references
+    entry = registry.get("knn")
+    lines = read_lines(knn1m)
+    calls = []
+    inner = tk.knn_tourney
+
+    @functools.wraps(inner)            # carries the launch count over
+    def grab(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    per_bucket = {}
+    for b in SERVE_BUCKETS:
+        entry.score_lines(lines[:b], b)              # warm the shape
+        calls.clear()
+        tk.knn_tourney = grab
+        try:
+            t0 = time.perf_counter()
+            out = entry.score_lines(lines[:b], b)
+            torch_sync()
+            dispatch = (time.perf_counter() - t0) * 1e3
+        finally:
+            inner.launches = grab.launches
+            tk.knn_tourney = inner
+        if out != oracle["knn"][:b] or len(calls) != 1:
+            raise AssertionError(f"bucket {b}: {len(calls)} B5 calls")
+        (q, r), kw = calls[0][0][:2], calls[0][1]
+        got_keys, want_keys = inner(q, r, **kw), tk.knn_tourney_ref(q, r)
+        check_tourney(q, r, got_keys, want_keys, f"serve bucket {b}")
+        per_bucket[b] = {"b5_ms": time_ms(lambda: inner(q, r, **kw), 10),
+                         "dispatch_ms": round(dispatch, 3),
+                         "q_rows": q.shape[0], "refs": r.shape[0]}
+        log(f"serving (d): bucket {b}: B5 {per_bucket[b]['b5_ms']:.4f} ms "
+            f"over {q.shape[0]} padded query rows x {r.shape[0]} refs, the "
+            f"whole dispatch {dispatch:.3f} ms")
+    log(json.dumps({"serving": stats_line, "b5_per_bucket": per_bucket,
+                    "card": card_line()}))
+    return launches
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+
+
 def knn_path_cases(rec: Recorder, used: dict) -> list:
     """Phase 9: B5 and B6 against their plain versions on every call the
     kNN paths made on cuda; the first call of each path and shape is timed
@@ -3512,6 +3991,7 @@ def main(argv=None) -> int:
         wide = wide_tree_phase(hist, rec)
         b1_pipe = pipeline_phase(rec, work, train, schema, walls)
         traced = telemetry_phase(work, train, schema, b4_tree, walls)
+        b1_plan = planner_phase(rec, work, train, test, schema, walls)
         b1_corr = correlation_phase(rec, work, train, schema, walls)
         b4_forest = families_phase(rec, work, train, schema, walls)
         bandit_text_phase(work, train, schema, walls)
@@ -3522,6 +4002,9 @@ def main(argv=None) -> int:
         b5 = knn_job_phase(rec, work, used, walls)
         b6 = knn_small_phase(rec, work, used, walls)
         b5.update(knn_qps_phase(rec, used))
+        served = serving_phase(rec, work, test, schema, used, walls)
+        b5["serve_knn_1m"] = served["serve_knn_1m"]
+        b6["serve_knn_10k"] = served["serve_knn_10k"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     all_cases += knn_path_cases(rec, used)
@@ -3536,7 +4019,8 @@ def main(argv=None) -> int:
                      src + "cooc_pair.cu", at + "283",
                      {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
                       "pipeline_traced": traced["pipeline_traced"],
-                      "pipeline_xla": traced["pipeline_xla"], **b1_corr},
+                      "pipeline_xla": traced["pipeline_xla"], **b1_corr,
+                      **b1_plan},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},

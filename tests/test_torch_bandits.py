@@ -315,3 +315,46 @@ def test_price_optimize_loop_byte_identical(tmp_path, job, props, n_rounds,
             if abs(p.prices.index(int(price)) - int(np.argmax(p.mean_revenue))) <= 1:
                 n_good += 1
         assert n_good >= int(0.75 * len(sim.products))
+
+
+# ---------------------------------------------------------------------------
+# Queue 3 faults 3 and 4: near-ties that XLA's float32 ``log`` decides.
+# The port keeps the correctly rounded value; these pin where the two
+# packages part, so a change on either side shows.
+# ---------------------------------------------------------------------------
+
+def test_pin_ucb1_near_tie_parts_at_xlas_float32_log():
+    """Counts (3, 4), so t = 7, average rewards (0.8474056, 1.0): XLA's
+    float32 log 7 is 1.9459102, the correctly rounded one 1.9459101, and
+    the two bonuses tie within that ulp — the JAX package selects arm 0,
+    the port arm 1."""
+    counts = np.array([[3, 4]], np.float32)
+    rewards = np.array([[0.8474056, 1.0]], np.float32)
+    valid = np.ones((1, 2), bool)
+    assert np.float32(np.log(np.float64(7.0))) == np.float32(1.9459101)
+    assert np.float32(jax.numpy.log(jax.numpy.float32(7.0))) == np.float32(1.9459102)
+    want = jb.ucb1_select(None, jax.numpy.asarray(counts),
+                                jax.numpy.asarray(rewards), jax.numpy.asarray(valid))
+    got = tb.ucb1_select(None, *_t(counts, rewards, valid))
+    assert np.asarray(want).tolist() == [0]
+    assert got.tolist() == [1]
+
+
+def test_pin_softmax_near_tie_parts_at_gumbel_float32_log():
+    """``PRNGKey(11)``, counts (1, 1), rewards (0.06529637, 1.0), τ = 1:
+    the uniform bits are equal, the gumbel values differ in the last
+    float32 place (the port's log is taken in float64 and rounded once),
+    and the draw parts — the JAX package selects arm 1, the port arm 0."""
+    counts = np.array([[1, 1]], np.float32)
+    rewards = np.array([[0.06529637, 1.0]], np.float32)
+    valid = np.ones((1, 2), bool)
+    g = prng.gumbel(prng.prng_key(11), (1, 2))
+    jg = np.asarray(jax.random.gumbel(jax.random.PRNGKey(11), (1, 2)))
+    assert np.abs(g - jg).max() <= 1e-6
+    want = jb.softmax_select(jax.random.PRNGKey(11),
+                                   jax.numpy.asarray(counts), jax.numpy.asarray(rewards),
+                                   jax.numpy.asarray(valid), 1.0)
+    got = tb.softmax_select(prng.prng_key(11),
+                                 *_t(counts, rewards, valid), 1.0)
+    assert np.asarray(want).tolist() == [1]
+    assert got.tolist() == [0]

@@ -13,7 +13,9 @@ against the CPU; RandomForest's B4 calls against the plain version and
 its trees against the CPU forest; Viterbi (scan and assoc) and logistic
 regression on ``cuda`` against the CPU; the bandit selections,
 ``WordCount`` and NumericalAttrStats on ``cuda`` against the CPU (no
-kernel of their own: plain torch ops on the card).
+kernel of their own: plain torch ops on the card); a planned pipeline on
+the kernel route against the staged run, and a ``KNNServable`` on
+``cuda`` against the CPU and against its own rows scored alone.
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -955,3 +957,92 @@ def test_numerical_attr_stats_on_the_card_equals_cpu(cuda, tmp_path):
             assert fa[:3] == fb[:3] and fa[-2:] == fb[-2:]
             np.testing.assert_allclose([float(v) for v in fa[3:-2]],
                                        [float(v) for v in fb[3:-2]], rtol=1e-12)
+
+
+@pytest.mark.cuda
+def test_planned_pipeline_on_the_card_equals_staged(cuda, tmp_path):
+    """``plan.on`` on cuda: NB | a non-fusable stage | MI | Cramér (whose
+    ``uses`` edge names the NB model) becomes one scan unit on the kernel
+    route (B1 once a chunk, no pack question), and its part files equal
+    the staged run's on cuda and the planned run's on the CPU."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.pipeline import plan as plan_mod
+    from avenir_tpu_torch.pipeline.driver import Pipeline, Stage
+    from avenir_tpu_torch.utils.metrics import Counters
+
+    write_csv(str(tmp_path / "train.csv"), generate_hosp_readmit(60_000,
+                                                                 seed=4))
+    (tmp_path / "hosp.json").write_text(json.dumps(HOSP_SCHEMA_JSON))
+
+    def marker(conf, in_path, out_path):
+        import pathlib
+
+        pathlib.Path(out_path).mkdir(parents=True, exist_ok=True)
+        pathlib.Path(out_path, "part-00000").write_text("marker\n")
+        return Counters()
+
+    def build(ws, dev, plan_on):
+        p = Pipeline(str(tmp_path / ws), JobConfig({
+            "feature.schema.file.path": str(tmp_path / "hosp.json"),
+            "stream.chunk.rows": "20000", "plan.on": plan_on}), device=dev)
+        p.add(Stage("nb", "BayesianDistribution", "data", "nb_model"))
+        p.add(Stage("marker", marker, "data", "marker_out"))
+        p.add(Stage("mi", "MutualInformation", "data", "mi_out"))
+        p.add(Stage("cramer", "CramerCorrelation", "data", "cramer_out",
+                    props={"dest.attributes": "11"}, uses=("nb_model",)))
+        p.bind("data", str(tmp_path / "train.csv"))
+        return p
+
+    launches, parts = {}, {}
+    for ws, dev, plan_on in (("staged", "cuda", "false"),
+                             ("planned", "cuda", "true"),
+                             ("planned_cpu", "cpu", "true")):
+        p = build(ws, dev, plan_on)
+        if ws == "planned":
+            unit = plan_mod.plan_pipeline(p).scan_units[0]
+            assert unit.program == "kernel" and unit.pack_source == "aot"
+            assert unit.rewrites == ["fuse", "share-gram"]
+            assert unit.pack_on is None
+        hist.cooc_counts_cols.launches = 0
+        p.run()
+        launches[ws] = hist.cooc_counts_cols.launches
+        parts[ws] = {a: (tmp_path / ws / a / "part-00000").read_bytes()
+                     for a in ("nb_model", "mi_out", "cramer_out")}
+    assert launches == {"staged": 3, "planned": 3, "planned_cpu": 0}
+    assert parts["planned"] == parts["staged"] == parts["planned_cpu"]
+
+
+@pytest.mark.cuda
+def test_knn_servable_on_the_card_equals_cpu_and_its_bucket(cuda, tmp_path):
+    """``KNNServable`` on cuda over 20,000 elearn references (B5, one
+    launch per dispatch): a row scored alone and in a full bucket of 64
+    gives the same bytes, and the responses equal the CPU servable's but
+    for rows the exact scan served on either device."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.datagen.elearn import ELEARN_SCHEMA_JSON, generate_elearn
+    from avenir_tpu_torch.serving.registry import KNNServable
+
+    rows = generate_elearn(20_064, seed=9)
+    write_csv(str(tmp_path / "train.csv"), rows[:20_000])
+    (tmp_path / "elearn.json").write_text(json.dumps(ELEARN_SCHEMA_JSON))
+    lines = [",".join(str(v) for v in r) for r in rows[20_000:]]
+    conf = JobConfig({"feature.schema.file.path": str(tmp_path / "elearn.json"),
+                      "training.data.path": str(tmp_path / "train.csv"),
+                      "top.match.count": "10", "kernel.function": "gaussian"})
+    out, fell = {}, {}
+    for dev in ("cuda", "cpu"):
+        entry = KNNServable.from_conf(conf, device=dev)
+        tk.knn_tourney.launches = 0
+        full = entry.score_lines(lines, 64)
+        fell[dev] = set(mknn._nearest_neighbors_kernel.last_fallback.tolist())
+        assert tk.knn_tourney.launches == (dev == "cuda")
+        if dev == "cuda":
+            alone = [entry.score_lines([ln], 1)[0] for ln in lines[:16]]
+            assert alone == full[:16]
+            assert tk.knn_tourney.launches == 17
+        out[dev] = full
+    differ = {i for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"]))
+              if a != b}
+    assert differ <= fell["cuda"] | fell["cpu"]

@@ -195,7 +195,15 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.telemetry.slo, "
             "avenir_tpu_torch.telemetry.sentinel, "
             "avenir_tpu_torch.telemetry.__main__, "
-            "avenir_tpu_torch.utils.profiling\n"
+            "avenir_tpu_torch.utils.profiling, "
+            "avenir_tpu_torch.pipeline.plan, avenir_tpu_torch.serving, "
+            "avenir_tpu_torch.serving.errors, "
+            "avenir_tpu_torch.serving.registry, "
+            "avenir_tpu_torch.serving.batcher, "
+            "avenir_tpu_torch.serving.pool, "
+            "avenir_tpu_torch.serving.frontend, "
+            "avenir_tpu_torch.serving.replay, "
+            "avenir_tpu_torch.serving.__main__\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -230,7 +238,11 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                 "telemetry/profile.py", "telemetry/export.py",
                 "telemetry/slo.py", "telemetry/sentinel.py",
                 "telemetry/__init__.py", "telemetry/__main__.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "pipeline/plan.py",
+                "serving/__init__.py", "serving/errors.py",
+                "serving/registry.py", "serving/batcher.py",
+                "serving/pool.py", "serving/frontend.py",
+                "serving/replay.py", "serving/__main__.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"

@@ -190,7 +190,12 @@ def test_cli_runs_the_pipeline_on_the_cpu_in_a_subprocess(env, tmp_path):
     assert _parts(ws) == parts
 
 
-def test_cli_arguments_and_the_plan_verb(env):
+def test_cli_arguments_and_the_plan_verb(env, tmp_path, capsys):
+    """The argument parser, and the ``plan`` verb printing the planner's
+    explain: its tree is the JAX package's verb's, line for line, but for
+    the program and cost line and the timed pack choice."""
+    from avenir_tpu.pipeline.__main__ import main as jax_pipeline_main
+
     assert parse_args(["run", "c.properties", "-Da=1", "--resume",
                        "--device", "cpu"]) == (
         "run", "c.properties", {"a": "1"}, True, "cpu")
@@ -198,20 +203,31 @@ def test_cli_arguments_and_the_plan_verb(env):
         "plan", "c.properties")
     with pytest.raises(SystemExit):
         parse_args(["run", "c.properties", "--bogus"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        pipeline_main(["plan", "c.properties"])
+    conf = tmp_path / "plan.properties"
+    conf.write_text("\n".join(f"{k}={v}" for k, v in _props(env).items()))
+    assert pipeline_main(["plan", "explain", str(conf), "--device", "cpu",
+                          "-Ddata.parallel.auto=false"]) == 0
+    port = capsys.readouterr().out.splitlines()
+    assert jax_pipeline_main(["plan", str(conf),
+                              "-Ddata.parallel.auto=false"]) == 0
+    jax_ = capsys.readouterr().out.splitlines()
+    assert port[0] == "PlanGraft: 2 stage(s) -> 1 unit(s)"
+    # the pack rewrite is each package's own timing decision
+    assert [ln.replace(", pack", "") for ln in port if "program:" not in ln] \
+        == [ln.replace(", pack", "") for ln in jax_ if "program:" not in ln]
 
 
 REFUSED = {
-    "plan": {"plan.on": "true"},
     "shard": {"shard.devices": "2"},
     "tenant": {"tenant.alpha.share": "2"},
     "tenant pool": {"avenir.tenant.pool.concurrency": "2"},
     "stage shard": {"pipeline.stage.mi.prop.shard.data.axis": "data"},
     "stage tenant": {"pipeline.stage.mi.prop.tenant.queue.depth": "4"},
 }
-# keys the pipeline refused until the port's telemetry honoured them
+# keys the pipeline refused until the port's telemetry and planner
+# honoured them
 HONOURED = {
+    "plan": {"plan.on": "true"},
     "trace": {"trace.on": "true"},
     "profile": {"profile.on": "true"},
     "tenant id": {"tenant.id": "alpha"},
