@@ -8,6 +8,10 @@ CUDA kernel (``csrc/``, built on first use by ``ops/_build.py``).
 Layers, entry point first:
 
   ``__main__`` / ``jobs``   the CLI contract (NB, MI, tree and kNN jobs)
+  ``stream``                windowed analytics (``StreamAnalytics``), drift,
+                            refit and hot swap into ``serving``
+  ``tenancy``               the arbiter every fold and serving dispatch
+                            draws a slot from under ``tenant.*`` contracts
   ``models``                NaiveBayes, MutualInformation, DecisionTree, KNN
   ``ops``                   count tensors (``agg``), statistics (``info``),
                             the co-occurrence grams (``hist``), the kNN

@@ -105,3 +105,15 @@ def get_job(name: str) -> Job:
         raise ValueError(
             f"unknown job {name!r}; known: "
             f"{sorted(k for k in REGISTRY if '.' not in k)}") from None
+
+
+# the continuous-analytics plane's replay stage.  A bare MODULE import,
+# placed last: stream/job.py registers itself into REGISTRY/JOB_CLASSES at
+# the end of its own body, which is the only wiring that survives every
+# entry point of the import cycle — jobs-first (this line triggers the
+# registration), stream-first (stream/job.py is mid-import above us on the
+# stack, so this line binds the partial module without touching its
+# names, and the registration runs when its body completes).  A
+# ``from ... import StreamAnalytics`` here would crash any stream-first
+# import.
+import avenir_tpu_torch.stream.job  # noqa: E402,F401

@@ -33,22 +33,6 @@ from avenir_tpu_torch.utils.metrics import Counters
 PART_FILE = "part-00000"
 
 
-def refused_tenant_key(conf: JobConfig) -> Optional[str]:
-    """Why the port cannot run this conf's tenancy, or None.  ``tenant.id``
-    alone is a label (the JAX package's arbiter is a no-op without a
-    contract); any other ``tenant.*`` key — a ``tenant.<id>.*`` contract,
-    ``tenant.pool.concurrency``, ``tenant.queue.*``, bare or under the
-    conf's prefix — asks for the arbiter, which is not ported."""
-    pref = conf.prefix + "."
-    bare = {k: k[len(pref):] if k.startswith(pref) else k for k in conf.props}
-    keys = sorted(k for k, b in bare.items()
-                  if b.startswith("tenant.") and b != "tenant.id")
-    if not keys:
-        return None
-    return (f"{keys[0]} is not ported yet (the tenancy arbiter, tenancy/: "
-            f"ROADMAP.md, Queue 1 item 7f)")
-
-
 def input_files(path: str) -> List[str]:
     """Resolve a job input path (file, or dir of part files) to a file list;
     directory reads skip hidden files and ``_SUCCESS`` markers."""
@@ -118,18 +102,19 @@ class Job:
         """Run the job under the conf's telemetry, as the JAX package's
         ``Job.run``: ``trace.*`` / ``profile.*`` / ``blackbox.*``
         configure the tracer, the profiler and the flight recorder;
-        ``tenant.id`` labels every event and names the journal shard.  A
-        ``tenant.*`` contract key is refused before anything is written
-        (:func:`refused_tenant_key`)."""
+        ``tenant.id`` labels every event and names the journal shard, and
+        ``tenant.<id>.*`` contracts arm the tenancy arbiter
+        (``tenancy.configure``; a malformed contract raises ConfigError
+        before anything is written), so the job's ``ChunkFolder`` folds
+        (a stream's panes) and serving dispatches draw arbitrated slots
+        under its tenant."""
+        from avenir_tpu_torch import tenancy
         from avenir_tpu_torch.telemetry import blackbox
         from avenir_tpu_torch.telemetry import profile as _profile
         from avenir_tpu_torch.telemetry import spans as tel
 
-        why = refused_tenant_key(conf)
-        if why is not None:
-            raise NotImplementedError(f"{self.name or type(self).__name__}: "
-                                      f"{why}")
         self.device = resolve_device(device)
+        tenancy.configure(conf)
         tracer = tel.configure(conf)
         counters = Counters()
         name = self.name or type(self).__name__

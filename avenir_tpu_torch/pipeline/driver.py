@@ -1,6 +1,7 @@
 """In-process pipeline driver — port of ``avenir_tpu/pipeline/driver.py``
-(the staged loop and the planner's route, without the tenancy arbiter and
-the shard topology, whose keys it refuses).
+(the staged loop and the planner's route, with the tenancy arbiter's
+``tenant.*`` contracts, without the shard topology, whose keys it
+refuses).
 
 The reference's multi-stage pipelines are shell scripts staging files
 through HDFS (resource/knn.sh:16-137).  Here a :class:`Pipeline` is an
@@ -31,23 +32,19 @@ from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.utils.metrics import Counters
 
 # the shard.* topology changes what the JAX package executes; the port
-# refuses it before any stage runs rather than run without it.  Every
-# tenant.* key but tenant.id (a label) is refused by
-# jobs.base.refused_tenant_key.
+# refuses it before any stage runs rather than run without it
 _SHARD_ITEM = "the shard.* topology, parallel/: ROADMAP.md, Queue 1 item 7g"
 
 
 def refused_key(conf: JobConfig) -> Optional[str]:
     """Why the port cannot run this conf, naming the first refused key
     and the ROADMAP.md item that will honour it, or None: any ``shard.*``
-    key, or a ``tenant.*`` key other than ``tenant.id``."""
-    from avenir_tpu_torch.jobs.base import refused_tenant_key
-
+    key."""
     shard = sorted(k for k in conf.props
                    if k.startswith(("shard.", f"{conf.prefix}.shard.")))
     if shard:
         return f"{shard[0]} is not ported yet ({_SHARD_ITEM})"
-    return refused_tenant_key(conf)
+    return None
 
 
 @dataclass
@@ -226,7 +223,14 @@ class Pipeline:
         from avenir_tpu_torch.telemetry import profile as _profile
         from avenir_tpu_torch.telemetry import spans as tel
 
+        from avenir_tpu_torch import tenancy
+
         self.device = resolve_device(self.device)
+        # arm the device arbiter from tenant.* contracts (a no-op without
+        # them; a malformed one raises before anything is written) and run
+        # the whole pipeline as this conf's tenant: every stage's chunk
+        # folds, fused or not, draw slots under it
+        tenancy.configure(self.conf)
         tracer = tel.configure(self.conf)
         tenant = self.conf.get("tenant.id")
         run_attrs = {"workspace": self.workspace, "stages": len(todo),

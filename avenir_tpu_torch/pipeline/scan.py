@@ -1,7 +1,7 @@
 """SharedScan — one encode and one gram pass serving every count job of a
 pipeline; port of ``avenir_tpu/pipeline/scan.py`` (the NB, MI, correlation,
-Fisher and moments consumers and the planner's seams, without the mesh
-routes and the stream windows' restore).
+Fisher and moments consumers, the planner's seams and the stream windows'
+restore check, without the mesh routes).
 
 The reference runs one MapReduce Tool per statistic, each rescanning the
 dataset.  Here the stages that read one artifact share:
@@ -330,12 +330,17 @@ class ChunkFolder:
         """One chunk's device pass and its 64-bit host accumulation into
         ``acc`` (which waits for the device once per chunk), inside a
         ``blackbox.watchdog_guard`` (one attribute check when
-        ``blackbox.watchdog.sec`` is unset).  The JAX package also takes
-        a tenancy slot here; the port has no arbiter (ROADMAP.md, Queue 1
-        item 7f)."""
+        ``blackbox.watchdog.sec`` is unset) and a tenancy slot: batch
+        SharedScan chunks and stream panes both pass here, so one arbiter
+        hook fair-queues both against every other tenant on the card.
+        The slot covers the launch and the wait for the device, so it is
+        held as long as the card works for the tenant.  Un-tenanted runs
+        get the shared null context; a tenant past its queue share raises
+        the typed ``TenantShedError`` to its own workload."""
+        from avenir_tpu_torch import tenancy
         from avenir_tpu_torch.telemetry import blackbox
 
-        with blackbox.watchdog_guard("fold"):
+        with blackbox.watchdog_guard("fold"), tenancy.pool().slot():
             self._fold(ds, acc)
 
     def _fold(self, ds: EncodedDataset, acc: agg.Accumulator) -> None:
@@ -376,6 +381,33 @@ class ChunkFolder:
             acc.add("cont_count", moments[0])
             acc.add("cont_sum", moments[1])
             acc.add("cont_sumsq", moments[2])
+
+    @property
+    def g_suffix(self) -> str:
+        """The mesh qualifier this folder's gram key carries: always ""
+        in the port, which folds unsharded (the ``shard.*`` mesh routing
+        is ROADMAP.md, Queue 1 item 7g).  A pane snapshot records it as
+        its writing topology."""
+        return ""
+
+    def state_matches_routing(self, state: Dict[str, Any]) -> bool:
+        """Does a persisted accumulator-state mapping use THIS folder's
+        key family?  False means folding it with fresh panes would mix
+        key families, and the restore seam refuses it.  Catches a
+        kernel↔einsum routing crossing in both directions — gram state
+        written on ``cuda`` (``g:…``) landing on the CPU's einsum
+        routing, and einsum ``fc`` counts landing on a gram routing
+        (where :meth:`tables`' gram-first read-out would ignore them) —
+        and a packed gram under another key than this folder's.  The
+        JAX package's ``adopt_state``, which redistributes such state
+        under ``shard.reshard.on.restore``, waits with the mesh (7g,
+        7h): that gate is a ``shard.*`` key, which
+        ``pipeline/driver.py::refused_key`` refuses."""
+        gram = [k for k in state
+                if isinstance(k, str) and k.startswith("g:")]
+        if self.step == "einsum":
+            return not gram
+        return "fc" not in state and all(k == self.gk for k in gram)
 
     def tables(self, acc: agg.Accumulator, rows: int) -> ScanTables:
         """The shared totals from an accumulator this folder filled; an

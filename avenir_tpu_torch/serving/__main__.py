@@ -10,9 +10,11 @@ CUDA it raises), warms every (model, bucket) shape and serves HTTP on
 (or ``pool.autoscale.on``) set the plane is a
 :class:`~avenir_tpu_torch.serving.pool.ReplicaPool` on the one card.
 
-Refused before the port is bound, each naming its ROADMAP.md item: a
-``tenant.<id>.*`` contract (the tenancy arbiter, Queue 1 item 7f) and
-``serve.request.queue`` (the Redis transport, Queue 1 item 7h).
+``tenant.<id>.*`` contracts arm the tenancy arbiter before anything is
+loaded: a plane with ``tenant.id`` then draws arbitrated dispatch slots
+and sheds tenant-scoped 429s with ``Retry-After``.  Refused before the
+port is bound, naming its ROADMAP.md item: ``serve.request.queue`` (the
+Redis transport, Queue 1 item 7h).
 
 Runs until interrupted or sent SIGTERM; stats print once on shutdown.
 """
@@ -43,8 +45,8 @@ def main(argv: List[str]) -> int:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    from avenir_tpu_torch import tenancy
     from avenir_tpu_torch.device import resolve_device
-    from avenir_tpu_torch.jobs.base import refused_tenant_key
     from avenir_tpu_torch.serving.batcher import BucketedMicrobatcher
     from avenir_tpu_torch.serving.frontend import (
         ScoreHTTPServer,
@@ -59,11 +61,11 @@ def main(argv: List[str]) -> int:
         if not eq or not key.strip():
             ap.error(f"-D expects KEY=VALUE, got {item!r}")
         conf.set(key.strip(), value.strip())
-    # refused before anything is bound or loaded: the JAX package arms
-    # its tenancy arbiter here, and serves a Redis list pair
-    why = refused_tenant_key(conf)
-    if why is not None:
-        raise NotImplementedError(f"serving: {why}")
+    # arm the tenant arbiter from tenant.* contracts (a no-op without
+    # them; a malformed one raises before anything is bound or loaded)
+    tenancy.configure(conf)
+    # refused before anything is bound or loaded: the JAX package serves
+    # a Redis list pair here
     if conf.get("serve.request.queue"):
         redis_score_frontend(None)         # raises: ROADMAP 7h
     device = resolve_device(args.device)

@@ -33,11 +33,13 @@ fails with the retryable :class:`ReplicaDownError`) and
 ``serve.heartbeat`` (the dispatcher wedges silently until the pool's
 heartbeat deadline reaps its queue).
 
-``tenant.id`` is a label: the dispatcher journals under it and a door
-shed names it.  The JAX package also draws a tenancy arbiter slot around
-each dispatch; the port has no arbiter (ROADMAP.md, Queue 1 item 7f), so
-that slot is a null context and ``tenant.<id>.*`` contracts are refused
-before the batcher starts (``jobs/base.py::refused_tenant_key``).
+``tenant.id`` names the tenant the plane belongs to: the dispatcher
+journals under it, a door shed names it and carries the queue's drain
+estimate, and each batch dispatch draws a slot of the tenancy arbiter
+(``tenancy.pool().slot``) under the tenant's ``tenant.<id>.*`` contract,
+bounded by the request timeout and ticking the heartbeat while it waits,
+so a paced replica never reads as a wedged one.  Un-tenanted batchers
+pass through the arbiter's shared null context.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
+from avenir_tpu_torch import tenancy
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.serving.errors import (
     ReplicaDownError,
@@ -61,14 +64,11 @@ from avenir_tpu_torch.serving.registry import ModelRegistry
 from avenir_tpu_torch.telemetry import blackbox
 from avenir_tpu_torch.telemetry import profile as prof_mod
 from avenir_tpu_torch.telemetry import spans as tel
+from avenir_tpu_torch.tenancy.arbiter import (RETRY_AFTER_MAX_S,
+                                              RETRY_AFTER_MIN_S)
 from avenir_tpu_torch.utils.metrics import (Counters, LatencyTracker,
                                             serving_stats)
 from avenir_tpu_torch.utils.retry import FaultPlan, InjectedFault
-
-# the tenancy arbiter's clamp on a shed's Retry-After estimate
-# (avenir_tpu/tenancy/arbiter.py)
-RETRY_AFTER_MIN_S = 0.05
-RETRY_AFTER_MAX_S = 600.0
 
 
 class PendingRequest:
@@ -164,9 +164,11 @@ class BucketedMicrobatcher:
         # ``heartbeat`` is the dispatcher's liveness signal, updated every
         # loop wake and read by the pool's deadline checks
         self.name = name
-        # the tenant label (``tenant.id``): the dispatcher journals under
-        # it, and a door shed names it and carries the queue drain
-        # estimate the HTTP frontend renders as Retry-After
+        # the tenant this plane belongs to (``tenant.id``): the dispatcher
+        # journals under it, each batch dispatch draws an arbitrated slot
+        # under the tenant's contract, and a door shed names it and
+        # carries the queue drain estimate the HTTP frontend renders as
+        # Retry-After
         self.tenant = tenant
         self.fault = fault
         self.on_batch_ok = on_batch_ok
@@ -212,13 +214,7 @@ class BucketedMicrobatcher:
         """``kwargs`` passes through the pool's wiring (``name``, shared
         ``counters``/``latency``, the dispatch callbacks).  A ``fault``
         plan not supplied by the caller is armed from the conf's own
-        ``fault.*`` keys.  A ``tenant.*`` contract is refused before the
-        dispatcher starts (ROADMAP.md, Queue 1 item 7f)."""
-        from avenir_tpu_torch.jobs.base import refused_tenant_key
-
-        why = refused_tenant_key(conf)
-        if why is not None:
-            raise NotImplementedError(f"serving: {why}")
+        ``fault.*`` keys."""
         if "fault" not in kwargs:
             kwargs["fault"] = FaultPlan.from_conf(conf)
         if "tenant" not in kwargs:
@@ -460,11 +456,27 @@ class BucketedMicrobatcher:
         entry = self.registry.get(model)
         bucket = self._bucket_for(len(live))
         try:
-            # the JAX package draws a tenancy arbiter slot around this
-            # call; the port has no arbiter (ROADMAP.md, Queue 1 item 7f)
-            t0 = time.monotonic()
-            outs = entry.score_lines([r.line for r in live], bucket)
-            dispatch_s = time.monotonic() - t0
+            # the batch draws an arbitrated device slot under this plane's
+            # tenant contract before it scores: serve dispatches and
+            # batch/stream chunk folds share ONE fair-queued pool.  The
+            # wait is bounded by the request timeout (a tenant paced past
+            # it sheds typed rather than stranding requests) and ticks the
+            # heartbeat while queued: being paced is not being wedged
+            with tenancy.pool().slot(tenant=self.tenant or None,
+                                     timeout_s=self.request_timeout_s,
+                                     on_wait=self._beat):
+                t0 = time.monotonic()
+                outs = entry.score_lines([r.line for r in live], bucket)
+                dispatch_s = time.monotonic() - t0
+        except TenantShedError as exc:
+            # the tenant's pool share refused this batch before any row
+            # scored: fail the whole batch typed — tenant-scoped, so the
+            # other tenants' planes keep dispatching
+            self.counters.increment(group, "shed", len(live))
+            self._attribute(exc)
+            for req in live:
+                req.finish(error=exc)
+            return
         except Exception as exc:
             # typed ServingErrors are REQUEST faults (bad rows); anything
             # else is an infrastructure fault the pool's breaker counts
@@ -499,7 +511,14 @@ class BucketedMicrobatcher:
         bucket = self._bucket_for(1)
         for req in reqs:
             try:
-                outs = entry.score_lines([req.line], bucket)
+                with tenancy.pool().slot(tenant=self.tenant or None,
+                                         timeout_s=self.request_timeout_s,
+                                         on_wait=self._beat):
+                    outs = entry.score_lines([req.line], bucket)
+            except TenantShedError as exc:
+                self.counters.increment(group, "shed")
+                req.finish(error=self._attribute(exc))
+                continue
             except Exception as exc:
                 if self.on_batch_error is not None and \
                         not isinstance(exc, ServingError):
@@ -559,6 +578,13 @@ class BucketedMicrobatcher:
         self.counters.increment(group, f"bucket.{bucket}")
         if tracer.enabled:
             tracer.gauge(f"serve.queue.{model}", len(self._queues[model]))
+
+    def _beat(self) -> None:
+        """Heartbeat tick while queued on the tenancy arbiter (a float
+        store is atomic under the GIL, the contract of the per-batch
+        refresh in ``_loop``): a paced dispatcher reads as busy, never as
+        wedged, so only true silence past the deadline is a miss."""
+        self.heartbeat = time.monotonic()
 
     # -- replica failure machinery --------------------------------------------
     def _attribute(self, err: ServingError,

@@ -1,7 +1,8 @@
 """Typed serving-plane errors — port of ``avenir_tpu/serving/errors.py``,
-all eight types (the tenant-scoped shed and the worker-process error are
-raised only by the planes of ROADMAP.md, Queue 1 items 7f and 7h, and kept
-so front ends map the same codes).
+all eight types (the tenant-scoped shed is raised by the tenancy arbiter
+and a tenanted batcher's door; the worker-process error only by the
+multi-process plane of ROADMAP.md, Queue 1 item 7h, and kept so front ends
+map the same codes).
 
 Every failure mode a client can observe has its own type, so front ends map
 them to distinct transport codes (HTTP status / RESP error tag) and callers

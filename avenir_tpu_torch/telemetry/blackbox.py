@@ -451,8 +451,11 @@ class BlackBox:
     def _state_snapshot(self) -> Dict[str, Any]:
         state: Dict[str, Any] = {"watchdog": _WATCHDOG.snapshot()}
         state.update(_provider_snapshot("state"))
-        # no tenancy arbiter in the port (ROADMAP.md, Queue 1 item 7f)
-        state["arbiter"] = None
+        from avenir_tpu_torch import tenancy
+
+        pool = tenancy.pool()
+        state["arbiter"] = {"stats": pool.stats(),
+                            "queues": pool.queue_depths()}
         return state
 
     @staticmethod

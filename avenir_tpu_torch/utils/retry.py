@@ -205,13 +205,15 @@ class FaultPlan:
       on its N-th loop wake: the thread exits without finishing pending
       work, so the pool's heartbeat deadline has to catch it;
     - ``fault.fold.crash.after``, ``fault.checkpoint.save.crash.after``,
-      ``fault.checkpoint.restore.crash.after`` — the stream plane's sites
-      (``StreamAnalytics``, ROADMAP.md, Queue 1 item 7e); no port seam
-      consults them yet, as no serving seam of the JAX package does.
-
-    ``fault.tenant.flood.after`` arms the tenancy arbiter's noisy-tenant
-    drill, which the port does not have: :meth:`from_conf` refuses it
-    before anything runs (ROADMAP.md, Queue 1 item 7f).
+      ``fault.checkpoint.restore.crash.after`` — the stream plane's sites:
+      ``stream/windows.py`` hits ``fold`` at each non-empty pane before
+      it folds, ``WindowCheckpointer`` hits the two checkpoint sites
+      before a save or a restore (``StreamAnalytics`` shares one plan
+      among the three);
+    - ``fault.tenant.flood.after`` — the noisy-tenant drill: fire on a
+      tenant workload's N-th pacing boundary.  Parsed as the JAX package
+      parses it; only the JAX package's ``benchmarks/tenancy_soak.py``
+      drives that site, so no port seam hits it.
 
     Each firing journals ``fault.injected`` (site, 1-based hit number).
     Counts are per plan; a replica pool shares one plan across its
@@ -235,11 +237,6 @@ class FaultPlan:
 
     @classmethod
     def from_conf(cls, conf) -> Optional["FaultPlan"]:
-        if conf.get_int("fault.tenant.flood.after", 0):
-            raise NotImplementedError(
-                "fault.tenant.flood.after is not ported yet (the tenancy "
-                "arbiter's noisy-tenant drill, tenancy/: ROADMAP.md, "
-                "Queue 1 item 7f)")
         sched = {
             "fold": conf.get_int("fault.fold.crash.after", 0) or 0,
             "checkpoint.save":
@@ -250,6 +247,8 @@ class FaultPlan:
                 conf.get_int("fault.serve.dispatch.crash.after", 0) or 0,
             "serve.heartbeat":
                 conf.get_int("fault.serve.heartbeat.crash.after", 0) or 0,
+            "tenant.flood":
+                conf.get_int("fault.tenant.flood.after", 0) or 0,
         }
         plan = cls(sched)
         return plan if plan.schedule else None

@@ -251,11 +251,33 @@ Phases, in order; any failure exits non-zero:
     references (CUDA events) beside the whole dispatch; one JSON line of
     requests/s, p50/p99 ms and launches per model. Its B5/B6 calls are
     held in phase 9;
-13. print a ``walls_s`` JSON line (the native encoder's build, native
-    against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b and 12c's
-    walls) with the card's name and power limit, then the kernels' JSON
-    line (B1's and B4's launches also by phase 12's traced paths, B1's by
-    12b's planned paths, B5's and B6's by 12c's serving paths), its numbers
+13. (after 12c, whose replay it reads; ~70 s) the stream plane and the
+    tenancy arbiter on the card: (a) ``StreamAnalytics`` over phase 3's
+    1M-row CSV in 65,536-row panes, windows of 4 panes sliding by 1, the
+    four consumers and a drift threshold, on cuda (B1 33: 17 warmed
+    buckets, all ballast, and 16 panes, the ragged tail on the 32,768
+    bucket) and on the CPU: part files byte-identical, 13 windows, 0
+    recompiles, the pane-close p50/p99 printed; (b) killed after pane 10
+    and by ``fault.fold.crash.after``, each resumed byte-identical to (a)
+    from its restored window, and a cuda snapshot refused with
+    ``--device cpu``; (c) every B1 call of (a) held against its plain
+    version (phase 6's path cases, after 13), listed per bucket as
+    ``stream_buckets`` in B1's entry; (d) drift → retrain → swap of a
+    served tree (B4 a level) and NB model over a stream whose class the
+    script swaps halfway: version bumped, the refit equal to the batch
+    job's, a request before the swap answered by the old model and one
+    after by the new; (e) two tenants side by side, the NB + MI pipeline
+    under ``tenant.batch`` (B1) and a kNN replay over 1M references under
+    ``tenant.online`` (B5), each byte-identical to its untenanted run,
+    granted + shed = submitted per tenant, and a queue-depth shed of
+    batch that leaves online whole;
+14. print a ``walls_s`` JSON line (the native encoder's build, native
+    against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c and
+    13's walls) with the card's name and power limit, then the kernels'
+    JSON line (B1's and B4's launches also by phase 12's traced paths,
+    B1's by 12b's planned paths and 13's stream and tenant paths, B4's by
+    13's tree refit, B5's and B6's by 12c's serving paths and B5's by
+    13's tenant path), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
     hospital tree's deepest level, with the forest's launches and its
@@ -2660,7 +2682,8 @@ def bandit_text_phase(work: str, train: str, schema: str, walls: dict) -> None:
 def path_cases(hist, rec: Recorder) -> list:
     """Phase 6: each kernel against its plain version, exactly, on every
     input the driven paths gave it on cuda; the first call of each path and
-    shape is timed with its plain version, yardstick and bound.  The bound
+    shape (and, apart, the first whose rows are all ballast) is timed with
+    its plain version, yardstick and bound.  The bound
     counts this data's work: the rows that carry a valid label (selector)
     and at least one valid code, which leaves out a tree's settled rows."""
     import torch
@@ -2690,8 +2713,11 @@ def path_cases(hist, rec: Recorder) -> list:
                                  f"{label}: max |diff| {err}")
         row = {"kernel": kid, "path": path, "call": i, "case": label, "n": n,
                "max_abs_err": err}
-        if (path, shape, n) not in timed:
-            timed.add((path, shape, n))
+        # a call whose every row is ballast (a stream's warm pane) is timed
+        # apart from a call of real rows at the same shape
+        ballast = not bool(((vec >= 0) & (vec < k)).any())
+        if (path, shape, n, ballast) not in timed:
+            timed.add((path, shape, n, ballast))
             big = n >= 1_000_000
             row["ms"] = time_ms(lambda: fn(codes, vec, b, k),
                                 iters=10 if big else 20)
@@ -3724,6 +3750,456 @@ def serving_phase(rec: Recorder, work: str, test: str, schema: str,
     return launches
 
 
+# phase 13: the stream plane and the tenancy arbiter on phase 3's CSV
+STREAM_PROPS = {"stream.pane.rows": "65536", "stream.window.panes": "4",
+                "stream.slide.panes": "1",
+                "stream.consumers": "classDistribution,naiveBayes,"
+                                    "mutualInfo,cramer",
+                "stream.drift.threshold": "0.01"}
+STREAM_PANES = -(-ROWS_E2E // 65_536)                    # 15 full + a tail
+STREAM_BUCKETS = 17                                      # 1, 2, ..., 65,536
+DRIFT_PANE_ROWS = 8192
+
+
+def counter_or_0(out: str, name: str) -> int:
+    """A counter the job prints only when it is not zero."""
+    return counter(out, name) if f"\t{name}=" in out else 0
+
+
+def stream_argv(schema: str, *extra) -> list:
+    return ["StreamAnalytics", f"-Dfeature.schema.file.path={schema}",
+            *[f"-D{k}={v}" for k, v in STREAM_PROPS.items()], *extra]
+
+
+@contextlib.contextmanager
+def pane_timer(out: list):
+    """Record the wall of every ``WindowedScan.close_pane`` (encode, pad,
+    fold, window merge and finalize, the window's lines) while on; the
+    fold's host accumulation waits for the card, so each is synced."""
+    from avenir_tpu_torch.stream import windows
+
+    inner = windows.WindowedScan.close_pane
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return inner(self)
+        finally:
+            out.append((time.perf_counter() - t0) * 1e3)
+
+    windows.WindowedScan.close_pane = timed
+    try:
+        yield out
+    finally:
+        windows.WindowedScan.close_pane = inner
+
+
+def lines_from(lines: list, window: int) -> list:
+    """A StreamAnalytics part file's lines from window ``window`` on."""
+    first = next(i for i, ln in enumerate(lines)
+                 if ln.startswith(f"w={window},panes="))
+    return lines[first:]
+
+
+def stream_phase(rec: Recorder, work: str, train: str, schema: str,
+                 walls: dict) -> dict:
+    """Phase 13 (a)–(c): StreamAnalytics over phase 3's 1M-row CSV; returns
+    B1's launches by path.
+
+    (a) 65,536-row panes, windows of 4 panes sliding by 1, the four
+    consumers and a drift threshold, on cuda (recorded as ``stream``:
+    17 warmed buckets and 16 panes, B1 33) and on the CPU: part files
+    byte-identical, 13 windows, 0 ``Stream`` recompiles, the pane-close
+    p50/p99 printed; (b) with ``stream.checkpoint.dir`` every 4 panes:
+    killed after pane 10 and resumed, killed by ``fault.fold.crash.after``
+    and resumed, each byte-identical to (a) from its restored window on;
+    a cuda snapshot resumed with ``--device cpu`` refused with ConfigError
+    before any output; (c) every B1 call of (a), all-ballast warm panes
+    and the ragged tail's bucket included, is held against its plain
+    version with phase 6's path cases."""
+    import numpy as np
+
+    from avenir_tpu_torch.core.config import ConfigError
+    from avenir_tpu_torch.jobs.base import read_lines
+    from avenir_tpu_torch.utils.retry import InjectedFault
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    launches, parts, pane_ms = {}, {}, []
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        with (rec.on("stream") if dev == "cuda"
+              else contextlib.nullcontext()), \
+                (pane_timer(pane_ms) if dev == "cuda"
+                 else contextlib.nullcontext()):
+            out = run_cli([*stream_argv(schema), train, j(f"stream_{dev}"),
+                           "--device", dev])
+        wall = walls[f"{dev} StreamAnalytics 1M"] = time.perf_counter() - t0
+        counts = read_counts()
+        panes, windows = counter(out, "panes"), counter(out, "windows")
+        recompiles = counter_or_0(out, "recompiles")
+        if (panes, windows, recompiles) != (STREAM_PANES, 13, 0) or \
+                counter(out, "Processed") != ROWS_E2E:
+            raise AssertionError(f"StreamAnalytics on {dev}: {panes} panes, "
+                                 f"{windows} windows, {recompiles} "
+                                 f"recompiles:\n{out}")
+        if dev == "cuda":
+            want = only(B1=STREAM_BUCKETS + STREAM_PANES)
+            if counts != want:
+                raise AssertionError(f"StreamAnalytics launched {counts}, "
+                                     f"want {want}")
+            launches["stream"] = counts["B1"]
+            ns = [args[0].shape[1] for name, p, args, _kw in rec.calls
+                  if p == "stream"]
+            want_ns = ([2 ** i for i in range(STREAM_BUCKETS)]
+                       + [65_536] * (STREAM_PANES - 1) + [32_768])
+            if ns != want_ns:
+                raise AssertionError(f"stream B1 calls at rows {ns}")
+        parts[dev] = read_lines(j(f"stream_{dev}"))
+        log(f"stream (a) on {dev}: {wall:.2f} s, "
+            f"{ROWS_E2E / wall:.0f} rows/s, {panes} panes, {windows} "
+            f"windows, 0 recompiles, launches {counts}")
+    same_bytes(j("stream_cuda", "part-00000"), j("stream_cpu", "part-00000"),
+               "StreamAnalytics")
+    drift = [ln for ln in parts["cuda"] if ",drift," in ln]
+    if len(drift) != 13 or \
+            parts["cuda"][-4] != "w=12,panes=12-15,rows=213568":
+        raise AssertionError(f"StreamAnalytics windows: {parts['cuda'][-4:]}")
+    p50, p99 = (float(np.percentile(pane_ms, q)) for q in (50, 99))
+    walls["stream pane close p50 ms"], walls["stream pane close p99 ms"] = \
+        p50, p99
+    log(f"stream (a): part files byte-identical cuda vs cpu; pane close "
+        f"p50 {p50:.1f} ms, p99 {p99:.1f} ms over {len(pane_ms)} panes "
+        f"(encode in Python, B1, merge, finalize); drift lines "
+        f"{[ln.split(',', 3)[2:] for ln in drift[-3:]]}")
+
+    # (b) kill and resume
+    ck = j("stream_ck")
+    durable = [f"-Dstream.checkpoint.dir={ck}",
+               "-Dstream.checkpoint.interval.panes=4"]
+
+    def run(tag, *extra, dev="cuda"):
+        return run_cli([*stream_argv(schema, *durable, *extra), train,
+                        j(f"stream_{tag}"), "--device", dev])
+
+    reset_counts()
+    t0 = time.perf_counter()
+    drills = (("crash", ("-Dstream.fault.crash.after.panes=10",), RuntimeError,
+               "injected crash after pane 9", 5),
+              ("fold", ("-Dfault.fold.crash.after=7",), InjectedFault,
+               "injected crash at fold boundary 7", 1))
+    for tag, extra, exc, match, first in drills:
+        expect_raise(exc, match, lambda: run(f"{tag}_x", *extra))
+        if os.path.exists(j(f"stream_{tag}_x")):
+            raise AssertionError(f"a killed stream ({tag}) left its output")
+        run(f"{tag}_r", "-Dstream.resume=true")
+        if read_lines(j(f"stream_{tag}_r")) != lines_from(parts["cuda"],
+                                                          first):
+            raise AssertionError(f"resumed stream ({tag}) differs from (a) "
+                                 f"from window {first} on")
+        if os.path.exists(ck):
+            raise AssertionError("a finished stream left its snapshots")
+    expect_raise(RuntimeError, "injected crash",
+                 lambda: run("xdev_x", "-Dstream.fault.crash.after.panes=6"))
+    msg = expect_raise(ConfigError, "was written under",
+                       lambda: run("xdev_r", "-Dstream.resume=true",
+                                   dev="cpu"))
+    if os.path.exists(j("stream_xdev_r")) or \
+            os.path.exists(j("stream_xdev_r.inprogress")):
+        raise AssertionError("a refused resume wrote output")
+    shutil.rmtree(ck)
+    walls["stream kill and resume"] = time.perf_counter() - t0
+    counts = read_counts()
+    # every run warms its 17 buckets: 27 + 25, 23 + 29, 23 and 0 (refused)
+    want = only(B1=STREAM_BUCKETS * 5 + 10 + 8 + 6 + 12 + 6)
+    if counts != want:
+        raise AssertionError(f"kill and resume launched {counts}, want {want}")
+    launches["stream_resume"] = counts["B1"]
+    log(f"stream (b): killed after pane 10 and resumed from pane 8, killed "
+        f"at fold 7 and resumed from pane 4: both byte-identical to (a) from "
+        f"their restored window on; a cuda snapshot on the cpu refused "
+        f"({msg[:120]}...); {walls['stream kill and resume']:.1f} s, "
+        f"launches {counts}")
+    return launches
+
+
+def swap_class(line: str) -> str:
+    head, _, cls = line.rpartition(",")
+    return f"{head},{'Y' if cls == 'N' else 'N'}"
+
+
+def retrain_phase(rec: Recorder, work: str, train: str, schema: str,
+                  walls: dict) -> dict:
+    """Phase 13 (d): drift → retrain → hot swap on cuda; returns B4's
+    launches by path.  Hospital rows in 8,192-row panes, windows of 2
+    panes: 4 panes as generated, then 4 whose class the script swaps.  For
+    the tree (B4 once per level of the refit) and then NB, a
+    ``DriftRetrainController`` over a served model fires on window 2,
+    refits on its rows through the port's own job and swaps: the registry
+    version bumps, a request before the swap answers as the old model's
+    batch job does and one after as the new model's, and the refit's
+    artifact equals the batch job's on the window's rows."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import Job, read_lines
+    from avenir_tpu_torch.serving import BucketedMicrobatcher, ModelRegistry
+    from avenir_tpu_torch.stream import (ClassDistributionConsumer,
+                                         DriftDetector, DriftRetrainController,
+                                         WindowedScan)
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    rows = []
+    with open(train) as fh:
+        for line in fh:
+            rows.append(line.rstrip("\n"))
+            if len(rows) == 8 * DRIFT_PANE_ROWS:
+                break
+    half = 4 * DRIFT_PANE_ROWS
+    stream = rows[:half] + [swap_class(ln) for ln in rows[half:]]
+    probe = j("drift_probe.csv")
+    with open(j("serve_hosp.csv")) as fh, open(probe, "w") as fo:
+        fo.write(fh.readline())
+    models = (("tree", "DecisionTreeBuilder", "tree.model.file.path",
+               j("cuda_tree"), "serve_tree_pred"),
+              ("naiveBayes", "BayesianDistribution",
+               "bayesian.model.file.path", j("cuda_nb"), "serve_nb_pred"))
+    launches, line = {}, {}
+    for family, job, key, model_dir, oracle in models:
+        conf = JobConfig({"feature.schema.file.path": schema, key: model_dir,
+                          "serve.models": family,
+                          "serve.bucket.sizes": "1,2,4",
+                          "serve.request.timeout.ms": "60000",
+                          "stream.retrain.model": family,
+                          "stream.retrain.dir": j(f"retrain_{family}")})
+        registry = ModelRegistry.from_conf(conf, device="cuda")
+        with BucketedMicrobatcher.from_conf(registry, conf) as batcher:
+            probe_line = read_lines(probe)[0]
+            before = batcher.submit(family, probe_line)
+            controller = DriftRetrainController(
+                conf, batcher, DriftDetector(threshold=0.01, min_windows=1,
+                                             source="class"))
+            ws = WindowedScan(Job.encoder_for(conf),
+                              [ClassDistributionConsumer(name="cd")],
+                              DRIFT_PANE_ROWS, window_panes=2,
+                              retain_rows=True, device="cuda")
+            ws.warm()
+            path = f"stream_retrain_{family}"
+            reset_counts()
+            t0 = time.perf_counter()
+            with rec.on(path):
+                fired = [(w.index, controller.on_window(w))
+                         for w in ws.feed(stream)]
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            after = batcher.submit(family, probe_line)
+        swaps = [(i, v) for i, v in fired if v is not None]
+        if swaps != [(2, 2)] or registry.version(family) != 2:
+            raise AssertionError(f"{family}: swaps {swaps}, version "
+                                 f"{registry.version(family)}")
+        stage = os.path.join(j(f"retrain_{family}"), "retrain-w2")
+        run_cli([job, f"-Dfeature.schema.file.path={schema}",
+                 os.path.join(stage, "input.csv"),
+                 j(f"retrain_batch_{family}"), "--device", "cuda"])
+        same_bytes(os.path.join(stage, "model", "part-00000"),
+                   j(f"retrain_batch_{family}", "part-00000"),
+                   f"{family} retrain against its batch job")
+        predictor = ("DecisionTreeBuilder" if family == "tree"
+                     else "BayesianPredictor")
+        run_cli([predictor, f"-Dfeature.schema.file.path={schema}",
+                 f"-D{key}={os.path.join(stage, 'model')}", probe,
+                 j(f"retrain_pred_{family}"), "--device", "cuda"])
+        if before != read_lines(j(oracle))[0] or \
+                after != read_lines(j(f"retrain_pred_{family}"))[0]:
+            raise AssertionError(f"{family}: before {before!r}, after "
+                                 f"{after!r}")
+        # the panes count classes only (no B1); the tree's refit builds
+        # one level table a level (B4), NB's counts need no kernel
+        b4 = counts["B4"]
+        if (family == "tree") != (b4 > 0) or counts != only(B4=b4):
+            raise AssertionError(f"{family} drift loop launched {counts}")
+        if b4:
+            launches.setdefault("B4", {})[path] = b4
+        line[family] = {"drift_to_swap_s": round(controller.last_swap_s, 4),
+                        "loop_wall_s": round(wall, 3), "launches": counts,
+                        "before": before.rsplit(",", 1)[-1],
+                        "after": after.rsplit(",", 1)[-1]}
+        walls[f"stream retrain {family}"] = controller.last_swap_s
+        log(f"stream (d): {family}: drift on window 2, refit on its "
+            f"{2 * DRIFT_PANE_ROWS} rows and swapped (version 2) in "
+            f"{controller.last_swap_s:.3f} s; artifact equal to the batch "
+            f"job's; the probe answered {before!r} before and {after!r} "
+            f"after; launches {counts}")
+    log(json.dumps({"drift_retrain_swap": line, "card": card_line()}))
+    return launches
+
+
+def tenancy_phase(rec: Recorder, work: str, train: str, schema: str,
+                  used: dict, walls: dict) -> dict:
+    """Phase 13 (e): two tenants on the one card (``tenant.batch.share=1``,
+    ``tenant.online.share=3``, ``tenant.online.priority=1``); returns B1's
+    and B5's launches by path.  Under ``tenant.batch`` the NB + MI pipeline
+    of phase 5b runs fused over the 1M-row CSV (B1 once a chunk, in a
+    slot), while under ``tenant.online`` a ``ScoringPlane`` kNN replay of
+    512 rows runs over phase 8a's 1M references (B5 a dispatch, in a
+    slot), both recorded as ``tenant``: each output byte-identical to its
+    untenanted run (phase 5b's fused part files, phase 12c's replay), and
+    every slot asked for granted (granted + shed = submitted, per
+    tenant).  Then a queue-depth drill: with ``tenant.batch.queue.depth=1``
+    and the card held by batch, batch's third fold raises TenantShedError
+    naming batch, while an online NB request queued beside it answers as
+    the batch job does."""
+    import threading
+
+    from avenir_tpu_torch import tenancy
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs import get_job
+    from avenir_tpu_torch.jobs.base import Job, read_lines
+    from avenir_tpu_torch.pipeline import driver, scan
+    from avenir_tpu_torch.serving import BucketedMicrobatcher, ModelRegistry
+    from avenir_tpu_torch.serving.errors import TenantShedError
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    contracts = {"tenant.batch.share": "1", "tenant.online.share": "3",
+                 "tenant.online.priority": "1"}
+    tenancy.reset()
+    pool = tenancy.configure(JobConfig(dict(contracts)))
+    try:
+        pconf = JobConfig.from_file(pipeline_conf(work, "tenant_nb_mi", train,
+                                                  schema))
+        for k, v in {**contracts, "tenant.id": "batch"}.items():
+            pconf.set(k, v)
+        knn = JobConfig({"feature.schema.file.path": j("elearn.json"),
+                         "training.data.path": j("elearn_train.csv"),
+                         "top.match.count": str(KNN_K), "serve.models": "knn",
+                         "serve.request.timeout.ms": "60000", **contracts,
+                         "tenant.id": "online"})
+        result, errors = {}, []
+
+        def batch_side():
+            try:
+                t0 = time.perf_counter()
+                p = driver.Pipeline.from_conf(
+                    pconf, workspace=j("ws_tenant"), device="cuda")
+                p.run()
+                result["batch_wall"] = time.perf_counter() - t0
+                result["batch"] = p.counters
+            except BaseException as e:          # re-raised below
+                errors.append(e)
+
+        cap = FirstCapture()
+        reset_counts()
+        t0 = time.perf_counter()
+        with rec.on("tenant"), cap.on():
+            th = threading.Thread(target=batch_side, name="tenant-batch")
+            th.start()
+            counters = get_job("ScoringPlane").run(
+                knn, j("serve_knn1m.csv"), j("tenant_knn_replay"),
+                device="cuda")
+            result["online_wall"] = time.perf_counter() - t0
+            th.join()
+        if errors:
+            raise errors[0]
+        walls["tenant concurrent"] = time.perf_counter() - t0
+        counts = read_counts()
+        used["tenant"] = cap.used
+        for a in ("nb_model", "mi_out"):
+            same_bytes(j("ws_tenant", a, "part-00000"),
+                       j("ws_fused", a, "part-00000"),
+                       f"tenant batch {a} against phase 5b's")
+        same_bytes(j("tenant_knn_replay", "part-00000"),
+                   j("serve_knn_replay", "part-00000"),
+                   "tenant online kNN replay against phase 12c's")
+        grp = counters.as_dict()["Serving.knn"]
+        dispatches = sum(v for k, v in grp.items() if k.startswith("bucket."))
+        chunks = -(-ROWS_E2E // CHUNK_ROWS)
+        stats = pool.stats()
+        submitted = {"batch": chunks, "online": dispatches}
+        for t, n in submitted.items():
+            if stats[t]["grants"] + stats[t]["shed"] != n or stats[t]["shed"]:
+                raise AssertionError(f"tenant {t}: {stats[t]} for {n} slots "
+                                     f"asked")
+        if counts != only(B1=chunks, B5=dispatches + 7):
+            raise AssertionError(f"tenants launched {counts}")
+        launches = {"B1": {"tenant": counts["B1"]},
+                    "B5": {"tenant": counts["B5"]}}
+        log(f"tenancy (e): batch NB + MI pipeline {result['batch_wall']:.2f} s "
+            f"and online kNN replay of {grp['requests']} rows "
+            f"{result['online_wall']:.2f} s side by side; outputs "
+            f"byte-identical to the untenanted runs; Tenant stats "
+            f"{json.dumps(stats)}; launches {counts}")
+
+        # the queue-depth drill
+        tenancy.reset()
+        pool = tenancy.configure(JobConfig(
+            {**contracts, "tenant.batch.queue.depth": "1"}))
+        nb = JobConfig({"feature.schema.file.path": schema,
+                        "bayesian.model.file.path": j("cuda_nb"),
+                        "serve.models": "naiveBayes",
+                        "serve.bucket.sizes": "1",
+                        "serve.request.timeout.ms": "60000",
+                        "tenant.id": "online"})
+        enc, ds, _ = Job.encode_input(nb, j("serve_hosp.csv"),
+                                      need_rows=False)
+
+        def fold_as_batch():
+            eng = scan.SharedScan(device="cuda")
+            eng.register(scan.NaiveBayesConsumer(name="nb"))
+            with tenancy.tenant_scope("batch"):
+                return eng.run(ds)["nb"]
+
+        want = fold_as_batch().class_counts        # batch 1 granted
+        with BucketedMicrobatcher.from_conf(
+                ModelRegistry.from_conf(nb, device="cuda"), nb) as online:
+            hold = pool.slot(tenant="batch")
+            hold.__enter__()                       # batch 2 granted
+            box = {}
+            waiter = threading.Thread(
+                target=lambda: box.setdefault("nb", fold_as_batch()))
+            waiter.start()                         # batch 3 queued
+            req = online.submit_nowait("naiveBayes",
+                                       read_lines(j("serve_hosp.csv"))[0])
+            deadline = time.monotonic() + 30
+            while (pool.queue_depths()["batch"] < 1
+                   or pool.queue_depths()["online"] < 1) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.005)
+            try:
+                msg = expect_raise(TenantShedError, "tenant 'batch'",
+                                   fold_as_batch)   # batch 4 shed
+            finally:
+                hold.__exit__(None, None, None)
+            answer = req.wait(60.0)
+            waiter.join(60.0)
+        stats = pool.stats()
+        if answer != read_lines(j("serve_nb_pred"))[0] or \
+                not (box["nb"].class_counts == want).all():
+            raise AssertionError("the drill's surviving work answered wrong")
+        if (stats["batch"]["grants"], stats["batch"]["shed"]) != (3, 1) or \
+                (stats["online"]["grants"], stats["online"]["shed"]) != (1, 0):
+            raise AssertionError(f"drill book-keeping {stats}")
+        log(f"tenancy (e) drill: batch shed at its queue depth ({msg[:90]}...); "
+            f"online answered as the batch job; Tenant stats "
+            f"{json.dumps(stats)}")
+        return launches
+    finally:
+        tenancy.reset()
+
+
+def stream_tenancy_phase(rec: Recorder, work: str, train: str, schema: str,
+                         used: dict, walls: dict) -> dict:
+    """Phase 13: (a)–(c) ``stream_phase``, (d) ``retrain_phase``, (e)
+    ``tenancy_phase``; returns launches by kernel and path."""
+    t0 = time.perf_counter()
+    out = {"B1": stream_phase(rec, work, train, schema, walls)}
+    for kid, paths in retrain_phase(rec, work, train, schema, walls).items():
+        out.setdefault(kid, {}).update(paths)
+    for kid, paths in tenancy_phase(rec, work, train, schema, used,
+                                    walls).items():
+        out.setdefault(kid, {}).update(paths)
+    walls["phase 13"] = time.perf_counter() - t0
+    log(f"phase 13 in {walls['phase 13']:.1f} s, launches {json.dumps(out)}")
+    return out
+
+
 def torch_sync() -> None:
     import torch
 
@@ -4005,8 +4481,11 @@ def main(argv=None) -> int:
         served = serving_phase(rec, work, test, schema, used, walls)
         b5["serve_knn_1m"] = served["serve_knn_1m"]
         b6["serve_knn_10k"] = served["serve_knn_10k"]
+        streamed = stream_tenancy_phase(rec, work, train, schema, used,
+                                        walls)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    all_cases += path_cases(hist, rec)       # phase 13's B1 and B4 calls
     all_cases += knn_path_cases(rec, used)
     probes = probe_phase()
 
@@ -4020,7 +4499,7 @@ def main(argv=None) -> int:
                      {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
                       "pipeline_traced": traced["pipeline_traced"],
                       "pipeline_xla": traced["pipeline_xla"], **b1_corr,
-                      **b1_plan},
+                      **b1_plan, **streamed["B1"]},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},
@@ -4029,13 +4508,21 @@ def main(argv=None) -> int:
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),
         kernel_entry("B4", "cross_counts (B4)", src + "cross.cu", at + "484",
                      {**b4_tree, "tree_traced": traced["tree_traced"],
-                      "forest": b4_forest}, all_cases),
+                      "forest": b4_forest, **streamed["B4"]}, all_cases),
         kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
-                     "avenir_tpu/ops/pallas_knn.py:290", b5, all_cases),
+                     "avenir_tpu/ops/pallas_knn.py:290",
+                     {**b5, **streamed["B5"]}, all_cases),
         kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",
                      "avenir_tpu/ops/pallas_knn.py:73", b6, all_cases),
         *probes,
     ]
+    # phase 13 (c): B1 at every pane bucket of the stream, warm panes
+    # (all ballast) and the ragged tail's bucket included
+    kernels[0]["stream_buckets"] = [
+        {k: c[k] for k in ("n", "n_eff", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for c in all_cases
+        if c["kernel"] == "B1" and c.get("path") == "stream" and "ms" in c]
     kernels[3]["forest"] = {"launches": b4_forest, **{
         k: forest[k] for k in ("case", "ms", "plain_ms", "bound_ms",
                                "bound_by", "library_ms")}}

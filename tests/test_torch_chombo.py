@@ -50,12 +50,12 @@ def _both(tmp_path, job, props, data, name="out"):
 
 
 def test_registry_names():
-    """All 28 job classes of the JAX package's list (StreamAnalytics,
-    which ``stream/`` appends to it, waits with the streaming plane),
+    """All 29 job classes of the JAX package's list (StreamAnalytics
+    included, which ``stream/job.py`` appends to it in both packages),
     each by its simple and its reference name."""
-    assert len(JOB_CLASSES) == 28
-    assert ({c.name for c in J_JOB_CLASSES} - {c.name for c in JOB_CLASSES}
-            == {"StreamAnalytics"})
+    assert len(JOB_CLASSES) == 29
+    assert {c.name for c in J_JOB_CLASSES} == {c.name for c in JOB_CLASSES}
+    assert REGISTRY["StreamAnalytics"].name == "StreamAnalytics"
     for name in ("RunningAggregator", "Projection", "NumericalAttrStats"):
         assert REGISTRY[name] is REGISTRY[f"org.chombo.mr.{name}"]
     for name in ("GreedyRandomBandit", "AuerDeterministic", "SoftMaxBandit",
@@ -63,7 +63,8 @@ def test_registry_names():
         assert REGISTRY[name] is REGISTRY[f"org.avenir.reinforce.{name}"]
     assert REGISTRY["WordCounter"] is REGISTRY["org.avenir.text.WordCounter"]
     listed = _run(torch_main, ["--list"]).split()
-    assert len(listed) == 28 and "NumericalAttrStats" in listed
+    assert len(listed) == 29 and "NumericalAttrStats" in listed
+    assert "StreamAnalytics" in listed
     assert "ScoringPlane" in listed
 
 

@@ -27,7 +27,7 @@ from avenir_tpu.pipeline import driver as jdriver  # noqa: E402
 from avenir_tpu.runtime import native as jnative  # noqa: E402
 from avenir_tpu.utils.metrics import Counters as JCounters  # noqa: E402
 from avenir_tpu.utils.retry import FaultInjector as JFaultInjector  # noqa: E402
-from avenir_tpu_torch.core.config import JobConfig  # noqa: E402
+from avenir_tpu_torch.core.config import ConfigError, JobConfig  # noqa: E402
 from avenir_tpu_torch.core.csv_io import write_csv  # noqa: E402
 from avenir_tpu_torch.core.encoding import DatasetEncoder  # noqa: E402
 from avenir_tpu_torch.core.schema import FeatureSchema  # noqa: E402
@@ -217,39 +217,55 @@ def test_cli_arguments_and_the_plan_verb(env, tmp_path, capsys):
         == [ln.replace(", pack", "") for ln in jax_ if "program:" not in ln]
 
 
+# the shard.* topology stays refused (ROADMAP.md, Queue 1 item 7g); the
+# tenant.* cases, refused until the arbiter landed, now hold a malformed
+# contract, which the arbiter's grammar refuses before anything is written
 REFUSED = {
     "shard": {"shard.devices": "2"},
-    "tenant": {"tenant.alpha.share": "2"},
-    "tenant pool": {"avenir.tenant.pool.concurrency": "2"},
+    "tenant": {"tenant.alpha.share": "0"},
+    "tenant pool": {"avenir.tenant.pool.concurrency": "2",
+                    "tenant.beta.max.inflight": "1"},
     "stage shard": {"pipeline.stage.mi.prop.shard.data.axis": "data"},
-    "stage tenant": {"pipeline.stage.mi.prop.tenant.queue.depth": "4"},
+    "stage tenant": {"pipeline.stage.mi.prop.tenant.queue.depth": "4",
+                     "tenant.queue.dpth": "4"},
 }
-# keys the pipeline refused until the port's telemetry and planner
-# honoured them
+# keys the pipeline refused until the port's telemetry, planner and
+# tenancy arbiter honoured them
 HONOURED = {
     "plan": {"plan.on": "true"},
     "trace": {"trace.on": "true"},
     "profile": {"profile.on": "true"},
     "tenant id": {"tenant.id": "alpha"},
     "trace.xla.dir": {"trace.xla.dir": "xla"},
+    "tenant": {"tenant.alpha.share": "2", "tenant.id": "alpha"},
+    "tenant pool": {"avenir.tenant.pool.concurrency": "2"},
+    "stage tenant": {"pipeline.stage.mi.prop.tenant.queue.depth": "4"},
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_refused_keys_raise_before_anything_is_written(env, case):
+    from avenir_tpu_torch import tenancy
+
     ws = env / f"refused_{case.replace(' ', '_')}"
     p = driver.Pipeline.from_conf(JobConfig(_props(env, **REFUSED[case])),
                                   workspace=str(ws), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        p.run()
+    if "shard" in case:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7g"):
+            p.run()
+    else:
+        with pytest.raises(ConfigError, match="tenant"):
+            p.run()
     assert not ws.exists()
+    tenancy.reset()
 
 
 @pytest.mark.parametrize("case", sorted(HONOURED))
 def test_honoured_keys_run_with_the_same_part_files(env, case, tmp_path):
-    """Each telemetry key the pipeline once refused now runs, its part
-    files equal to the untraced run's; the tracer and profiler it enabled
-    are turned off again."""
+    """Each telemetry, planner or tenancy key the pipeline once refused
+    now runs, its part files equal to the plain run's; the tracer,
+    profiler and arbiter it enabled are turned off again."""
+    from avenir_tpu_torch import tenancy
     from avenir_tpu_torch.telemetry import spans as tel
 
     extra = dict(HONOURED[case])
@@ -258,8 +274,11 @@ def test_honoured_keys_run_with_the_same_part_files(env, case, tmp_path):
         extra["trace.xla.dir"] = str(tmp_path / "xla")
     try:
         _p, counters, parts = _run_port(env, f"honoured_{case}", **extra)
+        if case == "tenant":         # the fused scan's folds took slots
+            assert tenancy.pool().stats()["alpha"]["grants"] > 0
     finally:
         tel.tracer().disable()
+        tenancy.reset()
     _p0, counters0, parts0 = _run_port(env, f"honoured_{case}_off")
     assert parts == parts0
     assert counters == counters0

@@ -243,13 +243,43 @@ def test_fault1_blackbox_dir_is_created(env, tmp_path, monkeypatch):
                                  "tenant.pool.concurrency",
                                  "tenant.queue.depth",
                                  "avenir.tenant.alpha.max.inflight"])
-def test_fault1_tenant_contract_refused_before_output(env, tmp_path, key):
-    out, jdir = tmp_path / "o_port", tmp_path / "J"
-    with pytest.raises(NotImplementedError,
-                       match=f"{key}.*Queue 1 item 7f"):
-        tmain.main(_nb_argv(env, jdir, out, f"-D{key}=2")
-                   + ["--device", "cpu"])
-    assert not out.exists() and not jdir.exists()
+def test_fault1_tenant_contract_refused_before_output(env, tmp_path, key,
+                                                      monkeypatch):
+    """The ``tenant.*`` keys once refused are honoured as the JAX package
+    honours them: a well-formed contract or pool-wide key runs with the
+    JAX package's journal events and part file; a quota without a share
+    is refused by both packages with ConfigError, before any output (the
+    port before its journal too)."""
+    from avenir_tpu import tenancy as jtenancy
+    from avenir_tpu.core.config import ConfigError as JConfigError
+    from avenir_tpu_torch import tenancy
+    from avenir_tpu_torch.core.config import ConfigError
+
+    tenancy.reset()
+    jtenancy.reset()
+    try:
+        if key.endswith("max.inflight"):
+            for main, err, extra, side in (
+                    (jmain.main, JConfigError, [], "jax"),
+                    (tmain.main, ConfigError, ["--device", "cpu"], "port")):
+                out, jdir = tmp_path / f"o_{side}", tmp_path / f"J_{side}"
+                with pytest.raises(err, match="no tenant.alpha.share"):
+                    main(_nb_argv(env, jdir, out, f"-D{key}=2") + extra)
+                assert not out.exists()
+            # the port checks the contract before it opens its journal
+            assert not (tmp_path / "J_port").exists()
+            return
+        jdir, tdir = _both_clis(env, tmp_path, monkeypatch, f"-D{key}=2")
+        jev = jjournal.read_events(_journal(jdir))
+        tev = read_events(_journal(tdir))
+        assert _sequence(tev) == _sequence(jev)
+        assert (tmp_path / "o_port" / "part-00000").read_bytes() == \
+            (tmp_path / "o_jax" / "part-00000").read_bytes()
+        assert tenancy.pool().stats() == jtenancy.pool().stats()
+        assert tenancy.pool().enabled == (key == "tenant.alpha.share")
+    finally:
+        tenancy.reset()
+        jtenancy.reset()
 
 
 def test_tracer_off_is_noop_and_writes_nothing(env, tmp_path):
