@@ -61,6 +61,9 @@ class EncodedDataset:
     class_values: List[str] = dc_field(default_factory=list)
     binned_ordinals: List[int] = dc_field(default_factory=list)
     cont_ordinals: List[int] = dc_field(default_factory=list)
+    # the true (pre-ballast) row count of a padded batch; None when
+    # num_rows is the truth.  Row accounting reads this, never the pad.
+    valid_rows: Optional[int] = None
 
     @property
     def num_rows(self) -> int:
@@ -95,28 +98,49 @@ class EncodedDataset:
         )
 
 
+def pad_rows(n_target: int, *arrays: Optional[np.ndarray], fill: int = -1):
+    """Pad axis 0 of each array up to ``n_target`` rows, the one ballast
+    fill of the package (the JAX package's ``pad_rows``): integer arrays
+    pad with ``fill`` (−1 by default, dropped by every count table under
+    the drop-invalid contract), float arrays with 0 (the moments pair them
+    with label −1 rows, so they drop out too).  None entries pass through;
+    a single array comes back bare."""
+    out = []
+    for a in arrays:
+        if a is None:
+            out.append(None)
+            continue
+        pad = n_target - a.shape[0]
+        if pad < 0:
+            raise ValueError(f"n_target {n_target} < batch {a.shape[0]}")
+        if pad == 0:
+            out.append(a)
+            continue
+        widths = [(0, pad)] + [(0, 0)] * (a.ndim - 1)
+        val = fill if np.issubdtype(a.dtype, np.integer) else 0
+        out.append(np.pad(a, widths, constant_values=val))
+    return out if len(out) > 1 else out[0]
+
+
 def pad_ballast(ds: EncodedDataset, n_target: int,
                 fill: int = -1) -> EncodedDataset:
     """Pad the batch axis with ballast rows up to ``n_target``, as the JAX
     package's ``pad_ballast``: integer codes take ``fill`` (−1 by default:
     dropped by every count table, the drop-invalid contract), floats 0,
     labels always −1.  Scoring callers that slice their outputs back to the
-    real rows pass ``fill=0`` so a pad row stays in the vocabulary."""
-    pad = n_target - ds.num_rows
-    if pad < 0:
-        raise ValueError(f"n_target {n_target} < batch {ds.num_rows}")
-    if pad == 0:
+    real rows pass ``fill=0`` so a pad row stays in the vocabulary.  The
+    result records the true row count in ``valid_rows``."""
+    if ds.num_rows == n_target:
         return ds
-
-    def grow(a, val):
-        return np.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1),
-                      constant_values=val)
-
+    codes, cont = pad_rows(n_target, ds.codes, ds.cont, fill=fill)
+    labels = (None if ds.labels is None
+              else pad_rows(n_target, ds.labels, fill=-1))
     return EncodedDataset(
-        codes=grow(ds.codes, fill), cont=grow(ds.cont, 0),
-        labels=None if ds.labels is None else grow(ds.labels, -1), ids=None,
+        codes=codes, cont=cont, labels=labels, ids=None,
         n_bins=ds.n_bins, class_values=ds.class_values,
-        binned_ordinals=ds.binned_ordinals, cont_ordinals=ds.cont_ordinals)
+        binned_ordinals=ds.binned_ordinals, cont_ordinals=ds.cont_ordinals,
+        valid_rows=(ds.valid_rows if ds.valid_rows is not None
+                    else ds.num_rows))
 
 
 def peek_chunks(data):

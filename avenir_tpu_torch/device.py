@@ -25,12 +25,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 def refuse_mesh(mesh) -> None:
-    """Raise before any work when a data mesh is asked for: the port's
-    parallel plane is not built yet."""
+    """Raise before any work when a model is asked to run over a data
+    mesh: the models' ``mesh=`` seams are not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
-            "a data mesh is not ported yet: the port's parallel plane is "
-            "ROADMAP.md, Queue 1 item 7")
+            "a model's data mesh is not ported yet: the models' mesh= seams "
+            "are ROADMAP.md, Queue 1 item 7g-ii")
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:

@@ -311,7 +311,8 @@ class Job:
 
     def encoded_data_source(self, conf: JobConfig, input_path: str,
                             counters: Counters, with_labels: bool = True,
-                            checkpointer: Optional["StreamCheckpointer"] = None):
+                            checkpointer: Optional["StreamCheckpointer"] = None,
+                            shard=None):
         """(encoder, data, rows_fn) for count jobs whose model ``fit`` takes
         one EncodedDataset or a chunk iterable.
 
@@ -324,6 +325,10 @@ class Job:
         the whole encoded input.  ``rows_fn()`` reports the rows processed,
         read from the cursor of the last chunk consumed: call it only after
         ``fit`` has consumed the stream.
+
+        With a ``shard`` plan (``parallel/shard.ShardSpec``) the feeder's
+        stage is ``sharded_pair_stage``: each chunk padded to its shard
+        target and its row blocks copied to the mesh's devices.
 
         With a ``checkpointer`` the stream starts at its restored cursor,
         ``rows_fn()`` adds its restored rows, and it is told of every chunk
@@ -340,9 +345,12 @@ class Job:
                 start=ckpt.start if ckpt else None, emit_cursor=True)
             depth = conf.get_int("stream.prefetch.depth", 2)
             if depth > 0:
-                from avenir_tpu_torch.runtime.feeder import DeviceFeeder
+                from avenir_tpu_torch.runtime.feeder import (
+                    DeviceFeeder, sharded_pair_stage)
 
-                pairs = DeviceFeeder(pairs, depth=depth, device=self.device)
+                pairs = DeviceFeeder(
+                    pairs, depth=depth, device=self.device,
+                    stage=None if shard is None else sharded_pair_stage(shard))
 
             def consume():
                 if ckpt is None:
@@ -610,7 +618,7 @@ class StreamCheckpointer:
                     f"snapshot in {directory!r} was folded under mesh "
                     f"topology {snap_sfx!r}: redistributing it "
                     f"(shard.reshard.on.restore=true) is not ported yet "
-                    f"(ROADMAP.md, Queue 1 item 7)")
+                    f"(ROADMAP.md, Queue 1 item 7h)")
             raise ConfigError(
                 f"snapshot in {directory!r} was folded "
                 f"under mesh topology {snap_sfx!r} but "

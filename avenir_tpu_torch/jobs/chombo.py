@@ -10,10 +10,10 @@ turn transaction rows into per-customer field sequences
 (resource/tutorial_opt_email_marketing.txt:19-42).  Both are host string
 work.  ``NumericalAttrStats`` takes its class moments on the job's device.
 
-The port runs on one process and one device: the JAX package's data mesh
-over several local devices and its ``jax.distributed`` chunk ownership
-(``maybe_shard_batch``, ``distributed_plan``) are ROADMAP.md Queue 1
-item 7.
+The port runs these jobs in one process on one device: the JAX package's
+data mesh over several local devices (``maybe_shard_batch``) is ROADMAP.md
+Queue 1 item 7g-ii and its ``jax.distributed`` chunk ownership
+(``distributed_plan``) item 7h.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """In-process pipeline driver — port of ``avenir_tpu/pipeline/driver.py``
 (the staged loop and the planner's route, with the tenancy arbiter's
-``tenant.*`` contracts, without the shard topology, whose keys it
+``tenant.*`` contracts and the ``shard.*`` topology on local devices; the
+process plane's ``shard.proc.*`` and ``shard.reshard.*`` keys it
 refuses).
 
 The reference's multi-stage pipelines are shell scripts staging files
@@ -31,19 +32,23 @@ from typing import Callable, Dict, List, Optional, Sequence
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.utils.metrics import Counters
 
-# the shard.* topology changes what the JAX package executes; the port
-# refuses it before any stage runs rather than run without it
-_SHARD_ITEM = "the shard.* topology, parallel/: ROADMAP.md, Queue 1 item 7g"
+# the process axis and the elastic restore change what the JAX package
+# executes; the port refuses them before any stage runs rather than run
+# without them
+_PROCESS_ITEM = "the process plane: ROADMAP.md, Queue 1 item 7h"
+_PROCESS_KEYS = ("shard.proc.", "shard.reshard.")
 
 
 def refused_key(conf: JobConfig) -> Optional[str]:
     """Why the port cannot run this conf, naming the first refused key
-    and the ROADMAP.md item that will honour it, or None: any ``shard.*``
-    key."""
-    shard = sorted(k for k in conf.props
-                   if k.startswith(("shard.", f"{conf.prefix}.shard.")))
-    if shard:
-        return f"{shard[0]} is not ported yet ({_SHARD_ITEM})"
+    and the ROADMAP.md item that will honour it, or None: a
+    ``shard.proc.*`` or ``shard.reshard.*`` key."""
+    refused = sorted(
+        k for k in conf.props
+        if k.startswith(_PROCESS_KEYS + tuple(f"{conf.prefix}.{p}"
+                                              for p in _PROCESS_KEYS)))
+    if refused:
+        return f"{refused[0]} is not ported yet ({_PROCESS_ITEM})"
     return None
 
 
@@ -181,7 +186,12 @@ class Pipeline:
             group.append(s)
             confs.append(conf)
             outputs.add(s.output)
-        if len(group) > 1 and scan.stages_compatible(confs):
+        # a singleton count stage still takes the SharedScan under a
+        # shard.* topology: the sharded fold lives only there
+        from avenir_tpu_torch.parallel.shard import ShardSpec
+
+        if group and scan.stages_compatible(confs) and (
+                len(group) > 1 or ShardSpec.requested(confs[0])):
             return group, confs, True
         return [first], confs[:1], False
 
@@ -220,12 +230,17 @@ class Pipeline:
             todo = [s for s in self.stages if s.name in needed]
         self._refuse(todo)
         from avenir_tpu_torch.device import resolve_device
+        from avenir_tpu_torch.parallel.shard import ShardSpec
         from avenir_tpu_torch.telemetry import profile as _profile
         from avenir_tpu_torch.telemetry import spans as tel
 
         from avenir_tpu_torch import tenancy
 
         self.device = resolve_device(self.device)
+        # an impossible shard.* topology (more devices than are attached)
+        # fails here, before any stage runs; the seams that fold sharded
+        # journal shard.topology
+        ShardSpec.from_conf(self.conf, self.device)
         # arm the device arbiter from tenant.* contracts (a no-op without
         # them; a malformed one raises before anything is written) and run
         # the whole pipeline as this conf's tenant: every stage's chunk
@@ -287,6 +302,12 @@ class Pipeline:
         attrs = {"job": (stage.job if isinstance(stage.job, str)
                          else getattr(stage.job, "__name__", "callable")),
                  "output": out}
+        from avenir_tpu_torch.parallel.shard import ShardSpec
+
+        if ShardSpec.requested(conf):
+            # shard.* covers the SharedScan fold (fused count stages,
+            # streaming); say whether this stage's path is sharded
+            attrs["sharded"] = stage.job == "StreamAnalytics"
         with tracer.span(f"stage.{stage.name}", attrs=attrs), \
                 self._xla_trace(stage.name, tracer):
             self.counters[stage.name] = stage.run(

@@ -43,11 +43,12 @@ Where the port differs from the JAX package:
 - **The kernel route.** Wherever ``hist.use_kernel`` takes the shape on
   ``cuda`` the unit is one kernel program (B1, B2 or B3) with no pack
   question, so the planner never routes such a unit to a plain program.
-- **No shard branch.** ``shard.*`` is refused before a pipeline runs
-  (ROADMAP.md, Queue 1 item 7g), and the JAX package's ``Job.auto_mesh``
-  is None on one device, which is all the port runs on, so the port's
-  :func:`_estimate` has neither the ``shard`` nor the ``sharded``
-  routing.
+- **The shard branch.** A unit under a ``shard.*`` topology is
+  ``program = "shard"`` with no pack question, as in the JAX package, and
+  a singleton count stage stays a scan unit there (the sharded fold lives
+  only in the SharedScan).  The JAX package's ``Job.auto_mesh`` (the
+  ``sharded`` routing) stays None in the port until ROADMAP.md, Queue 1
+  item 7g-ii.
 
 ``python -m avenir_tpu_torch.pipeline plan <conf>`` prints
 :meth:`PipelinePlan.explain`; ``plan.on=true`` routes ``Pipeline.run``
@@ -451,14 +452,17 @@ def _estimate(unit: ScanUnit, schema, enc, peek, device) -> None:
     riding the plan as its record.  Without a sample the runtime width
     heuristic decides (``pack_on=None``, source "model").
 
-    The JAX package first asks ``ShardSpec.requested`` and
-    ``Job.auto_mesh``: the port refuses ``shard.*`` before any pipeline
-    runs (ROADMAP.md, Queue 1 item 7g), and ``auto_mesh`` is None on the
-    one device the port runs on, so it has no ``shard`` or ``sharded``
-    routing here."""
+    A unit under a ``shard.*`` topology is the ``shard`` program, with
+    no pack question (the packed gram is one unsharded program).  The JAX
+    package's next question, ``Job.auto_mesh`` (the ``sharded`` routing),
+    waits for ROADMAP.md, Queue 1 item 7g-ii: it is None in the port."""
+    from avenir_tpu_torch.parallel.shard import ShardSpec
     from avenir_tpu_torch.pipeline import scan
 
     conf = unit.confs[0]
+    if ShardSpec.requested(conf):
+        unit.program = "shard"
+        return
     if peek is None:
         unit.pack_source = "model"
         return
@@ -538,10 +542,11 @@ def plan_pipeline(pipeline: Pipeline,
     sample (``plan.peek.rows``, default 2048) on the pipeline's device."""
     from avenir_tpu_torch.device import resolve_device
     from avenir_tpu_torch.jobs.base import Job
+    from avenir_tpu_torch.parallel.shard import ShardSpec
     from avenir_tpu_torch.pipeline import scan
 
     stages = list(todo) if todo is not None else list(pipeline.stages)
-    pipeline._refuse(stages)          # shard.* and tenant contracts
+    pipeline._refuse(stages)          # shard.proc/reshard, tenant contracts
     device = resolve_device(pipeline.device)
     confs = {s.name: pipeline._stage_conf(s) for s in stages}
     producers = {s.output: s for s in stages}
@@ -622,16 +627,19 @@ def plan_pipeline(pipeline: Pipeline,
             unit.keep = sorted(needed)
             unit.pruned_from = f
             unit.rewrites.append("prune")
-        # a singleton with no prune win runs its standalone job byte for
-        # byte: keep the staged path (the staged loop's singleton rule)
-        if len(members) == 1 and unit.keep is None:
+        # a singleton with no prune win and no shard topology runs its
+        # standalone job byte for byte: keep the staged path (the staged
+        # loop's singleton rule)
+        if len(members) == 1 and unit.keep is None \
+                and not ShardSpec.requested(conf):
             units.append(StageUnit(stage=s, conf=conf,
                                    reason="singleton scan -- staged path "
                                           "is identical"))
             taken.add(s.name)
             continue
         mconf = mconfs[0]
-        if not mconf.get("stream.chunk.rows"):
+        if not mconf.get("stream.chunk.rows") \
+                and not ShardSpec.requested(mconf):
             ekey = ((in_path,)
                     + tuple(mconf.get(k) for k in scan._ENCODE_KEYS))
             if ekey in encode_seen:

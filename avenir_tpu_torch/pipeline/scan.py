@@ -1,7 +1,7 @@
 """SharedScan — one encode and one gram pass serving every count job of a
 pipeline; port of ``avenir_tpu/pipeline/scan.py`` (the NB, MI, correlation,
-Fisher and moments consumers, the planner's seams and the stream windows'
-restore check, without the mesh routes).
+Fisher and moments consumers, the planner's seams, the stream windows'
+restore check and the ``shard.*`` route over local devices).
 
 The reference runs one MapReduce Tool per statistic, each rescanning the
 dataset.  Here the stages that read one artifact share:
@@ -13,6 +13,12 @@ dataset.  Here the stages that read one artifact share:
   class moments of the same resident chunk (``hist.gram_moments``) when a
   consumer wants them;
 - 64-bit host accumulation keyed by the layout-qualified ``g_key``.
+
+Under a ``shard.*`` plan (``parallel/shard.py``) each chunk is padded to
+its shard target and split into equal row blocks, one per device of the
+mesh; each block is folded on its device (B1–B3 once per shard) and the
+partials are summed (``parallel/collectives.py``), the gram keyed with
+the mesh's qualifier.  The result equals the unsharded fold's.
 
 At the end each consumer is finalized from the shared tables through the
 models' data-free constructors: NB's [F, B, C] table is G's diagonal block,
@@ -241,21 +247,29 @@ class ChunkFolder:
 
     Fixes the routing once from the consumers and the stream's shape:
 
+    - ``shard``: under a ``shard.*`` plan where some plan mode takes the
+      shape — each shard's block folded on its device
+      (``collectives.sharded_scan_step``: one gram launch per shard on
+      ``cuda``, its plain version on the CPU) and the partials summed,
+      the gram keyed under the mesh-qualified ``g_key``;
     - ``kernel``: ``hist.use_kernel(f, b, c, device)`` — the data is on
       CUDA and some plan mode takes the shape — one gram launch per chunk
       (B1, B2 or B3), with the class moments beside it;
     - ``packed``: elsewhere, where ``hist.pack_tables`` finds that one
       one-hot product (``hist.gram_counts``) beats the per-table counts;
     - ``einsum``: else the ``agg`` counts per table, as
-      ``MutualInformation.fit`` runs them.
+      ``MutualInformation.fit`` runs them (under a plan, per shard on
+      each shard's device, each partial added to the host totals).
 
-    All three give equal counts: the read-out ``counts_from_cooc`` reads
-    the same cells of either gram."""
+    All give equal counts: the read-out ``counts_from_cooc`` reads the
+    same cells of either gram.  ``counters`` receives the ``Shard`` group
+    of a sharded fold."""
 
     def __init__(self, consumers: Sequence[ScanConsumer],
                  meta: EncodedDataset, device, pair_chunk: int = 256,
                  pack_on: bool = True,
-                 pack_max_width: Optional[int] = None):
+                 pack_max_width: Optional[int] = None, shard=None,
+                 counters: Optional[Counters] = None):
         from avenir_tpu_torch.ops import hist
 
         if not consumers:
@@ -263,6 +277,8 @@ class ChunkFolder:
         self.consumers = list(consumers)
         self.meta = meta
         self.device = torch.device(device)
+        self.shard = shard                # parallel/shard.ShardSpec or None
+        self.counters = counters
         self.pair_chunk = pair_chunk
         f, b, c = meta.num_binned, meta.max_bins, meta.num_classes
         self.f, self.b, self.c = f, b, c
@@ -277,15 +293,37 @@ class ChunkFolder:
         self.step = None
         self.pack = None
         if self.needs_counts:
-            self.step = ("kernel" if hist.use_kernel(f, b, c, self.device)
-                         else "einsum")
-        if self.step == "einsum" and pack_on:
+            if shard is not None and hist.applicable(f, b, c):
+                from avenir_tpu_torch.parallel import collectives
+
+                self._shard_step = collectives.sharded_scan_step(
+                    shard.mesh, b, c, data_axis=shard.data_axis,
+                    quantized=shard.quantized, moments=self.needs_moments)
+                self.step = "shard"
+            elif hist.use_kernel(f, b, c, self.device):
+                self.step = "kernel"
+            else:
+                self.step = "einsum"
+        # the packed gram is one unsharded program
+        if self.step == "einsum" and pack_on and shard is None:
             self.pack = hist.pack_tables(f, b, c, len(self.pair_index),
                                          max_width=pack_max_width)
             if self.pack is not None:
                 self.step = "packed"
         self.gk = (self.pack.g_key if self.step == "packed"
-                   else hist.g_key(f, b, c))
+                   else hist.g_key(f, b, c) + self.g_suffix)
+        if self.step == "shard":
+            # the JAX package's logical all-reduce payload of one chunk:
+            # the gram (int8 and float32 row scales when quantized, int32
+            # otherwise) and the class count and moment sums
+            mode, _, wp = hist.plan(f, b, c)
+            cells = (c * wp * wp) if mode in ("cls", "clsb") else (wp * wp)
+            gbytes = (cells + 4 * (cells // wp) if shard.quantized
+                      else 4 * cells)
+            self._collective_bytes = gbytes + 4 * c * (
+                2 + 2 * meta.num_cont if self.needs_moments else 1)
+        # the straggler probe, built on the first fold under profile.on
+        self._skew = None
 
     @property
     def program_tag(self) -> Optional[str]:
@@ -344,11 +382,58 @@ class ChunkFolder:
             self._fold(ds, acc)
 
     def _fold(self, ds: EncodedDataset, acc: agg.Accumulator) -> None:
+        if self.shard is None:
+            self._fold_local(
+                to_device(ds.codes, self.device),
+                to_device(ds.labels, self.device),
+                to_device(ds.cont, self.device) if self.needs_moments
+                else None, acc)
+            return
+        from avenir_tpu_torch.parallel.mesh import shard_parts
+
+        codes, labels, cont = self.shard.shard_batch(ds.codes, ds.labels,
+                                                     ds.cont)
+        if self.step == "shard":
+            self._fold_shard(codes, labels, cont, acc)
+            return
+        # a shape no gram takes: each shard's plain counts on its device
+        for part in zip(shard_parts(codes), shard_parts(labels),
+                        shard_parts(cont)):
+            self._fold_local(*part, acc)
+
+    def _fold_shard(self, codes, labels, cont, acc: agg.Accumulator) -> None:
+        """One sharded chunk: every shard's gram, class counts (and class
+        moments when a consumer reads them) summed over the shards, then
+        the ``Shard`` counters and, under ``profile.on``, the straggler
+        probe on the same staged blocks."""
+        out = self._shard_step(codes, labels, cont)
+        acc.add("class", out[1])
+        acc.add(self.gk, out[0])
+        if self.needs_moments:
+            acc.add("cont_count", out[2])
+            acc.add("cont_sum", out[3])
+            acc.add("cont_sumsq", out[4])
+        if self.counters is not None:
+            # staged rows include the ballast; true rows are the stream's
+            # Records::Processed
+            self.counters.increment("Shard", "chunks")
+            self.counters.increment("Shard", "collective.bytes",
+                                    self._collective_bytes)
+        from avenir_tpu_torch.telemetry import profile as _profile
+
+        if _profile.profiler().enabled:
+            if self._skew is None:
+                from avenir_tpu_torch.parallel.skew import DeviceSkewProbe
+
+                self._skew = DeviceSkewProbe(self.shard, self.b, self.c,
+                                             counters=self.counters)
+            self._skew.maybe_probe(codes, labels)
+
+    def _fold_local(self, codes: torch.Tensor, labels: torch.Tensor,
+                    cont: Optional[torch.Tensor],
+                    acc: agg.Accumulator) -> None:
         from avenir_tpu_torch.ops import hist
 
-        labels = to_device(ds.labels, self.device)
-        codes = to_device(ds.codes, self.device)
-        cont = to_device(ds.cont, self.device) if self.needs_moments else None
         acc.add("class", agg.class_counts(labels, self.c))
         moments = None
         if self.step == "kernel":
@@ -384,11 +469,10 @@ class ChunkFolder:
 
     @property
     def g_suffix(self) -> str:
-        """The mesh qualifier this folder's gram key carries: always ""
-        in the port, which folds unsharded (the ``shard.*`` mesh routing
-        is ROADMAP.md, Queue 1 item 7g).  A pane snapshot records it as
-        its writing topology."""
-        return ""
+        """The mesh qualifier this folder's gram key carries ("" off the
+        sharded route), which a pane snapshot records as its writing
+        topology."""
+        return self.shard.g_suffix if self.step == "shard" else ""
 
     def state_matches_routing(self, state: Dict[str, Any]) -> bool:
         """Does a persisted accumulator-state mapping use THIS folder's
@@ -398,11 +482,12 @@ class ChunkFolder:
         written on ``cuda`` (``g:…``) landing on the CPU's einsum
         routing, and einsum ``fc`` counts landing on a gram routing
         (where :meth:`tables`' gram-first read-out would ignore them) —
-        and a packed gram under another key than this folder's.  The
-        JAX package's ``adopt_state``, which redistributes such state
-        under ``shard.reshard.on.restore``, waits with the mesh (7g,
-        7h): that gate is a ``shard.*`` key, which
-        ``pipeline/driver.py::refused_key`` refuses."""
+        a packed gram under another key than this folder's, and a gram
+        folded under another mesh topology (another ``g_suffix``).  State
+        written under this folder's own topology matches and resumes.
+        The JAX package's ``adopt_state``, which redistributes foreign
+        state under ``shard.reshard.on.restore``, is ROADMAP.md, Queue 1
+        item 7h: ``pipeline/driver.py::refused_key`` refuses that key."""
         gram = [k for k in state
                 if isinstance(k, str) and k.startswith("g:")]
         if self.step == "einsum":
@@ -421,9 +506,14 @@ class ChunkFolder:
                        if k.startswith("g:") and k != self.gk]
             if foreign:
                 raise ScanError(
-                    f"accumulator holds gram state under {foreign} but this "
-                    f"fold reads {self.gk!r}: the layout changed since that "
-                    f"state was written")
+                    f"accumulator holds gram state under {foreign} but "
+                    f"this fold reads {self.gk!r} — the kernel layout or "
+                    f"mesh topology (shard.devices / shard.data.axis) "
+                    f"changed since that state was written; a resharded "
+                    f"run must either redistribute the snapshot through "
+                    f"checkpoint/reshard (shard.reshard.on.restore=true "
+                    f"on the restore path) or start from a clean "
+                    f"accumulator, never fold stale counts")
         fbc = pcc = None
         if self.needs_counts and self.gk in acc:
             fbc, pcc = hist.counts_from_cooc(
@@ -465,14 +555,19 @@ class SharedScan:
     stream on ``device`` (``cuda`` unless the caller asks for the CPU).
 
     ``run(data)`` streams the chunks once, folds each through one
-    :class:`ChunkFolder`, and returns ``{consumer.name: result}``."""
+    :class:`ChunkFolder`, and returns ``{consumer.name: result}``.  With a
+    ``shard`` plan the chunks fold over its mesh and ``counters`` receives
+    the ``Shard`` group."""
 
     def __init__(self, device=None, pair_chunk: int = 256,
                  pack_on: bool = True,
-                 pack_max_width: Optional[int] = None):
+                 pack_max_width: Optional[int] = None, shard=None,
+                 counters: Optional[Counters] = None):
         from avenir_tpu_torch.device import resolve_device
 
         self.device = resolve_device(device)
+        self.shard = shard                # parallel/shard.ShardSpec or None
+        self.counters = counters
         self.pair_chunk = pair_chunk
         self.pack_on = pack_on                 # scan.pack.on
         self.pack_max_width = pack_max_width   # scan.pack.max.width
@@ -501,7 +596,8 @@ class SharedScan:
                 "class-conditioned (see the row-validity contract)")
         folder = ChunkFolder(self._consumers, meta, self.device,
                              pair_chunk=self.pair_chunk, pack_on=self.pack_on,
-                             pack_max_width=self.pack_max_width)
+                             pack_max_width=self.pack_max_width,
+                             shard=self.shard, counters=self.counters)
         import time
 
         from avenir_tpu_torch.telemetry import profile as _profile
@@ -516,11 +612,20 @@ class SharedScan:
         self.count_path = folder.program_tag or "moments"
         attrs = {"consumers": [x.name for x in self._consumers],
                  "path": self.count_path}
+        devices = [self.device]
+        if self.shard is not None:
+            attrs["shard.devices"] = self.shard.num_devices
+            attrs["shard.axis"] = self.shard.data_axis
+            devices = list(self.shard.mesh.axis_devices(self.shard.data_axis))
         # the scan is a range of its own in a trace.xla.dir device trace
         with tracer.span("scan", attrs=attrs) as scan_span, \
                 profiling.region("scan"):
             for ds in chunks:
-                chunk_attrs = {"chunk": self.chunks_seen, "rows": ds.num_rows}
+                # a chunk the sharded feeder staged arrives padded; its
+                # valid_rows is the true count
+                true_rows = (ds.valid_rows if ds.valid_rows is not None
+                             else ds.num_rows)
+                chunk_attrs = {"chunk": self.chunks_seen, "rows": true_rows}
                 pkey = None
                 if prof.enabled:
                     # the fold program: the chunk's shapes and routing,
@@ -538,8 +643,8 @@ class SharedScan:
                         prof.sample(pkey, "scan.chunk",
                                     time.perf_counter() - t0)
                 if prof.enabled:
-                    prof.sample_device_memory("scan", [self.device])
-                rows += ds.num_rows
+                    prof.sample_device_memory("scan", devices)
+                rows += true_rows
                 self.chunks_seen += 1
             scan_span.set("chunks", self.chunks_seen)
             scan_span.set("rows", rows)
@@ -696,7 +801,7 @@ def pruned_view(ds: EncodedDataset, keep: np.ndarray) -> EncodedDataset:
         n_bins=np.asarray(ds.n_bins)[keep],
         class_values=ds.class_values,
         binned_ordinals=[ds.binned_ordinals[int(k)] for k in keep],
-        cont_ordinals=ds.cont_ordinals)
+        cont_ordinals=ds.cont_ordinals, valid_rows=ds.valid_rows)
 
 
 def run_fused_stages(stages, device=None,
@@ -722,25 +827,36 @@ def run_fused_stages(stages, device=None,
     pack heuristic (the conf's ``scan.pack.on=false`` still wins), and
     ``encode_cache`` shares one whole-input encode among the units that
     read the same artifact under the same encode keys (only without
-    ``stream.chunk.rows``)."""
+    ``stream.chunk.rows`` or a ``shard.*`` plan).
+
+    The first stage's ``shard.*`` keys resolve to one plan
+    (``ShardSpec.from_conf``) that decides the feeder's staging, the fold
+    over the mesh and the mesh-qualified gram key; the plan's topology is
+    journaled once (``shard.topology``), and the first stage's Counters
+    carry the ``Shard`` group."""
     from avenir_tpu_torch.device import resolve_device
     from avenir_tpu_torch.jobs.base import Job
+    from avenir_tpu_torch.parallel.shard import ShardSpec
 
     first_conf = stages[0][4]
     in_path = stages[0][2]
     job_obj = Job()
     job_obj.device = resolve_device(device)
     schema = Job.load_schema(first_conf)
+    spec = ShardSpec.from_conf(first_conf, job_obj.device)
     counters = {name: Counters() for name, *_ in stages}
+    if spec is not None:
+        spec.announce()
     ckey = None
-    if encode_cache is not None and not first_conf.get("stream.chunk.rows"):
+    if (encode_cache is not None and spec is None
+            and not first_conf.get("stream.chunk.rows")):
         ckey = (in_path,) + tuple(first_conf.get(k) for k in _ENCODE_KEYS)
     if ckey is not None and ckey in encode_cache:
         enc, data = encode_cache[ckey]
         rows_fn = (lambda d=data: d.num_rows)
     else:
         enc, data, rows_fn = job_obj.encoded_data_source(
-            first_conf, in_path, counters[stages[0][0]])
+            first_conf, in_path, counters[stages[0][0]], shard=spec)
         if ckey is not None and isinstance(data, EncodedDataset):
             encode_cache[ckey] = (enc, data)
     keep = None
@@ -750,7 +866,7 @@ def run_fused_stages(stages, device=None,
             keep = None            # nothing dead: fold the full width
     conf_pack = first_conf.get_bool("scan.pack.on", True)
     engine = SharedScan(
-        device=job_obj.device,
+        device=job_obj.device, shard=spec, counters=counters[stages[0][0]],
         pack_on=conf_pack if pack_on is None else pack_on and conf_pack,
         pack_max_width=(first_conf.get_int("scan.pack.max.width", 0) or None
                         if pack_max_width is None else pack_max_width))

@@ -1,6 +1,5 @@
 """Device feeder — chunk i+1 read, encoded and copied to the card while
-chunk i is counted; port of ``avenir_tpu/runtime/feeder.py`` (without its
-sharded stage).
+chunk i is counted; port of ``avenir_tpu/runtime/feeder.py``.
 
 A worker thread pulls the source (whose lazy readers do the parse and
 encode), stages each item, and hands it over through a bounded queue of
@@ -274,6 +273,19 @@ class DeviceFeeder:
                 t.record_stream(stream)
             item = item.item
         return item
+
+
+def sharded_pair_stage(shard):
+    """The feeder stage of a ``shard.*`` chunk stream: each encoded chunk
+    ballast-padded to its pow-2 shard target and its row blocks copied to
+    the mesh's devices (``ShardSpec.stage``) on the worker thread, so the
+    padded copy overlaps the fold of the chunk before.  Items are the
+    ``(EncodedDataset, cursor)`` pairs ``iter_encoded_retrying`` emits."""
+    def stage(item):
+        ds, cur = item
+        return shard.stage(ds), cur
+
+    return stage
 
 
 def prefetch_encoded(path: str, encoder, ncols: int, delim: str = ",",

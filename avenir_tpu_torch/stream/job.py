@@ -10,10 +10,12 @@ divergence and detection state.  The job is the batch-replayable face of
 the continuous plane: the same windows a live stream would emit,
 reproducible from a file, and the seam the kill-and-resume drills drive.
 
-Left for the mesh and process planes: the ``shard.*`` keys are refused
-before anything is written (ROADMAP.md, Queue 1 item 7g), and one process
-writes the output (the JAX package's single-writer protocol across
-processes is item 7h).
+The ``shard.*`` topology is honoured on local devices: the job builds
+one ``ShardSpec``, journals its ``shard.topology`` and folds every pane
+over its mesh, with window lines byte-identical to the unsharded run's.
+Left for the process plane (ROADMAP.md, Queue 1 item 7h): ``shard.proc.*``
+and ``shard.reshard.*``, refused before anything is written, and the JAX
+package's single-writer protocol across processes.
 """
 
 from __future__ import annotations
@@ -69,12 +71,17 @@ class StreamAnalytics(Job):
         from avenir_tpu_torch.pipeline.driver import refused_key
         from avenir_tpu_torch.utils.retry import FaultPlan
 
+        from avenir_tpu_torch.parallel.shard import ShardSpec
+
         why = refused_key(conf)
         if why is not None:
             raise NotImplementedError(f"{self.name}: {why}")
         enc = self.encoder_for(conf)
         pane_rows = conf.get_int("stream.pane.rows", 1024)
         window_panes = conf.get_int("stream.window.panes", 1)
+        shard = ShardSpec.from_conf(conf, self.device)
+        if shard is not None:
+            shard.announce()
         detector = DriftDetector.from_conf(conf, counters)
         # one conf-driven fault plan shared by every seam: fold boundaries
         # (WindowedScan) and checkpoint save/restore (WindowCheckpointer)
@@ -107,7 +114,8 @@ class StreamAnalytics(Job):
                                            0),
             on_window=handle, fault=fault,
             pack_on=conf.get_bool("scan.pack.on", True),
-            pack_max_width=conf.get_int("scan.pack.max.width", 0) or None)
+            pack_max_width=conf.get_int("scan.pack.max.width", 0) or None,
+            shard=shard)
         skip = ckpt.restore_into(ws) if ckpt is not None else 0
         if conf.get_bool("stream.warmup.on.start", True):
             ws.warm()

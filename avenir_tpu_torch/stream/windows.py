@@ -1,5 +1,5 @@
 """StreamGraft windows — constant-memory sliding-window analytics over the
-SharedScan fold; port of ``avenir_tpu/stream/windows.py`` on one device.
+SharedScan fold; port of ``avenir_tpu/stream/windows.py`` in one process.
 
 A :class:`WindowedScan` pulls micro-batches of raw CSV rows from a queue
 transport (``pipeline/streaming.py``'s ``InProcQueue``), encodes each
@@ -33,10 +33,14 @@ each, all labels −1, so nothing counts) and primes a
 :class:`~avenir_tpu_torch.telemetry.spans.CompileKeyMonitor`, so a stream
 of full panes and a ragged tail shows zero ``Stream::recompiles``.
 
-The JAX package's mesh-sharded fold and its elastic restore
-(``shard.reshard.on.restore``, ``adopt_state``) wait with the mesh
-(ROADMAP.md, Queue 1 items 7g, 7h): a snapshot keyed for another routing
-is refused here, never folded.
+Under a ``shard.*`` plan (``shard=``) each pane folds over the mesh
+through the same ``ChunkFolder`` (padded on to its shard target, one B1
+launch per shard on ``cuda``), so windows inherit sharding with no
+stream-side code, and a pane snapshot records the mesh qualifier it was
+folded under.  A snapshot written under this run's topology resumes; one
+keyed for another routing or topology is refused here, never folded.
+Redistributing it (``shard.reshard.on.restore``, ``adopt_state``) is
+ROADMAP.md, Queue 1 item 7h.
 """
 
 from __future__ import annotations
@@ -127,7 +131,8 @@ def _pow2_buckets(pane_rows: int) -> List[int]:
 
 class WindowedScan:
     """Sliding/tumbling-window SharedScan consumer over a row stream on
-    ``device`` (``cuda`` unless the caller asks for the CPU).
+    ``device`` (``cuda`` unless the caller asks for the CPU), over the mesh
+    of a ``shard`` plan when given.
 
     ``feed(lines)`` (or ``pump(queue)``) ingests raw CSV rows; every
     ``pane_rows`` rows close a pane (encode → pad → fold); every window
@@ -150,7 +155,7 @@ class WindowedScan:
                  checkpointer: Optional["WindowCheckpointer"] = None,
                  crash_after_panes: int = 0, on_window=None,
                  fault=None, pack_on: bool = True,
-                 pack_max_width: Optional[int] = None):
+                 pack_max_width: Optional[int] = None, shard=None):
         from avenir_tpu_torch.device import resolve_device
 
         if not encoder.schema_complete(with_labels=True) or \
@@ -191,7 +196,8 @@ class WindowedScan:
         self.folder = scan.ChunkFolder(consumers, self.meta,
                                        resolve_device(device),
                                        pack_on=pack_on,
-                                       pack_max_width=pack_max_width)
+                                       pack_max_width=pack_max_width,
+                                       shard=shard, counters=self.counters)
         self.buckets = _pow2_buckets(self.pane_rows)
         self._monitor = tel.CompileKeyMonitor(self.counters, group="Stream",
                                               scope="stream.pane")
@@ -475,9 +481,10 @@ class WindowCheckpointer:
         ``ws``'s folder — gram state written on ``cuda`` (``g:…``) read by
         the CPU's einsum routing, einsum ``fc``/``pcc<off>`` counts read by
         a gram routing, a packed gram under another key — or that was
-        folded under a mesh topology is refused with ConfigError, never
-        folded: loading it would silently drop counts from the merged
-        window tables."""
+        folded under another mesh topology than ``ws``'s is refused with
+        ConfigError, never folded: loading it would silently drop counts
+        from the merged window tables.  One folded under ``ws``'s own
+        topology loads."""
         from avenir_tpu_torch.utils import checkpoint
 
         if self.restored is None:
@@ -514,10 +521,10 @@ class WindowCheckpointer:
             raise ConfigError(
                 f"stream snapshot in {self.directory!r} was written under "
                 f"{written!r} but this run folds under {reads!r} — "
-                f"redistributing it (shard.reshard.on.restore) waits with "
-                f"the mesh (ROADMAP.md, Queue 1 items 7g, 7h); resume on "
-                f"the device that wrote it, or clear the directory and "
-                f"restart the stream")
+                f"redistributing it (shard.reshard.on.restore) is not "
+                f"ported yet (ROADMAP.md, Queue 1 item 7h); resume on the "
+                f"device and topology that wrote it, or clear the "
+                f"directory and restart the stream")
         ws.load(state)
         extras = state.get("extras") or {}
         for key, component in self._components.items():

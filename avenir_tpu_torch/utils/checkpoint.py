@@ -213,7 +213,7 @@ class CheckpointManager:
         newest intact snapshot.  A torn snapshot raises
         :class:`CheckpointError` instead.  The tree comes back exactly as
         written, mesh-qualified keys included (redistributing them is the
-        JAX package's ``reshard_to``, not ported)."""
+        JAX package's ``reshard_to``, ROADMAP.md, Queue 1 item 7h)."""
         steps = [step] if step is not None else \
             list(reversed(self._steps()))
         for s in steps:
@@ -249,9 +249,11 @@ class CheckpointManager:
 # ---------------------------------------------------------------------------
 # mesh-qualified snapshots (the JAX package's checkpoint/reshard.py:73-128)
 # ---------------------------------------------------------------------------
-# A sharded fold writes its gram under ``g:<layout>:mesh:<axis><n>``.  The
-# port folds unsharded, so it reads these helpers only to recognise such a
-# snapshot and refuse it.
+# A sharded fold writes its gram under ``g:<layout>:mesh:<axis><n>``, and
+# the snapshot keeps those keys as written.  The restore seams read these
+# helpers to name a snapshot's topology: one written under the resuming
+# run's topology loads, another is refused (redistributing it, the JAX
+# package's ``reshard_to``, is ROADMAP.md, Queue 1 item 7h).
 
 MESH_TAG = ":mesh:"
 

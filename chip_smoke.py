@@ -271,11 +271,25 @@ Phases, in order; any failure exits non-zero:
     ``tenant.online`` (B5), each byte-identical to its untenanted run,
     granted + shed = submitted per tenant, and a queue-depth shed of
     batch that leaves online whole;
-14. print a ``walls_s`` JSON line (the native encoder's build, native
+14. (after 13, whose part files it reads; ~15 s) the ``shard.*`` plane on
+    the card's local devices, a one-device mesh on one H100: (a) phase
+    5b's NB + MI pipeline with ``shard.devices=all`` (each 250K-row chunk
+    padded to its 262,144-row target, B1 once per shard) and (b) phase
+    13's ``StreamAnalytics`` likewise, each byte-identical to its
+    unsharded run; (c) ``shard.devices=2`` refused with ConfigError
+    before any stage on one card (run and byte-identical on two or
+    more); (d) ``shard.allreduce.quantized=true`` over the CSV's first
+    20,000 rows in 127-row chunks under ``profile.on``, byte-identical
+    to the unsharded run, with one ``shard.topology`` naming the card
+    and one ``shard.skew`` a chunk; one ``shard`` JSON line of launches
+    per shard and walls beside the unsharded ones. Its B1 calls of (a)
+    are held in phase 6's path cases after 13;
+15. print a ``walls_s`` JSON line (the native encoder's build, native
     against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c and
     13's walls) with the card's name and power limit, then the kernels'
     JSON line (B1's and B4's launches also by phase 12's traced paths,
-    B1's by 12b's planned paths and 13's stream and tenant paths, B4's by
+    B1's by 12b's planned paths, 13's stream and tenant paths and 14's
+    sharded paths, B4's by
     13's tree refit, B5's and B6's by 12c's serving paths and B5's by
     13's tenant path), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
@@ -4200,6 +4214,159 @@ def stream_tenancy_phase(rec: Recorder, work: str, train: str, schema: str,
     return out
 
 
+SHARD_SLICE_ROWS = 20_000   # phase 14 (d): the quantized, profiled slice
+SHARD_SLICE_CHUNK = 127     # rows a chunk: every partial cell ≤ 127
+
+
+def shard_phase(rec: Recorder, work: str, train: str, schema: str,
+                walls: dict) -> dict:
+    """Phase 14: the ``shard.*`` plane on the card's local devices (a
+    one-device mesh on one H100); returns B1's launches by path.
+
+    (a) phase 5b's NB + MI pipeline over the 1M-row hospital CSV with
+    ``shard.devices=all`` (recorded as ``shard``: each 250K-row chunk
+    padded to 262,144 rows and folded by B1 once per shard), part files
+    byte-identical to 5b's fused run; (b) phase 13's ``StreamAnalytics``
+    with ``shard.devices=all`` (every pane and warm bucket once per
+    shard), byte-identical to 13's cuda run; (c) ``shard.devices=2``:
+    refused with ConfigError before any stage on one card, run and
+    byte-identical on two or more; (d) the pipeline over the CSV's first
+    20,000 rows in 127-row chunks with ``shard.allreduce.quantized=true``
+    (every partial cell ≤ 127, so the int8 reduction is exact) under
+    ``profile.on``: byte-identical to the unsharded run of the slice, one
+    ``shard.topology`` naming the card and one ``shard.skew`` a chunk in
+    the journal.  Prints launches per shard and the walls beside the
+    unsharded ones, with the card's name and power limit."""
+    import torch
+
+    from avenir_tpu_torch.core.config import ConfigError
+    from avenir_tpu_torch.parallel.mesh import shard_pad_target
+    from avenir_tpu_torch.telemetry.journal import read_events
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    n_dev = torch.cuda.device_count()
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    path = pipeline_conf(work, "nb_mi", train, schema)
+    launches = {}
+
+    # (a) the fused pipeline over the mesh
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec.on("shard"):
+        counters = run_pipeline(["run", path,
+                                 f"-Dpipeline.workspace={j('ws_shard')}",
+                                 "-Dshard.devices=all"])
+    walls["shard pipeline"] = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != only(B1=chunks * n_dev):
+        raise AssertionError(f"sharded pipeline launched {counts}")
+    if counters["nb"].get("Shard", {}).get("chunks") != chunks or \
+            counters["nb"]["SharedScan"]["Chunks"] != chunks or \
+            counters["nb"]["Records"]["Processed"] != ROWS_E2E:
+        raise AssertionError(f"sharded pipeline counters {counters}")
+    for art in ("nb_model", "mi_out"):
+        same_bytes(j("ws_shard", art, "part-00000"),
+                   j("ws_fused", art, "part-00000"),
+                   f"sharded pipeline {art} and phase 5b's fused")
+    ns = [args[0].shape[1] for _n, p, args, _kw in rec.calls if p == "shard"]
+    want_ns = [shard_pad_target(min(CHUNK_ROWS, ROWS_E2E - i), n_dev) // n_dev
+               for i in range(0, ROWS_E2E, CHUNK_ROWS) for _ in range(n_dev)]
+    if ns != want_ns:
+        raise AssertionError(f"sharded pipeline B1 calls at rows {ns}")
+    launches["shard"] = counts["B1"]
+
+    # (b) the stream over the mesh
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_cli([*stream_argv(schema, "-Dshard.devices=all"), train,
+                   j("stream_shard"), "--device", "cuda"])
+    walls["shard StreamAnalytics 1M"] = time.perf_counter() - t0
+    counts = read_counts()
+    want = only(B1=(STREAM_BUCKETS + STREAM_PANES) * n_dev)
+    if counts != want or counter_or_0(out, "recompiles") != 0:
+        raise AssertionError(f"sharded StreamAnalytics launched {counts} "
+                             f"(want {want}):\n{out}")
+    same_bytes(j("stream_shard", "part-00000"), j("stream_cuda", "part-00000"),
+               "sharded StreamAnalytics and phase 13's")
+    launches["shard_stream"] = counts["B1"]
+
+    # (c) two devices
+    ws2 = j("ws_shard2")
+    reset_counts()
+    if n_dev == 1:
+        msg = expect_raise(ConfigError, "only 1 device(s) attached (cuda)",
+                           lambda: run_pipeline(["run", path,
+                                                 f"-Dpipeline.workspace={ws2}",
+                                                 "-Dshard.devices=2"]))
+        if os.path.exists(ws2) or read_counts() != only():
+            raise AssertionError("a refused shard.devices=2 ran a stage")
+        two = f"refused on one card: {msg}"
+    else:
+        run_pipeline(["run", path, f"-Dpipeline.workspace={ws2}",
+                      "-Dshard.devices=2"])
+        if read_counts() != only(B1=chunks * 2):
+            raise AssertionError(f"two-device mesh launched {read_counts()}")
+        for art in ("nb_model", "mi_out"):
+            same_bytes(j("ws_shard2", art, "part-00000"),
+                       j("ws_fused", art, "part-00000"),
+                       f"two-device pipeline {art} and phase 5b's")
+        two = "ran on cuda:0 and cuda:1, byte-identical"
+
+    # (d) the quantized reduction on a short slice, profiled
+    sliced = j("slice.csv")
+    with open(train) as src, open(sliced, "w") as dst:
+        for _ in range(SHARD_SLICE_ROWS):
+            dst.write(src.readline())
+    slice_conf = pipeline_conf(work, "nb_mi_slice", sliced, schema)
+    small = [f"-Dstream.chunk.rows={SHARD_SLICE_CHUNK}"]
+    run_pipeline(["run", slice_conf, f"-Dpipeline.workspace={j('ws_slice')}",
+                  *small])
+    tel_dir = j("tel_shard")
+    reset_counts()
+    t0 = time.perf_counter()
+    run_pipeline(["run", slice_conf, f"-Dpipeline.workspace={j('ws_sliceq')}",
+                  *small, "-Dshard.devices=all",
+                  "-Dshard.allreduce.quantized=true", "-Dtrace.on=true",
+                  "-Dprofile.on=true", f"-Dtrace.journal.dir={tel_dir}"])
+    walls["shard quantized profiled slice"] = time.perf_counter() - t0
+    counts = read_counts()
+    n_slice = -(-SHARD_SLICE_ROWS // SHARD_SLICE_CHUNK)
+    # a fold and a skew probe a chunk, each one B1 launch per shard
+    if counts != only(B1=2 * n_slice * n_dev):
+        raise AssertionError(f"quantized slice launched {counts}")
+    for art in ("nb_model", "mi_out"):
+        same_bytes(j("ws_sliceq", art, "part-00000"),
+                   j("ws_slice", art, "part-00000"),
+                   f"quantized slice {art} and its unsharded run")
+    events = read_events(journal_of(tel_dir))
+    check_schema(events, "shard phase journal")
+    topo = [e for e in events if e["ev"] == "shard.topology"]
+    skews = [e for e in events if e["ev"] == "shard.skew"]
+    if len(topo) != 1 or \
+            topo[0]["device_kind"] != torch.cuda.get_device_name(0) or \
+            topo[0]["devices"] != n_dev or len(skews) != n_slice or \
+            any(len(e["device_ms"]) != n_dev for e in skews):
+        raise AssertionError(f"shard journal: topology {topo}, "
+                             f"{len(skews)} skew events")
+    launches["shard_quantized_profiled"] = counts["B1"]
+    skew_ms = sorted(ms for e in skews for ms in e["device_ms"])
+    log(json.dumps({"shard": {
+        "devices": n_dev, "launches": launches,
+        "launches_per_shard": {k: v // n_dev for k, v in launches.items()},
+        "walls_s": {
+            "pipeline sharded": walls["shard pipeline"],
+            "pipeline unsharded (5b)": walls["pipeline fused again"],
+            "stream sharded": walls["shard StreamAnalytics 1M"],
+            "stream unsharded (13)": walls["cuda StreamAnalytics 1M"],
+            "quantized profiled slice":
+                walls["shard quantized profiled slice"]},
+        "skew_probe_ms_min_median_max": [skew_ms[0],
+                                         statistics.median(skew_ms),
+                                         skew_ms[-1]],
+        "two_devices": two, "card": card_line()}}))
+    return launches
+
+
 def torch_sync() -> None:
     import torch
 
@@ -4483,9 +4650,12 @@ def main(argv=None) -> int:
         b6["serve_knn_10k"] = served["serve_knn_10k"]
         streamed = stream_tenancy_phase(rec, work, train, schema, used,
                                         walls)
+        t0 = time.perf_counter()
+        sharded = shard_phase(rec, work, train, schema, walls)
+        walls["phase 14"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    all_cases += path_cases(hist, rec)       # phase 13's B1 and B4 calls
+    all_cases += path_cases(hist, rec)       # phase 13's and 14's calls
     all_cases += knn_path_cases(rec, used)
     probes = probe_phase()
 
@@ -4499,7 +4669,7 @@ def main(argv=None) -> int:
                      {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
                       "pipeline_traced": traced["pipeline_traced"],
                       "pipeline_xla": traced["pipeline_xla"], **b1_corr,
-                      **b1_plan, **streamed["B1"]},
+                      **b1_plan, **streamed["B1"], **sharded},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},

@@ -288,8 +288,11 @@ def test_mesh_qualified_snapshot_is_refused(tmp_path):
         StreamCheckpointer(str(tmp_path / "ck"), resume=True)
     assert str(got.value) == str(want.value)
     assert "folded under mesh topology ':mesh:data8'" in str(got.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
         StreamCheckpointer(str(tmp_path / "ck"), resume=True, reshard=True)
+    # the mesh-qualified keys come back as written
+    state = StreamCheckpointer(str(tmp_path / "ck")).mgr.restore()
+    assert sorted(state["acc"]) == ["class", "g:fmaj:f10:b13:c2:mesh:data8"]
     assert checkpoint.split_mesh_key("g:cls:f4:b5:c2:mesh:data8") == \
         ("g:cls:f4:b5:c2", ":mesh:data8")
     mixed = {"acc": {"g:a:mesh:data8": 1, "g:b:mesh:data4": 2}}

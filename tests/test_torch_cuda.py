@@ -11,7 +11,8 @@ the probe functions of
 pinned copies, the consumer's wait); the SharedScan on ``cuda``
 against the CPU; RandomForest's B4 calls against the plain version and
 its trees against the CPU forest; Viterbi (scan and assoc) and logistic
-regression on ``cuda`` against the CPU; the bandit selections,
+regression on ``cuda`` against the CPU; a one-device mesh's sharded
+SharedScan on ``cuda`` against the CPU's fold; the bandit selections,
 ``WordCount`` and NumericalAttrStats on ``cuda`` against the CPU (no
 kernel of their own: plain torch ops on the card); a planned pipeline on
 the kernel route against the staged run, and a ``KNNServable`` on
@@ -453,6 +454,56 @@ def test_shared_scan_on_the_card_equals_cpu_b2(cuda):
     assert hist.plan(20, 20, 2)[0] == "cls"
     _scan_equal_on_both_devices(_wide(6000, 20, 20, seed=4), 2000,
                                 "cls_launches")
+
+
+@pytest.mark.cuda
+def test_one_device_mesh_fold_on_the_card_equals_its_plain_version(cuda):
+    """``shard.devices=all`` on the card: a mesh of the cards this process
+    sees (one on one H100); each 1,500-row chunk is padded to its 2,048-row
+    target, staged on its device and folded by B1 there, one launch a
+    chunk per shard, into the tables of the CPU's unsharded fold (B1's
+    plain version), under the ``:mesh:data<n>`` key; more devices than
+    the cards are refused."""
+    from avenir_tpu_torch.core.config import ConfigError, JobConfig
+    from avenir_tpu_torch.ops import agg
+    from avenir_tpu_torch.parallel.shard import ShardSpec
+    from avenir_tpu_torch.pipeline import scan
+
+    enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_hosp_readmit(5000, seed=9))
+    n_cards = torch.cuda.device_count()
+    spec = ShardSpec.from_conf(JobConfig({"shard.devices": "all"}), "cuda")
+    assert spec.num_devices == n_cards
+    assert spec.g_suffix == f":mesh:data{n_cards}"
+    staged = spec.stage(ds.slice(0, 1500))
+    assert staged.valid_rows == 1500 and staged.num_rows == 2048
+
+    def run(device, shard):
+        eng = scan.SharedScan(device=device, shard=shard)
+        eng.register(scan.NaiveBayesConsumer(name="nb"))
+        eng.register(scan.MutualInfoConsumer(name="mi"))
+        return eng.run(iter([ds.slice(i, min(i + 1500, ds.num_rows))
+                             for i in range(0, ds.num_rows, 1500)]))
+
+    hist.cooc_counts_cols.launches = 0
+    got = run("cuda", spec)
+    assert hist.cooc_counts_cols.launches == 4 * n_cards
+    want = run("cpu", None)
+    for name in ("bin_counts", "class_counts"):
+        np.testing.assert_array_equal(getattr(got["nb"], name),
+                                      getattr(want["nb"], name))
+    np.testing.assert_array_equal(got["mi"].pair_class_counts,
+                                  want["mi"].pair_class_counts)
+    assert got["mi"].to_lines() == want["mi"].to_lines()
+    folder = scan.ChunkFolder([scan.NaiveBayesConsumer()], ds, "cuda",
+                              shard=spec)
+    acc = agg.Accumulator()
+    folder.fold(ds.slice(0, 100), acc)
+    assert folder.gk == hist.g_key(10, 13, 2) + spec.g_suffix
+    assert folder.gk in acc
+    with pytest.raises(ConfigError, match=r"device\(s\) attached \(cuda\)"):
+        ShardSpec.from_conf(JobConfig({"shard.devices": str(n_cards + 1)}),
+                            "cuda")
 
 
 def _wide(n, f, b, seed):

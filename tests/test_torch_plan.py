@@ -578,12 +578,16 @@ def test_plan_verb_prints_explain(plan_env, capsys):
 
 
 def test_plan_refuses_shard_keys_before_output(plan_env):
+    """The process plane's shard.* keys (ROADMAP.md, Queue 1 item 7h) are
+    refused before the planner or a stage runs; ``shard.devices`` itself
+    is honoured (``tests/test_torch_shard.py``)."""
     root, props, class_ord = plan_env
     p = _interleaved(PORT, root, "ws_shard", props, class_ord,
-                     {"plan.on": "true", "shard.devices": "2"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7g"):
+                     {"plan.on": "true", "shard.devices": "2",
+                      "shard.proc.axis": "proc"})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
         plan_mod.plan_pipeline(p)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7g"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
         p.run()
     assert not (root / "ws_shard").exists()
 

@@ -286,7 +286,7 @@ def test_tables_refuse_a_foreign_gram_key(hosp):
     acc = agg.Accumulator()
     folder.fold(ds, acc)
     acc.add("g:jmaj:f10:b13:c2", np.zeros((2, 2), np.int32))
-    with pytest.raises(scan.ScanError, match="layout changed"):
+    with pytest.raises(scan.ScanError, match="kernel layout or mesh topology"):
         folder.tables(acc, ds.num_rows)
 
 

@@ -559,7 +559,8 @@ def test_stream_analytics_refusals_before_output(schema, job_data,
     _root, data = job_data
     base = {"feature.schema.file.path": schema, "stream.pane.rows": "16"}
     for extra, exc, match in (
-            ({"shard.devices": "2"}, NotImplementedError, "Queue 1 item 7g"),
+            ({"shard.devices": "2", "shard.reshard.on.restore": "true"},
+             NotImplementedError, "Queue 1 item 7h"),
             ({"stream.consumers": "naiveBays"}, ConfigError,
              "unknown stream consumer")):
         out = tmp_path / "out"

@@ -639,10 +639,16 @@ def test_pipeline_runs_fused_scan_as_its_tenant(hosp, tmp_path):
                        for a in ("nb_model", "mi_out")]
     assert parts["ten"] == parts["plain"]
     assert tenancy.pool().stats()["batch"]["grants"] == 3
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7g"):
-        driver.Pipeline.from_conf(
-            JobConfig({**props, "shard.devices": "2"}),
-            workspace=str(tmp_path / "sh"), device="cpu").run()
+    # the sharded fold draws its slots under the tenant too: one a chunk
+    tenancy.reset()
+    driver.Pipeline.from_conf(
+        JobConfig({**props, "tenant.batch.share": "1", "tenant.id": "batch",
+                   "shard.devices": "2"}),
+        workspace=str(tmp_path / "sh"), device="cpu").run()
+    assert [(tmp_path / "sh" / a / "part-00000").read_text()
+            for a in ("nb_model", "mi_out")] == parts["plain"]
+    assert tenancy.pool().stats()["batch"]["grants"] == 3
+    tenancy.reset()
 
 
 def test_serving_cli_arms_the_arbiter_before_binding(hosp, tmp_path,
