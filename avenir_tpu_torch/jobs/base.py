@@ -90,6 +90,25 @@ def read_lines(path: str) -> List[str]:
     return out
 
 
+def auto_mesh(conf: JobConfig, device=None):
+    """A one-axis ``data`` mesh over every local device of ``device``'s
+    kind (``cuda`` unless the caller asks for the CPU), or None — the JAX
+    package's ``Job.auto_mesh``.  ``data.parallel.auto`` (default true)
+    shards each count job's batch over the mesh when it spans two or more
+    devices: the cards of this process on ``cuda`` (one H100 gives None),
+    the host slots of ``XLA_FLAGS`` on the CPU
+    (``parallel/mesh.py::local_devices``).  ``data.parallel.auto=false``
+    runs on one device whatever the topology."""
+    if not conf.get_bool("data.parallel.auto", True):
+        return None
+    from avenir_tpu_torch.parallel.mesh import local_devices, make_mesh
+
+    devices = local_devices(device)
+    if len(devices) < 2:
+        return None
+    return make_mesh(("data",), devices=devices)
+
+
 class Job:
     """Base: subclasses set ``name`` (the reference Tool class simple name)
     and implement :meth:`execute`, reading ``self.device``."""
@@ -146,6 +165,11 @@ class Job:
         raise NotImplementedError
 
     # -- shared plumbing -----------------------------------------------------
+    def auto_mesh(self, conf: JobConfig):
+        """The job's data-parallel mesh (:func:`auto_mesh` on the job's
+        device), or None."""
+        return auto_mesh(conf, self.device)
+
     @staticmethod
     def load_schema(conf: JobConfig) -> FeatureSchema:
         path = conf.get("feature.schema.file.path")
@@ -312,7 +336,7 @@ class Job:
     def encoded_data_source(self, conf: JobConfig, input_path: str,
                             counters: Counters, with_labels: bool = True,
                             checkpointer: Optional["StreamCheckpointer"] = None,
-                            shard=None):
+                            shard=None, mesh=None):
         """(encoder, data, rows_fn) for count jobs whose model ``fit`` takes
         one EncodedDataset or a chunk iterable.
 
@@ -328,7 +352,9 @@ class Job:
 
         With a ``shard`` plan (``parallel/shard.ShardSpec``) the feeder's
         stage is ``sharded_pair_stage``: each chunk padded to its shard
-        target and its row blocks copied to the mesh's devices.
+        target and its row blocks copied to the mesh's devices.  Without
+        one, a data ``mesh`` (``auto_mesh``) makes it ``mesh_pair_stage``:
+        each chunk split over the mesh as the model's fit would split it.
 
         With a ``checkpointer`` the stream starts at its restored cursor,
         ``rows_fn()`` adds its restored rows, and it is told of every chunk
@@ -346,11 +372,12 @@ class Job:
             depth = conf.get_int("stream.prefetch.depth", 2)
             if depth > 0:
                 from avenir_tpu_torch.runtime.feeder import (
-                    DeviceFeeder, sharded_pair_stage)
+                    DeviceFeeder, mesh_pair_stage, sharded_pair_stage)
 
-                pairs = DeviceFeeder(
-                    pairs, depth=depth, device=self.device,
-                    stage=None if shard is None else sharded_pair_stage(shard))
+                stage = (sharded_pair_stage(shard) if shard is not None
+                         else None if mesh is None else mesh_pair_stage(mesh))
+                pairs = DeviceFeeder(pairs, depth=depth, device=self.device,
+                                     stage=stage)
 
             def consume():
                 if ckpt is None:

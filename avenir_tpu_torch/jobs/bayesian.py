@@ -30,12 +30,12 @@ class BayesianDistribution(Job):
             self._execute_text(conf, input_path, output_path, counters)
             return
         nbayes = nb.NaiveBayes(laplace=conf.get_float("laplace.smoothing", 1.0),
-                               device=self.device)
+                               mesh=self.auto_mesh(conf), device=self.device)
         # stream.checkpoint.dir persists (totals, cursor) every N chunks of
         # a stream.chunk.rows stream, so a killed run resumes (--resume)
         ckpt = self.stream_checkpointer(conf)
         enc, data, rows_fn = self.encoded_data_source(
-            conf, input_path, counters, checkpointer=ckpt)
+            conf, input_path, counters, checkpointer=ckpt, mesh=nbayes.mesh)
         model = nbayes.fit(data, accumulator=ckpt.accumulator if ckpt else None)
         lines = nb.model_to_lines(model, enc, delim=conf.field_delim)
         write_output(output_path, lines)

@@ -10,10 +10,10 @@ turn transaction rows into per-customer field sequences
 (resource/tutorial_opt_email_marketing.txt:19-42).  Both are host string
 work.  ``NumericalAttrStats`` takes its class moments on the job's device.
 
-The port runs these jobs in one process on one device: the JAX package's
-data mesh over several local devices (``maybe_shard_batch``) is ROADMAP.md
-Queue 1 item 7g-ii and its ``jax.distributed`` chunk ownership
-(``distributed_plan``) item 7h.
+``NumericalAttrStats`` splits its rows over the job's data mesh
+(``Job.auto_mesh``) as the JAX package does, the moments taken per shard
+and summed in shard order; the JAX package's ``jax.distributed`` chunk
+ownership (``distributed_plan``) is ROADMAP.md Queue 1 item 7h.
 """
 
 from __future__ import annotations
@@ -23,12 +23,13 @@ import os
 from typing import Dict, List, Tuple
 
 import numpy as np
-import torch
 
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.core.csv_io import read_csv
 from avenir_tpu_torch.jobs.base import Job, input_files, read_input, write_output
 from avenir_tpu_torch.ops import agg
+from avenir_tpu_torch.parallel.collectives import shard_sum
+from avenir_tpu_torch.parallel.mesh import place_batch
 from avenir_tpu_torch.utils.metrics import Counters
 
 
@@ -198,10 +199,11 @@ class NumericalAttrStats(Job):
 
     name = "NumericalAttrStats"
 
-    def _moments(self, vals: np.ndarray, labels: np.ndarray, num_groups: int):
-        cnt, s1, s2 = agg.class_moments(
-            torch.from_numpy(vals).to(self.device),
-            torch.from_numpy(labels).to(self.device), num_groups)
+    def _moments(self, vals: np.ndarray, labels: np.ndarray, num_groups: int,
+                 mesh):
+        vals_b, labels_b = place_batch(mesh, self.device, vals, labels)
+        cnt, s1, s2 = shard_sum(agg.class_moments, vals_b, labels_b,
+                                num_groups)
         return tuple(t.cpu().numpy().astype(np.float64) for t in (cnt, s1, s2))
 
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
@@ -228,7 +230,8 @@ class NumericalAttrStats(Job):
         uniq, labels = _groups(rows, cond_ord)
         shift = _finite_mean_shift(vals64, labels, len(uniq))
         vals = (vals64 - shift[labels]).astype(np.float32)
-        cnt, s1, s2 = self._moments(vals, labels, len(uniq))
+        cnt, s1, s2 = self._moments(vals, labels, len(uniq),
+                                    self.auto_mesh(conf))
 
         d = conf.field_delim
         lines: List[str] = []
@@ -283,6 +286,7 @@ class NumericalAttrStats(Job):
                     "feature.schema.file.path (column count is unknown "
                     "before the first chunk)")
         cond_ord = conf.get_int("cond.attr.ord")
+        mesh = self.auto_mesh(conf)
         a = len(attr_ords)
         max_state_bytes = conf.get_int("stream.stats.max.state.mb", 1024) << 20
         state_bytes = 0
@@ -301,7 +305,7 @@ class NumericalAttrStats(Job):
             uniq, labels = _groups(rows, cond_ord)
             shift = _finite_mean_shift(vals64, labels, len(uniq))
             vals = (vals64 - shift[labels]).astype(np.float32)
-            cnt, s1, s2 = self._moments(vals, labels, len(uniq))
+            cnt, s1, s2 = self._moments(vals, labels, len(uniq), mesh)
             for ci, g in enumerate(uniq):
                 if not cnt[ci]:
                     continue

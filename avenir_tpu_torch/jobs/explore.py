@@ -68,13 +68,14 @@ class MutualInformation(Job):
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
         schema = self.load_schema(conf)
+        mesh = self.auto_mesh(conf)
         ckpt = self.stream_checkpointer(conf)
         acc = ckpt.accumulator if ckpt else None
         enc, data, rows_fn = self.encoded_data_source(
-            conf, input_path, counters, checkpointer=ckpt)
+            conf, input_path, counters, checkpointer=ckpt, mesh=mesh)
         names = [schema.field_by_ordinal(f.ordinal).name
                  for f in enc.binned_fields]
-        result = mi.MutualInformation(device=self.device).fit(
+        result = mi.MutualInformation(mesh=mesh, device=self.device).fit(
             data, feature_names=names, accumulator=acc)
         write_output(output_path, mi_output_lines(conf, result, names))
         if ckpt:
@@ -94,13 +95,15 @@ class _CorrelationJob(Job):
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
         schema = self.load_schema(conf)
+        mesh = self.auto_mesh(conf)
         ckpt = self.stream_checkpointer(conf)
         enc, data, rows_fn = self.encoded_data_source(
-            conf, input_path, counters, checkpointer=ckpt)
+            conf, input_path, counters, checkpointer=ckpt, mesh=mesh)
         src_idx, dst_idx, against_class, names = correlation_plan(
             conf, schema, enc)
         result = corr.CategoricalCorrelation(
-            algorithm=self._algorithm(conf), device=self.device).fit(
+            algorithm=self._algorithm(conf), mesh=mesh,
+            device=self.device).fit(
                 data, src=src_idx, dst=dst_idx, against_class=against_class,
                 feature_names=names,
                 accumulator=ckpt.accumulator if ckpt else None)

@@ -111,7 +111,8 @@ class FisherDiscriminant(Job):
         _enc, ds, _rows = self.encode_input(conf, input_path, need_rows=False)
         schema = self.load_schema(conf)
         names = [schema.field_by_ordinal(o).name for o in ds.cont_ordinals]
-        model = mfisher.FisherDiscriminant(device=self.device).fit(ds)
+        model = mfisher.FisherDiscriminant(mesh=self.auto_mesh(conf),
+                                           device=self.device).fit(ds)
         write_output(output_path,
                      model.to_lines(feature_names=names, delim=conf.field_delim))
         counters.set("Records", "Processed", ds.num_rows)

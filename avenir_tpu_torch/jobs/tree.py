@@ -29,6 +29,8 @@ from avenir_tpu_torch.jobs.base import Job, read_lines, write_output
 from avenir_tpu_torch.models import tree as dtree
 from avenir_tpu_torch.ops import hist
 from avenir_tpu_torch.ops import info as oinfo
+from avenir_tpu_torch.parallel.collectives import shard_sum
+from avenir_tpu_torch.parallel.mesh import mesh_on_cuda, place_batch
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, Counters
 
 
@@ -72,11 +74,11 @@ class ClassPartitionGenerator(Job):
         _enc, ds, _rows = self.encode_input(conf, input_path, need_rows=False)
         p = _tree_params(conf)
         dev = self.device
-        labels = torch.from_numpy(np.ascontiguousarray(ds.labels)).to(dev)
         if conf.get_bool("at.root"):
             # phase-1 bootstrap of the reference's two-job tree runbook:
             # only the dataset-level info content
             # (ClassPartitionGenerator.java:206-209,516-519)
+            labels = torch.from_numpy(np.ascontiguousarray(ds.labels)).to(dev)
             counts = torch.bincount(labels.long(), minlength=ds.num_classes
                                     ).to(torch.float32)
             stat_fn = (oinfo.entropy_from_counts if p["algorithm"] == "entropy"
@@ -90,18 +92,24 @@ class ClassPartitionGenerator(Job):
         # the reference's externally supplied parent info content (from the
         # at.root bootstrap); unset = derive from the node itself
         parent_info = conf.get_float("parent.info")
-        codes = torch.from_numpy(np.ascontiguousarray(ds.codes)).to(dev)
-        node_ids = torch.zeros(ds.num_rows, dtype=torch.int32, device=dev)
+        mesh = self.auto_mesh(conf)
+        codes, labels, node_ids = place_batch(
+            mesh, dev, np.ascontiguousarray(ds.codes), ds.labels,
+            np.zeros(ds.num_rows, np.int32))
         # ONE count for the whole job: the [F, B, 1, C] table, on the same
-        # routes DecisionTree.fit takes per level
-        if dev.type == "cuda" and hist.cross_applicable(
+        # routes DecisionTree.fit takes per level (per shard, summed, under
+        # the mesh)
+        on_card = dev.type == "cuda" if mesh is None else mesh_on_cuda(mesh)
+        if on_card and hist.cross_applicable(
                 ds.num_binned, ds.max_bins, ds.num_classes):
-            table_dev = dtree._level_table_cross(
-                codes.t().contiguous(), node_ids, labels, 1, ds.num_classes,
-                ds.max_bins)
+            table_dev = shard_sum(
+                lambda x, nid, y: dtree._level_table_cross(
+                    x.t().contiguous(), nid, y, 1, ds.num_classes,
+                    ds.max_bins), codes, node_ids, labels)
         else:
-            table_dev = dtree.node_bin_class_counts(
-                codes, node_ids, labels, 1, ds.num_classes, ds.max_bins)
+            table_dev = shard_sum(dtree.node_bin_class_counts, codes,
+                                  node_ids, labels, 1, ds.num_classes,
+                                  ds.max_bins)
         out_distr = conf.get_bool("output.split.prob", False)
         split_chunk = conf.get_int("split.chunk", 128)
 
@@ -234,7 +242,7 @@ class DecisionTreeBuilder(Job):
             selection=p["selection"], split_search=p["split_search"],
             hist_mode=p["hist_mode"], level_packed=p["level_packed"],
             collect_phase_stats=conf.get_bool("tree.hist.phase.stats", False),
-            device=self.device,
+            mesh=self.auto_mesh(conf), device=self.device,
         )
         model = trainer.fit(ds, _is_categorical(self, conf, ds))
         for st in trainer.level_stats:

@@ -12,6 +12,11 @@ schemas).  Elsewhere they are ``agg.pair_counts`` in slices of
 ``pair_chunk`` pairs.  Both give the same integer tables; each pair's
 statistic is computed from them in float32 on the host CPU, so the result
 does not depend on the device the counts came from.
+
+Under a data mesh (``mesh=``, the jobs' ``auto_mesh``) the tables are
+accumulated under the ``agg`` route's keys on any mesh, as in the JAX
+package; on a mesh of CUDA cards each shard's tables still come from its
+gram (B1–B3 on its card), summed and read out into those keys' tensors.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import EncodedDataset, peek_chunks
-from avenir_tpu_torch.device import resolve_device, to_device
+from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg, hist, info
+from avenir_tpu_torch.parallel.collectives import shard_sum
+from avenir_tpu_torch.parallel.mesh import mesh_on_cuda, place_batch
 
 STATS: Dict[str, Callable] = {
     "cramerIndex": info.cramer_index,
@@ -69,6 +76,35 @@ def class_tables(fbc: np.ndarray, pairs, b_dst: int) -> np.ndarray:
     cont = np.zeros((len(pairs), b_dst, b_dst), fbc.dtype)
     cont[:, :b, :c] = fbc[[i for i, _ in pairs]]
     return cont
+
+
+def gram_tables(g: np.ndarray, num_feat: int, num_bins: int,
+                num_classes: int, pairs, against_class: bool,
+                b_dst: int) -> np.ndarray:
+    """The contingency stack [P, Bd, Bd] of ``pairs`` read out of a gram
+    total: against the class, the [F, B, C] diagonal of the class gram;
+    else the (bin, bin) pair tables of the one-class gram."""
+    if against_class:
+        fbc, _ = hist.counts_from_cooc(g, num_feat, num_bins, num_classes,
+                                       np.zeros(0, np.int64),
+                                       np.zeros(0, np.int64))
+        return class_tables(fbc, pairs, b_dst)
+    _, pair4 = hist.counts_from_cooc(
+        g, num_feat, num_bins, 1, np.array([p[0] for p in pairs], np.int64),
+        np.array([p[1] for p in pairs], np.int64))
+    return pair4[:, :, :, 0]
+
+
+def _pair_tables(codes: torch.Tensor, labels: Optional[torch.Tensor],
+                 pairs, b_dst: int) -> torch.Tensor:
+    """[P, Bd, Bd] ``agg.pair_counts`` of ``pairs``, the destination the
+    class label where a pair's is −1."""
+    ci = codes[:, [p[0] for p in pairs]]
+    if labels is not None:
+        cj = labels.long()[:, None].expand(codes.shape[0], len(pairs))
+    else:
+        cj = codes[:, [p[1] for p in pairs]]
+    return agg.pair_counts(ci, cj, b_dst)
 
 
 def result_from_counts(
@@ -122,11 +158,12 @@ class CategoricalCorrelation:
     destination of every pair (the churn tutorial's use)."""
 
     def __init__(self, algorithm: str = "cramerIndex", pair_chunk: int = 512,
-                 device=None):
+                 mesh=None, device=None):
         if algorithm not in STATS:
             raise ValueError(f"unknown algorithm {algorithm!r}; known: {sorted(STATS)}")
         self.algorithm = algorithm
         self.pair_chunk = pair_chunk
+        self.mesh = mesh          # optional data mesh (parallel/mesh.py)
         self.device = resolve_device(device)
 
     def fit(
@@ -152,9 +189,12 @@ class CategoricalCorrelation:
         acc = accumulator if accumulator is not None else agg.Accumulator()
         # kernel route: feature-pair tables are the gram of ONE class
         # (labels ≡ 0), against-class tables its [F, B, C] diagonal over the
-        # real labels
+        # real labels; under a mesh the agg route's keys, each shard's
+        # tables from its gram on a mesh of cards
         n_cls = meta.num_classes if against_class else 1
-        fast = hist.use_kernel(f, b, n_cls, self.device)
+        fast = self.mesh is None and hist.use_kernel(f, b, n_cls, self.device)
+        shard_gram = (self.mesh is not None and mesh_on_cuda(self.mesh)
+                      and hist.applicable(f, b, n_cls))
         gk = hist.g_key(f, b, n_cls) if fast else None
         ek = None if fast else _einsum_key_prefix(f, b_dst, pairs)
         if accumulator is not None:
@@ -171,35 +211,33 @@ class CategoricalCorrelation:
                     f"snapshot was written under a different device/kernel "
                     f"layout or attribute selection — clear the checkpoint "
                     f"directory and re-run")
+
+        def gram(codes, labels):
+            y = (labels if against_class else
+                 torch.zeros(codes.shape[0], dtype=torch.int32,
+                             device=codes.device))
+            return hist.cooc_counts(codes, y, b, n_cls)
+
         for ds in chunks:
-            codes = to_device(ds.codes, self.device)
+            codes, lab = place_batch(self.mesh, self.device, ds.codes,
+                                     ds.labels)
             if fast:
-                y = (to_device(ds.labels, self.device) if against_class
-                     else torch.zeros(codes.shape[0], dtype=torch.int32,
-                                      device=self.device))
-                acc.add(gk, hist.cooc_counts(codes, y, b, n_cls))
+                acc.add(gk, gram(codes, lab))
                 continue
-            lab = (to_device(ds.labels, self.device).long() if against_class
-                   else None)
+            if shard_gram:
+                tables = gram_tables(
+                    shard_sum(gram, codes, lab).cpu().numpy(), f, b, n_cls,
+                    pairs, against_class, b_dst)
+                for s in range(0, len(pairs), self.pair_chunk):
+                    acc.add(f"{ek}:{s}", tables[s:s + self.pair_chunk])
+                continue
             for s in range(0, len(pairs), self.pair_chunk):
-                sl = pairs[s:s + self.pair_chunk]
-                ci = codes[:, [p[0] for p in sl]]
-                if against_class:
-                    cj = lab[:, None].expand(codes.shape[0], len(sl))
-                else:
-                    cj = codes[:, [p[1] for p in sl]]
-                acc.add(f"{ek}:{s}", agg.pair_counts(ci, cj, b_dst))
-        if fast and gk in acc and against_class:
-            fbc, _ = hist.counts_from_cooc(
-                acc.get(gk), f, b, n_cls, np.zeros(0, np.int64),
-                np.zeros(0, np.int64))                   # [F, B, C]
-            cont = class_tables(fbc, pairs, b_dst)
-        elif fast and gk in acc:
-            _, pair4 = hist.counts_from_cooc(
-                acc.get(gk), f, b, 1,
-                np.array([p[0] for p in pairs], np.int64),
-                np.array([p[1] for p in pairs], np.int64))
-            cont = pair4[:, :, :, 0]                     # [P, B, B]
+                acc.add(f"{ek}:{s}", shard_sum(
+                    _pair_tables, codes, lab if against_class else None,
+                    pairs[s:s + self.pair_chunk], b_dst))
+        if fast and gk in acc:
+            cont = gram_tables(acc.get(gk), f, b, n_cls, pairs,
+                               against_class, b_dst)
         elif pairs:
             cont = np.concatenate([
                 acc.get(f"{ek}:{s}")
@@ -213,13 +251,13 @@ class CategoricalCorrelation:
 class CramerCorrelation(CategoricalCorrelation):
     """The reference job's statistic, the Cramér index."""
 
-    def __init__(self, pair_chunk: int = 512, device=None):
-        super().__init__("cramerIndex", pair_chunk, device=device)
+    def __init__(self, pair_chunk: int = 512, mesh=None, device=None):
+        super().__init__("cramerIndex", pair_chunk, mesh=mesh, device=device)
 
 
 class HeterogeneityReductionCorrelation(CategoricalCorrelation):
     """Concentration (Gini) or uncertainty coefficient."""
 
     def __init__(self, algorithm: str = "concentrationCoeff",
-                 pair_chunk: int = 512, device=None):
-        super().__init__(algorithm, pair_chunk, device=device)
+                 pair_chunk: int = 512, mesh=None, device=None):
+        super().__init__(algorithm, pair_chunk, mesh=mesh, device=device)

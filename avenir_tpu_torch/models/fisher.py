@@ -5,8 +5,9 @@ discriminant/FisherDiscriminant.java).
 Per (attribute, class) count, mean and variance, then per attribute the
 pooled variance, the log-odds of the class priors, and the decision
 boundary ``(μ₀+μ₁)/2 − logOdds·σ²_pooled/(μ₀−μ₁)`` (:83-117).  The moments
-are ``agg.class_moments`` sums, in float64 on the fit's device; the closed
-form runs in float64 numpy on the host.
+are ``agg.class_moments`` sums, in float64 on the fit's device (per shard
+and summed in shard order under a data ``mesh``); the closed form runs in
+float64 numpy on the host.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ from typing import Iterable, List, Optional, Union
 import numpy as np
 
 from avenir_tpu_torch.core.encoding import EncodedDataset, NoDataError
-from avenir_tpu_torch.device import resolve_device, to_device
+from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg
+from avenir_tpu_torch.parallel.collectives import shard_sum
+from avenir_tpu_torch.parallel.mesh import place_batch
 
 
 @dataclass
@@ -73,9 +76,11 @@ def model_from_moments(class_values: List[str], cnt: np.ndarray,
 
 
 class FisherDiscriminant:
-    """Fit on ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    """Fit on ``device`` (``cuda`` unless the caller asks for the CPU),
+    over an optional data ``mesh`` (``parallel/mesh.py``)."""
 
-    def __init__(self, device=None):
+    def __init__(self, mesh=None, device=None):
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def fit(self, data: Union[EncodedDataset, Iterable[EncodedDataset]]) -> FisherDiscriminantModel:
@@ -86,9 +91,10 @@ class FisherDiscriminant:
             meta = ds
             if ds.labels is None:
                 raise ValueError("fit requires labels")
-            cnt, s1, s2 = agg.class_moments(to_device(ds.cont, self.device),
-                                            to_device(ds.labels, self.device),
-                                            ds.num_classes)
+            cont, labels = place_batch(self.mesh, self.device, ds.cont,
+                                       ds.labels)
+            cnt, s1, s2 = shard_sum(agg.class_moments, cont, labels,
+                                    ds.num_classes)
             acc.add("cnt", cnt)
             acc.add("s1", s1)
             acc.add("s2", s2)

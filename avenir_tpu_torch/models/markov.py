@@ -21,7 +21,7 @@ Sequences pad to [R, T] int32 codes with −1.  Counts are integer
 ``bincount``s on the device (``ops/agg.py``); the Viterbi recursion is a
 loop over time on [R, S] tensors, with padded steps carrying δ unchanged.
 A data ``mesh`` and the time-sharded decoder are the models' ``mesh=``
-seams, ROADMAP.md Queue 1 item 7g-ii.
+seams, ROADMAP.md Queue 1 item 7g-ii (b).
 """
 
 from __future__ import annotations

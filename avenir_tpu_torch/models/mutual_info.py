@@ -8,6 +8,13 @@ MI statistic derives from them.  On CUDA the counts come from the
 co-occurrence gram kernels (``ops/hist.py``), read out once at the end; on
 the CPU, and for shapes outside every kernel gate, from the integer
 ``agg`` counts.  Both give the same counts.  MI values are in nats.
+
+Under a data mesh (``mesh=``, the jobs' ``auto_mesh``) the route follows
+the JAX package on the same kind of mesh: on a mesh of CUDA cards (the
+JAX package's TPU mesh) each shard's gram is B1–B3 on its card, summed
+exactly (``collectives.sharded_cooc_step``), under the plain ``g_key``;
+on a CPU mesh each shard's ``agg`` counts, summed (the ``fc`` /
+``pcc<s>`` keys).
 """
 
 from __future__ import annotations
@@ -19,8 +26,10 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import EncodedDataset, peek_chunks
-from avenir_tpu_torch.device import resolve_device, to_device
+from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg, hist, info
+from avenir_tpu_torch.parallel.collectives import shard_sum, sharded_cooc_step
+from avenir_tpu_torch.parallel.mesh import mesh_on_cuda, place_batch
 
 
 @dataclass
@@ -114,10 +123,12 @@ class MutualInformation:
     """One-pass MI/distribution engine over encoded chunks.
 
     ``pair_chunk`` bounds the pair dimension of the per-chunk [P, B, B, C]
-    tensor on the ``agg`` route; ``device`` defaults to ``cuda``."""
+    tensor on the ``agg`` route; ``device`` defaults to ``cuda``;
+    ``mesh`` is an optional data mesh (module docstring)."""
 
-    def __init__(self, pair_chunk: int = 256, device=None):
+    def __init__(self, pair_chunk: int = 256, mesh=None, device=None):
         self.pair_chunk = pair_chunk
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def fit(self, data: Union[EncodedDataset, Iterable[EncodedDataset]],
@@ -137,8 +148,14 @@ class MutualInformation:
         pair_index = all_pairs(f)
         acc = accumulator if accumulator is not None else agg.Accumulator()
         # kernel route: one gram per chunk (B1, or B2/B3 in the per-class
-        # plan modes), accumulated as G and read out once at the end
-        kernel = hist.use_kernel(f, b, c, self.device)
+        # plan modes), accumulated as G and read out once at the end; on
+        # a mesh of cards, one gram a shard, summed
+        if self.mesh is None:
+            kernel = hist.use_kernel(f, b, c, self.device)
+            gram = lambda cd, lb: hist.cooc_counts(cd, lb, b, c)  # noqa: E731
+        else:
+            kernel = mesh_on_cuda(self.mesh) and hist.applicable(f, b, c)
+            gram = sharded_cooc_step(self.mesh, b, c)
         gk = hist.g_key(f, b, c)
         if accumulator is not None:
             stale = [k for k in accumulator.names()
@@ -159,18 +176,18 @@ class MutualInformation:
             elif "fc" in accumulator and kernel:
                 kernel = False
         for ds in chunks:
-            codes = to_device(ds.codes, self.device)
-            labels = to_device(ds.labels, self.device)
-            acc.add("class", agg.class_counts(labels, c))
+            codes, labels = place_batch(self.mesh, self.device, ds.codes,
+                                        ds.labels)
+            acc.add("class", shard_sum(agg.class_counts, labels, c))
             if kernel:
-                acc.add(gk, hist.cooc_counts(codes, labels, b, c))
+                acc.add(gk, gram(codes, labels))
                 continue
-            acc.add("fc", agg.feature_class_counts(codes, labels, c, b))
+            acc.add("fc", shard_sum(agg.feature_class_counts, codes, labels,
+                                    c, b))
             for s in range(0, len(pair_index), self.pair_chunk):
-                sl = torch.from_numpy(pair_index[s:s + self.pair_chunk]).to(
-                    self.device, torch.long)
-                acc.add(f"pcc{s}", agg.pair_class_counts(
-                    codes[:, sl[:, 0]], codes[:, sl[:, 1]], labels, c, b))
+                sl = torch.from_numpy(pair_index[s:s + self.pair_chunk]).long()
+                acc.add(f"pcc{s}", shard_sum(agg.pair_class_counts_at,
+                                             codes, labels, sl, c, b))
         if gk in acc:
             fc_full, pcc_full = hist.counts_from_cooc(
                 acc.get(gk), f, b, c, pair_index[:, 0], pair_index[:, 1])

@@ -27,8 +27,10 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import DatasetEncoder, EncodedDataset, peek_chunks
-from avenir_tpu_torch.device import resolve_device, to_device
+from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg
+from avenir_tpu_torch.parallel.collectives import shard_sum
+from avenir_tpu_torch.parallel.mesh import place_batch
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, CostBasedArbitrator, Counters
 
 _LOG2PI = float(np.log(2.0 * np.pi))
@@ -181,10 +183,17 @@ class PredictionResult:
 
 class NaiveBayes:
     """Estimator facade: ``fit`` over encoded chunks → :class:`NaiveBayesModel`
-    → ``predict`` with arbitration; ``device`` defaults to ``cuda``."""
+    → ``predict`` with arbitration; ``device`` defaults to ``cuda``.
 
-    def __init__(self, laplace: float = 1.0, device=None):
+    ``mesh``: an optional data mesh (``parallel/mesh.py``, the jobs'
+    ``auto_mesh``): each chunk's rows are split over it (−1 pad rows
+    count nothing) and every count is taken per shard and summed in shard
+    order (``collectives.shard_sum``).  Counts equal the unsharded fit's;
+    the Gaussian Σx and Σx² are float64 sums in shard order."""
+
+    def __init__(self, laplace: float = 1.0, mesh=None, device=None):
         self.laplace = laplace
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def fit(self, data: Union[EncodedDataset, Iterable[EncodedDataset]],
@@ -199,14 +208,14 @@ class NaiveBayes:
             if ds.labels is None:
                 raise ValueError("fit requires labels (class attribute column)")
             c, b = ds.num_classes, ds.max_bins
-            labels = to_device(ds.labels, self.device)
+            codes, labels, cont = place_batch(self.mesh, self.device,
+                                              ds.codes, ds.labels, ds.cont)
             if ds.num_binned:
-                codes = to_device(ds.codes, self.device)
-                acc.add("bin_counts", agg.feature_class_counts(codes, labels, c, b))
-            acc.add("class_counts", agg.class_counts(labels, c))
+                acc.add("bin_counts", shard_sum(
+                    agg.feature_class_counts, codes, labels, c, b))
+            acc.add("class_counts", shard_sum(agg.class_counts, labels, c))
             if ds.num_cont:
-                cont = to_device(ds.cont, self.device)
-                cnt, s1, s2 = agg.class_moments(cont, labels, c)
+                cnt, s1, s2 = shard_sum(agg.class_moments, cont, labels, c)
                 acc.add("cont_count", cnt)
                 acc.add("cont_sum", s1)
                 acc.add("cont_sumsq", s2)

@@ -42,6 +42,8 @@ import torch
 from avenir_tpu_torch.core.encoding import EncodedDataset
 from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg, hist, info
+from avenir_tpu_torch.parallel.collectives import per_shard, shard_sum
+from avenir_tpu_torch.parallel.mesh import mesh_on_cuda, place_batch
 from avenir_tpu_torch.telemetry import profile as _profile
 from avenir_tpu_torch.telemetry.spans import CompileKeyMonitor
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, Counters
@@ -739,7 +741,7 @@ def predict_fn(model: DecisionTreeModel, pad_shapes: bool = True,
 
 class DecisionTree:
     """Frontier-growth decision-tree trainer, the JAX package's
-    ``DecisionTree`` without its data mesh.
+    ``DecisionTree``.
 
     Parameters mirror the reference's job properties: ``algorithm``,
     ``max_depth``, ``min_node_size``, ``min_gain``, ``max_split``,
@@ -754,7 +756,14 @@ class DecisionTree:
     grow the same tree.  ``collect_phase_stats`` records per-level
     table/select/partition walls in ``level_stats`` (with a device
     synchronisation per phase on CUDA).  ``device`` is ``cuda`` unless
-    ``"cpu"`` is asked for."""
+    ``"cpu"`` is asked for.
+
+    ``mesh``: an optional data mesh (``parallel/mesh.py``, the jobs'
+    ``auto_mesh``).  The rows are split over it once (−1 pad rows count
+    nothing), each shard keeps its own node vector, and each level's
+    table is taken per shard and summed in shard order: B4 per card on a
+    mesh of CUDA cards where its gate passes, the plain bincount on a CPU
+    mesh; never a disjoint pack, as in the JAX package."""
 
     def __init__(
         self,
@@ -775,6 +784,7 @@ class DecisionTree:
         hist_mode: str = "direct",
         level_packed: str = "auto",
         collect_phase_stats: bool = False,
+        mesh=None,
         device=None,
     ):
         if algorithm not in ALGORITHMS:
@@ -809,6 +819,7 @@ class DecisionTree:
         self.max_candidates_per_attr = max_candidates_per_attr
         self.split_chunk = split_chunk
         self.seed = seed
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def _attrs_for_node(self, rng: np.random.Generator, num_attrs: int) -> List[int]:
@@ -835,19 +846,20 @@ class DecisionTree:
         rng = np.random.default_rng(self.seed)
         c = ds.num_classes
         nf, nb = ds.num_binned, ds.max_bins
-        # codes and labels go to the device once; per level only the [N]
-        # node vector changes, and it stays there
-        labels_dev = torch.from_numpy(
-            np.ascontiguousarray(ds.labels, np.int32)).to(dev)
-        codes_dev = torch.from_numpy(
-            np.ascontiguousarray(ds.codes, np.int32)).to(dev)
-        on_card = dev.type == "cuda"
+        # codes and labels go to the device (split over the mesh) once;
+        # per level only the [N] node vector changes, and it stays there
+        mesh = self.mesh
+        labels_dev, codes_dev = place_batch(
+            mesh, dev, np.ascontiguousarray(ds.labels, np.int32),
+            np.ascontiguousarray(ds.codes, np.int32))
+        on_card = (dev.type == "cuda" if mesh is None
+                   else mesh_on_cuda(mesh))
         # the X-side gate of the cross kernel is level-independent
         use_cross = on_card and hist.cross_applicable(nf, nb, max(c, 1))
-        may_pack = self.level_packed == "on" or (
-            self.level_packed == "auto" and on_card)
-        codes_t_dev = (codes_dev.t().contiguous() if (use_cross or may_pack)
-                       else None)
+        may_pack = mesh is None and (self.level_packed == "on" or (
+            self.level_packed == "auto" and on_card))
+        codes_t_dev = (per_shard(lambda x: x.t().contiguous(), codes_dev)
+                       if (use_cross or may_pack) else None)
         all_splits = candidate_splits_for(
             ds, self.split_search, self.max_split, is_categorical,
             self.max_candidates_per_attr)
@@ -860,8 +872,8 @@ class DecisionTree:
 
         root_counts = np.bincount(ds.labels, minlength=c).astype(np.float64)
         nodes: List[TreeNode] = [TreeNode(0, 0, root_counts)]
-        node_dev = torch.zeros(labels_dev.shape[0], dtype=torch.int32,
-                               device=dev)
+        node_dev = per_shard(lambda y: torch.zeros(
+            y.shape[0], dtype=torch.int32, device=y.device), labels_dev)
         frontier = [0]
         use_subtract = self.hist_mode == "subtract"
         prev_table_dev = None
@@ -875,8 +887,8 @@ class DecisionTree:
             accepts the frontier, the plain bincount otherwise.  Returns
             (table, route) with route in ("cross", "packed", "plain")."""
             if use_cross and hist.cross_applicable(nf, nb, k_slots * c):
-                return _level_table_cross(codes_t_dev, local_ids, labels_dev,
-                                          k_slots, c, nb), "cross"
+                return shard_sum(_level_table_cross, codes_t_dev, local_ids,
+                                 labels_dev, k_slots, c, nb), "cross"
             if may_pack and k_slots > 0:
                 pplan = hist.pack_disjoint(k_slots, nf, nb, max(c, 1))
                 if pplan is not None and (
@@ -884,8 +896,8 @@ class DecisionTree:
                         or self.level_packed == "on"):
                     return _level_table_packed(codes_t_dev, local_ids,
                                                labels_dev, pplan), "packed"
-            return node_bin_class_counts(codes_dev, local_ids, labels_dev,
-                                         k_slots, c, nb), "plain"
+            return shard_sum(node_bin_class_counts, codes_dev, local_ids,
+                             labels_dev, k_slots, c, nb), "plain"
 
         for depth in range(self.max_depth):
             if not frontier:
@@ -903,8 +915,9 @@ class DecisionTree:
                 # each largest sibling by exact parent-slice subtraction
                 remap_direct, dslot, pslot, sib_mat, kd = sub_plan
                 k_contracted = kd
-                local_direct = _remap_nodes(
-                    node_dev, torch.as_tensor(remap_direct, device=dev))
+                local_direct = per_shard(
+                    _remap_nodes, node_dev,
+                    torch.as_tensor(remap_direct, device=dev))
                 direct_dev, path_lv = build_table(local_direct, kd)
                 table_dev = _assemble_subtract_table(
                     direct_dev, prev_table_dev,
@@ -913,7 +926,7 @@ class DecisionTree:
                     torch.as_tensor(sib_mat, device=dev))
             else:
                 table_dev, path_lv = build_table(
-                    _remap_nodes(node_dev, remap_dev), k)
+                    per_shard(_remap_nodes, node_dev, remap_dev), k)
             if use_subtract:
                 prev_table_dev = table_dev
             if collect:
@@ -1004,8 +1017,8 @@ class DecisionTree:
                 t_sel = time.perf_counter()
             # no next level (or nothing split): the vector would never be read
             if new_frontier and (child_tab >= 0).any():
-                node_dev = _apply_level_partition(
-                    codes_dev, node_dev, remap_dev,
+                node_dev = per_shard(
+                    _apply_level_partition, codes_dev, node_dev, remap_dev,
                     torch.as_tensor(attr_arr, device=dev),
                     torch.as_tensor(child_tab, device=dev))
                 if collect:

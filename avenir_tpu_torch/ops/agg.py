@@ -98,6 +98,16 @@ def pair_class_counts(codes_i: torch.Tensor, codes_j: torch.Tensor,
     return _count(idx, keep, p * b * b * c).reshape(p, b, b, c)
 
 
+def pair_class_counts_at(codes: torch.Tensor, labels: torch.Tensor,
+                         pairs: torch.Tensor, num_classes: int,
+                         num_bins: int) -> torch.Tensor:
+    """codes [N, F], labels [N], pairs [P, 2] feature indices → the
+    [P, B, B, C] :func:`pair_class_counts` of those pairs' columns."""
+    pairs = pairs.to(codes.device)
+    return pair_class_counts(codes[:, pairs[:, 0]], codes[:, pairs[:, 1]],
+                             labels, num_classes, num_bins)
+
+
 def pair_counts(codes_i: torch.Tensor, codes_j: torch.Tensor,
                 num_bins: int) -> torch.Tensor:
     """codes_i [N, P], codes_j [N, P] → [P, B, B] joint histograms of P

@@ -12,8 +12,13 @@ int32 gram and class counts are exact whatever the order; the class
 moments are float64 sums (``agg.class_moments``), exact where the JAX
 package's float32 partials are.
 
-The model steps of the JAX module (NB, NB-2D, kNN, LR, MI: its
-``:44-238``) are ROADMAP.md, Queue 1 item 7g-ii.
+The count models' ``mesh=`` seams (NB, MI, correlation, Fisher, the
+tree, NumericalAttrStats) fold through :func:`shard_sum` the same way:
+one count function per shard on that shard's device, the partials
+summed in shard order.  The model steps of the JAX module
+(``sharded_nb_fit_step``, ``sharded_nb_fit_step_2d``,
+``sharded_knn_topk``, ``sharded_lr_step``, ``sharded_mi_step``: its
+``:44-238``) are ROADMAP.md, Queue 1 item 7g-ii (b).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import List, Sequence
 
 import torch
 
-from avenir_tpu_torch.parallel.mesh import Mesh, shard_parts
+from avenir_tpu_torch.parallel.mesh import Blocks, Mesh, shard_parts
 
 
 def all_reduce_sum(partials: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -36,11 +41,16 @@ def all_reduce_sum(partials: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def quantized_allreduce_sum(partials: Sequence[torch.Tensor]) -> torch.Tensor:
     """The EQuARX-style int8 all-reduce of the JAX package
-    (``quantized_allreduce_sum``, arXiv 2506.17615) in its float32
-    arithmetic: each shard's partial is quantized row by row (trailing
-    axis) with the scale ``s = max(max|row|, 127) / 127``, rounded half to
-    even to int8, then every shard's int8 block and scales are
-    dequantized and summed in float32 on the first shard's device.
+    (``quantized_allreduce_sum``, arXiv 2506.17615) in the float32
+    arithmetic XLA compiles it to on the CPU: each shard's partial is
+    quantized row by row (trailing axis) with the scale
+    ``s = max(max|row|, 127) · float32(1/127)`` (XLA folds the division
+    by 127 into a multiply by its float32 reciprocal), rounded half to
+    even to int8, then every shard's term ``q · s`` is added to the
+    running float32 sum in shard order with a single rounding (XLA fuses
+    the product into the sum): the product and sum in float64, rounded
+    once to float32.  Each step is an IEEE-rounded elementwise op, so
+    ``cuda`` and the CPU give the same bits.
 
     Exact whenever every partial cell is ≤ 127 in magnitude (the scale is
     then 1); otherwise each shard's term is off by at most s/2 a cell.
@@ -51,10 +61,50 @@ def quantized_allreduce_sum(partials: Sequence[torch.Tensor]) -> torch.Tensor:
     out = None
     for x in partials:
         xf = x.to(torch.float32)
-        s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=qmax) / qmax
+        inv = torch.tensor(1.0 / qmax, dtype=torch.float32, device=xf.device)
+        s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=qmax) * inv
         q = torch.round(xf / s).to(torch.int8)
-        term = q.to(dev).to(torch.float32) * s.to(dev)
-        out = term if out is None else out + term
+        term = q.to(dev).double() * s.to(dev).double()
+        out = term.float() if out is None else (out.double() + term).float()
+    return out
+
+
+def _shard_call(fn, args, i: int):
+    """``fn`` on shard ``i``: each :class:`Blocks` operand's ``i``-th block,
+    every other tensor copied to that block's device, the rest as given."""
+    dev = next(a.parts[i].device for a in args if isinstance(a, Blocks))
+    return fn(*(a.parts[i] if isinstance(a, Blocks)
+                else a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in args))
+
+
+def per_shard(fn, *args):
+    """``fn`` applied to each shard's blocks of the :class:`Blocks`
+    operands, on that shard's device: a :class:`Blocks` of the results
+    (a tuple of them when ``fn`` returns a tuple).  Without a
+    :class:`Blocks` operand, ``fn(*args)`` itself."""
+    blocks = [a for a in args if isinstance(a, Blocks)]
+    if not blocks:
+        return fn(*args)
+    outs = [_shard_call(fn, args, i) for i in range(len(blocks[0].parts))]
+    if isinstance(outs[0], tuple):
+        return tuple(Blocks(tuple(o[k] for o in outs))
+                     for k in range(len(outs[0])))
+    return Blocks(tuple(outs))
+
+
+def shard_sum(fn, *args):
+    """A count function over a sharded batch: ``fn`` on each shard's
+    blocks on that shard's device (:func:`per_shard`), the partials
+    reduced in shard order by :func:`all_reduce_sum` onto the first
+    shard's device — int32 / int64 counts exactly, float64 moments in
+    shard order; a tuple result is reduced element by element.  Without
+    a :class:`Blocks` operand, ``fn(*args)`` itself."""
+    out = per_shard(fn, *args)
+    if isinstance(out, Blocks):
+        return all_reduce_sum(out.parts)
+    if isinstance(out, tuple) and out and isinstance(out[0], Blocks):
+        return tuple(all_reduce_sum(o.parts) for o in out)
     return out
 
 
@@ -79,8 +129,9 @@ def shard_grams(mesh: Mesh, codes, labels, num_bins: int,
     from avenir_tpu_torch.ops import hist
 
     check_placement(mesh, data_axis, codes, labels)
-    return [hist.cooc_counts(c, y, num_bins, num_classes)
-            for c, y in zip(shard_parts(codes), shard_parts(labels))]
+    return list(shard_parts(per_shard(
+        lambda c, y: hist.cooc_counts(c, y, num_bins, num_classes),
+        codes, labels)))
 
 
 def sharded_cooc_step(mesh: Mesh, num_bins: int, num_classes: int,
@@ -116,13 +167,10 @@ def sharded_scan_step(mesh: Mesh, num_bins: int, num_classes: int,
             g = torch.round(quantized_allreduce_sum(grams)).to(torch.int32)
         else:
             g = all_reduce_sum(grams)
-        ys = shard_parts(labels)
-        cc = all_reduce_sum([agg.class_counts(y, num_classes) for y in ys])
+        cc = shard_sum(lambda y: agg.class_counts(y, num_classes), labels)
         if not moments:
             return g, cc
-        parts = [agg.class_moments(x, y, num_classes)
-                 for x, y in zip(shard_parts(cont), ys)]
-        return (g, cc, *(all_reduce_sum([p[k] for p in parts])
-                         for k in range(3)))
+        return (g, cc, *shard_sum(
+            lambda x, y: agg.class_moments(x, y, num_classes), cont, labels))
 
     return step

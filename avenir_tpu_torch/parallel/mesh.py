@@ -251,3 +251,20 @@ def maybe_shard_batch(mesh: Optional[Mesh], *arrays,
         return out if len(host) > 1 else [out]
     dev = mesh.devices[0] if mesh is not None else torch.device("cpu")
     return [None if a is None else to_device(a, dev) for a in host]
+
+
+def mesh_on_cuda(mesh: Optional[Mesh]) -> bool:
+    """Is every device of ``mesh`` a CUDA card?  The port's counterpart of
+    the JAX package's ``mesh_on_tpu``: a mesh of cards runs the kernels
+    once per shard, a CPU mesh (the host slots) the plain counts."""
+    return mesh is not None and all(d.type == "cuda" for d in mesh.devices)
+
+
+def place_batch(mesh: Optional[Mesh], device, *arrays,
+                data_axis: str = "data") -> list:
+    """A model's chunk placement: split over ``mesh``'s data axis
+    (:func:`maybe_shard_batch`) when a mesh is given, else each array
+    whole on ``device`` (None entries stay None).  Always a list."""
+    if mesh is not None:
+        return maybe_shard_batch(mesh, *arrays, data_axis=data_axis)
+    return [None if a is None else to_device(a, device) for a in arrays]

@@ -46,9 +46,12 @@ Where the port differs from the JAX package:
 - **The shard branch.** A unit under a ``shard.*`` topology is
   ``program = "shard"`` with no pack question, as in the JAX package, and
   a singleton count stage stays a scan unit there (the sharded fold lives
-  only in the SharedScan).  The JAX package's ``Job.auto_mesh`` (the
-  ``sharded`` routing) stays None in the port until ROADMAP.md, Queue 1
-  item 7g-ii.
+  only in the SharedScan).
+- **The auto-mesh branch.** Where ``Job.auto_mesh`` gives a data mesh
+  (``data.parallel.auto``, two or more local devices: the host slots of
+  ``XLA_FLAGS`` on the CPU, the cards on ``cuda``) the unit is
+  ``program = "sharded"`` with the einsum family's cost and no pack
+  question, as in the JAX package; one H100 has no such mesh.
 
 ``python -m avenir_tpu_torch.pipeline plan <conf>`` prints
 :meth:`PipelinePlan.explain`; ``plan.on=true`` routes ``Pipeline.run``
@@ -453,9 +456,11 @@ def _estimate(unit: ScanUnit, schema, enc, peek, device) -> None:
     heuristic decides (``pack_on=None``, source "model").
 
     A unit under a ``shard.*`` topology is the ``shard`` program, with
-    no pack question (the packed gram is one unsharded program).  The JAX
-    package's next question, ``Job.auto_mesh`` (the ``sharded`` routing),
-    waits for ROADMAP.md, Queue 1 item 7g-ii: it is None in the port."""
+    no pack question (the packed gram is one unsharded program).  Under
+    the conf's data mesh (``Job.auto_mesh`` on ``device``) it is the
+    ``sharded`` program: the per-device work is the einsum family, whose
+    cost is recorded, and the pack question goes to nobody."""
+    from avenir_tpu_torch.jobs.base import auto_mesh
     from avenir_tpu_torch.parallel.shard import ShardSpec
     from avenir_tpu_torch.pipeline import scan
 
@@ -463,7 +468,9 @@ def _estimate(unit: ScanUnit, schema, enc, peek, device) -> None:
     if ShardSpec.requested(conf):
         unit.program = "shard"
         return
+    mesh = auto_mesh(conf, device)
     if peek is None:
+        unit.program = "sharded" if mesh is not None else unit.program
         unit.pack_source = "model"
         return
     sample, est_rows = peek
@@ -477,6 +484,11 @@ def _estimate(unit: ScanUnit, schema, enc, peek, device) -> None:
     base = scan.ChunkFolder(consumers, view, device, pack_on=False,
                             pack_max_width=pmw)
     unit.cost_rows = view.num_rows
+    if mesh is not None:
+        unit.program = "sharded"
+        unit.cost = _einsum_cost(base, view)
+        unit.pack_source = "aot" if unit.cost is not None else "model"
+        return
     if base.step != "einsum":
         # the kernel route (B1–B3 on cuda) or moments only: one program
         # with no pack question

@@ -18,7 +18,12 @@ Under a ``shard.*`` plan (``parallel/shard.py``) each chunk is padded to
 its shard target and split into equal row blocks, one per device of the
 mesh; each block is folded on its device (B1–B3 once per shard) and the
 partials are summed (``parallel/collectives.py``), the gram keyed with
-the mesh's qualifier.  The result equals the unsharded fold's.
+the mesh's qualifier.  The result equals the unsharded fold's.  Without
+a plan, a data ``mesh`` (the jobs' ``auto_mesh``) splits each chunk the
+same way and folds it as the JAX package does on the same kind of mesh:
+the ``sharded`` route (B1–B3 a shard, the plain ``g_key``) on a mesh of
+CUDA cards, the per-table ``agg`` counts a shard on a CPU mesh; neither
+packs.
 
 At the end each consumer is finalized from the shared tables through the
 models' data-free constructors: NB's [F, B, C] table is G's diagonal block,
@@ -252,14 +257,18 @@ class ChunkFolder:
       (``collectives.sharded_scan_step``: one gram launch per shard on
       ``cuda``, its plain version on the CPU) and the partials summed,
       the gram keyed under the mesh-qualified ``g_key``;
-    - ``kernel``: ``hist.use_kernel(f, b, c, device)`` — the data is on
-      CUDA and some plan mode takes the shape — one gram launch per chunk
-      (B1, B2 or B3), with the class moments beside it;
-    - ``packed``: elsewhere, where ``hist.pack_tables`` finds that one
-      one-hot product (``hist.gram_counts``) beats the per-table counts;
+    - ``kernel``: without a mesh, ``hist.use_kernel(f, b, c, device)`` —
+      the data is on CUDA and some plan mode takes the shape — one gram
+      launch per chunk (B1, B2 or B3), with the class moments beside it;
+    - ``sharded``: under a data ``mesh`` of CUDA cards where some plan
+      mode takes the shape — one gram launch per shard, summed
+      (``collectives.sharded_scan_step``), under the plain ``g_key``;
+    - ``packed``: without a mesh, where ``hist.pack_tables`` finds that
+      one one-hot product (``hist.gram_counts``) beats the per-table
+      counts;
     - ``einsum``: else the ``agg`` counts per table, as
-      ``MutualInformation.fit`` runs them (under a plan, per shard on
-      each shard's device, each partial added to the host totals).
+      ``MutualInformation.fit`` runs them (under a plan or a mesh, per
+      shard on each shard's device, summed in shard order).
 
     All give equal counts: the read-out ``counts_from_cooc`` reads the
     same cells of either gram.  ``counters`` receives the ``Shard`` group
@@ -269,8 +278,9 @@ class ChunkFolder:
                  meta: EncodedDataset, device, pair_chunk: int = 256,
                  pack_on: bool = True,
                  pack_max_width: Optional[int] = None, shard=None,
-                 counters: Optional[Counters] = None):
+                 counters: Optional[Counters] = None, mesh=None):
         from avenir_tpu_torch.ops import hist
+        from avenir_tpu_torch.parallel.mesh import mesh_on_cuda
 
         if not consumers:
             raise ScanError("no consumers registered")
@@ -278,6 +288,7 @@ class ChunkFolder:
         self.meta = meta
         self.device = torch.device(device)
         self.shard = shard                # parallel/shard.ShardSpec or None
+        self.mesh = shard.mesh if shard is not None else mesh
         self.counters = counters
         self.pair_chunk = pair_chunk
         f, b, c = meta.num_binned, meta.max_bins, meta.num_classes
@@ -293,19 +304,23 @@ class ChunkFolder:
         self.step = None
         self.pack = None
         if self.needs_counts:
-            if shard is not None and hist.applicable(f, b, c):
-                from avenir_tpu_torch.parallel import collectives
+            from avenir_tpu_torch.parallel import collectives
 
+            if shard is not None and hist.applicable(f, b, c):
                 self._shard_step = collectives.sharded_scan_step(
                     shard.mesh, b, c, data_axis=shard.data_axis,
                     quantized=shard.quantized, moments=self.needs_moments)
                 self.step = "shard"
-            elif hist.use_kernel(f, b, c, self.device):
+            elif self.mesh is None and hist.use_kernel(f, b, c, self.device):
                 self.step = "kernel"
+            elif mesh_on_cuda(self.mesh) and hist.applicable(f, b, c):
+                self._shard_step = collectives.sharded_scan_step(
+                    self.mesh, b, c, moments=self.needs_moments)
+                self.step = "sharded"
             else:
                 self.step = "einsum"
         # the packed gram is one unsharded program
-        if self.step == "einsum" and pack_on and shard is None:
+        if self.step == "einsum" and pack_on and self.mesh is None:
             self.pack = hist.pack_tables(f, b, c, len(self.pair_index),
                                          max_width=pack_max_width)
             if self.pack is not None:
@@ -382,30 +397,26 @@ class ChunkFolder:
             self._fold(ds, acc)
 
     def _fold(self, ds: EncodedDataset, acc: agg.Accumulator) -> None:
-        if self.shard is None:
-            self._fold_local(
-                to_device(ds.codes, self.device),
-                to_device(ds.labels, self.device),
-                to_device(ds.cont, self.device) if self.needs_moments
-                else None, acc)
-            return
-        from avenir_tpu_torch.parallel.mesh import shard_parts
+        from avenir_tpu_torch.parallel.mesh import place_batch
 
-        codes, labels, cont = self.shard.shard_batch(ds.codes, ds.labels,
-                                                     ds.cont)
-        if self.step == "shard":
+        if self.shard is not None:
+            codes, labels, cont = self.shard.shard_batch(ds.codes, ds.labels,
+                                                         ds.cont)
+        else:
+            codes, labels, cont = place_batch(
+                self.mesh, self.device, ds.codes, ds.labels,
+                ds.cont if self.needs_moments else None)
+        if self.step in ("shard", "sharded"):
             self._fold_shard(codes, labels, cont, acc)
             return
-        # a shape no gram takes: each shard's plain counts on its device
-        for part in zip(shard_parts(codes), shard_parts(labels),
-                        shard_parts(cont)):
-            self._fold_local(*part, acc)
+        self._fold_local(codes, labels, cont, acc)
 
     def _fold_shard(self, codes, labels, cont, acc: agg.Accumulator) -> None:
-        """One sharded chunk: every shard's gram, class counts (and class
-        moments when a consumer reads them) summed over the shards, then
-        the ``Shard`` counters and, under ``profile.on``, the straggler
-        probe on the same staged blocks."""
+        """One chunk through the per-shard gram step: every shard's gram,
+        class counts (and class moments when a consumer reads them)
+        summed over the shards; under a ``shard.*`` plan also the
+        ``Shard`` counters and, under ``profile.on``, the straggler probe
+        on the same staged blocks."""
         out = self._shard_step(codes, labels, cont)
         acc.add("class", out[1])
         acc.add(self.gk, out[0])
@@ -413,6 +424,8 @@ class ChunkFolder:
             acc.add("cont_count", out[2])
             acc.add("cont_sum", out[3])
             acc.add("cont_sumsq", out[4])
+        if self.shard is None:
+            return
         if self.counters is not None:
             # staged rows include the ballast; true rows are the stream's
             # Records::Processed
@@ -429,12 +442,14 @@ class ChunkFolder:
                                              counters=self.counters)
             self._skew.maybe_probe(codes, labels)
 
-    def _fold_local(self, codes: torch.Tensor, labels: torch.Tensor,
-                    cont: Optional[torch.Tensor],
-                    acc: agg.Accumulator) -> None:
+    def _fold_local(self, codes, labels, cont, acc: agg.Accumulator) -> None:
+        """One chunk on the kernel, packed or einsum route; on the einsum
+        route a chunk split over a mesh (:class:`Blocks`) is counted per
+        shard and summed in shard order."""
         from avenir_tpu_torch.ops import hist
+        from avenir_tpu_torch.parallel.collectives import shard_sum
 
-        acc.add("class", agg.class_counts(labels, self.c))
+        acc.add("class", shard_sum(agg.class_counts, labels, self.c))
         moments = None
         if self.step == "kernel":
             if self.needs_moments:
@@ -451,17 +466,16 @@ class ChunkFolder:
                 g = hist.gram_counts(codes, labels, self.b, self.c)
             acc.add(self.gk, g)
         elif self.step == "einsum":
-            acc.add("fc", agg.feature_class_counts(codes, labels,
-                                                   self.c, self.b))
+            acc.add("fc", shard_sum(agg.feature_class_counts, codes, labels,
+                                    self.c, self.b))
             for s in range(0, len(self.pair_index), self.pair_chunk):
                 sl = torch.from_numpy(
-                    self.pair_index[s:s + self.pair_chunk]).to(self.device,
-                                                              torch.long)
-                acc.add(f"pcc{s}", agg.pair_class_counts(
-                    codes[:, sl[:, 0]], codes[:, sl[:, 1]], labels,
-                    self.c, self.b))
+                    self.pair_index[s:s + self.pair_chunk]).long()
+                acc.add(f"pcc{s}", shard_sum(agg.pair_class_counts_at,
+                                             codes, labels, sl, self.c,
+                                             self.b))
         if self.needs_moments and moments is None:
-            moments = agg.class_moments(cont, labels, self.c)
+            moments = shard_sum(agg.class_moments, cont, labels, self.c)
         if moments is not None:
             acc.add("cont_count", moments[0])
             acc.add("cont_sum", moments[1])
@@ -557,16 +571,19 @@ class SharedScan:
     ``run(data)`` streams the chunks once, folds each through one
     :class:`ChunkFolder`, and returns ``{consumer.name: result}``.  With a
     ``shard`` plan the chunks fold over its mesh and ``counters`` receives
-    the ``Shard`` group."""
+    the ``Shard`` group; without one, over the data ``mesh`` when given
+    (:class:`ChunkFolder`)."""
 
     def __init__(self, device=None, pair_chunk: int = 256,
                  pack_on: bool = True,
                  pack_max_width: Optional[int] = None, shard=None,
-                 counters: Optional[Counters] = None):
+                 counters: Optional[Counters] = None, mesh=None):
         from avenir_tpu_torch.device import resolve_device
 
         self.device = resolve_device(device)
         self.shard = shard                # parallel/shard.ShardSpec or None
+        self.mesh = mesh
+        self.mesh = shard.mesh if shard is not None else mesh
         self.counters = counters
         self.pair_chunk = pair_chunk
         self.pack_on = pack_on                 # scan.pack.on
@@ -597,7 +614,8 @@ class SharedScan:
         folder = ChunkFolder(self._consumers, meta, self.device,
                              pair_chunk=self.pair_chunk, pack_on=self.pack_on,
                              pack_max_width=self.pack_max_width,
-                             shard=self.shard, counters=self.counters)
+                             shard=self.shard, counters=self.counters,
+                             mesh=self.mesh)
         import time
 
         from avenir_tpu_torch.telemetry import profile as _profile
@@ -617,6 +635,8 @@ class SharedScan:
             attrs["shard.devices"] = self.shard.num_devices
             attrs["shard.axis"] = self.shard.data_axis
             devices = list(self.shard.mesh.axis_devices(self.shard.data_axis))
+        elif self.mesh is not None:
+            devices = list(self.mesh.axis_devices("data"))
         # the scan is a range of its own in a trace.xla.dir device trace
         with tracer.span("scan", attrs=attrs) as scan_span, \
                 profiling.region("scan"):
@@ -833,7 +853,9 @@ def run_fused_stages(stages, device=None,
     (``ShardSpec.from_conf``) that decides the feeder's staging, the fold
     over the mesh and the mesh-qualified gram key; the plan's topology is
     journaled once (``shard.topology``), and the first stage's Counters
-    carry the ``Shard`` group."""
+    carry the ``Shard`` group.  Without a plan the stages' data mesh
+    (``Job.auto_mesh`` of the first stage's conf) decides the staging and
+    the fold, as in the JAX package."""
     from avenir_tpu_torch.device import resolve_device
     from avenir_tpu_torch.jobs.base import Job
     from avenir_tpu_torch.parallel.shard import ShardSpec
@@ -844,6 +866,8 @@ def run_fused_stages(stages, device=None,
     job_obj.device = resolve_device(device)
     schema = Job.load_schema(first_conf)
     spec = ShardSpec.from_conf(first_conf, job_obj.device)
+    # an explicit shard.* topology supersedes the implicit auto-mesh
+    mesh = spec.mesh if spec is not None else job_obj.auto_mesh(first_conf)
     counters = {name: Counters() for name, *_ in stages}
     if spec is not None:
         spec.announce()
@@ -856,7 +880,8 @@ def run_fused_stages(stages, device=None,
         rows_fn = (lambda d=data: d.num_rows)
     else:
         enc, data, rows_fn = job_obj.encoded_data_source(
-            first_conf, in_path, counters[stages[0][0]], shard=spec)
+            first_conf, in_path, counters[stages[0][0]], shard=spec,
+            mesh=mesh)
         if ckey is not None and isinstance(data, EncodedDataset):
             encode_cache[ckey] = (enc, data)
     keep = None
@@ -866,7 +891,8 @@ def run_fused_stages(stages, device=None,
             keep = None            # nothing dead: fold the full width
     conf_pack = first_conf.get_bool("scan.pack.on", True)
     engine = SharedScan(
-        device=job_obj.device, shard=spec, counters=counters[stages[0][0]],
+        device=job_obj.device, shard=spec, mesh=mesh,
+        counters=counters[stages[0][0]],
         pack_on=conf_pack if pack_on is None else pack_on and conf_pack,
         pack_max_width=(first_conf.get_int("scan.pack.max.width", 0) or None
                         if pack_max_width is None else pack_max_width))

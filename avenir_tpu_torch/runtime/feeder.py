@@ -288,6 +288,31 @@ def sharded_pair_stage(shard):
     return stage
 
 
+def mesh_pair_stage(mesh):
+    """The feeder stage of a count job's chunk stream under its data mesh
+    (``Job.auto_mesh``): each encoded chunk's codes, labels and continuous
+    block padded to a multiple of the data axis and split over its devices
+    (``maybe_shard_batch``) on the worker thread, so the model's fit
+    receives :class:`~avenir_tpu_torch.parallel.mesh.Blocks` already on
+    the mesh; ``valid_rows`` keeps the true row count."""
+    def stage(item):
+        from avenir_tpu_torch.core.encoding import EncodedDataset
+        from avenir_tpu_torch.parallel.mesh import maybe_shard_batch
+
+        ds, cur = item
+        codes, labels, cont = maybe_shard_batch(mesh, ds.codes, ds.labels,
+                                                ds.cont)
+        return EncodedDataset(
+            codes=codes, cont=cont, labels=labels, ids=ds.ids,
+            n_bins=ds.n_bins, class_values=ds.class_values,
+            binned_ordinals=ds.binned_ordinals,
+            cont_ordinals=ds.cont_ordinals,
+            valid_rows=(ds.valid_rows if ds.valid_rows is not None
+                        else ds.num_rows)), cur
+
+    return stage
+
+
 def prefetch_encoded(path: str, encoder, ncols: int, delim: str = ",",
                      chunk_bytes: int = 64 << 20, with_labels: bool = True,
                      depth: int = 2, device=None) -> DeviceFeeder:

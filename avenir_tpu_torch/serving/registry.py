@@ -21,7 +21,8 @@ the kNN servable's buckets launch B5 (``csrc/knn_tourney.cu``, a large
 reference set) or B6 (``csrc/knn_topk.cu``) once per dispatch through
 ``ops/knn.search``; there is no plain fallback.  The JAX package passes
 ``mesh=Job.auto_mesh(conf)`` to the kNN and Viterbi models; the port
-serves on one card, where ``auto_mesh`` is None, and passes none.
+passes none until their ``mesh=`` seams land (ROADMAP.md, Queue 1 item
+7g-ii (b)); on one card ``auto_mesh`` is None either way.
 
 Compile keys keep the JAX package's meaning as shape keys: PyTorch
 compiles nothing here, but a bucket shape outside the warmed set still

@@ -13,6 +13,8 @@ reproducible from a file, and the seam the kill-and-resume drills drive.
 The ``shard.*`` topology is honoured on local devices: the job builds
 one ``ShardSpec``, journals its ``shard.topology`` and folds every pane
 over its mesh, with window lines byte-identical to the unsharded run's.
+Without a ``shard.*`` plan the panes fold over the job's data mesh
+(``Job.auto_mesh``, ``data.parallel.auto``), as in the JAX package.
 Left for the process plane (ROADMAP.md, Queue 1 item 7h): ``shard.proc.*``
 and ``shard.reshard.*``, refused before anything is written, and the JAX
 package's single-writer protocol across processes.
@@ -115,7 +117,8 @@ class StreamAnalytics(Job):
             on_window=handle, fault=fault,
             pack_on=conf.get_bool("scan.pack.on", True),
             pack_max_width=conf.get_int("scan.pack.max.width", 0) or None,
-            shard=shard)
+            shard=shard,
+            mesh=None if shard is not None else self.auto_mesh(conf))
         skip = ckpt.restore_into(ws) if ckpt is not None else 0
         if conf.get_bool("stream.warmup.on.start", True):
             ws.warm()

@@ -132,7 +132,9 @@ def _pow2_buckets(pane_rows: int) -> List[int]:
 class WindowedScan:
     """Sliding/tumbling-window SharedScan consumer over a row stream on
     ``device`` (``cuda`` unless the caller asks for the CPU), over the mesh
-    of a ``shard`` plan when given.
+    of a ``shard`` plan when given, else over a data ``mesh`` when given
+    (the job's ``auto_mesh``; :class:`~avenir_tpu_torch.pipeline.scan.
+    ChunkFolder` routes both).
 
     ``feed(lines)`` (or ``pump(queue)``) ingests raw CSV rows; every
     ``pane_rows`` rows close a pane (encode → pad → fold); every window
@@ -155,7 +157,8 @@ class WindowedScan:
                  checkpointer: Optional["WindowCheckpointer"] = None,
                  crash_after_panes: int = 0, on_window=None,
                  fault=None, pack_on: bool = True,
-                 pack_max_width: Optional[int] = None, shard=None):
+                 pack_max_width: Optional[int] = None, shard=None,
+                 mesh=None):
         from avenir_tpu_torch.device import resolve_device
 
         if not encoder.schema_complete(with_labels=True) or \
@@ -197,7 +200,8 @@ class WindowedScan:
                                        resolve_device(device),
                                        pack_on=pack_on,
                                        pack_max_width=pack_max_width,
-                                       shard=shard, counters=self.counters)
+                                       shard=shard, counters=self.counters,
+                                       mesh=mesh)
         self.buckets = _pow2_buckets(self.pane_rows)
         self._monitor = tel.CompileKeyMonitor(self.counters, group="Stream",
                                               scope="stream.pane")

@@ -284,12 +284,25 @@ Phases, in order; any failure exits non-zero:
     and one ``shard.skew`` a chunk; one ``shard`` JSON line of launches
     per shard and walls beside the unsharded ones. Its B1 calls of (a)
     are held in phase 6's path cases after 13;
-15. print a ``walls_s`` JSON line (the native encoder's build, native
-    against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c and
-    13's walls) with the card's name and power limit, then the kernels'
-    JSON line (B1's and B4's launches also by phase 12's traced paths,
-    B1's by 12b's planned paths, 13's stream and tenant paths and 14's
-    sharded paths, B4's by
+15. (after 14; ~35 s) ``data.parallel.auto`` on the card: (a)
+    ``auto_mesh`` is None on one card (a data mesh needs two); (b) NB,
+    MI and Cramér streamed over phase 3's 1M rows, ClassPartitionGenerator
+    and DecisionTreeBuilder on them, NumericalAttrStats on the first
+    20,000, phase 5b's NB + MI pipeline and phase 13's stream, each with
+    the key true and false: part files byte-identical, B1 and B4
+    launches equal on one card (per shard, n times, on n ≥ 2), both walls
+    printed; (c) the quantized reduce of random int32 partials [8, 32,
+    64] in [0, 100,000) bit-equal between cuda and the CPU (ROADMAP Queue
+    3, item 10), and the 5b pipeline with ``shard.devices=all`` and
+    ``shard.allreduce.quantized=true`` at 250K-row chunks (partial cells
+    far past 127) byte-identical between cuda and the CPU; one
+    ``automesh`` JSON line;
+16. print a ``walls_s`` JSON line (the native encoder's build, native
+    against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c,
+    13, 14 and 15's walls) with the card's name and power limit, then the
+    kernels' JSON line (B1's and B4's launches also by phase 12's traced
+    paths, B1's by 12b's planned paths, 13's stream and tenant paths, 14's
+    sharded paths and 15's ``auto_*`` paths, B4's by 15's tree jobs and
     13's tree refit, B5's and B6's by 12c's serving paths and B5's by
     13's tenant path), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
@@ -4241,6 +4254,7 @@ def shard_phase(rec: Recorder, work: str, train: str, schema: str,
 
     from avenir_tpu_torch.core.config import ConfigError
     from avenir_tpu_torch.parallel.mesh import shard_pad_target
+    from avenir_tpu_torch.telemetry import spans as tel
     from avenir_tpu_torch.telemetry.journal import read_events
 
     j = lambda *p: os.path.join(work, *p)  # noqa: E731
@@ -4339,6 +4353,9 @@ def shard_phase(rec: Recorder, work: str, train: str, schema: str,
                    j("ws_slice", art, "part-00000"),
                    f"quantized slice {art} and its unsharded run")
     events = read_events(journal_of(tel_dir))
+    # the slice's conf switched the process's tracer and profiler on; off
+    # again, so no later phase traces, profiles or probes skew
+    tel.tracer().disable()
     check_schema(events, "shard phase journal")
     topo = [e for e in events if e["ev"] == "shard.topology"]
     skews = [e for e in events if e["ev"] == "shard.skew"]
@@ -4364,6 +4381,182 @@ def shard_phase(rec: Recorder, work: str, train: str, schema: str,
                                          statistics.median(skew_ms),
                                          skew_ms[-1]],
         "two_devices": two, "card": card_line()}}))
+    return launches
+
+
+# phase 15: data.parallel.auto (the jobs' implicit data mesh) on the card
+AUTO_SLICE_ROWS = 20_000      # NumericalAttrStats' rows: its parse is Python
+QUANT_PARTIALS = (8, 32, 64)  # random int32 partials in [0, 100,000)
+
+
+def automesh_jobs(schema: str) -> list:
+    """(tag, argv) of phase 15's jobs: NB, MI and Cramér streamed over
+    phase 3's 1M rows, the two tree jobs on them whole, NumericalAttrStats
+    (on the first 20,000 rows: its CSV parse is host Python) and phase
+    13's stream."""
+    common = [f"-Dfeature.schema.file.path={schema}"]
+    chunked = [*common, f"-Dstream.chunk.rows={CHUNK_ROWS}"]
+    return [
+        ("nb", ["BayesianDistribution", *chunked]),
+        ("mi", ["MutualInformation", *chunked]),
+        ("cramer", ["CramerCorrelation", *chunked]),
+        ("cpg", ["ClassPartitionGenerator", *common,
+                 "-Doutput.split.prob=true"]),
+        ("tree", ["DecisionTreeBuilder", *common, "-Dmax.depth=4"]),
+        ("stats", ["NumericalAttrStats", *common, "-Dcond.attr.ord=11"]),
+        ("stream", stream_argv(schema)),
+    ]
+
+
+def automesh_phase(work: str, train: str, schema: str, walls: dict) -> dict:
+    """Phase 15: ``data.parallel.auto`` on the card; returns B1's and B4's
+    launches by path.
+
+    (a) ``auto_mesh`` of the card's devices: None on one card (a mesh
+    needs two); (b) NB, MI, Cramér, ClassPartitionGenerator,
+    DecisionTreeBuilder, phase 5b's NB + MI pipeline and phase 13's
+    stream over phase 3's 1M rows and NumericalAttrStats over its first
+    20,000, each with
+    ``data.parallel.auto`` true and false: part files byte-identical and
+    the launches of the true run n times the false run's over n ≥ 2 cards
+    (per shard), equal on one; (c) the quantized reduce of random int32
+    partials [8, 32, 64] in [0, 100,000) on cuda bit-equal to the CPU's,
+    and phase 5b's pipeline with ``shard.devices=all`` and
+    ``shard.allreduce.quantized=true`` at 250K-row chunks (partial cells
+    far past 127) byte-identical between cuda and the CPU.  Prints one
+    ``automesh`` JSON line with both walls of each job and the card's name
+    and power limit."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import auto_mesh
+    from avenir_tpu_torch.parallel import collectives
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    n_dev = torch.cuda.device_count()
+    mesh = auto_mesh(JobConfig({}), "cuda")
+    log(f"automesh (a): auto_mesh on cuda over {n_dev} card(s) is "
+        f"{None if mesh is None else mesh.sizes}")
+    if (mesh is None) != (n_dev < 2) or \
+            auto_mesh(JobConfig({"data.parallel.auto": "false"}),
+                      "cuda") is not None:
+        raise AssertionError(f"auto_mesh on {n_dev} card(s): {mesh}")
+    if n_dev < 2:
+        log("automesh: one card, so no data mesh: each job below runs "
+            "unsharded with data.parallel.auto true and false; the "
+            "per-shard launches of a mesh of cards are not exercised here")
+    launches, timed = {}, {}
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    off_want = {"mi": only(B1=chunks), "cramer": only(B1=chunks),
+                "cpg": only(B4=1), "nb": only(), "stats": only(),
+                "stream": only(B1=STREAM_BUCKETS + STREAM_PANES),
+                "pipeline": only(B1=chunks)}
+    pipe = pipeline_conf(work, "nb_mi_auto", train, schema)
+    sliced = j("auto_slice.csv")
+    with open(train) as src, open(sliced, "w") as dst:
+        for _ in range(AUTO_SLICE_ROWS):
+            dst.write(src.readline())
+    for tag, argv in automesh_jobs(schema) + [("pipeline", None)]:
+        got = {}
+        for auto in ("false", "true"):
+            out = j(f"auto_{tag}_{auto}")
+            reset_counts()
+            t0 = time.perf_counter()
+            if tag == "pipeline":
+                run_pipeline(["run", pipe, f"-Dpipeline.workspace={out}",
+                              f"-Ddata.parallel.auto={auto}"])
+            else:
+                run_cli([*argv, f"-Ddata.parallel.auto={auto}",
+                         sliced if tag == "stats" else train, out,
+                         "--device", "cuda"])
+            timed[f"{tag} auto={auto}"] = time.perf_counter() - t0
+            got[auto] = read_counts()
+        off, on = got["false"], got["true"]
+        if tag in off_want and off != off_want[tag]:
+            raise AssertionError(f"automesh {tag} (auto off) launched {off}")
+        if tag == "tree" and (off["B4"] == 0 or off != only(B4=off["B4"])):
+            raise AssertionError(f"automesh tree (auto off) launched {off}")
+        if on != {k: v * n_dev for k, v in off.items()}:
+            raise AssertionError(f"automesh {tag}: auto on launched {on}, "
+                                 f"auto off {off} over {n_dev} card(s)")
+        for kid in ("B1", "B4"):
+            if off[kid]:
+                launches.setdefault(kid, {})[f"auto_{tag}_off"] = off[kid]
+                launches[kid][f"auto_{tag}_on"] = on[kid]
+        arts = (("nb_model", "mi_out") if tag == "pipeline" else ("",))
+        for art in arts:
+            a = os.path.join(j(f"auto_{tag}_true"), art, "part-00000")
+            b = os.path.join(j(f"auto_{tag}_false"), art, "part-00000")
+            if tag == "stats" and n_dev > 1:
+                compare_rel(a, b, MOMENT_RTOL)   # float64 sums in shard order
+            else:
+                same_bytes(a, b, f"automesh {tag} {art} auto on and off")
+    walls.update({f"phase 15 {k}": v for k, v in timed.items()})
+    log(f"automesh (b): part files byte-identical and launches "
+        f"{'equal' if n_dev == 1 else f'x{n_dev}'} with data.parallel.auto "
+        f"true and false; walls s {json.dumps(timed)}")
+
+    # (c) the quantized reduce on the card (ROADMAP Queue 3, item 10)
+    x = np.random.default_rng(0).integers(0, 100_000, size=QUANT_PARTIALS)
+    parts = [torch.from_numpy(p.astype(np.int32)) for p in x]
+    on_cpu = collectives.quantized_allreduce_sum(parts)
+    on_card = collectives.quantized_allreduce_sum(
+        [p.cuda() for p in parts]).cpu()
+    if on_card.dtype != torch.float32 or not torch.equal(on_card, on_cpu):
+        raise AssertionError("the quantized reduce differs between cuda and "
+                             "the CPU")
+    lossy = int((on_cpu.numpy() != x.sum(0)).sum())
+    quant = ["-Dshard.devices=all", "-Dshard.allreduce.quantized=true"]
+    flags = os.environ.get("XLA_FLAGS")
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            # the CPU's shard slots (parallel/mesh.py::host_slots): as many
+            # as the cards, so both runs quantize the same partials
+            os.environ["XLA_FLAGS"] = \
+                f"--xla_force_host_platform_device_count={n_dev}"
+            run_pipeline(["run", pipe,
+                          f"-Dpipeline.workspace={j('ws_q_' + dev)}",
+                          *quant, "--device", dev])
+        finally:
+            if flags is None:
+                os.environ.pop("XLA_FLAGS")
+            else:
+                os.environ["XLA_FLAGS"] = flags
+        timed[f"quantized pipeline {dev}"] = time.perf_counter() - t0
+        counts = read_counts()
+        want = only(B1=chunks * n_dev) if dev == "cuda" else only()
+        if counts != want:
+            raise AssertionError(f"quantized pipeline on {dev} launched "
+                                 f"{counts}")
+        if dev == "cuda":
+            launches["B1"]["auto_quantized_pipeline"] = counts["B1"]
+    for art in ("nb_model", "mi_out"):
+        same_bytes(j("ws_q_cuda", art, "part-00000"),
+                   j("ws_q_cpu", art, "part-00000"),
+                   f"quantized pipeline {art}")
+    # NB's cells are the diagonal, each its row's largest, which the
+    # scale maps to 127 exactly; MI's pair cells are the ones it rounds
+    with open(j("ws_q_cuda", "mi_out", "part-00000"), "rb") as fa, \
+            open(j("auto_pipeline_false", "mi_out", "part-00000"),
+                 "rb") as fb:
+        mi_rounded = fa.read() != fb.read()
+    walls["phase 15 quantized pipeline cuda"] = timed["quantized pipeline cuda"]
+    walls["phase 15 quantized pipeline cpu"] = timed["quantized pipeline cpu"]
+    log(f"automesh (c): quantized reduce of {list(QUANT_PARTIALS)} partials "
+        f"bit-equal cuda vs cpu ({lossy} of {on_cpu.numel()} cells off the "
+        f"exact sum); quantized pipeline byte-identical cuda vs cpu, MI "
+        f"{'rounded' if mi_rounded else 'exact'} against the exact gram")
+    log(json.dumps({"automesh": {
+        "devices": n_dev, "auto_mesh": None if mesh is None else mesh.sizes,
+        "launches": launches,
+        "launches_per_shard": {k: {p: v // n_dev for p, v in d.items()
+                                   if p.endswith("_on")}
+                               for k, d in launches.items()},
+        "walls_s": timed, "quantized_cells_off_exact": lossy,
+        "card": card_line()}}))
     return launches
 
 
@@ -4653,6 +4846,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         sharded = shard_phase(rec, work, train, schema, walls)
         walls["phase 14"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        auto = automesh_phase(work, train, schema, walls)
+        walls["phase 15"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     all_cases += path_cases(hist, rec)       # phase 13's and 14's calls
@@ -4669,7 +4865,7 @@ def main(argv=None) -> int:
                      {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
                       "pipeline_traced": traced["pipeline_traced"],
                       "pipeline_xla": traced["pipeline_xla"], **b1_corr,
-                      **b1_plan, **streamed["B1"], **sharded},
+                      **b1_plan, **streamed["B1"], **sharded, **auto["B1"]},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
                      at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},
@@ -4678,7 +4874,8 @@ def main(argv=None) -> int:
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),
         kernel_entry("B4", "cross_counts (B4)", src + "cross.cu", at + "484",
                      {**b4_tree, "tree_traced": traced["tree_traced"],
-                      "forest": b4_forest, **streamed["B4"]}, all_cases),
+                      "forest": b4_forest, **streamed["B4"], **auto["B4"]},
+                     all_cases),
         kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
                      "avenir_tpu/ops/pallas_knn.py:290",
                      {**b5, **streamed["B5"]}, all_cases),

@@ -203,8 +203,9 @@ def test_mi_resume_rejects_incompatible_g_layout():
 
 def test_mi_resume_across_path_flip_converts_counts(tmp_path, workload,
                                                     monkeypatch):
-    """A kernel-route (G) snapshot — a run crashed on ``cuda`` — resumed
-    where the kernel does not apply converts G into the ``agg`` route's
+    """A kernel-route (G) snapshot — a run crashed on one card, where
+    there is no data mesh — resumed where the kernel does not apply (the
+    CPU under its host mesh) converts G into the ``agg`` route's
     ``fc``/``pcc<s>`` tensors exactly."""
     csv, conf = workload
     clean_out = tmp_path / "clean"
@@ -216,7 +217,8 @@ def test_mi_resume_across_path_flip_converts_counts(tmp_path, workload,
         _run("MutualInformation",
              conf(stream_checkpoint_dir=ckdir,
                   stream_checkpoint_interval_chunks=2,
-                  stream_fault_crash_after_chunks=5),
+                  stream_fault_crash_after_chunks=5,
+                  data_parallel_auto="false"),
              csv, tmp_path / "crashed_flip")
     monkeypatch.undo()
     snap = checkpoint.CheckpointManager(str(ckdir)).restore()
@@ -224,7 +226,8 @@ def test_mi_resume_across_path_flip_converts_counts(tmp_path, workload,
 
     out = tmp_path / "resumed_flip"
     _run("MutualInformation",
-         conf(stream_checkpoint_dir=ckdir, stream_resume="true"), csv, out)
+         conf(stream_checkpoint_dir=ckdir, stream_resume="true",
+              data_parallel_auto="false"), csv, out)
     assert _part(out) == _part(clean_out)
 
 
@@ -256,17 +259,20 @@ def test_correlation_refuses_a_kernel_snapshot_on_the_einsum_route(
         tmp_path, workload, monkeypatch):
     csv, conf = workload
     ckdir = tmp_path / "ck"
+    # the kernel route of one card, where there is no data mesh
     monkeypatch.setattr(hist, "use_kernel", lambda f, b, c, d: True)
     with pytest.raises(RuntimeError, match="injected crash"):
         _run("CramerCorrelation",
              conf(stream_checkpoint_dir=ckdir,
                   stream_checkpoint_interval_chunks=1,
-                  stream_fault_crash_after_chunks=2),
+                  stream_fault_crash_after_chunks=2,
+                  data_parallel_auto="false"),
              csv, tmp_path / "crashed")
     monkeypatch.undo()
     with pytest.raises(ValueError, match="different device/kernel layout"):
         _run("CramerCorrelation",
-             conf(stream_checkpoint_dir=ckdir, stream_resume="true"),
+             conf(stream_checkpoint_dir=ckdir, stream_resume="true",
+                  data_parallel_auto="false"),
              csv, tmp_path / "resumed")
     assert not (tmp_path / "resumed" / "part-00000").exists()
 

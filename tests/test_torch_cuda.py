@@ -12,7 +12,9 @@ pinned copies, the consumer's wait); the SharedScan on ``cuda``
 against the CPU; RandomForest's B4 calls against the plain version and
 its trees against the CPU forest; Viterbi (scan and assoc) and logistic
 regression on ``cuda`` against the CPU; a one-device mesh's sharded
-SharedScan on ``cuda`` against the CPU's fold; the bandit selections,
+SharedScan on ``cuda`` against the CPU's fold; ``data.parallel.auto`` on
+the cards (no mesh on one card; per-shard launches of MI, Cramér and the
+tree on two or more); the bandit selections,
 ``WordCount`` and NumericalAttrStats on ``cuda`` against the CPU (no
 kernel of their own: plain torch ops on the card); a planned pipeline on
 the kernel route against the staged run, and a ``KNNServable`` on
@@ -504,6 +506,72 @@ def test_one_device_mesh_fold_on_the_card_equals_its_plain_version(cuda):
     with pytest.raises(ConfigError, match=r"device\(s\) attached \(cuda\)"):
         ShardSpec.from_conf(JobConfig({"shard.devices": str(n_cards + 1)}),
                             "cuda")
+
+
+@pytest.mark.cuda
+def test_auto_mesh_on_the_cards(cuda):
+    """``data.parallel.auto`` on the card: a mesh of every card when there
+    are two or more, none on one card (one H100 runs the jobs unsharded)
+    and none with the key off."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import auto_mesh
+
+    n_cards = torch.cuda.device_count()
+    mesh = auto_mesh(JobConfig({}), "cuda")
+    if n_cards < 2:
+        assert mesh is None
+    else:
+        assert mesh.sizes == {"data": n_cards}
+        assert all(d.type == "cuda" for d in mesh.devices)
+    assert auto_mesh(JobConfig({"data.parallel.auto": "false"}),
+                     "cuda") is None
+
+
+@pytest.mark.cuda
+def test_auto_mesh_routes_launch_per_shard(cuda):
+    """Over a mesh of two or more cards MI (the ``sharded`` route), the
+    correlation jobs (the einsum keys, each shard's tables from its B1
+    gram) and the tree (B4 a shard a level) launch their kernels once per
+    shard and equal their plain versions on the CPU."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import auto_mesh
+    from avenir_tpu_torch.models import correlation as corr
+    from avenir_tpu_torch.ops import agg
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more cards for a data mesh")
+    mesh = auto_mesh(JobConfig({}), "cuda")
+    enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_hosp_readmit(5000, seed=9))
+    chunks = lambda: [ds.slice(i, min(i + 1500, ds.num_rows))  # noqa: E731
+                      for i in range(0, ds.num_rows, 1500)]
+    hist.cooc_counts_cols.launches = 0
+    acc = agg.Accumulator()
+    got = mi.MutualInformation(mesh=mesh, device="cuda").fit(
+        chunks(), accumulator=acc)
+    assert hist.cooc_counts_cols.launches == 4 * n_cards
+    assert sorted(acc.names()) == ["class", hist.g_key(10, 13, 2)]
+    want = mi.MutualInformation(device="cpu").fit(chunks())
+    np.testing.assert_array_equal(got.pair_class_counts,
+                                  want.pair_class_counts)
+    for against in (False, True):
+        hist.cooc_counts_cols.launches = 0
+        got = corr.CramerCorrelation(mesh=mesh, device="cuda").fit(
+            chunks(), against_class=against)
+        assert hist.cooc_counts_cols.launches == 4 * n_cards
+        want = corr.CramerCorrelation(device="cpu").fit(
+            chunks(), against_class=against)
+        np.testing.assert_array_equal(got.contingency, want.contingency)
+    hist.cross_cooc_counts_cols.launches = 0
+    sharded = tree.DecisionTree(max_depth=3, mesh=mesh, device="cuda",
+                                collect_phase_stats=True)
+    got = sharded.fit(ds)
+    levels = len(sharded.level_stats)
+    assert {st["path"] for st in sharded.level_stats} == {"cross"}
+    assert hist.cross_cooc_counts_cols.launches == levels * n_cards
+    assert got.to_string() == tree.DecisionTree(
+        max_depth=3, device="cpu").fit(ds).to_string()
 
 
 def _wide(n, f, b, seed):

@@ -206,13 +206,15 @@ def test_plan_kernel_routing_byte_identical(plan_env, staged_outputs,
     forced true the planned unit is one "kernel" program (the analytic
     B1 cost, no pack question) whose wrappers run their plain versions on
     CPU tensors, and the bytes are the staged run's.  The card runs the
-    real kernels (tests/test_torch_cuda.py)."""
+    real kernels (tests/test_torch_cuda.py) on one device, where there is
+    no data mesh."""
     from avenir_tpu_torch.ops import hist
 
     root, props, class_ord = plan_env
     monkeypatch.setattr(hist, "use_kernel", lambda *a: True)
     p = _interleaved(PORT, root, "ws_planned_kernel", props, class_ord,
-                     {"plan.on": "true", "stream.chunk.rows": "700"})
+                     {"plan.on": "true", "stream.chunk.rows": "700",
+                      **SINGLE})
     pl = plan_mod.plan_pipeline(p)
     unit = pl.scan_units[0]
     assert unit.program == "kernel" and unit.pack_source == "aot"

@@ -224,9 +224,11 @@ def test_registry_threaded_dispatch_race_one_event_per_key(tmp_path):
 def test_chunk_stream_program_parity_with_recompile_monitor(ws, tmp_path):
     """320 rows at 150 a chunk: two distinct dispatch shapes, so two
     programs and one recompile, as in the JAX package; the program ids
-    are the JAX package's for the same shapes."""
+    are the JAX package's for the same shapes.  One device (no data mesh
+    to pad the chunks), as on one card."""
     counters = _streamed(ws, tmp_path, **{"trace.on": "true",
-                                          "profile.on": "true"})
+                                          "profile.on": "true",
+                                          "data.parallel.auto": "false"})
     path = tel.tracer().journal_path
     tel.tracer().disable()
     events = read_events(path)

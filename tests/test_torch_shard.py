@@ -347,19 +347,25 @@ def test_sharded_scan_step_outputs_equal_local_oracles(rng):
         collectives.sharded_cooc_step(m, B, C)(torch.from_numpy(codes), tl)
 
 
-def test_quantized_allreduce_equals_jax(rng):
-    """Bit-equal to the JAX package's where every partial cell is ≤ 127
-    (the scale is 1); otherwise each device's term is within the JAX
-    package's own bound of scale/2, scale = max|row| / 127 — the bound
-    ``tests/test_shard.py`` holds its collective to."""
-    m = jmesh.make_mesh(("data",), shape=(8,))
+def _jax_quantized_reduce(x):
+    """The JAX package's quantized reduce of ``x`` [8·R, W] over its eight
+    host devices, one [R, W] block a device."""
     from jax.sharding import PartitionSpec as P
 
-    def jax_reduce(x):
-        fn = jcoll._shard_map_norep(
-            lambda v: jcoll.quantized_allreduce_sum(v, "data"),
-            m, P("data", None), P())
-        return np.asarray(jax.jit(fn)(jnp.asarray(x)))
+    m = jmesh.make_mesh(("data",), shape=(8,))
+    fn = jcoll._shard_map_norep(
+        lambda v: jcoll.quantized_allreduce_sum(v, "data"),
+        m, P("data", None), P())
+    return np.asarray(jax.jit(fn)(jnp.asarray(x)))
+
+
+def test_quantized_allreduce_equals_jax(rng):
+    """Bit-equal to the JAX package's where every partial cell is ≤ 127
+    (the scale is 1) and where the partials pass it (the lossy regime);
+    there each device's term is also within the JAX package's own bound of
+    scale/2, scale = max|row| / 127 — the bound ``tests/test_shard.py``
+    holds its collective to."""
+    jax_reduce = _jax_quantized_reduce
 
     small = rng.integers(-127, 128, size=(64, 16)).astype(np.int32)
     parts = [torch.from_numpy(p) for p in small.reshape(8, 8, 16)]
@@ -372,9 +378,86 @@ def test_quantized_allreduce_equals_jax(rng):
     parts = [torch.from_numpy(p) for p in big.reshape(8, 8, 16)]
     got = collectives.quantized_allreduce_sum(parts).numpy()
     exact = big.reshape(8, 8, 16).sum(0)
+    np.testing.assert_array_equal(got, jax_reduce(big))
     bound = 8 * (big.max() / 127) / 2 + 1
     assert np.abs(got - exact).max() <= bound
     assert np.abs(jax_reduce(big) - exact).max() <= bound
+
+
+@pytest.mark.parametrize("shape,seed", [((8, 32, 64), 0), ((8, 32, 64), 1),
+                                        ((8, 384, 384), 2)])
+def test_quantized_allreduce_lossy_equals_jax(shape, seed):
+    """Random int32 partials in [0, 100000), far past 127: the port's
+    float32 sum equals the JAX package's bit for bit (its scale is a
+    multiply by float32(1/127) and each shard's q·s joins the sum with one
+    rounding, the arithmetic XLA compiles), and so does the rounded gram
+    ``sharded_scan_step`` keeps."""
+    x = np.random.default_rng(seed).integers(
+        0, 100_000, size=shape).astype(np.int32)
+    got = collectives.quantized_allreduce_sum(
+        [torch.from_numpy(p) for p in x]).numpy()
+    want = _jax_quantized_reduce(x.reshape(-1, shape[-1]))
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(np.round(got), np.round(want))
+    assert np.abs(got - x.sum(0)).max() > 0          # the lossy regime
+
+
+def test_quantized_shared_scan_past_127_equals_jax(tmp_path):
+    """``shard.devices=8`` with ``shard.allreduce.quantized=true`` on a
+    16,384-row chunk (2,048 rows a shard of a 5 × 6 × 2 schema, so many
+    per-shard gram cells pass 127 and the int8 reduction rounds): NB, MI
+    and Cramér part files equal the JAX package's under the same conf."""
+    write_csv(str(tmp_path / "train.csv"), generate_churn(16384, seed=9))
+    (tmp_path / "churn.json").write_text(json.dumps(CHURN_SCHEMA_JSON))
+    quant = {"shard.devices": "8", "shard.allreduce.quantized": "true",
+             "stream.chunk.rows": "16384"}
+    got_c, got = _run_port(tmp_path, "port_q", **quant)
+    _jc, want = _run_jax(tmp_path, "jax_q", **quant)
+    _pc, exact = _run_port(tmp_path, "port_exact",
+                           **{"stream.chunk.rows": "16384"})
+    # NB's counts byte for byte; the statistics of MI and Cramér are
+    # float32 from equal counts, within 2e-6 as everywhere (test_torch_jobs)
+    assert got[0] == want[0]
+    for g, w in zip(got[1:], want[1:]):
+        for lg, lw in zip(g.decode().splitlines(), w.decode().splitlines()):
+            fg, fw = lg.split(","), lw.split(",")
+            assert fg[:-1] == fw[:-1]
+            if fg[-1] != fw[-1]:
+                assert abs(float(fg[-1]) - float(fw[-1])) <= 2e-6, (lg, lw)
+    assert got[1] != exact[1]          # the rounding showed in MI's tables
+    assert got_c["nb"].get("Shard", "chunks") == 1
+
+
+def test_quantized_scan_tables_past_127_equal_jax():
+    """The same regime in one SharedScan a package: every table the
+    quantized gram feeds (NB's bins, MI's pair tables, the against-class
+    contingency) equals the JAX package's cell for cell."""
+    n, f, b, c = 16384, 5, 6, 2
+    rng = np.random.default_rng(21)
+    kw = dict(cont=np.zeros((n, 0), np.float32),
+              n_bins=np.full(f, b, np.int32), class_values=["a", "b"],
+              binned_ordinals=list(range(f)), cont_ordinals=[])
+    codes = rng.integers(0, b, size=(n, f)).astype(np.int32)
+    labels = rng.integers(0, c, size=n).astype(np.int32)
+    quant = {"shard.allreduce.quantized": "true"}
+    eng = scan.SharedScan(device="cpu", shard=spec_for("8", **quant))
+    jeng = jscan.SharedScan(shard=jspec_for("8", **quant))
+    for e, m in ((eng, scan), (jeng, jscan)):
+        e.register(m.NaiveBayesConsumer(name="nb"))
+        e.register(m.MutualInfoConsumer(name="mi"))
+        e.register(m.CorrelationConsumer(name="cramer", against_class=True))
+    got = eng.run(EncodedDataset(codes=codes, labels=labels, ids=None, **kw))
+    want = jeng.run(JDataset(codes=codes, labels=labels, ids=None, **kw))
+    eq = np.testing.assert_array_equal
+    eq(got["nb"].bin_counts, np.asarray(want["nb"].bin_counts))
+    eq(got["mi"].pair_class_counts, np.asarray(want["mi"].pair_class_counts))
+    eq(got["cramer"].contingency, np.asarray(want["cramer"].contingency))
+    pairs = torch.from_numpy(got["mi"].pair_index).long()
+    exact = agg.pair_class_counts_at(torch.from_numpy(codes),
+                                     torch.from_numpy(labels), pairs, c,
+                                     b).numpy()
+    assert (got["mi"].pair_class_counts != exact).any()
 
 
 # ---------------------------------------------------------------------------
