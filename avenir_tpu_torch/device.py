@@ -24,17 +24,6 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def refuse_mesh(mesh) -> None:
-    """Raise before any work when the kNN, LR or Markov models are asked
-    to run over a data mesh: their ``mesh=`` seams are not ported yet (the
-    count models' are)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "this model's data mesh is not ported yet: the kNN, LR and "
-            "Markov models' mesh= seams are ROADMAP.md, Queue 1 item "
-            "7g-ii (b)")
-
-
 def to_device(x, device: torch.device) -> torch.Tensor:
     """A chunk array on ``device``: a numpy array is wrapped and copied, a
     tensor the feeder already staged there is returned as it is."""

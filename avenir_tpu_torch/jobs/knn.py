@@ -151,6 +151,7 @@ class NearestNeighbor(Job):
             decision_threshold=conf.get_float("decision.threshold"),
             pos_class=conf.get("positive.class.value"),
             cost=cost,
+            mesh=self.auto_mesh(conf),
             device=self.device,
         )
         out: List[str] = []

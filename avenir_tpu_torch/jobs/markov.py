@@ -74,7 +74,8 @@ class MarkovStateTransitionModel(Job):
         scale = conf.get_int("trans.prob.scale", 1)
         chain = mk.MarkovChain(
             laplace=conf.get_float("laplace.smoothing", 1.0),
-            scale=scale if scale > 1 else None, device=self.device)
+            scale=scale if scale > 1 else None, mesh=self.auto_mesh(conf),
+            device=self.device)
         if conf.get("stream.chunk.rows"):
             if enc is None:
                 raise ConfigError(
@@ -106,7 +107,7 @@ class HiddenMarkovModelBuilder(Job):
         skip = conf.get_int("skip.field.count", 1)
         builder = mk.HMMBuilder(
             laplace=conf.get_float("laplace.smoothing", 1.0),
-            device=self.device)
+            mesh=self.auto_mesh(conf), device=self.device)
         states = conf.get_list("model.states")
         obs_vocab = conf.get_list("model.observations")
         obs_enc = mk.SequenceEncoder(obs_vocab) if obs_vocab else None
@@ -163,7 +164,8 @@ class ViterbiStatePredictor(Job):
                                        delim=conf.field_delim)
         predictor = mk.ViterbiStatePredictor(
             model, pair_output=not conf.get_bool("output.state.only", True),
-            delim=conf.field_delim, device=self.device)
+            delim=conf.field_delim, mesh=self.auto_mesh(conf),
+            device=self.device)
         skip = conf.get_int("skip.field.count", 1)
         rows = [[conf.field_delim.join(r[:skip])] + list(r[skip:])
                 for r in _seq_rows(input_path, delim)]

@@ -43,7 +43,8 @@ class LogisticRegressionJob(Job):
             max_iterations=conf.get_int("iteration.limit", 200),
             convergence=conf.get("convergence.criteria", "average"),
             threshold_pct=conf.get_float("convergence.threshold", 0.5),
-            l2=conf.get_float("l2.weight", 0.0), device=self.device)
+            l2=conf.get_float("l2.weight", 0.0), mesh=self.auto_mesh(conf),
+            device=self.device)
         os.makedirs(os.path.dirname(coeff_path) or ".", exist_ok=True)
         lock = FileLock(coeff_path,
                         timeout_s=conf.get_float("coeff.lock.timeout.sec", 10.0))

@@ -10,7 +10,16 @@ class-conditional probability weighting, inverse-distance weighting,
 classification by argmax, decision threshold or cost arbitration,
 regression average / median / linear, and validation counters.
 
-Two search routes, chosen by the same gate on every device:
+Three search routes, chosen by the same gates on every device:
+
+- the sharded route (:func:`_nearest_neighbors_sharded`) when a ``mesh``
+  has a data axis of two or more devices and k fits a shard (the JAX
+  package's gate): the references split over the axis,
+  ``parallel/collectives.py::sharded_knn_topk`` scans each block on its
+  device and merges the candidates in shard order, then the exact
+  re-rank keeps k.  It follows the JAX package on every kind of mesh:
+  each shard runs the tile scan, as the JAX package's sharded route runs
+  no Pallas kernel on a TPU mesh either;
 
 - the kernel route (:func:`_nearest_neighbors_kernel`) for the euclidean
   metric with k + 1 ≤ ``SLOTS``: ``ops/knn.search`` — query pack, B5
@@ -21,7 +30,8 @@ Two search routes, chosen by the same gate on every device:
   the norm expansion over reference tiles (TF32 off), merged into a
   running top-k.
 
-Both order the top-k by (distance, reference index).  The jobs' search
+All three order the top-k by (exact distance, reference index), so a
+row's answer does not depend on the route or the device.  The jobs' search
 mode "approx" runs the exact route: the JAX package's ``approx_min_k`` is
 exact off the TPU, and the port adds no approximate search.  Distances are
 true floats in [0, 1]; the reference's ×1000 integer scaling is applied
@@ -40,6 +50,8 @@ from avenir_tpu_torch.core.encoding import EncodedDataset
 from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg
 from avenir_tpu_torch.ops import knn as kops
+from avenir_tpu_torch.parallel.mesh import (device_put_sharded_batch,
+                                            is_wide, pad_batch)
 from avenir_tpu_torch.utils.metrics import (ConfusionMatrix,
                                             CostBasedArbitrator, Counters)
 
@@ -111,6 +123,19 @@ class KNNModel:
             return (torch.from_numpy(codes.reshape(t, ref_tile, -1)).to(device),
                     torch.from_numpy(cont.reshape(t, ref_tile, -1)).to(device))
         return self._cached(("tiles", ref_tile, str(device)), make)
+
+    def device_sharded(self, mesh, ref_tile: int):
+        """Reference codes and raw continuous columns split over ``mesh``'s
+        data axis (cached per mesh and tile): padded to a whole number of
+        ``ref_tile`` tiles a shard (−1 codes, 0.0 continuous; pad rows
+        are masked by index in the scan), block i on the axis' i-th
+        device."""
+        def make():
+            d = mesh.size("data")
+            local = -(-_shard_rows(self.num_refs, d) // ref_tile) * ref_tile
+            return device_put_sharded_batch(
+                mesh, *pad_batch(local * d, self.codes, self.cont))
+        return self._cached(("sharded", mesh, ref_tile), make)
 
 
 def fit_knn(
@@ -295,6 +320,54 @@ _nearest_neighbors_kernel.fallback_rows = 0
 _nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
 
 
+def _shard_rows(n: int, d_par: int) -> int:
+    """ceil(n / d_par): a shard's real reference rows, read by the mesh
+    gate and the sharded route alike."""
+    return max(-(-n // d_par), 1)
+
+
+def _nearest_neighbors_sharded(model: KNNModel, test: EncodedDataset,
+                               k: int, metric: str, mesh, ref_tile: int,
+                               test_tile: int
+                               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The references split over ``mesh``'s data axis
+    (:meth:`KNNModel.device_sharded`): each query batch takes each
+    shard's k + MARGIN best float32 candidates (at most a shard's real
+    rows), merged in shard order (``collectives.sharded_knn_topk``), then
+    re-ranked by exact distance sums and ordered by (exact distance,
+    index) on the axis' first device, as the unsharded routes order
+    theirs."""
+    from avenir_tpu_torch.parallel import collectives
+
+    n = model.num_refs
+    shard = _shard_rows(n, mesh.size("data"))
+    tile = min(ref_tile, shard)
+    k_eff = min(k, n)
+    rc, rx = model.device_sharded(mesh, tile)
+    step = collectives.sharded_knn_topk(
+        mesh, k=min(k_eff + kops.MARGIN, shard), num_bins=model.num_bins,
+        metric=metric, ref_tile=tile)
+    dev = mesh.axis_devices("data")[0]
+    lo = torch.from_numpy(model.cont_lo).to(dev)
+    hi = torch.from_numpy(model.cont_hi).to(dev)
+    codes_r, cont01_r = model.device_rerank_arrays(dev)
+    cont01_q = _normalize01(test.cont, model.cont_lo, model.cont_hi)
+    total_attrs = test.codes.shape[1] + test.cont.shape[1]
+    out_d, out_i = [], []
+    for m0 in range(0, test.num_rows, test_tile):
+        tc = torch.from_numpy(test.codes[m0:m0 + test_tile]).to(dev)
+        _d, cand = step(tc, torch.from_numpy(test.cont[m0:m0 + test_tile]),
+                        rc, rx, lo, hi, n)
+        sums = kops.rerank_d2(
+            tc, torch.from_numpy(cont01_q[m0:m0 + test_tile]).to(dev),
+            codes_r, cont01_r, cand, metric)
+        sums, cand = kops.rank_exact(sums, cand)
+        out_d.append(kops.distances(sums[:, :k_eff], total_attrs,
+                                    metric).cpu().numpy())
+        out_i.append(cand[:, :k_eff].cpu().numpy())
+    return _pad_topk(np.concatenate(out_d), np.concatenate(out_i), k, k_eff)
+
+
 def _pad_topk(d: np.ndarray, i: np.ndarray, k: int, k_eff: int
               ) -> Tuple[np.ndarray, np.ndarray]:
     """Keep the [M, k] contract when the reference set has fewer than k
@@ -308,13 +381,19 @@ def _pad_topk(d: np.ndarray, i: np.ndarray, k: int, k_eff: int
 def nearest_neighbors(
     model: KNNModel, test: EncodedDataset, k: int,
     metric: str = "euclidean", ref_tile: int = 65536, test_tile: int = 8192,
-    device=None,
+    device=None, mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """([M, k] float32 distances, [M, k] int64 reference indices),
     ascending by (distance, index), on ``device`` (``cuda`` unless the
-    caller asks for the CPU).  The kernel route serves the euclidean metric
-    (:func:`kernel_route`), the exact scan everything else."""
+    caller asks for the CPU).  A ``mesh`` whose data axis spans two or
+    more devices takes the sharded route where k fits a shard (the JAX
+    package's gate); otherwise the kernel route serves the euclidean
+    metric (:func:`kernel_route`), the exact scan everything else."""
     dev = resolve_device(device)
+    if is_wide(mesh) and min(k, model.num_refs) <= _shard_rows(
+            model.num_refs, mesh.size("data")):
+        return _nearest_neighbors_sharded(model, test, k, metric, mesh,
+                                          ref_tile, test_tile)
     if kernel_route(model, k, metric):
         return _nearest_neighbors_kernel(model, test, k, test_tile, dev)
     return _nearest_neighbors_scan(model, test, k, metric, ref_tile,
@@ -357,7 +436,8 @@ class KNNResult:
 
 class KNN:
     """Estimator facade: classification + regression over a fitted model;
-    ``device`` defaults to ``cuda``."""
+    ``device`` defaults to ``cuda``; an optional data ``mesh`` shards the
+    reference set (:func:`nearest_neighbors`)."""
 
     def __init__(
         self,
@@ -372,6 +452,7 @@ class KNN:
         cost: Optional[np.ndarray] = None,
         ref_tile: int = 65536,
         test_tile: int = 8192,
+        mesh=None,
         device=None,
     ):
         if kernel not in KERNELS:
@@ -387,6 +468,7 @@ class KNN:
         self.cost = cost
         self.ref_tile = ref_tile
         self.test_tile = test_tile
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def fit(self, ds: EncodedDataset, values: Optional[np.ndarray] = None,
@@ -396,7 +478,7 @@ class KNN:
     def _neighbors(self, model: KNNModel, test: EncodedDataset):
         return nearest_neighbors(model, test, self.k, self.metric,
                                  self.ref_tile, self.test_tile,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
 
     # -- classification ------------------------------------------------------
     def predict(self, model: KNNModel, test: EncodedDataset,

@@ -16,6 +16,12 @@ gradients, as the JAX package does; :meth:`~LogisticRegression.fit_chunked`
 keeps float64 weights on the host and folds float32 chunk partials in
 chunk order.  TF32 is held off while a step runs, so CUDA and the CPU
 differ only in the order a matmul sums in (relative 1e-5 on the history).
+
+Under a data ``mesh`` of two or more devices, :meth:`~LogisticRegression.fit`
+splits x and y over the mesh (0.0 pad rows add a zero gradient term) and
+runs ``parallel/collectives.py::sharded_lr_step`` each iteration: the
+shards' float32 partials summed in shard order, scaled by the true row
+count.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import EncodedDataset, NoDataError
-from avenir_tpu_torch.device import refuse_mesh, resolve_device
+from avenir_tpu_torch.device import resolve_device
+from avenir_tpu_torch.parallel.mesh import is_wide, place_batch
 
 
 @contextlib.contextmanager
@@ -150,7 +157,6 @@ class LogisticRegression:
     def __init__(self, learning_rate: float = 0.5, max_iterations: int = 200,
                  convergence: str = "average", threshold_pct: float = 0.5,
                  l2: float = 0.0, mesh=None, device=None):
-        refuse_mesh(mesh)
         if convergence not in ("all", "average"):
             raise ValueError("convergence must be 'all' or 'average'")
         self.learning_rate = learning_rate
@@ -158,6 +164,7 @@ class LogisticRegression:
         self.convergence = convergence
         self.threshold_pct = threshold_pct
         self.l2 = l2
+        self.mesh = mesh          # optional data mesh (parallel/mesh.py)
         self.device = resolve_device(device)
 
     def _f32(self, v: float) -> torch.Tensor:
@@ -168,11 +175,21 @@ class LogisticRegression:
         """``x`` [N, D], ``y`` [N] in {0, 1} (numpy or tensors).
         ``resume_from`` continues a run from its last coefficient row, as
         the reference's driver restarts from the last line of its
-        coefficient file."""
+        coefficient file.  Under a data mesh each iteration is
+        ``collectives.sharded_lr_step`` over x and y split across it."""
         dev = self.device
-        xd = torch.as_tensor(x).to(device=dev, dtype=torch.float32)
-        yd = torch.as_tensor(y).to(device=dev, dtype=torch.float32)
-        n, lr, l2 = self._f32(xd.shape[0]), self._f32(self.learning_rate), \
+        if is_wide(self.mesh):
+            from avenir_tpu_torch.parallel.collectives import sharded_lr_step
+
+            step = sharded_lr_step(self.mesh)
+            xd, yd = place_batch(self.mesh, dev,
+                                 *(torch.as_tensor(a, dtype=torch.float32)
+                                   for a in (x, y)))
+        else:
+            step = _grad_step
+            xd = torch.as_tensor(x).to(device=dev, dtype=torch.float32)
+            yd = torch.as_tensor(y).to(device=dev, dtype=torch.float32)
+        n, lr, l2 = self._f32(x.shape[0]), self._f32(self.learning_rate), \
             self._f32(self.l2)
         if resume_from is not None:
             w = torch.from_numpy(np.asarray(resume_from.weights,
@@ -184,7 +201,7 @@ class LogisticRegression:
         converged = False
         with _full_fp32():
             for _ in range(self.max_iterations):
-                w = _grad_step(w, xd, yd, n, lr, l2)
+                w = step(w, xd, yd, n, lr, l2)
                 cur = w.cpu().numpy()
                 history.append(cur)
                 if len(history) >= 2 and _converged(

@@ -20,8 +20,13 @@ port of ``avenir_tpu/models/markov.py`` (the reference's
 Sequences pad to [R, T] int32 codes with −1.  Counts are integer
 ``bincount``s on the device (``ops/agg.py``); the Viterbi recursion is a
 loop over time on [R, S] tensors, with padded steps carrying δ unchanged.
-A data ``mesh`` and the time-sharded decoder are the models' ``mesh=``
-seams, ROADMAP.md Queue 1 item 7g-ii (b).
+
+A data ``mesh`` of two or more devices splits the pair streams (−1 pads
+count nothing, weights pad with 0.0) and the decoder's records (all −1
+pad rows, trimmed) over its devices; each shard counts or decodes on its
+device and the counts are summed in shard order
+(``parallel/collectives.py::shard_sum``).  :func:`viterbi_time_sharded`
+splits the time axis of one long sequence instead.
 """
 
 from __future__ import annotations
@@ -33,8 +38,11 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import NoDataError
-from avenir_tpu_torch.device import refuse_mesh, resolve_device
+from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.ops import agg
+from avenir_tpu_torch.parallel.collectives import per_shard, shard_sum
+from avenir_tpu_torch.parallel.mesh import (is_wide, maybe_shard_batch,
+                                            place_batch)
 
 DELIM = ","
 
@@ -89,9 +97,12 @@ def adjacent_pairs(seqs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def _pair_counts(a: np.ndarray, b: np.ndarray, num_a: int, num_b: int,
-                 device: torch.device) -> torch.Tensor:
-    return agg.transition_counts(torch.from_numpy(a).to(device),
-                                 torch.from_numpy(b).to(device), num_a, num_b)
+                 device: torch.device, mesh=None) -> torch.Tensor:
+    """[num_a, num_b] int32 counts of the pairs (a, b), on ``device`` or
+    summed over ``mesh``'s shards."""
+    return shard_sum(
+        lambda x, y: agg.transition_counts(x, y, num_a, num_b),
+        *place_batch(mesh, device, a, b))
 
 
 # ---------------------------------------------------------------------------
@@ -139,14 +150,14 @@ class MarkovChainModel:
 
 class MarkovChain:
     """First-order chain trainer over state-name sequences; transition
-    counts are int32 per batch on ``device`` and int64 in the
-    Accumulator."""
+    counts are int32 per batch on ``device`` (or per shard of ``mesh``)
+    and int64 in the Accumulator."""
 
     def __init__(self, laplace: float = 1.0, scale: Optional[int] = None,
                  mesh=None, device=None):
-        refuse_mesh(mesh)
         self.laplace = laplace
         self.scale = scale
+        self.mesh = mesh          # optional data mesh (parallel/mesh.py)
         self.device = resolve_device(device)
 
     def fit(self, seqs: Sequence[Sequence[str]],
@@ -163,7 +174,7 @@ class MarkovChain:
         codes, _ = encoder.encode(seqs)
         s = len(encoder)
         acc.add("trans", _pair_counts(*adjacent_pairs(codes), s, s,
-                                      self.device))
+                                      self.device, self.mesh))
 
     def finalize(self, encoder: SequenceEncoder, acc) -> MarkovChainModel:
         counts = np.asarray(acc.get("trans"), np.float64)
@@ -227,8 +238,8 @@ class HMMBuilder:
     """Supervised HMM estimation from tagged sequences."""
 
     def __init__(self, laplace: float = 1.0, mesh=None, device=None):
-        refuse_mesh(mesh)
         self.laplace = laplace
+        self.mesh = mesh          # optional data mesh (parallel/mesh.py)
         self.device = resolve_device(device)
 
     def fit_tagged(self, seqs: Sequence[Sequence[Tuple[str, str]]],
@@ -255,11 +266,11 @@ class HMMBuilder:
         first = st_codes[:, 0]
         acc.add("init", np.bincount(first[first >= 0], minlength=s))
         acc.add("trans", _pair_counts(*adjacent_pairs(st_codes), s, s,
-                                      self.device))
+                                      self.device, self.mesh))
         valid = (st_codes >= 0) & (ob_codes >= 0)
         acc.add("emit", _pair_counts(np.where(valid, st_codes, -1).ravel(),
                                      np.where(valid, ob_codes, -1).ravel(),
-                                     s, o, self.device))
+                                     s, o, self.device, self.mesh))
 
     def finalize(self, st_enc: SequenceEncoder, ob_enc: SequenceEncoder,
                  acc) -> HMMModel:
@@ -320,7 +331,10 @@ class HMMBuilder:
                            window_function: Sequence[float], acc) -> None:
         """Fold one batch of partially tagged sequences into ``acc``: the
         state runs on the host, the weighted (state, obs) sums on the
-        device, in chunks under the exact-count cap."""
+        device (or each shard of the mesh, summed in float64 in shard
+        order), in chunks under the exact-count cap.  The chunk is a
+        multiple of the data axis' size, so the mesh's padding never
+        pushes one to the cap."""
         state_set = set(st_enc.symbols)
         s, o = len(st_enc), len(ob_enc)
         init = np.zeros(s, np.int64)
@@ -364,16 +378,18 @@ class HMMBuilder:
                     w_list.append(wf[k] if k < len(wf) else wf[-1])
         emit = np.zeros((s, o))
         if st_list:
-            dev = self.device
-            st_all = torch.tensor(st_list, dtype=torch.int32, device=dev)
-            ob_all = torch.tensor(ob_list, dtype=torch.int32, device=dev)
-            w_all = torch.from_numpy(np.array(w_list, np.float32)).to(dev)
-            step = agg.MAX_EXACT_CHUNK_ROWS - 1
+            st_all = np.array(st_list, np.int32)
+            ob_all = np.array(ob_list, np.int32)
+            w_all = np.array(w_list, np.float32)
+            d = self.mesh.size("data") if self.mesh is not None else 1
+            step = max(((agg.MAX_EXACT_CHUNK_ROWS - 1) // d) * d, d)
             for s0 in range(0, len(st_list), step):
-                emit += agg.weighted_transition_counts(
-                    st_all[s0:s0 + step], ob_all[s0:s0 + step],
-                    w_all[s0:s0 + step], s, o).cpu().numpy().astype(
-                        np.float64)
+                emit += shard_sum(
+                    lambda a, b, w: agg.weighted_transition_counts(
+                        a, b, w, s, o).double(),
+                    *place_batch(self.mesh, self.device, st_all[s0:s0 + step],
+                                 ob_all[s0:s0 + step], w_all[s0:s0 + step])
+                ).cpu().numpy()
         acc.add("init", init)
         acc.add("trans", trans)
         acc.add("emit", emit)
@@ -457,6 +473,19 @@ def _maxplus(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., :, :, None] + b[..., None, :, :]).amax(dim=-2)
 
 
+def _maxplus_prefix(steps: torch.Tensor) -> torch.Tensor:
+    """[R, n, S, S] → the inclusive max-plus prefix products along axis 1
+    (M_1, M_1 ⊗ M_2, …) by log₂ n doubling steps, earlier factors on the
+    left."""
+    prefix = steps
+    d = 1
+    while d < steps.shape[1]:
+        prefix = torch.cat([prefix[:, :d],
+                            _maxplus(prefix[:, :-d], prefix[:, d:])], dim=1)
+        d *= 2
+    return prefix
+
+
 def _viterbi_assoc_batch(log_a: torch.Tensor, log_b: torch.Tensor,
                          log_pi: torch.Tensor, obs: torch.Tensor
                          ) -> torch.Tensor:
@@ -470,12 +499,7 @@ def _viterbi_assoc_batch(log_a: torch.Tensor, log_b: torch.Tensor,
         return torch.empty((r, 0), dtype=torch.int64, device=obs.device)
     delta0 = _init_delta(log_b, log_pi, obs)                    # [R, S]
     steps = _step_matrices(log_a, log_b, obs)                   # [R, T-1, S, S]
-    prefix = steps
-    d = 1
-    while d < t - 1:
-        prefix = torch.cat([prefix[:, :d],
-                            _maxplus(prefix[:, :-d], prefix[:, d:])], dim=1)
-        d *= 2
+    prefix = _maxplus_prefix(steps)
     deltas = (delta0[:, None, :, None] + prefix).amax(dim=2)    # [R, T-1, S]
     all_deltas = torch.cat([delta0[:, None], deltas], dim=1)    # [R, T, S]
     ptrs = torch.argmax(all_deltas[:, :-1, :, None] + steps, dim=2)
@@ -483,20 +507,90 @@ def _viterbi_assoc_batch(log_a: torch.Tensor, log_b: torch.Tensor,
                                                           dim=1), obs)
 
 
+def viterbi_time_sharded(log_a: torch.Tensor, log_b: torch.Tensor,
+                         log_pi: torch.Tensor, obs_row, mesh,
+                         axis: str = "data") -> np.ndarray:
+    """One long sequence with its time axis split over ``mesh``'s
+    ``axis``: obs_row [T] (−1 pad; T divisible by the axis size) → [T]
+    int32 state path (−1 on the pads).
+
+    Shard i holds positions [i·L, (i+1)·L): it builds the step matrices
+    of its positions with the previous shard's last observation in front
+    (shard 0's first step is the identity: position 0 has no incoming
+    transition) and takes their local max-plus prefix.  The [D, S, S]
+    shard totals are gathered onto the first device and scanned into
+    exclusive offsets in shard order; each shard rebases its prefix on
+    its offset, takes δ_t = δ₀ ⊗ prefix_t and the backpointers
+    ψ_t = argmax_i δ_{t−1}[i] + M_t[i, ·] (δ_{t−1} of its first position
+    read from the previous shard), and one backtrack runs on the first
+    device.  Every step is a float32 add or max, so a device gives the
+    same bits as the CPU; the regrouped sums may flip an argmax at a
+    near-tie against the sequential decoder."""
+    d = mesh.size(axis)
+    obs = torch.as_tensor(np.asarray(obs_row, np.int64)) \
+        if not isinstance(obs_row, torch.Tensor) else obs_row.long().cpu()
+    t = obs.shape[0]
+    if t % d:
+        raise ValueError(f"sequence length {t} is not divisible by the "
+                         f"{axis!r} axis size {d}")
+    n = t // d
+    devs = mesh.axis_devices(axis)
+    params = [tuple(p.to(dev) for p in (log_a, log_b, log_pi))
+              for dev in devs]
+    s = log_a.shape[0]
+    steps, prefix = [], []
+    for i, dev in enumerate(devs):
+        la, lb, _lpi = params[i]
+        o_ext = obs[max(i * n - 1, 0):(i + 1) * n].to(dev)
+        if i == 0:                 # a stand-in in front, replaced below
+            o_ext = torch.cat([o_ext[:1], o_ext])
+        m = _step_matrices(la, lb, o_ext[None])                 # [1, L, S, S]
+        if i == 0:
+            eye = torch.full((s, s), _NEG, dtype=la.dtype, device=dev)
+            m[0, 0] = eye.fill_diagonal_(0.0)
+        steps.append(m)
+        prefix.append(_maxplus_prefix(m))
+    first = devs[0]
+    offsets = []
+    carry = torch.full((s, s), _NEG, dtype=log_a.dtype,
+                       device=first).fill_diagonal_(0.0)
+    for p in prefix:                       # exclusive, in shard order
+        offsets.append(carry)
+        carry = _maxplus(carry, p[0, -1].to(first))
+    _la0, lb0, lpi0 = params[0]
+    delta0 = _init_delta(lb0, lpi0, obs[None, :1].to(first))[0]      # [S]
+    deltas = []
+    for i, dev in enumerate(devs):
+        rebased = _maxplus(offsets[i].to(dev)[None], prefix[i][0])  # [L,S,S]
+        deltas.append((delta0.to(dev)[None, :, None] + rebased).amax(dim=1))
+    psi = []
+    for i, dev in enumerate(devs):
+        before = delta0 if i == 0 else deltas[i - 1][-1]
+        prev = torch.cat([before.to(dev)[None], deltas[i][:-1]])    # [L, S]
+        psi.append(torch.argmax(prev[:, :, None] + steps[i][0], dim=1))
+    all_deltas = torch.cat([x.to(first) for x in deltas])            # [T, S]
+    ptrs = torch.cat([x.to(first) for x in psi])[1:, None]   # [T-1, 1, S]
+    obs_f = obs[None].to(first)
+    path = _backtrack(ptrs, torch.argmax(all_deltas[-1:], dim=1), obs_f)
+    return path[0].to(torch.int32).cpu().numpy()
+
+
 class ViterbiDecoder:
     """Batch Viterbi decoding over an HMM model on ``device``.
 
     ``method``: ``"scan"`` (a loop over time, O(T·S²) work, the default)
     or ``"assoc"`` (a log-depth max-plus prefix product, O(T·S³) work, for
-    long sequences; memory grows as R·T·S³, so batch records)."""
+    long sequences; memory grows as R·T·S³, so batch records).  A data
+    ``mesh`` of two or more devices splits the records over its devices;
+    :func:`viterbi_time_sharded` splits one sequence's time axis."""
 
     def __init__(self, model: HMMModel, method: str = "scan", mesh=None,
                  device=None):
-        refuse_mesh(mesh)
         if method not in ("scan", "assoc"):
             raise ValueError(f"unknown viterbi method {method!r}")
         self.model = model
         self.method = method
+        self.mesh = mesh          # optional data mesh: records shard over it
         self.device = resolve_device(device)
         eps = 1e-12
         as_log = lambda m: torch.from_numpy(  # noqa: E731
@@ -508,10 +602,21 @@ class ViterbiDecoder:
 
     def decode_codes(self, obs) -> np.ndarray:
         """[R, T] obs codes (−1 pad; numpy, or a tensor) → [R, T] int32
-        state codes (−1 pad)."""
+        state codes (−1 pad).  Under a data mesh the records split over
+        its devices, each shard decodes its rows on its device and the
+        paths are gathered in shard order; the all −1 pad rows are
+        trimmed.  A row's path does not depend on the other rows, so the
+        paths are the single-device ones bit for bit."""
         fn = _viterbi_batch if self.method == "scan" else _viterbi_assoc_batch
         o = (obs if isinstance(obs, torch.Tensor)
              else torch.from_numpy(np.asarray(obs, np.int32)))
+        if is_wide(self.mesh):
+            blocks = maybe_shard_batch(self.mesh, o.numpy(force=True))[0]
+            paths = per_shard(lambda la, lb, lpi, ob: fn(la, lb, lpi,
+                                                         ob.long()),
+                              self._log_a, self._log_b, self._log_pi, blocks)
+            return torch.cat([p.cpu() for p in paths.parts])[:o.shape[0]] \
+                .to(torch.int32).numpy()
         path = fn(self._log_a, self._log_b, self._log_pi,
                   o.to(self.device).long())
         return path.to(torch.int32).cpu().numpy()
@@ -540,6 +645,8 @@ class ViterbiStatePredictor:
 
     def __init__(self, model: HMMModel, pair_output: bool = False,
                  delim: str = DELIM, mesh=None, device=None):
+        """``mesh`` splits the records over its data axis
+        (:meth:`ViterbiDecoder.decode_codes`)."""
         self.decoder = ViterbiDecoder(model, mesh=mesh, device=device)
         self.pair_output = pair_output
         self.delim = delim

@@ -88,6 +88,14 @@ class Mesh:
         """The devices along ``axis``, every other axis at index 0."""
         return tuple(self.devices[i] for i in self._axis_indices(axis))
 
+    def device_at(self, **coords: int) -> torch.device:
+        """The device at ``coords`` (axis name → index; an axis left out
+        is at index 0)."""
+        flat = 0
+        for name, size in zip(self.axis_names, self.shape):
+            flat = flat * size + coords.get(name, 0)
+        return self.devices[flat]
+
     def axis_labels(self, axis: str) -> List[str]:
         """``<type>:<index>`` of each device along ``axis`` (a CPU slot's
         index is its place in the mesh)."""
@@ -218,6 +226,13 @@ def process_local_batch(mesh: Mesh, array: np.ndarray,
     return device_put_sharded_batch(mesh, array, data_axis=data_axis)
 
 
+def is_wide(mesh: Optional[Mesh], data_axis: str = "data") -> bool:
+    """Does ``mesh``'s data axis span two or more devices?  Below that a
+    ``mesh=`` seam runs its single-device code, as the JAX package's
+    ``maybe_shard_batch`` places a batch whole on a one-device axis."""
+    return mesh is not None and mesh.size(data_axis) > 1
+
+
 def maybe_shard_batch(mesh: Optional[Mesh], *arrays,
                       data_axis: str = "data") -> list:
     """Split the batch axis over ``mesh`` when its data axis spans more
@@ -227,7 +242,7 @@ def maybe_shard_batch(mesh: Optional[Mesh], *arrays,
     passes through untouched (the sharded feeder stage ran this on its
     worker thread); one split over other devices is refused.  Always
     returns a list matching ``arrays``."""
-    wide = mesh is not None and mesh.size(data_axis) > 1
+    wide = is_wide(mesh, data_axis)
 
     def placed(a) -> bool:
         if isinstance(a, Blocks):

@@ -19,10 +19,11 @@ are sliced off before formatting and never reach a response.
 ``device`` is ``cuda`` unless the caller asks for the CPU.  On ``cuda``
 the kNN servable's buckets launch B5 (``csrc/knn_tourney.cu``, a large
 reference set) or B6 (``csrc/knn_topk.cu``) once per dispatch through
-``ops/knn.search``; there is no plain fallback.  The JAX package passes
-``mesh=Job.auto_mesh(conf)`` to the kNN and Viterbi models; the port
-passes none until their ``mesh=`` seams land (ROADMAP.md, Queue 1 item
-7g-ii (b)); on one card ``auto_mesh`` is None either way.
+``ops/knn.search``; there is no plain fallback.  As in the JAX package,
+the kNN and Viterbi servables take the batch job's placement,
+``jobs/base.py::auto_mesh`` on the servable's own device: a data mesh
+over two or more local devices (the references, or the records, split
+over it), None on one card.
 
 Compile keys keep the JAX package's meaning as shape keys: PyTorch
 compiles nothing here, but a bucket shape outside the warmed set still
@@ -48,7 +49,7 @@ from avenir_tpu_torch.core.csv_io import read_csv_string
 from avenir_tpu_torch.core.encoding import (DatasetEncoder, EncodedDataset,
                                             pad_ballast)
 from avenir_tpu_torch.device import resolve_device
-from avenir_tpu_torch.jobs.base import Job, read_lines
+from avenir_tpu_torch.jobs.base import Job, auto_mesh, read_lines
 from avenir_tpu_torch.serving.errors import RequestError, UnknownModelError
 
 
@@ -404,6 +405,7 @@ class KNNServable(ServableModel):
             decision_threshold=conf.get_float("decision.threshold"),
             pos_class=conf.get("positive.class.value"),
             cost=cost,
+            mesh=auto_mesh(conf, dev),     # the batch job's own placement
             device=dev,
         )
         model = est.fit(train_ds, class_probs=class_probs)
@@ -462,7 +464,8 @@ class ViterbiServable(ServableModel):
                                        delim=conf.field_delim)
         predictor = mk.ViterbiStatePredictor(
             model, pair_output=not conf.get_bool("output.state.only", True),
-            delim=conf.field_delim, device=device)
+            delim=conf.field_delim, mesh=auto_mesh(conf, device),
+            device=device)
         return cls(predictor, delim=conf.field_delim,
                    in_delim=conf.field_delim_regex,
                    skip=conf.get_int("skip.field.count", 1),

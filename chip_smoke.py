@@ -297,14 +297,28 @@ Phases, in order; any failure exits non-zero:
     ``shard.allreduce.quantized=true`` at 250K-row chunks (partial cells
     far past 127) byte-identical between cuda and the CPU; one
     ``automesh`` JSON line;
-16. print a ``walls_s`` JSON line (the native encoder's build, native
+16. (after 15; ~40 s) the model steps' ``mesh=`` seams on the card: (a)
+    ``auto_mesh`` None on one card; NearestNeighbor over phase 8a's 1M
+    references (B5 1) and 8b's 10K (B6 1), LogisticRegressionJob on phase
+    3's 1M rows, the three Markov jobs on phase 11 (b)'s CSVs and
+    ``ScoringPlane`` replays of the kNN (1M and 10K) and Viterbi
+    servables on phase 12c's rows, each with ``data.parallel.auto`` true
+    and false: part files and responses byte-identical, launches equal,
+    both walls printed; (b) the five explicit steps of
+    ``parallel/collectives.py`` and ``viterbi_time_sharded`` on a
+    one-device ``cuda`` mesh against a one-slot CPU mesh (counts exact,
+    moments within 1e-12, the LR step within relative 1e-6, kNN at 512 ×
+    131,072 within 1e-6 with equal indices, the Viterbi path at T =
+    4,096 equal and equal to the sequential decoder on the card); one
+    ``model_mesh`` JSON line;
+17. print a ``walls_s`` JSON line (the native encoder's build, native
     against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c,
-    13, 14 and 15's walls) with the card's name and power limit, then the
-    kernels' JSON line (B1's and B4's launches also by phase 12's traced
-    paths, B1's by 12b's planned paths, 13's stream and tenant paths, 14's
-    sharded paths and 15's ``auto_*`` paths, B4's by 15's tree jobs and
-    13's tree refit, B5's and B6's by 12c's serving paths and B5's by
-    13's tenant path), its numbers
+    13, 14, 15 and 16's walls) with the card's name and power limit, then
+    the kernels' JSON line (B1's and B4's launches also by phase 12's
+    traced paths, B1's by 12b's planned paths, 13's stream and tenant
+    paths, 14's sharded paths and 15's ``auto_*`` paths, B4's by 15's
+    tree jobs and 13's tree refit, B5's and B6's by 12c's serving paths
+    and 16's ``mm_*`` paths and B5's by 13's tenant path), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
     hospital tree's deepest level, with the forest's launches and its
@@ -4560,6 +4574,234 @@ def automesh_phase(work: str, train: str, schema: str, walls: dict) -> dict:
     return launches
 
 
+# phase 16: the model steps' mesh= seams (kNN, LR, the Markov family, the
+# explicit collective steps, the time-sharded Viterbi) on the card
+MM_ROWS = 262_144            # the count and LR steps' rows
+MM_KNN_QUERIES = 512         # the kNN step: the CPU scans the same refs
+MM_KNN_REFS = 131_072        # (two 65,536-row tiles), so ~2 s there
+MM_VITERBI_T = 4096          # one sequence's time axis
+
+
+def model_mesh_runs(work: str, train: str, schema: str) -> list:
+    """(tag, kind, argv or (conf, rows), launches with the key off) of
+    phase 16 (a): NearestNeighbor over phase 8a's 1M references and 8b's
+    10K, LogisticRegressionJob on phase 3's 1M rows, the three Markov
+    jobs on phase 11 (b)'s CSVs, and ``ScoringPlane`` replays of the kNN
+    (1M and 10K) and Viterbi servables on phase 12c's rows."""
+    from avenir_tpu_torch.datagen.event_seq import STATES
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    elearn = {"feature.schema.file.path": j("elearn.json"),
+              "training.data.path": j("elearn_train.csv"),
+              "top.match.count": str(KNN_K)}
+    small = {"feature.schema.file.path": j("elearn_small.json"),
+             "training.data.path": j("small_train.csv"),
+             "top.match.count": str(KNN_K)}
+    hmm = j("HiddenMarkovModelBuilder_cuda")
+    vocab = [f"-Dmodel.states={','.join(f'S{i}' for i in range(6))}",
+             f"-Dmodel.observations={','.join(f'O{i}' for i in range(12))}"]
+    as_d = lambda props: [f"-D{k}={v}" for k, v in props.items()]  # noqa: E731
+    return [
+        ("nn_1m", "job", ["NearestNeighbor", *as_d(elearn),
+                          j("elearn_test.csv")], only(B5=1)),
+        ("nn_10k", "job", ["NearestNeighbor", *as_d(small),
+                           "-Dvalidation.mode=true",
+                           "-Dkernel.function=gaussian",
+                           "-Dpositive.class.value=F", j("small_test.csv")],
+         only(B6=1)),
+        ("lr", "job", ["LogisticRegressionJob",
+                       f"-Dfeature.schema.file.path={schema}", train], only()),
+        ("chain", "job", ["MarkovStateTransitionModel",
+                          f"-Dmodel.states={','.join(STATES)}",
+                          j("chain.csv")], only()),
+        ("hmm", "job", ["HiddenMarkovModelBuilder", *vocab, j("tagged.csv")],
+         only()),
+        ("viterbi", "job", ["ViterbiStatePredictor",
+                            f"-Dhmm.model.file.path={hmm}", j("obs.csv")],
+         only()),
+        ("serve_knn_1m", "replay", ({**elearn, "serve.models": "knn"},
+                                    j("serve_knn1m.csv")), None),
+        ("serve_knn_10k", "replay",
+         ({**small, "kernel.function": "gaussian", "serve.models": "knn"},
+          j("small_test.csv")), None),
+        ("serve_viterbi", "replay",
+         ({"hmm.model.file.path": hmm, "serve.sequence.pad.len": "256",
+           "serve.models": "viterbi"}, j("serve_obs.csv")), None),
+    ]
+
+
+def model_mesh_steps(walls: dict) -> dict:
+    """Phase 16 (b): each explicit step of ``parallel/collectives.py`` and
+    ``viterbi_time_sharded`` on a one-device ``cuda`` mesh against the
+    same step on a one-slot CPU mesh, at the CPU tests' shapes scaled up:
+    counts exactly, float64 moments within 1e-12 relative, the LR step
+    within relative 1e-6, kNN distances within DIST_TOL and indices equal
+    (tie-free continuous data), the Viterbi path equal between the two
+    and to the sequential ``_viterbi_batch`` on the card.  Returns
+    name → {cuda_ms, cpu_s, max_abs_err}."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.datagen import hmm_seq
+    from avenir_tpu_torch.models import markov as mk
+    from avenir_tpu_torch.parallel import collectives as coll
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(16)
+    n, f, fc, c, b = MM_ROWS, 8, 4, 3, 8
+    codes = rng.integers(-1, b, size=(n, f)).astype(np.int32)
+    labels = rng.integers(-1, c, size=n).astype(np.int32)
+    cont = rng.normal(size=(n, fc)).astype(np.float32)
+    pairs = np.array([(i, k) for i in range(f) for k in range(i + 1, f)])
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    y = (x[:, 0] - x[:, 1] + rng.normal(size=n) > 0).astype(np.float32)
+    w = (rng.normal(size=32) * 0.1).astype(np.float32)
+    m, nr = MM_KNN_QUERIES, MM_KNN_REFS
+    kc = rng.integers(0, 10, size=(m + nr, 6)).astype(np.int32)
+    kx = rng.normal(size=(m + nr, 8)).astype(np.float32)
+    a, bm, pi = hmm_seq.planted_hmm(6, 12, seed=2)
+    _s, obs = hmm_seq.sample_hmm(a, bm, pi, 1, MM_VITERBI_T, MM_VITERBI_T,
+                                 seed=6)
+    la, lb, lpi = (torch.from_numpy(np.log(np.maximum(v, 1e-12))
+                                    .astype(np.float32)) for v in (a, bm, pi))
+
+    def steps(dev):
+        one = make_mesh(("data",), devices=[torch.device(dev)])
+        grid = make_mesh(("data", "model"), shape=(1, 1),
+                         devices=[torch.device(dev)])
+        knn = coll.sharded_knn_topk(one, KNN_K, 10, ref_tile=65_536)
+        return {
+            "nb": lambda: coll.sharded_nb_fit_step(one, c, b, fc)(
+                codes, labels, cont),
+            "nb_2d": lambda: (lambda fb, cc: (*fb.parts, cc))(
+                *coll.sharded_nb_fit_step_2d(grid, c, b)(codes, labels)),
+            "mi": lambda: (lambda pa, fb, cc: (*pa.parts, fb, cc))(
+                *coll.sharded_mi_step(grid, c, b)(codes, labels, pairs[:, 0],
+                                                   pairs[:, 1])),
+            "knn": lambda: knn(kc[:m], kx[:m], kc[m:], kx[m:], kx.min(0),
+                               kx.max(0), nr),
+            "lr": lambda: (coll.sharded_lr_step(one)(w, x, y, n, 0.5,
+                                                     0.01),),
+            "viterbi_time": lambda: (torch.from_numpy(
+                mk.viterbi_time_sharded(la, lb, lpi, obs[0], one)),),
+        }
+
+    out = {}
+    on_card, on_cpu = steps("cuda"), steps("cpu")
+    for name in on_card:
+        got = [t.cpu() for t in on_card[name]()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [t.cpu() for t in on_cpu[name]()]
+        cpu_s = time.perf_counter() - t0
+        err = 0.0
+        for g, v in zip(got, want):
+            if g.dtype != v.dtype or g.shape != v.shape:
+                raise AssertionError(f"model step {name}: {g.dtype} "
+                                     f"{tuple(g.shape)} vs {v.dtype} "
+                                     f"{tuple(v.shape)}")
+            if g.dtype == torch.float64:
+                rel = float(((g - v).abs() / v.abs().clamp_min(1e-300))
+                            .max()) if g.numel() else 0.0
+                if rel > MOMENT_RTOL:
+                    raise AssertionError(f"model step {name}: moments "
+                                         f"{rel} apart")
+                err = max(err, float((g - v).abs().max()))
+            elif g.dtype == torch.float32:
+                gap = float((g - v).abs().max())
+                bar = (1e-6 * float(v.abs().max()) if name == "lr"
+                       else DIST_TOL)
+                if gap > bar:
+                    raise AssertionError(f"model step {name}: {gap} apart")
+                err = max(err, gap)
+            elif not torch.equal(g, v):
+                raise AssertionError(f"model step {name}: cuda and cpu "
+                                     f"differ")
+        if name == "viterbi_time":
+            seq = mk._viterbi_batch(la.cuda(), lb.cuda(), lpi.cuda(),
+                                    torch.from_numpy(obs).cuda().long())
+            if not torch.equal(got[0].long(), seq[0].cpu()):
+                raise AssertionError("time-sharded Viterbi differs from the "
+                                     "sequential decoder on the card")
+        ms = time_ms(on_card[name], iters=5, warmup=1)
+        out[name] = {"cuda_ms": ms, "cpu_s": cpu_s, "max_abs_err": err}
+        walls[f"phase 16 step {name} cpu"] = cpu_s
+    return out
+
+
+def model_mesh_phase(work: str, train: str, schema: str,
+                     walls: dict) -> dict:
+    """Phase 16: the model steps' ``mesh=`` seams on the card; returns B5's
+    and B6's launches by path.
+
+    (a) ``auto_mesh`` of the card's devices (None on one card), then each
+    of :func:`model_mesh_runs` with ``data.parallel.auto`` false and true:
+    part files and replay responses byte-identical, the launches of the
+    two runs equal (NearestNeighbor 1M B5 1, 10K B6 1 with the key off;
+    over n ≥ 2 cards the kNN runs take the sharded route, a scan a card,
+    and launch nothing with it on), both walls printed; (b)
+    :func:`model_mesh_steps`.  Prints one ``model_mesh`` JSON line with
+    the card's name and power limit."""
+    import torch
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs import get_job
+    from avenir_tpu_torch.jobs.base import auto_mesh
+
+    n_dev = torch.cuda.device_count()
+    mesh = auto_mesh(JobConfig({}), "cuda")
+    log(f"model mesh (a): auto_mesh on cuda over {n_dev} card(s) is "
+        f"{None if mesh is None else mesh.sizes}")
+    if (mesh is None) != (n_dev < 2):
+        raise AssertionError(f"auto_mesh on {n_dev} card(s): {mesh}")
+    launches, timed = {}, {}
+    for tag, kind, what, off_want in model_mesh_runs(work, train, schema):
+        got = {}
+        for auto in ("false", "true"):
+            out = os.path.join(work, f"mm_{tag}_{auto}")
+            reset_counts()
+            t0 = time.perf_counter()
+            if kind == "job":
+                run_cli([*what[:-1], f"-Ddata.parallel.auto={auto}",
+                         what[-1], out, "--device", "cuda"])
+            else:
+                props, rows = what
+                get_job("ScoringPlane").run(
+                    JobConfig({**props, "data.parallel.auto": auto,
+                               "serve.request.timeout.ms": "60000"}),
+                    rows, out, device="cuda")
+            timed[f"{tag} auto={auto}"] = time.perf_counter() - t0
+            got[auto] = read_counts()
+        off, on = got["false"], got["true"]
+        if off_want is not None and off != off_want:
+            raise AssertionError(f"model mesh {tag} (auto off) launched "
+                                 f"{off}")
+        knn = tag.startswith(("nn_", "serve_knn"))
+        if on != (only() if knn and n_dev > 1 else off):
+            raise AssertionError(f"model mesh {tag}: auto on launched {on}, "
+                                 f"auto off {off} over {n_dev} card(s)")
+        for kid in ("B5", "B6"):
+            if off[kid]:
+                launches.setdefault(kid, {})[f"mm_{tag}_off"] = off[kid]
+                launches[kid][f"mm_{tag}_on"] = on[kid]
+        same_bytes(os.path.join(work, f"mm_{tag}_true", "part-00000"),
+                   os.path.join(work, f"mm_{tag}_false", "part-00000"),
+                   f"model mesh {tag} auto on and off")
+    walls.update({f"phase 16 {k}": v for k, v in timed.items()})
+    log(f"model mesh (a): part files and responses byte-identical, launches "
+        f"{'equal' if n_dev == 1 else 'none on the sharded kNN route'} with "
+        f"data.parallel.auto true and false; walls s {json.dumps(timed)}")
+    steps = model_mesh_steps(walls)
+    log(f"model mesh (b): the five steps and viterbi_time_sharded on a "
+        f"one-device cuda mesh equal a one-slot CPU mesh: "
+        f"{json.dumps(steps)}")
+    log(json.dumps({"model_mesh": {
+        "devices": n_dev, "auto_mesh": None if mesh is None else mesh.sizes,
+        "launches": launches, "walls_s": timed, "steps": steps,
+        "card": card_line()}}))
+    return launches
+
+
 def torch_sync() -> None:
     import torch
 
@@ -4849,6 +5091,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         auto = automesh_phase(work, train, schema, walls)
         walls["phase 15"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mm = model_mesh_phase(work, train, schema, walls)
+        walls["phase 16"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     all_cases += path_cases(hist, rec)       # phase 13's and 14's calls
@@ -4878,9 +5123,11 @@ def main(argv=None) -> int:
                      all_cases),
         kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
                      "avenir_tpu/ops/pallas_knn.py:290",
-                     {**b5, **streamed["B5"]}, all_cases),
+                     {**b5, **streamed["B5"], **mm.get("B5", {})},
+                     all_cases),
         kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",
-                     "avenir_tpu/ops/pallas_knn.py:73", b6, all_cases),
+                     "avenir_tpu/ops/pallas_knn.py:73",
+                     {**b6, **mm.get("B6", {})}, all_cases),
         *probes,
     ]
     # phase 13 (c): B1 at every pane bucket of the stream, warm panes

@@ -14,7 +14,10 @@ its trees against the CPU forest; Viterbi (scan and assoc) and logistic
 regression on ``cuda`` against the CPU; a one-device mesh's sharded
 SharedScan on ``cuda`` against the CPU's fold; ``data.parallel.auto`` on
 the cards (no mesh on one card; per-shard launches of MI, Cramér and the
-tree on two or more); the bandit selections,
+tree on two or more); the five explicit model steps and the
+time-sharded Viterbi on a one-device ``cuda`` mesh against a one-slot
+CPU mesh, and the kNN, LR and Markov ``mesh=`` seams over two or more
+cards against the CPU; the bandit selections,
 ``WordCount`` and NumericalAttrStats on ``cuda`` against the CPU (no
 kernel of their own: plain torch ops on the card); a planned pipeline on
 the kernel route against the staged run, and a ``KNNServable`` on
@@ -572,6 +575,144 @@ def test_auto_mesh_routes_launch_per_shard(cuda):
     assert hist.cross_cooc_counts_cols.launches == levels * n_cards
     assert got.to_string() == tree.DecisionTree(
         max_depth=3, device="cpu").fit(ds).to_string()
+
+
+def _one_slot(device):
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(("data",), devices=[torch.device(device)])
+
+
+def _step_inputs(seed):
+    rng = np.random.default_rng(seed)
+    n, f, fc, c, b = 4099, 6, 3, 3, 7
+    return (rng.integers(-1, b, size=(n, f)).astype(np.int32),
+            rng.integers(-1, c, size=n).astype(np.int32),
+            rng.normal(size=(n, fc)).astype(np.float32), c, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", ["nb", "nb_2d", "mi", "knn", "lr",
+                                  "viterbi_time"])
+def test_model_steps_on_a_one_device_card_mesh_equal_cpu(cuda, step):
+    """Each explicit step of ``parallel/collectives.py`` and
+    ``viterbi_time_sharded`` on a one-device ``cuda`` mesh against the same
+    step on a one-slot CPU mesh: counts exactly, the float64 moments
+    within 1e-12, the LR step within relative 1e-6, kNN distances within
+    1e-6 and indices equal (tie-free data), Viterbi paths equal (float32
+    adds and maxima only) and their score within 1e-3 of the sequential
+    decoder's."""
+    from avenir_tpu_torch.models import markov as mk
+    from avenir_tpu_torch.parallel import collectives as coll
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    codes, labels, cont, c, b = _step_inputs(3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        one = _one_slot(dev)
+        grid = make_mesh(("data", "model"), shape=(1, 1),
+                         devices=[torch.device(dev)])
+        if step == "nb":
+            got = coll.sharded_nb_fit_step(one, c, b, 3)(codes, labels, cont)
+        elif step == "nb_2d":
+            fbc, cc = coll.sharded_nb_fit_step_2d(grid, c, b)(codes, labels)
+            assert [p.device.type for p in fbc.parts] == [dev]
+            got = (*fbc.parts, cc)
+        elif step == "mi":
+            pabc, fbc, cc = coll.sharded_mi_step(grid, c, b)(
+                codes, labels, [0, 1, 2], [3, 4, 5])
+            got = (*pabc.parts, fbc, cc)
+        elif step == "knn":
+            got = coll.sharded_knn_topk(one, 10, b, ref_tile=1024)(
+                codes[:64], cont[:64], codes[64:], cont[64:],
+                cont.min(0), cont.max(0), len(codes) - 64)
+        elif step == "lr":
+            w = np.linspace(-0.5, 0.5, 3, dtype=np.float32)
+            got = (coll.sharded_lr_step(one)(
+                w, cont, (labels > 0).astype(np.float32), len(cont), 0.5,
+                0.01),)
+        else:
+            rng = np.random.default_rng(1)
+            la, lb, lpi = (torch.from_numpy(np.log(m).astype(np.float32))
+                           for m in (rng.dirichlet(np.ones(5), size=5),
+                                     rng.dirichlet(np.ones(b), size=5),
+                                     rng.dirichlet(np.ones(5))))
+            obs = np.maximum(codes[:2048, 0], 0)
+            got = (torch.from_numpy(mk.viterbi_time_sharded(
+                la, lb, lpi, obs, one)),)
+            seq = mk._viterbi_batch(la, lb, lpi,
+                                    torch.from_numpy(obs)[None].long())[0]
+
+            def score(path):
+                path = path.long()
+                return float(lpi[path[0]] + lb[path[0], obs[0]]
+                             + (la[path[:-1], path[1:]]
+                                + lb[path[1:], obs[1:]]).double().sum())
+
+            # this flat random HMM has tied best paths: the regrouped
+            # max-plus may pick another one of equal score
+            assert abs(score(got[0]) - score(seq)) <= 1e-3
+        assert all(t.device.type == dev for t in got
+                   if isinstance(t, torch.Tensor) and step != "viterbi_time")
+        out[dev] = [t.cpu() for t in got]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        if g.dtype == torch.float64:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-12)
+        elif step == "lr":
+            assert (g - w).abs().max() <= 1e-6 * w.abs().max()
+        elif g.dtype == torch.float32:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6)
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_model_mesh_seams_over_two_cards_equal_cpu(cuda, tmp_path):
+    """Over a mesh of two or more cards: the kNN sharded route (a scan a
+    card), the LR fit, the Markov counts and the record-sharded Viterbi
+    against the unsharded CPU runs."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs.base import auto_mesh
+    from avenir_tpu_torch.models import logistic as mlr
+    from avenir_tpu_torch.models import markov as mk
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards for a data mesh")
+    mesh = auto_mesh(JobConfig({}), "cuda")
+    rng = np.random.default_rng(8)
+    ds = lambda n: EncodedDataset(  # noqa: E731
+        codes=rng.integers(0, 8, size=(n, 4)).astype(np.int32),
+        cont=rng.normal(size=(n, 5)).astype(np.float32),
+        labels=rng.integers(0, 2, size=n).astype(np.int32),
+        n_bins=np.full(4, 8, np.int32), class_values=["a", "b"])
+    train, test = ds(20_000), ds(300)
+    model = mknn.fit_knn(train)
+    tk.knn_tourney.launches = tk.knn_topk.launches = 0
+    d, i = mknn.nearest_neighbors(model, test, 10, device="cuda", mesh=mesh)
+    assert tk.knn_tourney.launches == tk.knn_topk.launches == 0
+    wd, wi = mknn.nearest_neighbors(model, test, 10, device="cpu")
+    np.testing.assert_array_equal(i, wi)
+    np.testing.assert_allclose(d, wd, atol=1e-6)
+    x, y = train.cont, train.labels.astype(np.float32)
+    got = mlr.LogisticRegression(max_iterations=15, mesh=mesh,
+                                 device="cuda").fit(x, y)
+    want = mlr.LogisticRegression(max_iterations=15, device="cpu").fit(x, y)
+    assert got.iterations == want.iterations
+    for g, w in zip(got.history, want.history):
+        assert np.abs(g - w).max() <= 1e-5 * np.abs(w).max()
+    seqs = [[f"s{v}" for v in rng.integers(0, 4, size=12)]
+            for _ in range(501)]
+    chain, _ = mk.MarkovChain(mesh=mesh, device="cuda").fit(seqs)
+    assert chain.to_lines() == mk.MarkovChain(device="cpu").fit(
+        seqs)[0].to_lines()
+    hmm = mk.HMMModel(["x", "y", "z"], [str(v) for v in range(4)],
+                      rng.dirichlet(np.ones(3), size=3),
+                      rng.dirichlet(np.ones(4), size=3),
+                      rng.dirichlet(np.ones(3)))
+    obs = rng.integers(-1, 4, size=(37, 20)).astype(np.int32)
+    np.testing.assert_array_equal(
+        mk.ViterbiDecoder(hmm, mesh=mesh, device="cuda").decode_codes(obs),
+        mk.ViterbiDecoder(hmm, device="cpu").decode_codes(obs))
 
 
 def _wide(n, f, b, seed):

@@ -16,7 +16,8 @@
   file written by either package is resumed by the other and continues the
   same history; ``stream.checkpoint.dir`` raises the JAX package's error.
 - ``predict_batch`` and ``convert.lr_model_from_jax``; ``atomic_write``
-  and the history lock; a data mesh raises naming Queue 1 item 7.
+  and the history lock; a fit under a data mesh keeps the LR contract
+  against the unsharded fit.
 """
 
 import contextlib
@@ -158,8 +159,21 @@ def test_predict_batch_and_convert(hosp):
                                       history=[jmodel.weights[:-1]])
     with pytest.raises(ValueError, match="history rows"):
         convert.lr_model_from_jax(bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        mlr.LogisticRegression(mesh=object(), device=CPU)
+
+
+def test_accepts_a_mesh_and_fits_under_it(hosp):
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    ds, _jds = hosp
+    x, y = mlr.design_matrix(ds, device=CPU), ds.labels.astype(np.float32)
+    mesh = make_mesh(("data",), device=CPU)
+    est = mlr.LogisticRegression(max_iterations=20, mesh=mesh, device=CPU)
+    assert est.mesh is mesh and mesh.size("data") == 8
+    got = est.fit(x, y)
+    want = mlr.LogisticRegression(max_iterations=20, device=CPU).fit(x, y)
+    assert (got.iterations, got.converged) == (want.iterations,
+                                               want.converged)
+    _close_histories(got.history, want.history)
 
 
 def test_atomic_write_and_history_lock(tmp_path):

@@ -15,7 +15,9 @@ the same seeded inputs.
   equal; ``stream.checkpoint.dir`` raises the same error.
 - ``convert.markov_model_from_jax`` / ``hmm_model_from_jax``: a JAX-built
   model, converted, writes the same lines and decodes the same paths.
-- A data mesh raises NotImplementedError naming ROADMAP Queue 1 item 7.
+- The four constructors take a data mesh and fit, count and decode under
+  it as on one device (``tests/test_torch_model_mesh.py`` holds the
+  meshed models against the JAX package's).
 """
 
 import contextlib
@@ -223,16 +225,29 @@ def test_convert_models_from_jax(hmm_data, chain_seqs):
                                jchain.transition_probs(), rtol=1e-15)
 
 
-def test_mesh_refused_before_any_work():
-    model = mk.HMMModel(["x"], ["o"], np.ones((1, 1)), np.ones((1, 1)),
-                        np.ones(1))
-    for make in (lambda: mk.MarkovChain(mesh=object(), device=CPU),
-                 lambda: mk.HMMBuilder(mesh=object(), device=CPU),
-                 lambda: mk.ViterbiDecoder(model, mesh=object(), device=CPU),
-                 lambda: mk.ViterbiStatePredictor(model, mesh=object(),
-                                                  device=CPU)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            make()
+def test_constructors_accept_a_mesh_and_fit_under_it(chain_seqs, hmm_data):
+    from avenir_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(("data",), device=CPU)
+    assert mesh.size("data") == 8
+    chain, _ = mk.MarkovChain(mesh=mesh, device=CPU).fit(chain_seqs)
+    assert chain.to_lines() == mk.MarkovChain(device=CPU).fit(
+        chain_seqs)[0].to_lines()
+    *_, states, obs = hmm_data
+    rows = hmm_seq.tagged_rows(states, obs, S_NAMES, O_NAMES)
+    seqs = [[tuple(t.split(":")) for t in r[1:]] for r in rows]
+    hmm = mk.HMMBuilder(mesh=mesh, device=CPU).fit_tagged(seqs)
+    assert hmm.to_lines() == mk.HMMBuilder(device=CPU).fit_tagged(
+        seqs).to_lines()
+    decoder = mk.ViterbiDecoder(hmm, mesh=mesh, device=CPU)
+    np.testing.assert_array_equal(
+        decoder.decode_codes(obs),
+        mk.ViterbiDecoder(hmm, device=CPU).decode_codes(obs))
+    plain = hmm_seq.code_rows(obs, O_NAMES)
+    predictor = mk.ViterbiStatePredictor(hmm, mesh=mesh, device=CPU)
+    assert predictor.decoder.mesh is mesh
+    assert predictor.predict_lines(plain) == mk.ViterbiStatePredictor(
+        hmm, device=CPU).predict_lines(plain)
 
 
 def _run(main, argv):
