@@ -7,7 +7,9 @@ Accepts the reference's fully-qualified class names or simple names and
 GenericOptionsParser does), and prints the job counters on completion.
 Jobs run on ``cuda`` unless ``--device cpu`` is given.  ``--resume`` is
 ``-Dstream.resume=true``: a streamed count job with
-``stream.checkpoint.dir`` continues from its latest snapshot.
+``stream.checkpoint.dir`` continues from its latest snapshot.  Under the
+fleet launcher (``AVENIR_NUM_PROCESSES`` set) the process joins the fleet
+first and journals under the launcher's ``AVENIR_WRITER_SUFFIX``.
 """
 
 from __future__ import annotations
@@ -52,6 +54,16 @@ def parse_args(argv: List[str]) -> Tuple[str, Dict[str, str], List[str], Optiona
 
 
 def main(argv: List[str]) -> int:
+    import os
+
+    # a worker spawned by the fleet launcher (python -m
+    # avenir_tpu_torch.launch) carries its rank in the environment: join
+    # the fleet before any device work, through the bounded join (a bad
+    # coordinator raises the typed LaunchError, never hangs)
+    if os.environ.get("AVENIR_NUM_PROCESSES"):
+        from avenir_tpu_torch.launch import join_from_env
+
+        join_from_env()
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.jobs import REGISTRY, get_job
 
@@ -64,6 +76,10 @@ def main(argv: List[str]) -> int:
     conf = JobConfig.from_file(conf_path) if conf_path else JobConfig()
     for k, v in overrides.items():
         conf.set(k, v)
+    # the launcher's journal-shard suffix, unless the conf names its own
+    if os.environ.get("AVENIR_WRITER_SUFFIX") and \
+            not conf.get("trace.writer.suffix"):
+        conf.set("trace.writer.suffix", os.environ["AVENIR_WRITER_SUFFIX"])
     if len(positional) != 2:
         raise SystemExit(f"expected <input> <output>, got {positional}")
     counters = get_job(job_name).run(conf, positional[0], positional[1],

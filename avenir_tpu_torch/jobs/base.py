@@ -1,5 +1,5 @@
 """Job layer — the reference's ``hadoop jar <ToolClass> -Dconf.path=p in out``
-contract; port of the single-process subset of ``avenir_tpu/jobs/base.py``.
+contract; port of ``avenir_tpu/jobs/base.py``.
 
 A job is a plain object with ``run(conf, input_path, output_path, device)``:
 input is a CSV file or a directory of part files, output is written as
@@ -14,6 +14,13 @@ per-chunk retry (``utils/retry.py``) through the device feeder
 (``runtime/feeder.py``).  A streamed count job checkpoints its totals and
 cursor with :class:`StreamCheckpointer` (``stream.checkpoint.dir``) and
 resumes from them (``stream.resume``, the CLI's ``--resume``).
+
+Across processes (``python -m avenir_tpu_torch.launch``) a streamed count
+job works like Hadoop's input splits: each process owns the chunks with
+``idx % nprocs == pid`` (:meth:`Job.distributed_plan`), the totals are
+merged in one collective at the end of the stream
+(:meth:`Job.distributed_stream`), and process 0 writes the part file
+(:meth:`Job.is_output_writer`).
 """
 
 from __future__ import annotations
@@ -98,11 +105,16 @@ def auto_mesh(conf: JobConfig, device=None):
     devices: the cards of this process on ``cuda`` (one H100 gives None),
     the host slots of ``XLA_FLAGS`` on the CPU
     (``parallel/mesh.py::local_devices``).  ``data.parallel.auto=false``
-    runs on one device whatever the topology."""
+    runs on one device whatever the topology, and so does a process of a
+    fleet (its chunks are its own; a mesh across processes is the
+    explicit ``shard.*`` plan)."""
     if not conf.get_bool("data.parallel.auto", True):
         return None
-    from avenir_tpu_torch.parallel.mesh import local_devices, make_mesh
+    from avenir_tpu_torch.parallel.mesh import (local_devices, make_mesh,
+                                                process_grid)
 
+    if process_grid()[1] > 1:
+        return None
     devices = local_devices(device)
     if len(devices) < 2:
         return None
@@ -169,6 +181,82 @@ class Job:
         """The job's data-parallel mesh (:func:`auto_mesh` on the job's
         device), or None."""
         return auto_mesh(conf, self.device)
+
+    # -- across processes (the Hadoop N-machine analog) ---------------------
+    @staticmethod
+    def process_grid():
+        """(process index, process count) of the joined fleet; (0, 1) in a
+        plain one-process run."""
+        from avenir_tpu_torch.parallel.mesh import process_grid
+
+        return process_grid()
+
+    @classmethod
+    def is_output_writer(cls) -> bool:
+        """The single-writer protocol: process 0 writes the part file (the
+        merged totals are the same on every process)."""
+        return cls.process_grid()[0] == 0
+
+    @classmethod
+    def distributed_plan(cls, conf: JobConfig, checkpointer):
+        """(owner, accumulator, distributed) for a streamed count job.
+
+        In a fleet with ``stream.chunk.rows`` set, chunks are owned round
+        robin (``idx % nprocs == pid``, Hadoop handing each of N machines
+        its input splits, ``BayesianDistribution.java:82``), each process
+        accumulates its own partials, and :meth:`distributed_stream`
+        merges the totals once at the end of the stream.  A checkpointer
+        is process-scoped already (``proc-NNN-of-NNN/``), so each process
+        snapshots and resumes its own partials and cursor over its own
+        chunks."""
+        pid, nprocs = cls.process_grid()
+        if nprocs <= 1 or not conf.get("stream.chunk.rows"):
+            return (None, checkpointer.accumulator if checkpointer else None,
+                    False)
+        owner = lambda idx: idx % nprocs == pid  # noqa: E731
+        if checkpointer is not None:
+            return owner, checkpointer.accumulator, True
+        from avenir_tpu_torch.ops import agg
+
+        return owner, agg.Accumulator(), True
+
+    @staticmethod
+    def distributed_stream(chunks, accumulator, rows_fn, merged: dict):
+        """Pass the chunks through; at exhaustion, replace the
+        accumulator's totals with the across-process sum
+        (``all_process_sum_state``) and put the global row count in
+        ``merged["rows"]``.  Every model's ``fit`` reads its totals only
+        after consuming the stream, so the merge lands between the last
+        local chunk and the read-out with no per-model code.  The row
+        count rides the same gather, so every process — one that owned no
+        chunk too — enters exactly one collective."""
+        for ds in chunks:
+            yield ds
+        from avenir_tpu_torch.parallel.mesh import all_process_sum_state
+
+        state = accumulator.state()
+        state["__rows__"] = np.asarray(rows_fn(), np.int64)
+        total = all_process_sum_state(state)
+        merged["rows"] = int(total.pop("__rows__"))
+        accumulator.load(total)
+
+    @classmethod
+    def distributed_fit(cls, fit, data, acc, merged: dict):
+        """A model ``fit`` over the distributed stream that tolerates a
+        process owning no chunk (more processes than chunks): its stream
+        is empty, so ``fit`` raises ``NoDataError`` — after the merge
+        collective ran, so its peers never stall.  Such a process returns
+        None; it is never the writer (process 0 owns chunk 0).  An input
+        empty everywhere re-raises on every process, as one process
+        would."""
+        from avenir_tpu_torch.core.encoding import NoDataError
+
+        try:
+            return fit(data)
+        except NoDataError:
+            if merged.get("rows", 0) > 0 and not cls.is_output_writer():
+                return None
+            raise
 
     @staticmethod
     def load_schema(conf: JobConfig) -> FeatureSchema:
@@ -336,7 +424,7 @@ class Job:
     def encoded_data_source(self, conf: JobConfig, input_path: str,
                             counters: Counters, with_labels: bool = True,
                             checkpointer: Optional["StreamCheckpointer"] = None,
-                            shard=None, mesh=None):
+                            shard=None, mesh=None, owner=None):
         """(encoder, data, rows_fn) for count jobs whose model ``fit`` takes
         one EncodedDataset or a chunk iterable.
 
@@ -360,7 +448,8 @@ class Job:
         ``rows_fn()`` adds its restored rows, and it is told of every chunk
         the model has counted.  The cursor travels with its chunk through
         the feeder, so a snapshot describes exactly the chunks counted,
-        never the feeder's read-ahead."""
+        never the feeder's read-ahead.  ``owner(chunk_index)`` (a fleet's
+        :meth:`distributed_plan`) keeps the chunks this process owns."""
         if conf.get("stream.chunk.rows"):
             enc = self.encoder_for(conf)
             ckpt = checkpointer
@@ -368,7 +457,8 @@ class Job:
             box = {"n": base_rows}
             pairs = self.iter_encoded_retrying(
                 conf, input_path, enc, counters, with_labels=with_labels,
-                start=ckpt.start if ckpt else None, emit_cursor=True)
+                start=ckpt.start if ckpt else None, emit_cursor=True,
+                owner=owner)
             depth = conf.get_int("stream.prefetch.depth", 2)
             if depth > 0:
                 from avenir_tpu_torch.runtime.feeder import (
@@ -578,9 +668,9 @@ class Job:
 
 
 class StreamCheckpointer:
-    """Mid-stream durability for the streamed count jobs, in one process;
-    port of the JAX package's ``StreamCheckpointer`` with its on-disk
-    snapshots, so each package resumes the other's.
+    """Mid-stream durability for the streamed count jobs; port of the JAX
+    package's ``StreamCheckpointer`` with its on-disk snapshots, so each
+    package resumes the other's.
 
     The jobs accumulate count totals in memory across the whole input, so
     without this a crash at chunk N restarts from zero.  Configured by:
@@ -595,24 +685,36 @@ class StreamCheckpointer:
       (kill-and-resume testing);
     - ``stream.run.id``: the run's identity; by default a fingerprint of
       the properties that are not relaunch switches
-      (:meth:`run_id_from_conf`).
+      (:meth:`run_id_from_conf`);
+    - ``shard.reshard.on.restore``: a snapshot folded under a mesh
+      topology (a sharded seam sharing the directory) is re-keyed for this
+      unsharded fold (``checkpoint/reshard.py``, journaled
+      ``checkpoint.reshard``) instead of refused.
 
     A snapshot is {accumulator totals, cursor (file, offset, chunk), rows,
     run}.  The totals are int64 (or float64) host arrays, so a resumed
     run's part file is byte-identical to an uninterrupted one.  After a
     successful run :meth:`finish` removes the snapshots, and the directory
     once it is empty.  Each save and restore journals ``checkpoint.save``
-    / ``checkpoint.restore`` (with tracing on).  The multi-process half of
-    the JAX class (per-process subdirectories tagged ``RUN_TAG``, the
-    error handshake) is not ported."""
+    / ``checkpoint.restore`` (with tracing on).
+
+    In a fleet each process snapshots its own partials and cursor under
+    ``<dir>/proc-NNN-of-NNN/`` (``parent_dir`` is the shared root), tagged
+    with the run id (``RUN_TAG``); a subdirectory tagged by another run is
+    refused.  Construction errors are held (``defer_errors``) and pass
+    through one collective (:meth:`_handshake_errors`), so a failure on
+    any process raises on all of them and no peer stalls; the end-of-run
+    sweep removes only subdirectories of the same run."""
 
     def __init__(self, directory: str, interval_chunks: int = 8,
                  resume: bool = False, crash_after_chunks: int = 0,
-                 run_id: str = "", reshard: bool = False):
+                 parent_dir: Optional[str] = None, run_id: str = "",
+                 defer_errors: bool = False, reshard: bool = False):
         from avenir_tpu_torch.ops import agg
-        from avenir_tpu_torch.utils import checkpoint
+        from avenir_tpu_torch.utils.checkpoint import CheckpointManager
 
         self.directory = directory
+        self.parent_dir = parent_dir         # a fleet's shared root
         self.run_id = run_id
         self.interval = max(int(interval_chunks), 1)
         self.crash_after = int(crash_after_chunks)
@@ -620,47 +722,81 @@ class StreamCheckpointer:
         self.base_rows = 0
         self.start: Optional[dict] = None      # cursor to resume from
         self._consumed = 0                     # chunks counted in this run
+        self.error: Optional[str] = None
+        self.mgr = None
         try:
-            self.mgr = checkpoint.CheckpointManager(directory, keep=2)
-            state = self.mgr.restore() if resume else None
+            if parent_dir is not None and run_id:
+                # a subdirectory tagged by another run is refused before
+                # CheckpointManager's recovery touches it
+                os.makedirs(directory, exist_ok=True)
+                prior = self._read_tag(directory)
+                if prior is not None and prior != run_id:
+                    self.error = (
+                        f"checkpoint subdirectory {directory!r} is tagged "
+                        f"with run id {prior!r}, not this run's {run_id!r} "
+                        f"— a checkpoint root is exclusive to one run "
+                        f"identity; clear the directory or point "
+                        f"stream.checkpoint.dir elsewhere")
+                else:
+                    with open(os.path.join(directory, "RUN_TAG"), "w") as fh:
+                        fh.write(run_id)
+            if self.error is None:
+                self.mgr = CheckpointManager(directory, keep=2)
+            if resume and self.error is None:
+                self._restore(reshard)
         except Exception as e:
-            raise ConfigError(f"checkpointer construction in {directory!r} "
-                              f"failed: {type(e).__name__}: {e}") from e
+            # any construction failure is deferrable: a process raising
+            # before the handshake would strand its peers
+            self.error = (f"checkpointer construction in {directory!r} "
+                          f"failed: {type(e).__name__}: {e}")
+        if self.error and not defer_errors:
+            raise ConfigError(self.error)
+
+    def _restore(self, reshard: bool) -> None:
+        """Load the latest snapshot, or set :attr:`error`: a snapshot of
+        another run, or one folded under a mesh topology without the
+        ``shard.reshard.on.restore`` gate, is refused, never folded."""
+        from avenir_tpu_torch.checkpoint import reshard as _reshard
+
+        try:
+            state = self.mgr.restore()
+        except Exception as e:
+            self.error = (f"checkpoint restore from {self.directory!r} "
+                          f"failed: {type(e).__name__}: {e}")
+            return
         if state is None:
             return
         snap_run = str(state.get("run", ""))
         if snap_run and self.run_id and snap_run != self.run_id:
-            raise ConfigError(
-                f"snapshot in {directory!r} was written by run "
+            self.error = (
+                f"snapshot in {self.directory!r} was written by run "
                 f"{snap_run!r}, not this run {self.run_id!r} — "
                 f"the configuration changed since the "
                 f"checkpoint; clear the directory and re-run")
+            return
         try:
-            snap_sfx = checkpoint.snapshot_suffix(state)
-        except checkpoint.ReshardError as e:
-            raise ConfigError(str(e)) from e
+            snap_sfx = _reshard.snapshot_suffix(state)
+        except _reshard.ReshardError as e:
+            self.error = str(e)
+            return
         if snap_sfx:
-            if reshard:
-                raise NotImplementedError(
-                    f"snapshot in {directory!r} was folded under mesh "
-                    f"topology {snap_sfx!r}: redistributing it "
-                    f"(shard.reshard.on.restore=true) is not ported yet "
-                    f"(ROADMAP.md, Queue 1 item 7h)")
-            raise ConfigError(
-                f"snapshot in {directory!r} was folded "
-                f"under mesh topology {snap_sfx!r} but "
-                f"this job folds unsharded — set "
-                f"shard.reshard.on.restore=true to "
-                f"redistribute it, or clear the "
-                f"directory and re-run")
-        try:
-            self.accumulator.load(state["acc"])
-            self.base_rows = int(state["rows"])
-            self.start = {k: state["cursor"][k]
-                          for k in ("file", "offset", "chunk")}
-        except Exception as e:
-            raise ConfigError(f"checkpointer construction in {directory!r} "
-                              f"failed: {type(e).__name__}: {e}") from e
+            if not reshard:
+                self.error = (
+                    f"snapshot in {self.directory!r} was folded "
+                    f"under mesh topology {snap_sfx!r} but "
+                    f"this job folds unsharded — set "
+                    f"shard.reshard.on.restore=true to "
+                    f"redistribute it, or clear the "
+                    f"directory and re-run")
+                return
+            state, moved = _reshard.reshard_state_tree(state, "")
+            _reshard.journal_reshard(snap_sfx, "", len(moved),
+                                     directory=self.directory,
+                                     run=self.run_id)
+        self.accumulator.load(state["acc"])
+        self.base_rows = int(state["rows"])
+        self.start = {k: state["cursor"][k]
+                      for k in ("file", "offset", "chunk")}
         from avenir_tpu_torch.telemetry import spans as tel
 
         tel.tracer().event("checkpoint.restore", dir=self.directory,
@@ -697,16 +833,48 @@ class StreamCheckpointer:
     def from_conf(cls, conf: JobConfig) -> Optional["StreamCheckpointer"]:
         """A checkpointer when ``stream.checkpoint.dir`` and
         ``stream.chunk.rows`` are both set, else None (and the other
-        durability keys are ignored, as the JAX package ignores them)."""
+        durability keys are ignored, as the JAX package ignores them).  In
+        a fleet the snapshots are process-scoped: each process owns its
+        slice of the chunk stream, so its cursor and partials live in
+        ``proc-NNN-of-NNN/``, whose name pins the process count (a
+        relaunch at another count finds no snapshot and starts from
+        zero, never double-counting)."""
         directory = conf.get("stream.checkpoint.dir")
         if not directory or not conf.get("stream.chunk.rows"):
             return None
-        return cls(directory,
+        from avenir_tpu_torch.checkpoint.procdir import proc_subdir
+
+        pid, nprocs = Job.process_grid()
+        ckpt = cls(proc_subdir(directory),
                    conf.get_int("stream.checkpoint.interval.chunks", 8),
                    conf.get_bool("stream.resume", False),
                    conf.get_int("stream.fault.crash.after.chunks", 0),
+                   parent_dir=directory if nprocs > 1 else None,
                    run_id=cls.run_id_from_conf(conf),
+                   defer_errors=nprocs > 1,
                    reshard=conf.get_bool("shard.reshard.on.restore", False))
+        if nprocs > 1:
+            ckpt._handshake_errors(pid)
+        return ckpt
+
+    def _handshake_errors(self, pid: int) -> None:
+        """Every process enters one collective carrying its construction
+        error (or nothing), so a tag conflict or a bad snapshot on any
+        process raises on all of them instead of stranding the others in
+        the end-of-stream merge."""
+        from avenir_tpu_torch.parallel.mesh import all_process_sum_state
+
+        state = {}
+        if self.error:
+            state[f"ckpt_err_p{pid:03d}"] = np.frombuffer(
+                self.error.encode(), np.uint8).copy()
+        folded = all_process_sum_state(state)
+        errs = sorted(k for k in folded if k.startswith("ckpt_err_p"))
+        if errs:
+            peers = ", ".join(k[len("ckpt_err_p"):] for k in errs)
+            raise ConfigError(
+                f"checkpointer construction failed on process(es) {peers}: "
+                + folded[errs[0]].tobytes().decode(errors="replace"))
 
     def chunk_done(self, cursor: dict, last: bool) -> None:
         """Called by the stream once the model has counted the chunk
@@ -734,8 +902,46 @@ class StreamCheckpointer:
                 f"stream.fault.crash.after.chunks={self.crash_after}: "
                 f"injected crash after chunk {cursor['chunk']}")
 
+    @staticmethod
+    def _read_tag(directory: str) -> Optional[str]:
+        try:
+            with open(os.path.join(directory, "RUN_TAG")) as fh:
+                return fh.read().strip()
+        except OSError:
+            return None
+
     def finish(self) -> None:
         """Remove this run's snapshots after a successful run: only the
         manager's own ``step_*`` and temporary entries, never other files
-        in the directory, and the directory itself once it is empty."""
+        in the directory, and the directory itself once it is empty.  In a
+        fleet each process clears its own ``proc-*`` subdirectory and
+        sweeps those a crashed run of the same run id left at other
+        process counts; a subdirectory of another run id (a concurrent
+        job sharing the root), or with no tag, is left alone."""
+        from avenir_tpu_torch.checkpoint.procdir import is_proc_subdir
+        from avenir_tpu_torch.utils.checkpoint import CheckpointManager
+
+        self._remove_tag(self.directory)
         self.mgr.clear()
+        root = self.parent_dir or self.directory
+        try:
+            names = os.listdir(root)
+        except FileNotFoundError:
+            return
+        for name in names:
+            sub = os.path.join(root, name)
+            if is_proc_subdir(name) and \
+                    self.run_id and self._read_tag(sub) == self.run_id:
+                self._remove_tag(sub)
+                CheckpointManager(sub, keep=2).clear()
+        try:
+            os.rmdir(root)                   # only succeeds when empty
+        except OSError:
+            pass
+
+    @staticmethod
+    def _remove_tag(directory: str) -> None:
+        try:
+            os.remove(os.path.join(directory, "RUN_TAG"))
+        except OSError:
+            pass

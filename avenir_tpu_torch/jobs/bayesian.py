@@ -34,14 +34,28 @@ class BayesianDistribution(Job):
         # stream.checkpoint.dir persists (totals, cursor) every N chunks of
         # a stream.chunk.rows stream, so a killed run resumes (--resume)
         ckpt = self.stream_checkpointer(conf)
+        # in a fleet, chunks are owned round robin, the partial counts are
+        # merged once at the end of the stream, and process 0 writes —
+        # Hadoop's N-machine run of this job (BayesianDistribution.java:82)
+        owner, acc, distributed = self.distributed_plan(conf, ckpt)
         enc, data, rows_fn = self.encoded_data_source(
-            conf, input_path, counters, checkpointer=ckpt, mesh=nbayes.mesh)
-        model = nbayes.fit(data, accumulator=ckpt.accumulator if ckpt else None)
-        lines = nb.model_to_lines(model, enc, delim=conf.field_delim)
-        write_output(output_path, lines)
+            conf, input_path, counters, checkpointer=ckpt, mesh=nbayes.mesh,
+            owner=owner)
+        merged: dict = {}
+        if distributed:
+            data = self.distributed_stream(data, acc, rows_fn, merged)
+            model = self.distributed_fit(
+                lambda d: nbayes.fit(d, accumulator=acc), data, acc, merged)
+        else:
+            model = nbayes.fit(data, accumulator=acc)
+        rows = merged["rows"] if distributed else rows_fn()
+        lines = (nb.model_to_lines(model, enc, delim=conf.field_delim)
+                 if model is not None else [])
+        if self.is_output_writer():
+            write_output(output_path, lines)
         if ckpt:
             ckpt.finish()
-        counters.set("Records", "Processed", rows_fn())
+        counters.set("Records", "Processed", rows)
         counters.set("Model", "Rows", len(lines))
 
     def _execute_text(self, conf: JobConfig, input_path: str, output_path: str,

@@ -12,8 +12,9 @@ work.  ``NumericalAttrStats`` takes its class moments on the job's device.
 
 ``NumericalAttrStats`` splits its rows over the job's data mesh
 (``Job.auto_mesh``) as the JAX package does, the moments taken per shard
-and summed in shard order; the JAX package's ``jax.distributed`` chunk
-ownership (``distributed_plan``) is ROADMAP.md Queue 1 item 7h.
+and summed in shard order; in a fleet its streamed path owns chunks round
+robin (``Job.distributed_plan``) and merges the per-chunk snapshots in one
+collective, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -286,14 +287,16 @@ class NumericalAttrStats(Job):
                     "feature.schema.file.path (column count is unknown "
                     "before the first chunk)")
         cond_ord = conf.get_int("cond.attr.ord")
+        owner, _acc, distributed = self.distributed_plan(conf, None)
         mesh = self.auto_mesh(conf)
         a = len(attr_ords)
         max_state_bytes = conf.get_int("stream.stats.max.state.mb", 1024) << 20
         state_bytes = 0
+        overflow = None            # the cap tripped: raise after the merge
         state: dict = {}
         nrows = 0
         for idx, lines in self.iter_line_chunks_retrying(
-                conf, input_path, counters, emit_index=True):
+                conf, input_path, counters, owner=owner, emit_index=True):
             if idx >= 10 ** 12:
                 raise ConfigError(
                     f"chunk index {idx} exceeds the 12-digit snapshot-key "
@@ -316,13 +319,34 @@ class NumericalAttrStats(Job):
                 state[f"c{idx:012d}:{g}"] = snap
                 state_bytes += snap.nbytes
                 if state_bytes > max_state_bytes:
-                    raise ConfigError(
+                    overflow = (
                         f"NumericalAttrStats snapshot state exceeds "
                         f"stream.stats.max.state.mb="
                         f"{max_state_bytes >> 20} after {len(state)} "
                         f"(chunk, group) snapshots — state grows as "
                         f"O(chunks × groups); raise stream.chunk.rows, "
                         f"reduce cond.attr.ord cardinality, or lift the cap")
+                    break
+            if overflow:
+                break
+        merged_rows = nrows
+        if distributed:
+            # every process enters the one end-of-stream collective, the
+            # overflow flag riding the same gather, and all raise together
+            from avenir_tpu_torch.parallel.mesh import all_process_sum_state
+
+            state["__rows__"] = np.array([nrows], np.int64)
+            state["__overflow__"] = np.array([1 if overflow else 0], np.int64)
+            state = all_process_sum_state(state)
+            merged_rows = int(state.pop("__rows__")[0])
+            if int(state.pop("__overflow__")[0]):
+                raise ConfigError(overflow or (
+                    "a peer process exceeded stream.stats.max.state.mb "
+                    "(O(chunks × groups) snapshot growth); raise "
+                    "stream.chunk.rows, reduce cond.attr.ord cardinality, "
+                    "or lift the cap"))
+        if overflow:
+            raise ConfigError(overflow)
 
         # finalize: group → snapshots in ascending chunk order (keys are
         # zero-padded to a fixed 12-digit width, so lexicographic == numeric)
@@ -358,5 +382,6 @@ class NumericalAttrStats(Job):
                 fields += _stats_fields(n, s1_tot[ai], s2_tot[ai],
                                         float(anchor[ai]), mn[ai], mx[ai])
                 out.append(d.join(fields))
-        write_output(output_path, out)
-        counters.set("Records", "Processed", nrows)
+        if self.is_output_writer():
+            write_output(output_path, out)
+        counters.set("Records", "Processed", merged_rows)

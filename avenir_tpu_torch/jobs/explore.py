@@ -70,17 +70,31 @@ class MutualInformation(Job):
         schema = self.load_schema(conf)
         mesh = self.auto_mesh(conf)
         ckpt = self.stream_checkpointer(conf)
-        acc = ckpt.accumulator if ckpt else None
+        # in a fleet: see BayesianDistribution.execute
+        owner, acc, distributed = self.distributed_plan(conf, ckpt)
         enc, data, rows_fn = self.encoded_data_source(
-            conf, input_path, counters, checkpointer=ckpt, mesh=mesh)
+            conf, input_path, counters, checkpointer=ckpt, mesh=mesh,
+            owner=owner)
         names = [schema.field_by_ordinal(f.ordinal).name
                  for f in enc.binned_fields]
-        result = mi.MutualInformation(mesh=mesh, device=self.device).fit(
-            data, feature_names=names, accumulator=acc)
-        write_output(output_path, mi_output_lines(conf, result, names))
+        fit = lambda d: mi.MutualInformation(  # noqa: E731
+            mesh=mesh, device=self.device).fit(
+                d, feature_names=names, accumulator=acc)
+        merged: dict = {}
+        if distributed:
+            data = self.distributed_stream(data, acc, rows_fn, merged)
+            result = self.distributed_fit(fit, data, acc, merged)
+            if result is None:             # a non-writer that owned no chunk
+                counters.set("Records", "Processed", merged["rows"])
+                return
+        else:
+            result = fit(data)
+        rows = merged["rows"] if distributed else rows_fn()
+        if self.is_output_writer():
+            write_output(output_path, mi_output_lines(conf, result, names))
         if ckpt:
             ckpt.finish()
-        counters.set("Records", "Processed", rows_fn())
+        counters.set("Records", "Processed", rows)
 
 
 class _CorrelationJob(Job):
@@ -97,20 +111,32 @@ class _CorrelationJob(Job):
         schema = self.load_schema(conf)
         mesh = self.auto_mesh(conf)
         ckpt = self.stream_checkpointer(conf)
+        # in a fleet: see BayesianDistribution.execute (the reference ran
+        # this Tool across N machines, CramerCorrelation.java:83); the
+        # contingency counts are exact, so the merge is order-free
+        owner, acc, distributed = self.distributed_plan(conf, ckpt)
         enc, data, rows_fn = self.encoded_data_source(
-            conf, input_path, counters, checkpointer=ckpt, mesh=mesh)
+            conf, input_path, counters, checkpointer=ckpt, mesh=mesh,
+            owner=owner)
         src_idx, dst_idx, against_class, names = correlation_plan(
             conf, schema, enc)
-        result = corr.CategoricalCorrelation(
-            algorithm=self._algorithm(conf), mesh=mesh,
-            device=self.device).fit(
-                data, src=src_idx, dst=dst_idx, against_class=against_class,
-                feature_names=names,
-                accumulator=ckpt.accumulator if ckpt else None)
-        write_output(output_path, result.to_lines(delim=conf.field_delim))
+        job = corr.CategoricalCorrelation(
+            algorithm=self._algorithm(conf), mesh=mesh, device=self.device)
+        fit = lambda d: job.fit(  # noqa: E731
+            d, src=src_idx, dst=dst_idx, against_class=against_class,
+            feature_names=names, accumulator=acc)
+        merged: dict = {}
+        if distributed:
+            data = self.distributed_stream(data, acc, rows_fn, merged)
+            result = self.distributed_fit(fit, data, acc, merged)
+        else:
+            result = fit(data)
+        rows = merged["rows"] if distributed else rows_fn()
+        if result is not None and self.is_output_writer():
+            write_output(output_path, result.to_lines(delim=conf.field_delim))
         if ckpt:
             ckpt.finish()
-        counters.set("Records", "Processed", rows_fn())
+        counters.set("Records", "Processed", rows)
 
 
 class CramerCorrelation(_CorrelationJob):

@@ -1,7 +1,7 @@
 """Sequence-model jobs — Markov chain trainer, HMM builder and Viterbi
 predictor (markov/MarkovStateTransitionModel.java,
 HiddenMarkovModelBuilder.java, ViterbiStatePredictor.java); port of
-``avenir_tpu/jobs/markov.py``, in one process.
+``avenir_tpu/jobs/markov.py``.
 
 Input rows are ``id, token, token, ...`` sequences; sub-token structure
 (``obs:state``) follows ``sub.field.delim``.
@@ -37,7 +37,10 @@ def _sequences(path: str, delim: str, skip: int = 1) -> List[List[str]]:
 def _fit_streaming(job: Job, conf: JobConfig, input_path: str,
                    counters: Counters, fit_chunks_fn, delim: str, skip: int):
     """Streamed sequence-model fit: ``stream.chunk.rows`` lines at a time
-    with per-chunk retry; sets ``Records::Processed``."""
+    with per-chunk retry; in a fleet the chunks are owned round robin and
+    the partial counts merged at the end of the stream
+    (``Job.distributed_plan``).  Sets ``Records::Processed`` to the global
+    sequence count on every process."""
     if conf.get("stream.checkpoint.dir"):
         raise ConfigError(
             "stream.checkpoint.dir is not supported on the sequence-model "
@@ -45,17 +48,26 @@ def _fit_streaming(job: Job, conf: JobConfig, input_path: str,
             "streams yet) — configuring it must fail loudly rather than "
             "silently run without durability; rely on per-chunk retry + "
             "job re-run, or unset the key")
+    owner, acc, distributed = job.distributed_plan(conf, None)
     box = {"n": 0}
 
     def seq_chunks():
         for lines in job.iter_line_chunks_retrying(conf, input_path,
-                                                   counters):
+                                                   counters, owner=owner):
             box["n"] += len(lines)
             yield [[t for t in ln.split(delim)[skip:] if t != ""]
                    for ln in lines]
 
-    model = fit_chunks_fn(seq_chunks())
-    counters.set("Records", "Processed", box["n"])
+    merged: dict = {}
+    data = seq_chunks()
+    if distributed:
+        data = job.distributed_stream(data, acc, lambda: box["n"], merged)
+        model = job.distributed_fit(
+            lambda d: fit_chunks_fn(d, acc), data, acc, merged)
+    else:
+        model = fit_chunks_fn(data, acc)
+    counters.set("Records", "Processed",
+                 merged["rows"] if distributed else box["n"])
     return model
 
 
@@ -84,12 +96,14 @@ class MarkovStateTransitionModel(Job):
                     "discover a stable state vocabulary)")
             model = _fit_streaming(
                 self, conf, input_path, counters,
-                lambda chunks: chain.fit_chunks(chunks, enc)[0], delim, skip)
+                lambda chunks, acc: chain.fit_chunks(
+                    chunks, enc, accumulator=acc)[0], delim, skip)
         else:
             seqs = _sequences(input_path, delim, skip)
             model, enc = chain.fit(seqs, encoder=enc)
             counters.set("Records", "Processed", len(seqs))
-        write_output(output_path, model.to_lines(delim=conf.field_delim))
+        if model is not None and self.is_output_writer():
+            write_output(output_path, model.to_lines(delim=conf.field_delim))
 
 
 class HiddenMarkovModelBuilder(Job):
@@ -126,11 +140,13 @@ class HiddenMarkovModelBuilder(Job):
                     "cannot discover stable vocabularies)")
             st_enc = mk.SequenceEncoder(states)
             if partial:
-                fit = lambda chunks: builder.fit_partially_tagged_chunks(  # noqa: E731
-                    chunks, states, obs_enc, window_function=window)
+                fit = lambda chunks, acc: builder.fit_partially_tagged_chunks(  # noqa: E731
+                    chunks, states, obs_enc, window_function=window,
+                    accumulator=acc)
             else:
-                fit = lambda chunks: builder.fit_tagged_chunks(  # noqa: E731
-                    (tag(ck) for ck in chunks), st_enc, obs_enc)
+                fit = lambda chunks, acc: builder.fit_tagged_chunks(  # noqa: E731
+                    (tag(ck) for ck in chunks), st_enc, obs_enc,
+                    accumulator=acc)
             model = _fit_streaming(self, conf, input_path, counters, fit,
                                    delim, skip)
         else:
@@ -143,7 +159,8 @@ class HiddenMarkovModelBuilder(Job):
                 model = builder.fit_tagged(tag(seqs), state_encoder=st_enc,
                                            obs_encoder=obs_enc)
             counters.set("Records", "Processed", len(seqs))
-        write_output(output_path, model.to_lines(delim=conf.field_delim))
+        if model is not None and self.is_output_writer():
+            write_output(output_path, model.to_lines(delim=conf.field_delim))
 
 
 class ViterbiStatePredictor(Job):

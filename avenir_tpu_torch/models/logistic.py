@@ -214,26 +214,50 @@ class LogisticRegression:
                                        iterations=len(history))
 
     def fit_chunked(self, chunks: Sequence[Tuple[int, object, object]],
-                    resume_from: Optional[LogisticRegressionModel] = None
-                    ) -> LogisticRegressionModel:
+                    resume_from: Optional[LogisticRegressionModel] = None,
+                    merge=None) -> LogisticRegressionModel:
         """Fit over design-matrix chunks ``(chunk_index, x [n_c, D],
         y [n_c])``, kept on the device across iterations.  Each chunk's
         gradient partial is float32 on the device, fetched as float64 and
-        summed in chunk-index order; the weights live in float64 on the
-        host (the reducer's role)."""
+        summed in global chunk-index order; the weights live in float64 on
+        the host (the reducer's role).
+
+        ``merge`` folds a ``{key: array}`` state across processes
+        (``parallel/mesh.py::all_process_sum_state``; None in one
+        process): in a fleet each process passes only the chunks it owns,
+        and every iteration merges the per-chunk partials in one
+        collective, keyed by chunk index, so the float64 addition order —
+        and the whole history — is the same for any process count.  Every
+        process must call this with the same settings."""
+        from avenir_tpu_torch.core.config import ConfigError
+
+        merge = merge if merge is not None else (
+            lambda st: {k: np.asarray(v) for k, v in st.items()})
         dev = self.device
-        dev_chunks = sorted(
-            ((idx, torch.as_tensor(x).to(device=dev, dtype=torch.float32),
-              torch.as_tensor(y).to(device=dev, dtype=torch.float32))
-             for idx, x, y in chunks), key=lambda c: c[0])
-        n_total = sum(x.shape[0] for _, x, _ in dev_chunks)
+        dev_chunks = [
+            (idx, torch.as_tensor(x).to(device=dev, dtype=torch.float32),
+             torch.as_tensor(y).to(device=dev, dtype=torch.float32))
+            for idx, x, y in chunks]
+        local_n = sum(x.shape[0] for _, x, _ in dev_chunks)
+        local_d = max((x.shape[1] for _, x, _ in dev_chunks), default=0)
+        hand = merge({"n": np.array([local_n], np.int64),
+                      "max:d": np.array([local_d], np.int64)})
+        n_total = int(hand["n"][0])
+        d = int(hand["max:d"][0])
         if n_total == 0:
             raise NoDataError("no data")
-        d = dev_chunks[0][1].shape[1]
         for _, x, _ in dev_chunks:
             if x.shape[1] != d:
-                raise ValueError(f"chunk design width {x.shape[1]} != {d} — "
-                                 "schema mismatch across chunks")
+                raise ValueError(
+                    f"chunk design width {x.shape[1]} != global width {d} — "
+                    "schema mismatch across chunks/processes")
+        for idx, _x, _y in dev_chunks:
+            if idx >= 10 ** 8:
+                # the gradient keys are 8-digit zero-padded and summed in
+                # sorted order: a wider index would reorder the sum
+                raise ConfigError(
+                    f"chunk index {idx} exceeds the 8-digit gradient-key "
+                    f"width; raise stream.chunk.rows")
         if resume_from is not None:
             w = np.asarray(resume_from.weights, np.float64)
             history = list(resume_from.history)
@@ -244,10 +268,13 @@ class LogisticRegression:
         with _full_fp32():
             for _ in range(self.max_iterations):
                 wf = torch.from_numpy(w.astype(np.float32)).to(dev)
+                state = {f"g{idx:08d}": _chunk_grad(wf, xd, yd).cpu().numpy(
+                             ).astype(np.float64)
+                         for idx, xd, yd in dev_chunks}
+                tot = merge(state)
                 grad = np.zeros(d, np.float64)
-                for _, xd, yd in dev_chunks:
-                    grad = grad + _chunk_grad(wf, xd, yd).cpu().numpy(
-                        ).astype(np.float64)
+                for k in sorted(tot):                # global chunk order
+                    grad = grad + tot[k]
                 w = w + self.learning_rate * (grad / n_total - self.l2 * w)
                 history.append(w.copy())
                 if len(history) >= 2 and _converged(

@@ -163,7 +163,7 @@ def sharded_cooc_step(mesh: Mesh, num_bins: int, num_classes: int,
 
 def sharded_scan_step(mesh: Mesh, num_bins: int, num_classes: int,
                       data_axis: str = "data", quantized: bool = False,
-                      moments: bool = True):
+                      moments: bool = True, proc_axis=None):
     """The sharded SharedScan chunk step: fn(codes, labels, cont) →
     (G, class counts [C], count [C], Σx [C, Fc], Σx² [C, Fc]), or just
     (G, class counts) under ``moments=False``, each reduced over the
@@ -172,23 +172,65 @@ def sharded_scan_step(mesh: Mesh, num_bins: int, num_classes: int,
     G is exact (int32 partials summed), or under ``quantized`` the
     rounded :func:`quantized_allreduce_sum` of the partials, as the JAX
     package rounds it; class counts are always exact, the moments float64
-    sums in shard order."""
+    sums in shard order.
+
+    With ``proc_axis`` (a fleet's global mesh) the operands are this
+    process's row block and the reduction is hierarchical, as the JAX
+    package's: the gram summed exactly over the local shards, then over
+    the processes in process order (under ``quantized`` only this
+    cross-process leg is the int8 reduce); class counts and moments are
+    summed over every (process, shard) partial in that order.  One
+    packed host gather a chunk (``mesh.all_process_gather_state``)
+    carries the partials; every process gets the same totals."""
     from avenir_tpu_torch.ops import agg
 
-    def step(codes, labels, cont):
+    def local(codes, labels, cont):
         grams = shard_grams(mesh, codes, labels, num_bins, num_classes,
                             data_axis)
+        cc = per_shard(lambda y: agg.class_counts(y, num_classes), labels)
+        mom = (per_shard(lambda x, y: agg.class_moments(x, y, num_classes),
+                         cont, labels) if moments else ())
+        return grams, cc, mom
+
+    def step(codes, labels, cont):
+        grams, cc, mom = local(codes, labels, cont)
         if quantized:
             g = torch.round(quantized_allreduce_sum(grams)).to(torch.int32)
         else:
             g = all_reduce_sum(grams)
-        cc = shard_sum(lambda y: agg.class_counts(y, num_classes), labels)
+        cc = all_reduce_sum(shard_parts(cc))
         if not moments:
             return g, cc
-        return (g, cc, *shard_sum(
-            lambda x, y: agg.class_moments(x, y, num_classes), cont, labels))
+        return (g, cc, *(all_reduce_sum(shard_parts(m)) for m in mom))
 
-    return step
+    def global_step(codes, labels, cont):
+        from avenir_tpu_torch.parallel.mesh import all_process_gather_state
+
+        grams, cc, mom = local(codes, labels, cont)
+        dev = grams[0].device
+        host = lambda parts: np.stack(  # noqa: E731
+            [p.cpu().numpy() for p in shard_parts(parts)])
+        mine = {"g": all_reduce_sum(grams).cpu().numpy(), "cc": host(cc)}
+        for k, m in zip(("cnt", "s1", "s2"), mom):
+            mine[k] = host(m)
+        procs = all_process_gather_state(mine)
+        gs = [torch.from_numpy(np.ascontiguousarray(p["g"])).to(dev)
+              for p in procs]
+        if quantized:
+            g = torch.round(quantized_allreduce_sum(gs)).to(torch.int32)
+        else:
+            g = all_reduce_sum(gs)
+
+        def flat(key):
+            parts = [torch.from_numpy(np.ascontiguousarray(part)).to(dev)
+                     for p in procs for part in p[key]]
+            return all_reduce_sum(parts)
+
+        if not moments:
+            return g, flat("cc")
+        return g, flat("cc"), flat("cnt"), flat("s1"), flat("s2")
+
+    return step if proc_axis is None else global_step
 
 
 # ---------------------------------------------------------------------------

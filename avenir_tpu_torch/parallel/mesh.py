@@ -19,11 +19,20 @@ The device model.  A mesh spans the devices of ONE process:
   along that axis.  ``parallel/collectives.py`` folds each block on its
   own device and reduces the partials in shard order with tensor sums.
 
-There is no process group, no socket and no collective library: where the
-JAX package runs ``shard_map`` and ``psum`` over local devices in one
-process, the port launches per device and adds.  Joining processes
-(``init_distributed``, ``make_hybrid_mesh``, ``all_process_sum_state``,
-the fleet join, ``collective.wait``) is ROADMAP.md, Queue 1 item 7h.
+Where the JAX package runs ``shard_map`` and ``psum`` over local devices
+in one process, the port launches per device and adds.  Across processes
+(the fleet of ``python -m avenir_tpu_torch.launch``) it joins one
+``torch.distributed`` group on the ``gloo`` backend
+(:func:`init_distributed`: a ``TCPStore`` rendezvous hosted by process 0
+at ``AVENIR_COORDINATOR_ADDRESS``, behind a bounded, jittered probe that
+raises the typed ``LaunchError``), and what crosses processes is host
+state — int64 totals, float64 moments, gradient partials — packed into
+one byte gather (:func:`all_process_sum_state`), as the JAX package
+gathers raw bytes on the host.  No device tensor crosses: a fleet on one
+card is N processes, each with its own CUDA context on ``cuda:0``.  A
+mesh that spans processes (:func:`make_hybrid_mesh`, ``ShardSpec``'s
+global plan) lists each process's local devices along its leading
+axis; a process folds only its own row block on its own devices.
 
 Count-neutral padding: every count table drops a code or label of −1
 (the drop-invalid contract), so padding a batch with −1 rows changes no
@@ -220,9 +229,11 @@ def device_put_sharded_batch(mesh: Mesh, *arrays, data_axis: str = "data"):
 
 def process_local_batch(mesh: Mesh, array: np.ndarray,
                         data_axis: str = "data") -> Blocks:
-    """A batch built from this process's rows.  One process holds every
-    row, so this is :func:`device_put_sharded_batch`; assembling rows from
-    several processes is ROADMAP.md, Queue 1 item 7h."""
+    """A batch built from this process's rows: each process passes its own
+    rows and places them over its own devices of ``mesh``'s data axis (no
+    row crosses a process; the global batch is the concatenation in
+    process order).  In one process that is
+    :func:`device_put_sharded_batch`."""
     return device_put_sharded_batch(mesh, array, data_axis=data_axis)
 
 
@@ -283,3 +294,366 @@ def place_batch(mesh: Optional[Mesh], device, *arrays,
     if mesh is not None:
         return maybe_shard_batch(mesh, *arrays, data_axis=data_axis)
     return [None if a is None else to_device(a, device) for a in arrays]
+
+
+# ---------------------------------------------------------------------------
+# the process plane
+# ---------------------------------------------------------------------------
+
+# this process's last successful join: tracing is usually configured after
+# the join (the join comes before any device work), so the facts are kept
+# here and journaled by the seams that know the journal exists
+_LAST_JOIN: Optional[dict] = None
+
+
+def process_grid() -> Tuple[int, int]:
+    """(process index, process count) of the joined ``torch.distributed``
+    group; (0, 1) in a process that joined none."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def last_join() -> Optional[dict]:
+    """The recorded ``fleet.join`` payload of this process's join, or None
+    when it joined no fleet."""
+    return _LAST_JOIN
+
+
+def journal_fleet_join(coordinator: str, nprocs: int, attempts: int,
+                       wall_ms: float) -> None:
+    """Journal one ``fleet.join`` event (coordinator, fleet size, join
+    attempts, join wall), at most once per journal per coordinator: the
+    join-time emission (a no-op while tracing is off) and the later replay
+    from ``ShardSpec.announce`` share the key."""
+    from avenir_tpu_torch.telemetry import spans as tel
+
+    tel.tracer().event_once("fleet.join", str(coordinator),
+                            coordinator=coordinator,
+                            nprocs=int(nprocs), attempts=int(attempts),
+                            wall_ms=round(float(wall_ms), 3))
+
+
+def init_distributed(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None,
+                     timeout_s: Optional[float] = None,
+                     attempts: Optional[int] = None,
+                     init_method: Optional[str] = None) -> int:
+    """Join a multi-process run; returns this process's index.
+
+    Idempotent, and a no-op (index 0) when neither the arguments nor
+    ``AVENIR_COORDINATOR_ADDRESS`` describe a fleet.  The arguments
+    default to the launcher's environment (``AVENIR_NUM_PROCESSES``,
+    ``AVENIR_PROCESS_ID``, ``AVENIR_JOIN_TIMEOUT_SEC`` (300),
+    ``AVENIR_JOIN_ATTEMPTS`` (3)).  The group is ``torch.distributed`` on
+    ``gloo``, rendezvousing at a ``TCPStore`` that process 0 hosts at the
+    coordinator's ``host:port`` — or at torch's own ``init_method`` (a
+    ``file://`` store) when one is given.
+
+    The join is bounded, as the JAX package's: a non-zero rank first
+    probes the coordinator's TCP endpoint under the decorrelated-jitter
+    backoff for up to ``timeout_s``, and an address where nothing accepts
+    raises the typed ``LaunchError`` naming it; the rendezvous itself
+    carries the timeout and is retried up to ``attempts`` times.  Nothing
+    falls back to a single process.  The join is recorded for the journal
+    (:func:`last_join`, ``fleet.join``)."""
+    import time
+
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    env = os.environ
+    if coordinator_address is None and num_processes is None \
+            and init_method is None:
+        if "AVENIR_COORDINATOR_ADDRESS" not in env:
+            return 0                        # one process, nothing to join
+        coordinator_address = env.get("AVENIR_COORDINATOR_ADDRESS")
+        if env.get("AVENIR_NUM_PROCESSES"):
+            num_processes = int(env["AVENIR_NUM_PROCESSES"])
+        if env.get("AVENIR_PROCESS_ID"):
+            process_id = int(env["AVENIR_PROCESS_ID"])
+    if num_processes is None or process_id is None:
+        raise ValueError(
+            "init_distributed needs the fleet size and this process's "
+            "index (num_processes / process_id, or AVENIR_NUM_PROCESSES / "
+            "AVENIR_PROCESS_ID)")
+    if not 0 <= int(process_id) < int(num_processes):
+        raise ValueError(f"process_id {process_id} is outside a fleet of "
+                         f"{num_processes}")
+    if init_method is None and not coordinator_address:
+        raise ValueError("init_distributed needs a coordinator address "
+                         "(host:port) or an init_method")
+    if attempts is None:
+        attempts = int(env.get("AVENIR_JOIN_ATTEMPTS", "3"))
+    if timeout_s is None:
+        timeout_s = float(env.get("AVENIR_JOIN_TIMEOUT_SEC", "300"))
+    from datetime import timedelta
+
+    from avenir_tpu_torch.utils.retry import RetryPolicy
+
+    policy = RetryPolicy(max_attempts=max(int(attempts), 1), backoff_s=0.5)
+    timeout = timedelta(seconds=max(float(timeout_s), 1.0))
+    t0 = time.monotonic()
+    if init_method is None:
+        host, port = _split_address(str(coordinator_address))
+        if int(process_id) != 0:
+            # rank 0 hosts the store (nothing to probe); every other rank
+            # waits for it to become reachable within the bounded window
+            _wait_for_coordinator(str(coordinator_address), float(timeout_s))
+    last_err: Optional[BaseException] = None
+    sleep_s = 0.0
+    for attempt in range(1, policy.max_attempts + 1):
+        try:
+            if init_method is not None:
+                dist.init_process_group(
+                    "gloo", init_method=init_method, timeout=timeout,
+                    world_size=int(num_processes), rank=int(process_id))
+            else:
+                store = dist.TCPStore(
+                    host, port, world_size=int(num_processes),
+                    is_master=int(process_id) == 0, timeout=timeout,
+                    wait_for_workers=False)
+                dist.init_process_group(
+                    "gloo", store=store, timeout=timeout,
+                    world_size=int(num_processes), rank=int(process_id))
+            _record_join(coordinator_address or init_method, attempt,
+                         (time.monotonic() - t0) * 1e3)
+            return dist.get_rank()
+        except ValueError:
+            raise                          # malformed arguments: fail fast
+        except Exception as e:             # timeout, refused, store error
+            last_err = e
+        if dist.is_initialized():          # clear a half-joined group
+            dist.destroy_process_group()
+        if attempt < policy.max_attempts:
+            sleep_s = policy.next_backoff(sleep_s)
+            time.sleep(sleep_s)
+    from avenir_tpu_torch.launch import LaunchError
+
+    where = coordinator_address or init_method
+    raise LaunchError(
+        f"fleet join failed: coordinator {where!r} "
+        f"(process {process_id} of {num_processes}) did not accept the "
+        f"join within {timeout_s:g}s on any of {policy.max_attempts} "
+        f"attempt(s) — check the coordinator address/port and that "
+        f"process 0 is up: {last_err!r}") from last_err
+
+
+def _split_address(address: str) -> Tuple[str, int]:
+    host, _, port_s = address.rpartition(":")
+    try:
+        return host or "localhost", int(port_s)
+    except ValueError:
+        from avenir_tpu_torch.launch import LaunchError
+
+        raise LaunchError(
+            f"coordinator address {address!r} is not host:port") from None
+
+
+def _wait_for_coordinator(address: str, timeout_s: float) -> None:
+    """Wait, bounded and jittered, for the coordinator's TCP endpoint: a
+    plain connect retried under ``RetryPolicy.next_backoff`` (base 0.2 s,
+    cap 2 s) until it accepts or ``timeout_s`` runs out, then the typed
+    ``LaunchError`` naming the address."""
+    import socket
+    import time
+
+    from avenir_tpu_torch.utils.retry import RetryPolicy
+
+    host, port = _split_address(address)
+    policy = RetryPolicy(max_attempts=1, backoff_s=0.2, backoff_cap_s=2.0)
+    deadline = time.monotonic() + max(float(timeout_s), 0.1)
+    sleep_s = 0.0
+    last: Optional[BaseException] = None
+    while True:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            from avenir_tpu_torch.launch import LaunchError
+
+            raise LaunchError(
+                f"fleet join failed: coordinator {address!r} was not "
+                f"reachable within {timeout_s:g}s — check the address/"
+                f"port and that process 0 (the coordinator) is up: "
+                f"{last!r}") from last
+        try:
+            sock = socket.create_connection(
+                (host, port), timeout=min(2.0, max(remaining, 0.1)))
+            sock.close()
+            return
+        except OSError as e:
+            last = e
+        sleep_s = min(policy.next_backoff(sleep_s),
+                      max(deadline - time.monotonic(), 0.0))
+        time.sleep(sleep_s)
+
+
+def _record_join(coordinator, attempts: int, wall_ms: float) -> None:
+    """Record (and journal, when tracing is already on) this process's
+    successful join."""
+    global _LAST_JOIN
+    _LAST_JOIN = {"coordinator": str(coordinator),
+                  "nprocs": process_grid()[1],
+                  "attempts": int(attempts),
+                  "wall_ms": round(float(wall_ms), 3)}
+    journal_fleet_join(**_LAST_JOIN)
+
+
+def make_hybrid_mesh(axis_names: Tuple[str, ...] = ("data", "model"),
+                     ici_shape: Optional[Tuple[int, ...]] = None,
+                     dcn_shape: Optional[Tuple[int, ...]] = None,
+                     device=None,
+                     devices: Optional[Sequence[torch.device]] = None
+                     ) -> Mesh:
+    """A mesh whose leading axis spans processes and whose trailing axes
+    stay within one process's devices — the JAX package's layout.  In one
+    process it is :func:`make_mesh` (``ici_shape`` left-padded with 1s).
+    Across processes the default puts the processes on the leading axis
+    and this process's local devices on the last; device (p, …, j) is
+    process ``p``'s ``j``-th local device, listed by its local label.
+    ``devices`` names the local devices each process lays out (default:
+    every local device of ``device``'s kind)."""
+    nprocs = process_grid()[1]
+    local = list(devices) if devices is not None else local_devices(device)
+    if nprocs <= 1:
+        shape = None
+        if ici_shape is not None:
+            shape = tuple(ici_shape)
+            if len(shape) < len(axis_names):
+                shape = (len(axis_names) - len(shape)) * (1,) + shape
+        return make_mesh(axis_names, shape=shape, devices=local)
+    if dcn_shape is None:
+        dcn_shape = (nprocs,) + (1,) * (len(axis_names) - 1)
+    if ici_shape is None:
+        ici_shape = (1,) * (len(axis_names) - 1) + (len(local),)
+    if int(np.prod(dcn_shape)) != nprocs or \
+            int(np.prod(ici_shape)) != len(local):
+        raise ValueError(
+            f"hybrid mesh dcn {tuple(dcn_shape)} × ici {tuple(ici_shape)} "
+            f"does not cover {nprocs} process(es) × {len(local)} local "
+            f"device(s)")
+    shape = tuple(d * i for d, i in zip(dcn_shape, ici_shape))
+    # (dcn..., ici...) interleaved axis-wise, as the JAX package lays out
+    # a multi-process CPU mesh; each process's devices by local index
+    grid = np.arange(nprocs * len(local)).reshape(
+        tuple(dcn_shape) + tuple(ici_shape))
+    k = len(dcn_shape)
+    perm = [a for i in range(k) for a in (i, k + i)]
+    flat = grid.transpose(perm).reshape(shape).reshape(-1)
+    devices = tuple(local[int(i) % len(local)] for i in flat)
+    return Mesh(devices, tuple(axis_names), shape)
+
+
+def _gather_bytes(payload: bytes) -> List[bytes]:
+    """Every process's ``payload``, in process order: one int64 length
+    gather and one byte gather on the gloo group (CPU tensors)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    lens = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
+    dist.all_gather(lens, torch.tensor([len(payload)], dtype=torch.int64))
+    width = max(max(int(t) for t in lens), 1)
+    buf = torch.zeros(width, dtype=torch.uint8)
+    if payload:
+        buf[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                              dtype=torch.uint8)
+    bufs = [torch.empty(width, dtype=torch.uint8) for _ in range(n)]
+    dist.all_gather(bufs, buf)
+    return [bufs[p][:int(lens[p])].numpy().tobytes() for p in range(n)]
+
+
+def _pack_state(state: dict) -> bytes:
+    import json
+
+    arrays = {k: np.ascontiguousarray(np.asarray(state[k]))
+              for k in sorted(state)}
+    header = json.dumps(
+        [[k, a.dtype.str, list(a.shape)] for k, a in arrays.items()]).encode()
+    return header + b"\0" + b"".join(a.tobytes() for a in arrays.values())
+
+
+def _unpack_state(raw: bytes) -> dict:
+    import json
+
+    head, _, body = raw.partition(b"\0")
+    out = {}
+    off = 0
+    for key, dt, shape in json.loads(head.decode()):
+        dtype = np.dtype(dt)
+        nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+        out[key] = np.frombuffer(body[off:off + nbytes],
+                                 dtype=dtype).reshape(shape)
+        off += nbytes
+    return out
+
+
+def _gather_states(state: dict) -> Tuple[int, List[dict]]:
+    """(payload bytes, every process's ``state`` in process order): one
+    packed byte gather, or ``(0, [state])`` in one process."""
+    if process_grid()[1] == 1:
+        return 0, [{k: np.asarray(v) for k, v in state.items()}]
+    payload = _pack_state(state)
+    if len(payload) >= 2 ** 31:
+        raise ValueError(
+            f"accumulator payload {len(payload)} bytes exceeds the int32 "
+            "length-gather limit; shard the state across keys/jobs")
+    return len(payload), [_unpack_state(raw)
+                          for raw in _gather_bytes(payload)]
+
+
+def all_process_gather_state(state: dict) -> List[dict]:
+    """Every process's ``state`` ({key: array}), in process order, through
+    one packed byte gather: a collective every process enters (key sets
+    may differ).  In one process, ``[state]`` as numpy arrays."""
+    return _gather_states(state)[1]
+
+
+def all_process_sum_state(state: dict) -> dict:
+    """The across-process sum of an accumulator state tree — the job
+    layer's end-of-stream reduce when chunks are partitioned over
+    processes (Hadoop's one reducer over the mappers' partials).
+
+    A collective every process must enter; key sets may differ (a process
+    that owned no chunk contributes nothing, and a missing key counts as
+    zero).  Everything rides one payload per process — a length gather and
+    one byte gather — as raw bytes, so int64 and float64 cross exactly.
+    Per-key sums run on the host in ascending process order, which keeps a
+    float sum deterministic.  Keys prefixed ``min:`` / ``max:`` merge by
+    elementwise minimum / maximum.  A key whose shape differs between
+    processes raises ValueError.  The wall spent in the gather is
+    journaled as ``collective.wait`` (the slowest peer shows as the others'
+    wait)."""
+    import time
+
+    t0 = time.perf_counter()
+    nbytes, gathered = _gather_states(state)
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    if len(gathered) > 1:
+        from avenir_tpu_torch.telemetry import spans as tel
+
+        tracer = tel.tracer()
+        if tracer.enabled:
+            tracer.event("collective.wait", site="all_process_sum_state",
+                         wall_ms=round(wait_ms, 3), bytes=nbytes,
+                         procs=len(gathered))
+    out: dict = {}
+    for p, part in enumerate(gathered):
+        for key, arr in part.items():
+            if key in out:
+                if out[key].shape != arr.shape:
+                    raise ValueError(
+                        f"process {p} contributed {key!r} with shape "
+                        f"{arr.shape}, expected {out[key].shape} — schema "
+                        f"mismatch across processes")
+                if key.startswith("min:"):
+                    out[key] = np.minimum(out[key], arr)
+                elif key.startswith("max:"):
+                    out[key] = np.maximum(out[key], arr)
+                else:
+                    out[key] = out[key] + arr
+            else:
+                out[key] = arr.copy()
+    return out

@@ -1,8 +1,7 @@
 """In-process pipeline driver — port of ``avenir_tpu/pipeline/driver.py``
 (the staged loop and the planner's route, with the tenancy arbiter's
-``tenant.*`` contracts and the ``shard.*`` topology on local devices; the
-process plane's ``shard.proc.*`` and ``shard.reshard.*`` keys it
-refuses).
+``tenant.*`` contracts and the ``shard.*`` topology, on local devices or,
+in a fleet, across processes).
 
 The reference's multi-stage pipelines are shell scripts staging files
 through HDFS (resource/knn.sh:16-137).  Here a :class:`Pipeline` is an
@@ -31,26 +30,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
 from avenir_tpu_torch.utils.metrics import Counters
-
-# the process axis and the elastic restore change what the JAX package
-# executes; the port refuses them before any stage runs rather than run
-# without them
-_PROCESS_ITEM = "the process plane: ROADMAP.md, Queue 1 item 7h"
-_PROCESS_KEYS = ("shard.proc.", "shard.reshard.")
-
-
-def refused_key(conf: JobConfig) -> Optional[str]:
-    """Why the port cannot run this conf, naming the first refused key
-    and the ROADMAP.md item that will honour it, or None: a
-    ``shard.proc.*`` or ``shard.reshard.*`` key."""
-    refused = sorted(
-        k for k in conf.props
-        if k.startswith(_PROCESS_KEYS + tuple(f"{conf.prefix}.{p}"
-                                              for p in _PROCESS_KEYS)))
-    if refused:
-        return f"{refused[0]} is not ported yet ({_PROCESS_ITEM})"
-    return None
-
 
 @dataclass
 class Stage:
@@ -202,14 +181,6 @@ class Pipeline:
             total.merge_add(stage_counters)
         return total
 
-    def _refuse(self, todo: List[Stage]) -> None:
-        """Raise before any stage runs on a key the port cannot honour, in
-        the conf or a stage's props."""
-        for conf in [self.conf] + [JobConfig(s.props) for s in todo]:
-            why = refused_key(conf)
-            if why is not None:
-                raise NotImplementedError(f"pipeline: {why}")
-
     def run(self, only: Optional[Sequence[str]] = None,
             resume: bool = False) -> Dict[str, Counters]:
         if only is None:
@@ -228,7 +199,6 @@ class Pipeline:
                         needed[prod.name] = True
                         frontier.append(prod)
             todo = [s for s in self.stages if s.name in needed]
-        self._refuse(todo)
         from avenir_tpu_torch.device import resolve_device
         from avenir_tpu_torch.parallel.shard import ShardSpec
         from avenir_tpu_torch.telemetry import profile as _profile

@@ -558,7 +558,6 @@ def plan_pipeline(pipeline: Pipeline,
     from avenir_tpu_torch.pipeline import scan
 
     stages = list(todo) if todo is not None else list(pipeline.stages)
-    pipeline._refuse(stages)          # shard.proc/reshard, tenant contracts
     device = resolve_device(pipeline.device)
     confs = {s.name: pipeline._stage_conf(s) for s in stages}
     producers = {s.output: s for s in stages}

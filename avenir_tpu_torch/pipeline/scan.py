@@ -309,7 +309,8 @@ class ChunkFolder:
             if shard is not None and hist.applicable(f, b, c):
                 self._shard_step = collectives.sharded_scan_step(
                     shard.mesh, b, c, data_axis=shard.data_axis,
-                    quantized=shard.quantized, moments=self.needs_moments)
+                    quantized=shard.quantized, moments=self.needs_moments,
+                    proc_axis=shard.proc_axis if shard.is_global else None)
                 self.step = "shard"
             elif self.mesh is None and hist.use_kernel(f, b, c, self.device):
                 self.step = "kernel"
@@ -330,13 +331,21 @@ class ChunkFolder:
         if self.step == "shard":
             # the JAX package's logical all-reduce payload of one chunk:
             # the gram (int8 and float32 row scales when quantized, int32
-            # otherwise) and the class count and moment sums
+            # otherwise) and the class count and moment sums; a global
+            # plan pays two legs, the exact in-process sum and the
+            # cross-process one (int8 when quantized)
             mode, _, wp = hist.plan(f, b, c)
             cells = (c * wp * wp) if mode in ("cls", "clsb") else (wp * wp)
-            gbytes = (cells + 4 * (cells // wp) if shard.quantized
-                      else 4 * cells)
-            self._collective_bytes = gbytes + 4 * c * (
-                2 + 2 * meta.num_cont if self.needs_moments else 1)
+            qbytes = cells + 4 * (cells // wp)
+            counts = 4 * c * (2 + 2 * meta.num_cont
+                              if self.needs_moments else 1)
+            if shard.is_global:
+                self._collective_bytes = (
+                    4 * cells + (qbytes if shard.quantized else 4 * cells)
+                    + 2 * counts)
+            else:
+                self._collective_bytes = (
+                    (qbytes if shard.quantized else 4 * cells) + counts)
         # the straggler probe, built on the first fold under profile.on
         self._skew = None
 
@@ -498,15 +507,91 @@ class ChunkFolder:
         (where :meth:`tables`' gram-first read-out would ignore them) —
         a packed gram under another key than this folder's, and a gram
         folded under another mesh topology (another ``g_suffix``).  State
-        written under this folder's own topology matches and resumes.
-        The JAX package's ``adopt_state``, which redistributes foreign
-        state under ``shard.reshard.on.restore``, is ROADMAP.md, Queue 1
-        item 7h: ``pipeline/driver.py::refused_key`` refuses that key."""
+        written under this folder's own topology matches and resumes;
+        other state is adopted (:meth:`adopt_state`) or refused."""
         gram = [k for k in state
                 if isinstance(k, str) and k.startswith("g:")]
         if self.step == "einsum":
             return not gram
         return "fc" not in state and all(k == self.gk for k in gram)
+
+    def adopt_state(self, state: Dict[str, Any]) -> Tuple[Dict[str, Any],
+                                                          List[str]]:
+        """Redistribute one persisted accumulator-state mapping onto this
+        folder's routing — "refuse or reshard, never silently fold":
+        :meth:`tables` keeps the refusal, and the restore seams call this
+        first under ``shard.reshard.on.restore``.  Returns ``(state,
+        rekeyed_keys)``; state that already matches comes back as is.
+
+        Exact by construction (``checkpoint/reshard.py``): the 64-bit host
+        totals do not depend on the mesh, so a new qualifier moves the
+        same bytes.  Packed and unpacked grams hold the same G for one
+        (F, B, C), so the base key is renamed to this folder's own.  On
+        the chunked-einsum routing a gram is demoted through
+        ``counts_from_cooc``, the read-out :meth:`tables` runs.  Raises
+        :class:`~avenir_tpu_torch.checkpoint.reshard.ReshardError` on a
+        foreign base layout (the schema changed), mixed topology or
+        provenance, or einsum counts promoted onto a gram routing (pairs
+        outside the persisted union were never counted)."""
+        from avenir_tpu_torch.checkpoint import reshard
+        from avenir_tpu_torch.ops import hist
+
+        reshard.state_suffix(state)         # refuse mixed-topology state
+        base_gk = hist.g_key(self.f, self.b, self.c)
+        accepted = {base_gk, hist.packed_g_key(self.f, self.b, self.c)}
+        gram_keys = [k for k in state
+                     if isinstance(k, str) and k.startswith("g:")]
+        for key in gram_keys:
+            base, _ = reshard.split_mesh_key(key)
+            if base not in accepted:
+                raise reshard.ReshardError(
+                    f"gram state {key!r} has base layout {base!r} but "
+                    f"this fold's is {base_gk!r} — the kernel layout "
+                    f"(schema shape F/B/C) changed; no redistribution "
+                    f"can reconcile different layouts")
+        if len(gram_keys) > 1:
+            raise reshard.ReshardError(
+                f"state holds gram counts under {sorted(gram_keys)} — "
+                f"mixed kernel/packed provenance in one mapping means "
+                f"the same rows were split across two accumulators; "
+                f"redistribution cannot prove they partition the stream")
+        if gram_keys and "fc" in state:
+            raise reshard.ReshardError(
+                f"state holds both gram {gram_keys[0]!r} and einsum 'fc' "
+                f"counts — mixed-routing state cannot be redistributed")
+        if self.step == "einsum":
+            if not gram_keys:
+                return state, []            # same chunked-einsum routing
+            (key,) = gram_keys
+            out = {k: v for k, v in state.items() if k != key}
+            fbc, pcc = hist.counts_from_cooc(
+                np.asarray(state[key]), self.f, self.b, self.c,
+                self.pair_index[:, 0], self.pair_index[:, 1])
+            out["fc"] = np.asarray(fbc)
+            pcc = np.asarray(pcc)
+            for s in range(0, len(self.pair_index), self.pair_chunk):
+                out[f"pcc{s}"] = pcc[s:s + self.pair_chunk]
+            return out, [key]
+        if "fc" in state and not gram_keys:
+            raise reshard.ReshardError(
+                "state was folded under the chunked-einsum routing "
+                "('fc'/'pcc<off>' keys) but this fold reads the fused "
+                "gram — pair counts outside the persisted union were "
+                "never aggregated, so promotion is impossible; restore "
+                "on an einsum-routed topology or start clean")
+        # at most one gram key is left (one topology, one base): rename
+        # its base to this routing's own, then move the mesh suffix
+        renamed: List[str] = []
+        own_base = self.pack.g_key if self.step == "packed" else base_gk
+        if gram_keys:
+            (key,) = gram_keys
+            base, suffix = reshard.split_mesh_key(key)
+            if base != own_base:
+                state = {(own_base + suffix if k == key else k): v
+                         for k, v in state.items()}
+                renamed = [key]
+        out, moved = reshard.rekey_state(state, self.g_suffix)
+        return out, renamed + moved
 
     def tables(self, acc: agg.Accumulator, rows: int) -> ScanTables:
         """The shared totals from an accumulator this folder filled; an
@@ -692,7 +777,10 @@ def fuse_refusal(job, conf) -> Optional[str]:
     """Why this (job name, stage conf) cannot ride a SharedScan, or None
     when it can: anything the fused path does not reproduce byte for byte
     (a per-stage opt-out, text-mode NB, a checkpointed stream) keeps the
-    stage on its own scan.  The JAX package's reasons, word for word."""
+    stage on its own scan.  The JAX package's reasons, word for word: in
+    a fleet only an explicit ``shard.*`` topology fuses (the global fold
+    splits each chunk across processes); without one, each job's round
+    robin chunk ownership and end-of-stream merge is the contract."""
     if not isinstance(job, str) or job not in FUSABLE_JOBS:
         return "not a fusable count job"
     if not conf.get_bool("scan.fuse", True):
@@ -703,6 +791,11 @@ def fuse_refusal(job, conf) -> Optional[str]:
         return "text-mode NB (tabular.input=false)"
     if not conf.get("feature.schema.file.path"):
         return "no schema (feature.schema.file.path unset)"
+    from avenir_tpu_torch.parallel.mesh import process_grid
+    from avenir_tpu_torch.parallel.shard import ShardSpec
+
+    if process_grid()[1] > 1 and not ShardSpec.requested(conf):
+        return "multi-process without a shard.* topology"
     return None
 
 
@@ -908,7 +1001,10 @@ def run_fused_stages(stages, device=None,
     results = engine.run(data)
     rows = rows_fn()
     for name, _job, _inp, _out, _conf in stages:
-        writers[name](results[name])
+        # under a global plan every process finalizes the same totals and
+        # process 0 writes, as the streamed jobs do
+        if Job.is_output_writer():
+            writers[name](results[name])
         counters[name].set("Records", "Processed", rows)
         counters[name].set("SharedScan", "FusedStages", len(stages))
         counters[name].set("SharedScan", "Scans", 1)

@@ -168,7 +168,7 @@ class QueueActionWriter:
 def _refuse_redis(kind: str) -> None:
     raise NotImplementedError(
         f"{kind}: the Redis transports and their RESP client are not ported "
-        f"yet (ROADMAP.md, Queue 1 item 7h); use the in-process Queue* "
+        f"yet (ROADMAP.md, Queue 1 item 7h-ii); use the in-process Queue* "
         f"transports")
 
 

@@ -1,6 +1,6 @@
 """The online scoring plane in one process — port of
 ``avenir_tpu/serving/`` (all but ``global_pool.py``, which spans processes:
-ROADMAP.md, Queue 1 item 7h).
+ROADMAP.md, Queue 1 item 7h-ii).
 
 A :class:`ModelRegistry` loads any trained artifact the batch jobs produce
 and holds its parameters on one device (``cuda`` unless the CPU is asked

@@ -14,7 +14,7 @@ CUDA it raises), warms every (model, bucket) shape and serves HTTP on
 loaded: a plane with ``tenant.id`` then draws arbitrated dispatch slots
 and sheds tenant-scoped 429s with ``Retry-After``.  Refused before the
 port is bound, naming its ROADMAP.md item: ``serve.request.queue`` (the
-Redis transport, Queue 1 item 7h).
+Redis transport, Queue 1 item 7h-ii).
 
 Runs until interrupted or sent SIGTERM; stats print once on shutdown.
 """
@@ -67,7 +67,7 @@ def main(argv: List[str]) -> int:
     # refused before anything is bound or loaded: the JAX package serves
     # a Redis list pair here
     if conf.get("serve.request.queue"):
-        redis_score_frontend(None)         # raises: ROADMAP 7h
+        redis_score_frontend(None)         # raises: ROADMAP 7h-ii
     device = resolve_device(args.device)
     # telemetry from the same properties file the models load from
     # (trace.on / profile.on, both off by default); trace.writer.suffix

@@ -16,7 +16,7 @@ Two transports, both stdlib-only:
   from a response list.  The port runs it over in-process queues
   (``pipeline/streaming.py::InProcQueue``); its Redis wiring,
   :func:`redis_score_frontend`, needs the RESP client, which is not ported
-  yet (ROADMAP.md, Queue 1 item 7h), and raises.
+  yet (ROADMAP.md, Queue 1 item 7h-ii), and raises.
 """
 
 from __future__ import annotations
@@ -309,7 +309,7 @@ class ScoreHTTPServer:
         replica's, so the rollout is done when ``version`` moved).  The
         entry loads onto the server's ``device``.  (The JAX package also
         hands the props to a multi-process router's fleet swap,
-        ROADMAP.md, Queue 1 item 7h.)"""
+        ROADMAP.md, Queue 1 item 7h-ii.)"""
         from avenir_tpu_torch.core.config import ConfigError, JobConfig
         from avenir_tpu_torch.serving.registry import FAMILIES
 

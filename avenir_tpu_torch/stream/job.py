@@ -1,5 +1,5 @@
 """StreamAnalytics job — windowed streaming analytics as a pipeline stage;
-port of ``avenir_tpu/stream/job.py`` in one process.
+port of ``avenir_tpu/stream/job.py``.
 
 Replays a CSV artifact through
 :class:`~avenir_tpu_torch.stream.windows.WindowedScan` via the in-proc
@@ -14,10 +14,10 @@ The ``shard.*`` topology is honoured on local devices: the job builds
 one ``ShardSpec``, journals its ``shard.topology`` and folds every pane
 over its mesh, with window lines byte-identical to the unsharded run's.
 Without a ``shard.*`` plan the panes fold over the job's data mesh
-(``Job.auto_mesh``, ``data.parallel.auto``), as in the JAX package.
-Left for the process plane (ROADMAP.md, Queue 1 item 7h): ``shard.proc.*``
-and ``shard.reshard.*``, refused before anything is written, and the JAX
-package's single-writer protocol across processes.
+(``Job.auto_mesh``, ``data.parallel.auto``), as in the JAX package.  In a
+fleet a ``shard.*`` plan is the global (proc × data) mesh: every process
+folds the same windows to the same totals and process 0 writes.  A pane
+snapshot of another topology resumes under ``shard.reshard.on.restore``.
 """
 
 from __future__ import annotations
@@ -70,14 +70,9 @@ class StreamAnalytics(Job):
 
     def execute(self, conf: JobConfig, input_path: str, output_path: str,
                 counters: Counters) -> None:
-        from avenir_tpu_torch.pipeline.driver import refused_key
+        from avenir_tpu_torch.parallel.shard import ShardSpec
         from avenir_tpu_torch.utils.retry import FaultPlan
 
-        from avenir_tpu_torch.parallel.shard import ShardSpec
-
-        why = refused_key(conf)
-        if why is not None:
-            raise NotImplementedError(f"{self.name}: {why}")
         enc = self.encoder_for(conf)
         pane_rows = conf.get_int("stream.pane.rows", 1024)
         window_panes = conf.get_int("stream.window.panes", 1)
@@ -97,6 +92,11 @@ class StreamAnalytics(Job):
             # to an uninterrupted one
             ckpt.attach("drift", detector)
         delim = conf.field_delim
+        # under a global plan every process folds the same windows: process
+        # 0 writes, the others stream to devnull; _window_lines still runs
+        # everywhere, as it advances the drift detector whose state rides
+        # each process's snapshot
+        writer = self.is_output_writer()
 
         def handle(window):
             for ln in self._window_lines(window, detector, delim):
@@ -131,9 +131,9 @@ class StreamAnalytics(Job):
         # stage, and never truncates a previous good artifact
         tmp_path = output_path.rstrip(os.sep) + ".inprogress"
         parent = os.path.dirname(tmp_path)
-        if parent:
+        if parent and writer:
             os.makedirs(parent, exist_ok=True)
-        out_fh = open(tmp_path, "w")
+        out_fh = open(tmp_path, "w") if writer else open(os.devnull, "w")
         step = max(min(queue.depth or pane_rows, pane_rows), 1)
         batch: List[str] = []
         try:
@@ -148,7 +148,8 @@ class StreamAnalytics(Job):
             ws.flush()
         finally:
             out_fh.close()
-        os.replace(tmp_path, output_target(output_path))
+        if writer:
+            os.replace(tmp_path, output_target(output_path))
         if ckpt is not None:
             ckpt.finish()                # clean completion: sweep snapshots
         counters.set("Records", "Processed", ws.rows_consumed)

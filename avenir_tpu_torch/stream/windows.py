@@ -38,9 +38,9 @@ through the same ``ChunkFolder`` (padded on to its shard target, one B1
 launch per shard on ``cuda``), so windows inherit sharding with no
 stream-side code, and a pane snapshot records the mesh qualifier it was
 folded under.  A snapshot written under this run's topology resumes; one
-keyed for another routing or topology is refused here, never folded.
-Redistributing it (``shard.reshard.on.restore``, ``adopt_state``) is
-ROADMAP.md, Queue 1 item 7h.
+keyed for another routing or topology is redistributed onto this run's
+(``ChunkFolder.adopt_state``, journaled ``checkpoint.reshard``) under
+``shard.reshard.on.restore``, and refused without it, never folded.
 """
 
 from __future__ import annotations
@@ -424,18 +424,20 @@ class WindowCheckpointer:
     the ring + cursors under the conf-derived run fingerprint the streamed
     jobs use (``StreamCheckpointer.run_id_from_conf``); restore refuses a
     snapshot written by another configuration, and one folded under
-    another routing or topology, loudly.  A resumed scan re-fed from row
-    ``rows_consumed`` reproduces the remaining windows byte for byte.
-    The JAX package's per-process subdirectories wait with the
-    multi-process plane (ROADMAP.md, Queue 1 item 7h)."""
+    another routing or topology, loudly, unless ``reshard`` (the
+    ``shard.reshard.on.restore`` key) redistributes it.  A resumed scan
+    re-fed from row ``rows_consumed`` reproduces the remaining windows
+    byte for byte.  In a run of several processes each snapshots its own
+    (identical) ring under ``proc-NNN-of-NNN/``."""
 
     def __init__(self, directory: str, run_id: str = "",
                  interval_panes: int = 8, resume: bool = False,
-                 fault=None):
+                 reshard: bool = False, fault=None):
         from avenir_tpu_torch.utils.checkpoint import CheckpointManager
 
         self.directory = directory
         self.run_id = run_id
+        self.reshard = reshard
         self.interval = max(int(interval_panes), 1)
         self.fault = fault               # utils/retry.FaultPlan or None
         self.mgr = CheckpointManager(directory, keep=2)
@@ -458,16 +460,23 @@ class WindowCheckpointer:
     @classmethod
     def from_conf(cls, conf: JobConfig,
                   fault=None) -> Optional["WindowCheckpointer"]:
+        from avenir_tpu_torch.checkpoint.procdir import proc_subdir
         from avenir_tpu_torch.jobs.base import StreamCheckpointer
 
         directory = conf.get("stream.checkpoint.dir")
         if not directory:
             return None
+        # several processes: each snapshots its own (replicated) ring under
+        # a process subdirectory, which pins the process count — a
+        # relaunch at another count finds no snapshot and starts from
+        # zero; a deliberate N → M restore points stream.checkpoint.dir at
+        # the subdirectory itself and reshards
         return cls(
-            directory,
+            proc_subdir(directory),
             run_id=StreamCheckpointer.run_id_from_conf(conf),
             interval_panes=conf.get_int("stream.checkpoint.interval.panes", 8),
             resume=conf.get_bool("stream.resume", False),
+            reshard=conf.get_bool("shard.reshard.on.restore", False),
             fault=fault)
 
     def attach(self, key: str, component) -> None:
@@ -482,22 +491,25 @@ class WindowCheckpointer:
         from (0 on a fresh start).
 
         A snapshot whose pane states use another key family than
-        ``ws``'s folder — gram state written on ``cuda`` (``g:…``) read by
-        the CPU's einsum routing, einsum ``fc``/``pcc<off>`` counts read by
-        a gram routing, a packed gram under another key — or that was
-        folded under another mesh topology than ``ws``'s is refused with
-        ConfigError, never folded: loading it would silently drop counts
-        from the merged window tables.  One folded under ``ws``'s own
-        topology loads."""
-        from avenir_tpu_torch.utils import checkpoint
+        ``ws``'s folder — another mesh topology, gram state written on
+        ``cuda`` (``g:…``) read by the CPU's einsum routing, a packed gram
+        under another key — is redistributed through
+        ``ChunkFolder.adopt_state`` under ``shard.reshard.on.restore``
+        (journaled ``checkpoint.reshard``) and refused with ConfigError
+        without it, never folded: loading it would silently drop counts
+        from the merged window tables.  Einsum ``fc``/``pcc<off>`` counts
+        read by a gram routing are refused either way, and state
+        ``adopt_state`` cannot move raises its ``ReshardError``."""
+        from avenir_tpu_torch.checkpoint import reshard
 
         if self.restored is None:
             return 0
         state = self.restored
         try:
-            snap_sfx = checkpoint.snapshot_suffix(state)
-        except checkpoint.ReshardError as e:
+            snap_sfx = reshard.snapshot_suffix(state)
+        except reshard.ReshardError as e:
             raise ConfigError(str(e)) from e
+        cur_sfx = ws.folder.g_suffix
         ring = state.get("ring") or []
         mismatch = any(
             not ws.folder.state_matches_routing(rec.get("state") or {})
@@ -514,21 +526,31 @@ class WindowCheckpointer:
                     f"gram routing; resume on a matching routing (e.g. "
                     f"the unsharded CPU path), or clear the directory "
                     f"and restart the stream")
-            if snap_sfx:
-                written = f"mesh topology {snap_sfx!r}"
-            else:
-                written = "the fused gram routing"
-            reads = ("the chunked-einsum count routing"
-                     if ws.folder.step == "einsum"
-                     else f"the {ws.folder.program_tag} routing "
-                          f"({ws.folder.gk!r})")
-            raise ConfigError(
-                f"stream snapshot in {self.directory!r} was written under "
-                f"{written!r} but this run folds under {reads!r} — "
-                f"redistributing it (shard.reshard.on.restore) is not "
-                f"ported yet (ROADMAP.md, Queue 1 item 7h); resume on the "
-                f"device and topology that wrote it, or clear the "
-                f"directory and restart the stream")
+            if not self.reshard:
+                if snap_sfx is not None and snap_sfx != cur_sfx:
+                    written, reads = (reshard.describe(snap_sfx),
+                                      reshard.describe(cur_sfx))
+                else:
+                    written = "the fused gram routing"
+                    reads = ("the chunked-einsum count routing"
+                             if ws.folder.step == "einsum"
+                             else "a differently-keyed gram routing")
+                raise ConfigError(
+                    f"stream snapshot in {self.directory!r} was written "
+                    f"under {written!r} but this run folds under "
+                    f"{reads!r} — set shard.reshard.on.restore=true to "
+                    f"redistribute the snapshot onto the new layout "
+                    f"(ElasticGraft, "
+                    f"docs/runbooks/preemption_recovery.md), or clear "
+                    f"the directory and restart the stream")
+            rekeyed: List[str] = []
+            for rec in ring:
+                rec["state"], moved = ws.folder.adopt_state(rec["state"])
+                rekeyed.extend(moved)
+            state["shard"] = cur_sfx
+            reshard.journal_reshard(
+                snap_sfx if snap_sfx is not None else "", cur_sfx,
+                len(rekeyed), directory=self.directory, run=self.run_id)
         ws.load(state)
         extras = state.get("extras") or {}
         for key, component in self._components.items():

@@ -303,8 +303,17 @@ class BlackBox:
     # -- identity ------------------------------------------------------------
     @staticmethod
     def _process_index() -> int:
-        # one process: multi-process runs are ROADMAP.md, Queue 1 item 7h
-        return 0
+        """The launcher's ``AVENIR_PROCESS_ID``, else the joined fleet's
+        index (0 in one process)."""
+        env = os.environ.get("AVENIR_PROCESS_ID")
+        if env:
+            try:
+                return int(env)
+            except ValueError:
+                return 0
+        from avenir_tpu_torch.parallel.mesh import process_grid
+
+        return process_grid()[0]
 
     def _resolve_identity(self, conf) -> None:
         from avenir_tpu_torch.telemetry import spans as tel
@@ -312,6 +321,7 @@ class BlackBox:
         self.run = tel.fleet_run_id(conf)
         proc = self._process_index()
         suffix = (conf.get("trace.writer.suffix", "")
+                  or os.environ.get("AVENIR_WRITER_SUFFIX", "")
                   or conf.get("tenant.id", "") or "")
         self.writer = f"proc-{proc}" + (f"-{suffix}" if suffix else "")
 

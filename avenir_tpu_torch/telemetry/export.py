@@ -38,12 +38,14 @@ def _label_text(labels: Optional[Mapping[str, str]]) -> str:
 def fleet_identity(replica: Optional[str] = None,
                    tenant: Optional[str] = None,
                    worker: Optional[str] = None) -> Dict[str, str]:
-    """This writer's scrape identity: the process index (0: the port runs
-    one process; multi-process runs are ROADMAP.md, Queue 1 item 7h),
+    """This writer's scrape identity: the process index in a fleet (0 in
+    one process),
     the replica suffix when the deployment sets one
     (``trace.writer.suffix``, the knob that names the journal shard), the
     tenant (``tenant.id``) and the worker name, each when given."""
-    out = {"process": "0"}
+    from avenir_tpu_torch.parallel.mesh import process_grid
+
+    out = {"process": str(process_grid()[0])}
     if replica:
         out["replica"] = str(replica)
     if tenant:

@@ -24,8 +24,9 @@ package's schema, so a slow or wedged run reads as one tree
   ``run-<id>.proc-<k>[-<suffix>].jsonl``; every event is stamped with
   ``proc``/``host`` (and ``replica`` when a suffix is set), and
   ``python -m avenir_tpu_torch.telemetry merge <dir>`` time-orders the
-  shards into one view.  The port runs one process, so ``proc`` is 0
-  (multi-process runs are ROADMAP.md, Queue 1 item 7h).
+  shards into one view.  ``proc`` is the process index in a fleet
+  (``parallel/mesh.py::process_grid``), where every process writes its own
+  shard under the launcher's ``AVENIR_WRITER_SUFFIX``.
 
 :class:`CompileKeyMonitor` counts the dispatch shapes of a chunk loop
 that differ from every shape before: each key outside the primed set
@@ -199,10 +200,13 @@ class Tracer:
         ``run-<id>.proc-<k>[-<suffix>].jsonl``, stamps every event with
         ``proc``/``host``/``replica``, prefixes span ids with the writer
         identity, and roots new traces at the run-derived trace id so all
-        shards share one trace."""
-        # one process: multi-process runs are ROADMAP.md, Queue 1 item 7h
-        proc = 0
+        shards share one trace.  A non-zero process index of a fleet
+        opens a shard too."""
         import socket
+
+        from avenir_tpu_torch.parallel.mesh import process_grid
+
+        proc = process_grid()[0]
 
         with self._lock:
             if self.enabled:
@@ -445,10 +449,16 @@ def configure(conf) -> Tracer:
     # replica — the tenant names the writer suffix when no explicit one
     # is set — and stamps every record with the tenant
     tenant = conf.get("tenant.id", "") or ""
-    suffix = conf.get("trace.writer.suffix", "") or tenant
-    # one process (multi-process runs are ROADMAP.md, Queue 1 item 7h):
-    # a shard only when a suffix or an explicit run id asks for one
-    fleet = bool(suffix) or bool(conf.get("trace.run.id"))
+    # a launcher-spawned worker gets its shard suffix from
+    # AVENIR_WRITER_SUFFIX when the conf (shared by the fleet) names none;
+    # an explicit conf key wins, then the env, then the tenant id
+    suffix = (conf.get("trace.writer.suffix", "")
+              or os.environ.get("AVENIR_WRITER_SUFFIX", "")
+              or tenant)
+    from avenir_tpu_torch.parallel.mesh import process_grid
+
+    fleet = (process_grid()[1] > 1 or bool(suffix)
+             or bool(conf.get("trace.run.id")))
     max_mb = conf.get_float("telemetry.journal.max.mb", 64.0)
     t.enable(conf.get("trace.journal.dir") or ".",
              max_bytes=int(max_mb * (1 << 20)),

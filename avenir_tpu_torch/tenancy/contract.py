@@ -1,7 +1,7 @@
 """Tenant contracts — the declarative ``tenant.*`` conf family; port of
 ``avenir_tpu/tenancy/contract.py`` (its ``split_contracts``, which slices
 the contracts across a fleet of serving processes, waits with that fleet:
-ROADMAP.md, Queue 1 item 7h).
+ROADMAP.md, Queue 1 item 7h-ii).
 
 Grammar (properties file, the reference's ``-D`` contract), mirroring the
 ``slo.<name>.*`` rule family — the ``share`` key is the

@@ -22,7 +22,7 @@ import os
 import re
 import shutil
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -204,25 +204,39 @@ class CheckpointManager:
         steps = self._steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None) -> Optional[Any]:
+    def restore(self, step: Optional[int] = None, *,
+                reshard_to=None) -> Optional[Any]:
         """Restore a snapshot — whole, or not at all.
 
         Latest-step restore (``step=None``) tolerates a snapshot that
         vanishes between the directory listing and the read (a concurrent
         retention sweep racing ``_steps()``): it falls back to the next-
         newest intact snapshot.  A torn snapshot raises
-        :class:`CheckpointError` instead.  The tree comes back exactly as
-        written, mesh-qualified keys included (redistributing them is the
-        JAX package's ``reshard_to``, ROADMAP.md, Queue 1 item 7h)."""
+        :class:`CheckpointError` instead.
+
+        ``reshard_to``: a target topology — a ``parallel/shard.ShardSpec``,
+        a ``:mesh:<axis><n>`` suffix, or ``""`` for unsharded — onto which
+        every mesh-qualified accumulator entry of the tree is re-keyed
+        (``checkpoint/reshard.py``; ``ReshardError`` on state that cannot
+        move).  None (the default) returns the tree exactly as written,
+        qualifiers included: pass ``""``, not None, to strip them."""
         steps = [step] if step is not None else \
             list(reversed(self._steps()))
+        state = missing = object()
         for s in steps:
             try:
-                return load_state(os.path.join(self.directory, f"step_{s}"))
+                state = load_state(os.path.join(self.directory, f"step_{s}"))
+                break
             except FileNotFoundError:
                 if step is not None:
                     raise
-        return None
+        if state is missing:
+            return None
+        if reshard_to is not None:
+            from avenir_tpu_torch.checkpoint import reshard
+
+            state, _ = reshard.reshard_state_tree(state, reshard_to)
+        return state
 
     def clear(self) -> None:
         """Remove every manager-owned entry (``step_N`` snapshots, their
@@ -244,71 +258,3 @@ class CheckpointManager:
             os.rmdir(self.directory)        # only succeeds when empty
         except OSError:
             pass
-
-
-# ---------------------------------------------------------------------------
-# mesh-qualified snapshots (the JAX package's checkpoint/reshard.py:73-128)
-# ---------------------------------------------------------------------------
-# A sharded fold writes its gram under ``g:<layout>:mesh:<axis><n>``, and
-# the snapshot keeps those keys as written.  The restore seams read these
-# helpers to name a snapshot's topology: one written under the resuming
-# run's topology loads, another is refused (redistributing it, the JAX
-# package's ``reshard_to``, is ROADMAP.md, Queue 1 item 7h).
-
-MESH_TAG = ":mesh:"
-
-
-class ReshardError(ValueError):
-    """Accumulator state folded under more than one mesh topology."""
-
-
-def split_mesh_key(key: str) -> Tuple[str, str]:
-    """``"g:cls:f4:b5:c2:mesh:data8"`` → ``("g:cls:f4:b5:c2",
-    ":mesh:data8")``; an unqualified key keeps an empty suffix."""
-    pos = key.find(MESH_TAG)
-    if pos < 0:
-        return key, ""
-    return key[:pos], key[pos:]
-
-
-def state_suffix(state: Dict[str, Any]) -> Optional[str]:
-    """The one mesh suffix an accumulator-state mapping was folded under:
-    ``":mesh:<axis><n>"``, ``""`` for an unqualified gram, None when it
-    holds no gram key.  Raises :class:`ReshardError` on two suffixes."""
-    seen: Dict[str, str] = {}
-    for key in state:
-        if isinstance(key, str) and key.startswith("g:"):
-            _, sfx = split_mesh_key(key)
-            seen[sfx] = key
-    if len(seen) > 1:
-        raise ReshardError(
-            f"mixed-topology accumulator state: gram keys "
-            f"{sorted(seen.values())} carry different mesh qualifiers — "
-            f"state folded under two topologies cannot be redistributed")
-    return next(iter(seen), None)
-
-
-def snapshot_suffix(state: Dict[str, Any]) -> Optional[str]:
-    """The writing topology of a whole snapshot: its recorded ``"shard"``
-    field when present, else inferred from the gram keys of every
-    accumulator mapping it holds (``ring[i]["state"]``, ``"acc"``).  None
-    means no evidence; :class:`ReshardError` when two mappings disagree."""
-    recorded = state.get("shard")
-    if isinstance(recorded, str):
-        return recorded
-    votes = set()
-    for rec in state.get("ring") or []:
-        if isinstance(rec, dict):
-            sfx = state_suffix(rec.get("state") or {})
-            if sfx is not None:
-                votes.add(sfx)
-    if isinstance(state.get("acc"), dict):
-        sfx = state_suffix(state["acc"])
-        if sfx is not None:
-            votes.add(sfx)
-    if len(votes) > 1:
-        raise ReshardError(
-            f"snapshot holds accumulator state under {len(votes)} "
-            f"different topologies ({sorted(votes)}) — mixed-topology "
-            f"snapshots cannot be redistributed")
-    return next(iter(votes), None)

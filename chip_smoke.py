@@ -311,12 +311,31 @@ Phases, in order; any failure exits non-zero:
     131,072 within 1e-6 with equal indices, the Viterbi path at T =
     4,096 equal and equal to the sequential decoder on the card); one
     ``model_mesh`` JSON line;
-17. print a ``walls_s`` JSON line (the native encoder's build, native
+17. (after 16; ~60 s) the process plane on the card through ``python -m
+    avenir_tpu_torch.launch --nprocs 2`` (each rank ``chip_smoke.py
+    --fleet-worker``, its own CUDA context on ``cuda:0``, joined over a
+    ``TCPStore`` on gloo): (a) NB, MI (B1 2 a rank: chunks 0 and 2, 1 and
+    3) and MI on a 1M-row 20 × 20 × 2 CSV (B2 2 a rank), part files
+    byte-identical to the one-process runs, each rank's wall and
+    ``collective.wait`` beside the one-process walls; (b) NB killed on
+    both ranks after its first snapshot and relaunched with ``--resume``:
+    (a)'s bytes; (c) the 5b pipeline on a global 2 × 1 mesh
+    (``shard.devices=all``, ``shard.proc.axis=proc``; B1 4 a rank) = 5b's
+    part files; (d) window snapshots written under ``:mesh:proc2xdata1``
+    (the fleet's) and ``:mesh:data1`` (one process, ``shard.devices=all``)
+    resumed unsharded: refused without ``shard.reshard.on.restore``, and
+    with it phase 13's windows from the restore on; (e) streamed
+    LogisticRegressionJob over the fleet within the LR contract of phase
+    11's one-process history; (f) the join against a bound socket that
+    never listens raises ``LaunchError`` within its 3 s timeout; one
+    ``fleet`` JSON line;
+18. print a ``walls_s`` JSON line (the native encoder's build, native
     against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c,
-    13, 14, 15 and 16's walls) with the card's name and power limit, then
-    the kernels' JSON line (B1's and B4's launches also by phase 12's
+    13, 14, 15, 16 and 17's walls) with the card's name and power limit,
+    then the kernels' JSON line (B1's and B4's launches also by phase 12's
     traced paths, B1's by 12b's planned paths, 13's stream and tenant
-    paths, 14's sharded paths and 15's ``auto_*`` paths, B4's by 15's
+    paths, 14's sharded paths, 15's ``auto_*`` paths and 17's ``fleet_*``
+    paths by rank, B2's by 17's ``fleet_mi_wide`` ranks, B4's by 15's
     tree jobs and 13's tree refit, B5's and B6's by 12c's serving paths
     and 16's ``mm_*`` paths and B5's by 13's tenant path), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
@@ -4991,6 +5010,374 @@ def probe_phase() -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the process plane (python -m avenir_tpu_torch.launch)
+# ---------------------------------------------------------------------------
+
+FLEET_PROCS = 2
+WIDE_F, WIDE_B = 20, 20      # the 20 × 20 × 2 schema of phase 3b (B2)
+
+
+def fleet_worker(spec_path: str) -> int:
+    """One rank of a phase-17 fleet: ``chip_smoke.py --fleet-worker
+    <spec.json>``, started by ``python -m avenir_tpu_torch.launch``.  Joins
+    the fleet from the launcher's environment, then runs each task of the
+    spec (a job through the port's CLI entry, or a pipeline through its
+    CLI) with every launch count set to 0 just before and read just after;
+    prints one ``FLEET`` JSON line a task (rank, launches, wall, whether
+    the injected crash fired) and one ``FLEETJOIN`` line."""
+    from avenir_tpu_torch.launch import join_from_env
+    from avenir_tpu_torch.telemetry import spans as tel
+
+    t0 = time.perf_counter()
+    rank = join_from_env()
+    log("FLEETJOIN " + json.dumps(
+        {"rank": rank, "join_ms": (time.perf_counter() - t0) * 1e3}))
+    with open(spec_path) as fh:
+        tasks = json.load(fh)
+    for task in tasks:
+        reset_counts()
+        t0 = time.perf_counter()
+        crashed = False
+        try:
+            if task["kind"] == "pipeline":
+                run_pipeline(task["argv"])
+            else:
+                run_cli(task["argv"])
+        except Exception as e:  # noqa: BLE001
+            if not (task.get("expect_crash") and "injected" in str(e)):
+                raise
+            crashed = True
+        finally:
+            # a traced task's conf switched the rank's tracer on; off
+            # again, so the next task journals only if its conf asks
+            tel.tracer().disable()
+        log("FLEET " + json.dumps({
+            "rank": rank, "tag": task["tag"], "launches": read_counts(),
+            "wall_s": time.perf_counter() - t0, "crashed": crashed}))
+    return 0
+
+
+def launch_fleet(work: str, name: str, tasks: list, journal=None) -> dict:
+    """Run ``tasks`` in a fleet of FLEET_PROCS ranks through ``python -m
+    avenir_tpu_torch.launch`` (each rank ``chip_smoke.py --fleet-worker``);
+    returns {"tasks": {(tag, rank): record}, "join_ms": {rank: ms},
+    "wall_s": the launcher's wall}."""
+    spec = os.path.join(work, f"{name}.json")
+    with open(spec, "w") as fh:
+        json.dump(tasks, fh)
+    argv = [sys.executable, "-m", "avenir_tpu_torch.launch",
+            "--nprocs", str(FLEET_PROCS), "--join-timeout-sec", "120",
+            "--timeout-sec", "600"]
+    if journal:
+        argv += ["--journal-dir", journal]
+    argv += ["--", os.path.join(HERE, "chip_smoke.py"), "--fleet-worker", spec]
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"fleet {name} exited {res.returncode}:\n"
+                             f"{res.stdout[-6000:]}\n{res.stderr[-3000:]}")
+    out = {"tasks": {}, "join_ms": {}, "wall_s": wall}
+    for line in res.stdout.splitlines():
+        _, _, body = line.partition("] ")
+        if body.startswith("FLEET "):
+            rec = json.loads(body[len("FLEET "):])
+            out["tasks"][rec["tag"], rec["rank"]] = rec
+        elif body.startswith("FLEETJOIN "):
+            rec = json.loads(body[len("FLEETJOIN "):])
+            out["join_ms"][rec["rank"]] = rec["join_ms"]
+    missing = [(t["tag"], r) for t in tasks for r in range(FLEET_PROCS)
+               if (t["tag"], r) not in out["tasks"]]
+    if missing or len(out["join_ms"]) != FLEET_PROCS:
+        raise AssertionError(f"fleet {name} reported no record of {missing}:"
+                             f"\n{res.stdout[-6000:]}")
+    return out
+
+
+def write_wide_csv(work: str):
+    """Phase 3b's seeded 20 × 20 × 2 dataset as a 1M-row CSV (an id, 20
+    categorical codes, the class) and its schema."""
+    import numpy as np
+
+    ds = wide_dataset(ROWS_E2E, WIDE_F, WIDE_B, seed=12)
+    path = os.path.join(work, "wide.csv")
+    table = np.concatenate([np.arange(ROWS_E2E)[:, None], ds.codes,
+                            ds.labels[:, None]], axis=1)
+    np.savetxt(path, table, fmt="%d", delimiter=",")
+    fields = [{"name": "id", "ordinal": 0, "id": True, "dataType": "string"}]
+    fields += [{"name": f"f{j}", "ordinal": 1 + j, "feature": True,
+                "dataType": "categorical",
+                "cardinality": [str(v) for v in range(WIDE_B)]}
+               for j in range(WIDE_F)]
+    fields.append({"name": "cls", "ordinal": 1 + WIDE_F,
+                   "dataType": "categorical", "cardinality": ["0", "1"]})
+    schema = os.path.join(work, "wide.json")
+    with open(schema, "w") as fh:
+        json.dump({"fields": fields}, fh)
+    return path, schema
+
+
+def stream_tail(got_path: str, full_path: str, what: str) -> int:
+    """A resumed StreamAnalytics part file is the uninterrupted one from
+    its first window on; returns that window's index."""
+    with open(got_path) as fh:
+        tail = fh.read().splitlines()
+    with open(full_path) as fh:
+        full = fh.read().splitlines()
+    first = int(tail[0].split(",")[0][len("w="):])
+    if first < 1 or tail != lines_from(full, first):
+        raise AssertionError(f"{what}: the resumed windows from w={first} "
+                             f"differ from the uninterrupted run's")
+    return first
+
+
+def fleet_phase(work: str, train: str, schema: str, walls: dict,
+                dev: str = "cuda") -> dict:
+    """Phase 17: the process plane on the card, through ``python -m
+    avenir_tpu_torch.launch --nprocs 2``, each rank its own CUDA context
+    on ``cuda:0``; returns B1's and B2's launches by path and rank.
+
+    (a) BayesianDistribution, MutualInformation (B1) and MutualInformation
+    on a 1M-row 20 × 20 × 2 CSV (B2) in 250K-row chunks, traced: rank 0
+    owns chunks 0 and 2, rank 1 chunks 1 and 3 (2 launches a rank), the
+    totals merge in one ``all_process_sum_state`` and rank 0 writes part
+    files byte-identical to the one-process runs (phase 3's, and one here
+    for the wide CSV); each rank's wall, the fleet's wall and each rank's
+    ``collective.wait`` beside the one-process walls; (b) NB killed on
+    both ranks after its first snapshot (``proc-000-of-002``,
+    ``proc-001-of-002``) and relaunched with ``--resume``: (a)'s bytes,
+    the snapshots gone; (c) phase 5b's NB + MI pipeline under
+    ``shard.devices=all`` and ``shard.proc.axis=proc`` (a global 2 × 1
+    mesh: each rank folds its half of every padded chunk, B1 4 a rank):
+    part files = 5b's fused run's; (d) elastic restore: phase 13's stream
+    under the same global plan, crashed after pane 9 (a window snapshot
+    under ``:mesh:proc2xdata1`` every 4 panes), resumed in one process
+    unsharded from rank 0's snapshot, and the stream under
+    ``shard.devices=all`` in one process (``:mesh:data1``) crashed and
+    resumed unsharded: each refused without ``shard.reshard.on.restore``,
+    and with it the windows of phase 13's uninterrupted run from the
+    restore on; (e) LogisticRegressionJob streamed over the fleet (one
+    gradient merge an iteration): the history of phase 11's one-process
+    run within the LR contract; (f) the join against an address where
+    nothing listens (a socket bound to port 0, never listening) raises
+    ``LaunchError`` within its timeout.  Prints one ``fleet`` JSON line
+    with the card's name and power limit.  ``dev="cpu"`` rehearses the
+    phase on the host (no kernel launches expected) against the same
+    reference files made with ``--device cpu``."""
+    import socket
+
+    from avenir_tpu_torch.core.config import ConfigError
+    from avenir_tpu_torch.launch import LaunchError
+    from avenir_tpu_torch.parallel.mesh import init_distributed
+    from avenir_tpu_torch.telemetry.journal import read_events
+
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    kern = only if dev == "cuda" else (lambda **_: only())
+    chunks = -(-ROWS_E2E // CHUNK_ROWS)
+    common = [f"-Dfeature.schema.file.path={schema}",
+              f"-Dstream.chunk.rows={CHUNK_ROWS}"]
+    tel_dir = j("fleet_tel")
+    traced = ["-Dtrace.on=true", f"-Dtrace.journal.dir={tel_dir}",
+              "-Dtrace.run.id=fleet17"]
+    wide_csv, wide_schema = write_wide_csv(work)
+    wide = [f"-Dfeature.schema.file.path={wide_schema}",
+            f"-Dstream.chunk.rows={CHUNK_ROWS}"]
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(["MutualInformation", *wide, wide_csv, j("mi_wide_one"),
+             "--device", dev])
+    walls["cuda MutualInformation 20x20x2"] = time.perf_counter() - t0
+    if read_counts() != kern(B2=chunks):
+        raise AssertionError(f"MI 20x20x2 CLI launched {read_counts()}")
+    ck = j("fleet_ck")
+    ck_keys = [f"-Dstream.checkpoint.dir={ck}",
+               "-Dstream.checkpoint.interval.chunks=1"]
+    mi_algos = "-Dmutual.info.score.algorithms=mim,mifs,jmi,disr,mrmr"
+    half = chunks // FLEET_PROCS
+
+    # (a) and the kill of (b)
+    first = launch_fleet(work, "fleet_a", [
+        {"tag": "nb", "kind": "job",
+         "argv": ["BayesianDistribution", *common, *traced, train,
+                  j("fleet_nb"), "--device", dev]},
+        {"tag": "mi", "kind": "job",
+         "argv": ["MutualInformation", *common, mi_algos, *traced, train,
+                  j("fleet_mi"), "--device", dev]},
+        {"tag": "mi_wide", "kind": "job",
+         "argv": ["MutualInformation", *wide, *traced, wide_csv,
+                  j("fleet_mi_wide"), "--device", dev]},
+        {"tag": "nb_kill", "kind": "job", "expect_crash": True,
+         "argv": ["BayesianDistribution", *common, *ck_keys,
+                  "-Dstream.fault.crash.after.chunks=1", train,
+                  j("fleet_nb_kill"), "--device", dev]}],
+        journal=tel_dir)
+    walls["fleet (a) launch"] = first["wall_s"]
+    tasks = first["tasks"]
+    for rank in range(FLEET_PROCS):
+        want = {"nb": only(), "mi": kern(B1=half), "mi_wide": kern(B2=half),
+                "nb_kill": only()}
+        for tag, launches in want.items():
+            if tasks[tag, rank]["launches"] != launches:
+                raise AssertionError(f"fleet {tag} rank {rank} launched "
+                                     f"{tasks[tag, rank]['launches']}")
+        if not tasks["nb_kill", rank]["crashed"]:
+            raise AssertionError(f"rank {rank}: the injected crash missed")
+    same_bytes(j("fleet_nb", "part-00000"), j("cuda_nb", "part-00000"),
+               "fleet NB and the one-process NB")
+    same_bytes(j("fleet_mi", "part-00000"), j("cuda_mi", "part-00000"),
+               "fleet MI and the one-process MI")
+    same_bytes(j("fleet_mi_wide", "part-00000"),
+               j("mi_wide_one", "part-00000"), "fleet MI 20x20x2")
+    subdirs = sorted(os.listdir(ck))
+    if subdirs != [f"proc-{r:03d}-of-002" for r in range(FLEET_PROCS)]:
+        raise AssertionError(f"fleet snapshots under {subdirs}")
+    merged = [p for p in os.listdir(tel_dir) if p.startswith("fleet-")]
+    events = read_events(os.path.join(tel_dir, merged[0]))
+    # the three traced tasks' merges; the untraced killed NB journals
+    # nothing (each rank turns its tracer off after every task)
+    waits = {r: [e["wall_ms"] for e in events
+                 if e["ev"] == "collective.wait" and e["proc"] == r]
+             for r in range(FLEET_PROCS)}
+    if any(len(w) != 3 for w in waits.values()):
+        raise AssertionError(f"collective.wait events {waits}")
+    waits = {r: dict(zip(("nb", "mi", "mi_wide"), w))
+             for r, w in waits.items()}
+    log(f"fleet (a): NB, MI and MI 20x20x2 over {FLEET_PROCS} processes "
+        f"byte-identical to one process; MI B1 {half} a rank, MI 20x20x2 B2 "
+        f"{half} a rank; launcher wall {first['wall_s']:.2f} s")
+
+    # (b) the resume, (c) the global plan, (d)'s fleet snapshot, (e) LR
+    wck = j("fleet_wck")
+    # the ranks' confs carry their launcher-given trace.writer.suffix, so
+    # the drill names its run: a 2 → 1 process restore is deliberate
+    run_id = "-Dstream.run.id=fleet17-stream"
+    stream_kill = [run_id, f"-Dstream.checkpoint.dir={wck}",
+                   "-Dstream.checkpoint.interval.panes=4",
+                   "-Dstream.fault.crash.after.panes=9"]
+    path = pipeline_conf(work, "nb_mi_fleet", train, schema)
+    second = launch_fleet(work, "fleet_b", [
+        {"tag": "nb_resume", "kind": "job",
+         "argv": ["BayesianDistribution", *common, *ck_keys, train,
+                  j("fleet_nb_kill"), "--device", dev, "--resume"]},
+        {"tag": "pipeline", "kind": "pipeline",
+         "argv": ["run", path, f"-Dpipeline.workspace={j('ws_fleet')}",
+                  "-Dshard.devices=all", "-Dshard.proc.axis=proc",
+                  "--device", dev]},
+        {"tag": "stream_kill", "kind": "job", "expect_crash": True,
+         "argv": [*stream_argv(schema, "-Dshard.devices=all",
+                               "-Dshard.proc.axis=proc", *stream_kill),
+                  train, j("fleet_stream"), "--device", dev]},
+        {"tag": "lr", "kind": "job",
+         "argv": ["LogisticRegressionJob", *common, train, j("fleet_lr"),
+                  "--device", dev]}])
+    walls["fleet (b-e) launch"] = second["wall_s"]
+    tasks2 = second["tasks"]
+    for rank in range(FLEET_PROCS):
+        if tasks2["pipeline", rank]["launches"] != kern(B1=chunks):
+            raise AssertionError(f"global pipeline rank {rank} launched "
+                                 f"{tasks2['pipeline', rank]['launches']}")
+        if tasks2["nb_resume", rank]["launches"] != only() or \
+                tasks2["lr", rank]["launches"] != only():
+            raise AssertionError(f"fleet NB resume / LR launched kernels")
+        if not tasks2["stream_kill", rank]["crashed"]:
+            raise AssertionError(f"rank {rank}: the stream crash missed")
+    same_bytes(j("fleet_nb_kill", "part-00000"), j("fleet_nb", "part-00000"),
+               "resumed fleet NB and (a)'s")
+    if os.path.exists(ck):
+        raise AssertionError("the resumed fleet left its snapshots behind")
+    for art in ("nb_model", "mi_out"):
+        same_bytes(j("ws_fleet", art, "part-00000"),
+                   j("ws_fused", art, "part-00000"),
+                   f"global-plan pipeline {art} and phase 5b's")
+    got, status = lr_history(j("fleet_lr", "part-00000"))
+    want, want_status = lr_history(j("lr_streamed_cuda", "part-00000"))
+    if status != want_status:
+        raise AssertionError(f"fleet LR {status} vs {want_status}")
+    lr_diff = close_histories(got, want, "fleet LR")
+    log(f"fleet (b): NB killed on both ranks after its first snapshot, "
+        f"resumed: (a)'s bytes; (c) global 2 x 1 pipeline = 5b's, B1 "
+        f"{chunks} a rank; (e) LR {len(got)} iterations, {status}, within "
+        f"{lr_diff:.2e} of the one-process history")
+
+    # (d) elastic restore: the fleet's window snapshot, and one process's
+    full = j("stream_cuda", "part-00000")
+    resume = lambda sub, out, *extra: run_cli(  # noqa: E731
+        [*stream_argv(schema, run_id, f"-Dstream.checkpoint.dir={sub}",
+                      "-Dstream.resume=true", *extra), train, out,
+         "--device", dev])
+    sub = os.path.join(wck, "proc-000-of-002")
+    refused = expect_raise(ConfigError, "shard.reshard.on.restore=true",
+                           lambda: resume(sub, j("fleet_d_refused")))
+    if os.path.exists(j("fleet_d_refused")):
+        raise AssertionError("a refused restore wrote output")
+    t0 = time.perf_counter()
+    resume(sub, j("fleet_d"), "-Dshard.reshard.on.restore=true")
+    walls["cuda StreamAnalytics resumed from the fleet"] = \
+        time.perf_counter() - t0
+    w_fleet = stream_tail(j("fleet_d", "part-00000"), full,
+                          "2-process window snapshot resumed in 1")
+    one_ck = j("one_wck")
+    kill = [run_id, f"-Dstream.checkpoint.dir={one_ck}",
+            "-Dstream.checkpoint.interval.panes=4",
+            "-Dstream.fault.crash.after.panes=9"]
+    expect_raise(RuntimeError, "injected crash", lambda: run_cli(
+        [*stream_argv(schema, "-Dshard.devices=all", *kill), train,
+         j("one_stream_kill"), "--device", dev]))
+    expect_raise(ConfigError, "':mesh:data1'",
+                 lambda: resume(one_ck, j("one_d_refused")))
+    resume(one_ck, j("one_d"), "-Dshard.reshard.on.restore=true")
+    w_one = stream_tail(j("one_d", "part-00000"), full,
+                        "shard.devices=all window snapshot resumed unsharded")
+    log(f"fleet (d): window snapshots under :mesh:proc2xdata1 and "
+        f":mesh:data1 refused unsharded without the gate ({refused[:60]}...) "
+        f"and resumed with it: phase 13's windows from w={w_fleet} and "
+        f"w={w_one}")
+
+    # (f) the bounded join against an address where nothing listens
+    with socket.socket() as hold:
+        hold.bind(("127.0.0.1", 0))          # bound, never listening
+        address = f"127.0.0.1:{hold.getsockname()[1]}"
+        t0 = time.perf_counter()
+        msg = expect_raise(LaunchError, address, lambda: init_distributed(
+            coordinator_address=address, num_processes=2, process_id=1,
+            timeout_s=3, attempts=1))
+        join_fail_s = time.perf_counter() - t0
+    if join_fail_s > 10:
+        raise AssertionError(f"the failed join took {join_fail_s:.1f} s")
+    log(f"fleet (f): join against {address} raised LaunchError in "
+        f"{join_fail_s:.2f} s: {msg[:90]}")
+
+    report = {
+        "fleet": {
+            "procs": FLEET_PROCS, "card": card_line(),
+            "one_process_s": {
+                "BayesianDistribution": walls["cuda BayesianDistribution"],
+                "MutualInformation": walls["cuda MutualInformation"],
+                "MutualInformation 20x20x2":
+                    walls["cuda MutualInformation 20x20x2"],
+                "LogisticRegressionJob streamed":
+                    walls.get("cuda LogisticRegressionJob streamed")},
+            "rank_s": {f"{tag} p{r}": rec["wall_s"]
+                       for (tag, r), rec in {**tasks, **tasks2}.items()},
+            "collective_wait_ms": {f"p{r}": w for r, w in waits.items()},
+            "join_ms": {**{f"(a) p{r}": ms
+                           for r, ms in first["join_ms"].items()},
+                        **{f"(b-e) p{r}": ms
+                           for r, ms in second["join_ms"].items()}},
+            "launcher_s": {"(a)": first["wall_s"], "(b-e)": second["wall_s"]},
+            "lr_history_rel_diff": lr_diff,
+            "failed_join_s": join_fail_s}}
+    log(json.dumps(report))
+    per_rank = lambda tag, kid: {  # noqa: E731
+        f"fleet_{tag}_p{r}": rec["launches"][kid]
+        for (t, r), rec in {**tasks, **tasks2}.items() if t == tag}
+    return {"B1": {**per_rank("mi", "B1"), **per_rank("pipeline", "B1"),
+                   **per_rank("stream_kill", "B1")},
+            "B2": per_rank("mi_wide", "B2")}
+
+
 def kernel_entry(kid, name, source, replaces, launches_by_path, cases):
     """The kernels-line entry: numbers from the main path's own case."""
     path, which = MAIN_PATH[kid]
@@ -5025,7 +5412,12 @@ def main(argv=None) -> int:
     ap.add_argument("--b4", action="store_true",
                     help="time B4 (csrc/cross.cu) alone: phase 2's B4 cases, "
                          "the hospital tree's levels, a 1-row call")
+    ap.add_argument("--fleet-worker", metavar="SPEC",
+                    help="run as one rank of a phase-17 fleet (started by "
+                         "python -m avenir_tpu_torch.launch)")
     args = ap.parse_args(argv)
+    if args.fleet_worker:                 # its tasks name their device
+        return fleet_worker(args.fleet_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -5094,6 +5486,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         mm = model_mesh_phase(work, train, schema, walls)
         walls["phase 16"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fleet = fleet_phase(work, train, schema, walls)
+        walls["phase 17"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     all_cases += path_cases(hist, rec)       # phase 13's and 14's calls
@@ -5110,10 +5505,12 @@ def main(argv=None) -> int:
                      {"mi": b1_mi, "wide_tree": wide["B1"], **b1_pipe,
                       "pipeline_traced": traced["pipeline_traced"],
                       "pipeline_xla": traced["pipeline_xla"], **b1_corr,
-                      **b1_plan, **streamed["B1"], **sharded, **auto["B1"]},
+                      **b1_plan, **streamed["B1"], **sharded, **auto["B1"],
+                      **fleet["B1"]},
                      all_cases),
         kernel_entry("B2", "cooc_pair_gram, cls (B2)", src + "cooc_pair.cu",
-                     at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"]},
+                     at + "333", {"mi_wide": b2_mi, "wide_tree": wide["B2"],
+                                  **fleet["B2"]},
                      all_cases),
         kernel_entry("B3", "cooc_pair_gram, clsb (B3)", src + "cooc_pair.cu",
                      at + "365", {"wide_tree": wide["B3"]}, all_cases),

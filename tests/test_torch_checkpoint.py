@@ -37,6 +37,7 @@ from avenir_tpu_torch.jobs.base import Job, StreamCheckpointer  # noqa: E402
 from avenir_tpu_torch.models.mutual_info import MutualInformation  # noqa: E402
 from avenir_tpu_torch.ops import agg, hist  # noqa: E402
 from avenir_tpu_torch.utils import checkpoint  # noqa: E402
+from avenir_tpu_torch.checkpoint import reshard  # noqa: E402
 from avenir_tpu_torch.utils.metrics import Counters  # noqa: E402
 
 N_ROWS = 3000
@@ -294,16 +295,24 @@ def test_mesh_qualified_snapshot_is_refused(tmp_path):
         StreamCheckpointer(str(tmp_path / "ck"), resume=True)
     assert str(got.value) == str(want.value)
     assert "folded under mesh topology ':mesh:data8'" in str(got.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-        StreamCheckpointer(str(tmp_path / "ck"), resume=True, reshard=True)
+    # behind the gate the snapshot is re-keyed for the unsharded fold, as
+    # the JAX package's is (tests/test_torch_reshard.py holds the rest)
+    moved = StreamCheckpointer(str(tmp_path / "ck"), resume=True,
+                               reshard=True)
+    jmoved = JStreamCheckpointer(str(tmp_path / "ck"), resume=True,
+                                 reshard=True)
+    assert sorted(moved.accumulator.names()) == ["class", "g:fmaj:f10:b13:c2"]
+    assert sorted(jmoved.accumulator.state()) == \
+        sorted(moved.accumulator.names())
+    assert moved.start == jmoved.start and moved.base_rows == 250
     # the mesh-qualified keys come back as written
     state = StreamCheckpointer(str(tmp_path / "ck")).mgr.restore()
     assert sorted(state["acc"]) == ["class", "g:fmaj:f10:b13:c2:mesh:data8"]
-    assert checkpoint.split_mesh_key("g:cls:f4:b5:c2:mesh:data8") == \
+    assert reshard.split_mesh_key("g:cls:f4:b5:c2:mesh:data8") == \
         ("g:cls:f4:b5:c2", ":mesh:data8")
     mixed = {"acc": {"g:a:mesh:data8": 1, "g:b:mesh:data4": 2}}
-    with pytest.raises(checkpoint.ReshardError, match="mixed-topology"):
-        checkpoint.snapshot_suffix(mixed)
+    with pytest.raises(reshard.ReshardError, match="mixed-topology"):
+        reshard.snapshot_suffix(mixed)
 
 
 RUN_ID_PROPS = [

@@ -21,7 +21,9 @@ cards against the CPU; the bandit selections,
 ``WordCount`` and NumericalAttrStats on ``cuda`` against the CPU (no
 kernel of their own: plain torch ops on the card); a planned pipeline on
 the kernel route against the staged run, and a ``KNNServable`` on
-``cuda`` against the CPU and against its own rows scored alone.
+``cuda`` against the CPU and against its own rows scored alone; and two
+processes on the one card, joined over a ``FileStore`` on gloo, summing
+their B1 partials with ``all_process_sum_state`` to the CPU's gram.
 
 Every test here needs an NVIDIA GPU and skips where there is none.  The
 file imports neither JAX nor the JAX package, so on a machine without JAX
@@ -1306,3 +1308,36 @@ def test_knn_servable_on_the_card_equals_cpu_and_its_bucket(cuda, tmp_path):
     differ = {i for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"]))
               if a != b}
     assert differ <= fell["cuda"] | fell["cpu"]
+
+
+@pytest.mark.cuda
+def test_fleet_sum_of_card_partials_equals_cpu(cuda, tmp_path):
+    """Two processes on the one card, joined through a FileStore on gloo:
+    each counts its half of the rows with B1 on ``cuda``, and
+    ``all_process_sum_state`` sums the int64 partials on the host; every
+    rank's total equals the CPU's gram over all rows, exactly."""
+    import os
+    import subprocess
+    import sys
+
+    from avenir_tpu_torch.ops import hist as thist
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from torch_fleet_worker import gram_rows
+
+    (tmp_path / "specs.json").write_text(json.dumps([{"gram": "cuda"}]))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "torch_fleet_worker.py"),
+         str(tmp_path / "store"), str(r), "2", str(tmp_path), "specs.json"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "".join(outs)[-3000:]
+    codes, labels = gram_rows()
+    want = thist.cooc_counts(torch.from_numpy(codes),
+                             torch.from_numpy(labels), 13, 2).numpy()
+    for r in range(2):
+        got = np.load(tmp_path / f"gram_p{r}.npz")["g"]
+        np.testing.assert_array_equal(got, want.astype(np.int64))

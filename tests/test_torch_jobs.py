@@ -203,7 +203,9 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.serving.pool, "
             "avenir_tpu_torch.serving.frontend, "
             "avenir_tpu_torch.serving.replay, "
-            "avenir_tpu_torch.serving.__main__\n"
+            "avenir_tpu_torch.serving.__main__, avenir_tpu_torch.launch, "
+            "avenir_tpu_torch.launch.__main__, avenir_tpu_torch.checkpoint, "
+            "avenir_tpu_torch.checkpoint.reshard\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -242,7 +244,9 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                 "serving/__init__.py", "serving/errors.py",
                 "serving/registry.py", "serving/batcher.py",
                 "serving/pool.py", "serving/frontend.py",
-                "serving/replay.py", "serving/__main__.py"):
+                "serving/replay.py", "serving/__main__.py",
+                "launch/__init__.py", "launch/__main__.py",
+                "checkpoint/__init__.py", "checkpoint/reshard.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"

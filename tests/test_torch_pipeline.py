@@ -217,24 +217,23 @@ def test_cli_arguments_and_the_plan_verb(env, tmp_path, capsys):
         == [ln.replace(", pack", "") for ln in jax_ if "program:" not in ln]
 
 
-# the process plane's shard.* keys stay refused (ROADMAP.md, Queue 1 item
-# 7h; the topology on local devices is honoured since 7g-i,
-# tests/test_torch_shard.py); the tenant.* cases, refused until the
-# arbiter landed, now hold a malformed contract, which the arbiter's
-# grammar refuses before anything is written
+# the tenant.* cases, refused until the arbiter landed, now hold a
+# malformed contract, which the arbiter's grammar refuses before anything
+# is written
 REFUSED = {
-    "shard": {"shard.devices": "2", "shard.proc.axis": "proc"},
     "tenant": {"tenant.alpha.share": "0"},
     "tenant pool": {"avenir.tenant.pool.concurrency": "2",
                     "tenant.beta.max.inflight": "1"},
-    "stage shard": {"pipeline.stage.mi.prop.shard.reshard.on.restore":
-                    "true"},
     "stage tenant": {"pipeline.stage.mi.prop.tenant.queue.depth": "4",
                      "tenant.queue.dpth": "4"},
 }
-# keys the pipeline refused until the port's telemetry, planner and
-# tenancy arbiter honoured them
+# keys the pipeline refused until the port's telemetry, planner, tenancy
+# arbiter and process plane honoured them (in one process the process
+# axis has nothing to span and the reshard gate nothing to move)
 HONOURED = {
+    "shard": {"shard.proc.axis": "proc"},
+    "stage shard": {"pipeline.stage.mi.prop.shard.reshard.on.restore":
+                    "true"},
     "plan": {"plan.on": "true"},
     "trace": {"trace.on": "true"},
     "profile": {"profile.on": "true"},
@@ -253,12 +252,8 @@ def test_refused_keys_raise_before_anything_is_written(env, case):
     ws = env / f"refused_{case.replace(' ', '_')}"
     p = driver.Pipeline.from_conf(JobConfig(_props(env, **REFUSED[case])),
                                   workspace=str(ws), device="cpu")
-    if "shard" in case:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-            p.run()
-    else:
-        with pytest.raises(ConfigError, match="tenant"):
-            p.run()
+    with pytest.raises(ConfigError, match="tenant"):
+        p.run()
     assert not ws.exists()
     tenancy.reset()
 

@@ -579,19 +579,18 @@ def test_plan_verb_prints_explain(plan_env, capsys):
     assert "FusedStages=3" in capsys.readouterr().out
 
 
-def test_plan_refuses_shard_keys_before_output(plan_env):
-    """The process plane's shard.* keys (ROADMAP.md, Queue 1 item 7h) are
-    refused before the planner or a stage runs; ``shard.devices`` itself
-    is honoured (``tests/test_torch_shard.py``)."""
+def test_plan_refuses_shard_keys_before_output(plan_env, staged_outputs):
+    """The process plane's shard.* keys, refused before the planner ran
+    until the process plane landed, now plan and run: in one process the
+    process axis spans nothing, and the planned run under
+    ``shard.devices=2`` writes the staged run's bytes, as the JAX
+    package's planned run under the same keys does."""
     root, props, class_ord = plan_env
-    p = _interleaved(PORT, root, "ws_shard", props, class_ord,
-                     {"plan.on": "true", "shard.devices": "2",
-                      "shard.proc.axis": "proc"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-        plan_mod.plan_pipeline(p)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-        p.run()
-    assert not (root / "ws_shard").exists()
+    _p, _counters = _run_both(root, props, class_ord, "ws_shard",
+                              {"shard.devices": "2",
+                               "shard.proc.axis": "proc",
+                               "shard.reshard.on.restore": "true"})
+    _assert_bytes(root, "ws_shard", staged_outputs)
 
 
 def test_plan_sentinel_rows_and_baseline_band():

@@ -14,8 +14,9 @@ mesh-qualified gram key and the stale-topology refusal; the
 ``shard.topology`` and ``shard.skew`` events; ``from_conf``'s refusals;
 sharded windows, ``StreamAnalytics`` and their snapshots; the quantized
 all-reduce (bit-equal where every partial is ≤ 127, else within the JAX
-package's own bound of scale/2 per device); the process plane's keys
-refused before any output.  No test binds a socket or joins a process.
+package's own bound of scale/2 per device); the process plane's keys,
+which one process runs as the same conf without them.  No test binds a
+socket or joins a process (the fleets are tests/test_torch_multiprocess.py).
 """
 
 import json
@@ -762,7 +763,8 @@ def test_sharded_window_snapshot_resumes_under_its_topology(churn, tmp_path):
     assert state["shard"] == ":mesh:data2"
     assert any(k.endswith(":mesh:data2") for rec in state["ring"]
                for k in rec["state"])
-    with pytest.raises(ConfigError, match="Queue 1 item 7h") as refused:
+    with pytest.raises(ConfigError,
+                       match="set shard.reshard.on.restore=true") as refused:
         _stream(churn, tmp_path / "r4", **{**durable, "shard.devices": "4",
                                             "stream.resume": "true"})
     assert "':mesh:data2'" in str(refused.value)
@@ -869,7 +871,8 @@ def test_skew_probe_never_runs_with_profiling_off(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the process plane's keys stay refused
+# the process plane's keys, honoured: in one process the process axis has
+# nothing to span and the gate nothing to move, as in the JAX package
 # ---------------------------------------------------------------------------
 
 PROCESS_KEYS = {
@@ -881,19 +884,23 @@ PROCESS_KEYS = {
 
 @pytest.mark.parametrize("case", sorted(PROCESS_KEYS))
 def test_process_plane_keys_refused_before_output(churn, tmp_path, case):
+    """Once refused before any output, the ``shard.proc.*`` and
+    ``shard.reshard.*`` keys now run in one process with the part files
+    of the same conf without them."""
     extra = PROCESS_KEYS[case]
-    ws = tmp_path / "ws"
-    p = driver.Pipeline.from_conf(JobConfig(_props(churn, **extra)),
-                                  workspace=str(ws), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-        p.run()
-    assert not ws.exists()
+    plain = {k: v for k, v in extra.items()
+             if not k.split("prop.")[-1].startswith(("shard.proc.",
+                                                     "shard.reshard."))}
+    got, want = tmp_path / "ws", tmp_path / "ws_plain"
+    driver.Pipeline.from_conf(JobConfig(_props(churn, **extra)),
+                              workspace=str(got), device="cpu").run()
+    driver.Pipeline.from_conf(JobConfig(_props(churn, **plain)),
+                              workspace=str(want), device="cpu").run()
+    assert _parts(got) == _parts(want)
     if case.startswith("stage"):
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-        _stream(churn, tmp_path / "out", **extra)
-    assert not (tmp_path / "out").exists()
-    assert not (tmp_path / "out.inprogress").exists()
+    assert _stream(churn, tmp_path / "out", **extra) == \
+        _stream(churn, tmp_path / "out_plain", **plain)
 
 
 def test_too_many_devices_refused_before_any_stage(churn, tmp_path):

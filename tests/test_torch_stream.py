@@ -346,7 +346,9 @@ def _snapshot_with(tmp_path, schema, rekey):
     for rec in state["ring"]:
         rec["state"] = rekey(rec["state"])
     # a sharded fold records its topology beside its keys
-    state["shard"] = checkpoint.snapshot_suffix(
+    from avenir_tpu_torch.checkpoint import reshard
+
+    state["shard"] = reshard.snapshot_suffix(
         {"ring": state["ring"]}) or ""
     mgr.save(state["pane"], state)
     ckpt = WindowCheckpointer.from_conf(JobConfig(
@@ -371,7 +373,7 @@ def _mesh_keyed(state):
 
 @pytest.mark.parametrize("rekey,match", [
     (_cuda_keyed, "chunked-einsum count routing"),
-    (_mesh_keyed, "mesh topology"),
+    (_mesh_keyed, "set shard.reshard.on.restore=true"),
 ], ids=["cuda_gram_on_cpu", "mesh_gram"])
 def test_routing_mismatch_refused_never_folded(schema, tmp_path, rekey,
                                                match):
@@ -559,8 +561,8 @@ def test_stream_analytics_refusals_before_output(schema, job_data,
     _root, data = job_data
     base = {"feature.schema.file.path": schema, "stream.pane.rows": "16"}
     for extra, exc, match in (
-            ({"shard.devices": "2", "shard.reshard.on.restore": "true"},
-             NotImplementedError, "Queue 1 item 7h"),
+            ({"shard.devices": "9", "shard.reshard.on.restore": "true"},
+             ConfigError, "only 8 device"),
             ({"stream.consumers": "naiveBays"}, ConfigError,
              "unknown stream consumer")):
         out = tmp_path / "out"
