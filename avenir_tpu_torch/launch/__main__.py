@@ -6,10 +6,19 @@
   journal shards, propagate the first non-zero exit;
 - **join** (no ``--nprocs``, ``AVENIR_PROCESS_ID`` set): the scheduler
   started every rank itself — exec the worker argv in place; it joins
-  through its environment.
-
-The serving fleet (``--serve``, the JAX package's GlobalServe) is
-ROADMAP.md, Queue 1 item 7h-ii, and is refused.
+  through its environment;
+- **serve** (``--serve --conf serve.properties --nprocs N``): bring up N
+  full serving planes (one ``python -m avenir_tpu_torch.serving`` process
+  each, on ``--device``, a ReplicaPool inside when ``pool.*`` is armed)
+  and front them with the tenant-aware
+  :class:`~avenir_tpu_torch.serving.global_pool.GlobalRouter` on
+  ``fleet.http.port`` (or ``--http-port``; 0 binds an ephemeral port that
+  the startup line names); on SIGTERM every shard — workers, tenants and
+  the router — merges into one ``fleet-<run>.jsonl`` and the router's
+  stats print.  ``--conf``, ``--http-port`` and ``--device`` belong to
+  this mode only; an argv after ``--`` here starts each worker in place
+  of ``python -m avenir_tpu_torch.serving`` (a wrapper taking the
+  serving CLI's arguments, which follow it).
 
 Examples::
 
@@ -20,6 +29,9 @@ Examples::
     # 2 workers × 4 CPU shard slots each
     python -m avenir_tpu_torch.launch --nprocs 2 --devices-per-proc 4 -- \\
         StreamAnalytics -Dshard.devices=4 ... train.csv win --device cpu
+
+    # a 2-process serving fleet behind one logical frontend
+    python -m avenir_tpu_torch.launch --serve --conf serve.properties --nprocs 2
 """
 
 from __future__ import annotations
@@ -39,10 +51,6 @@ def main(argv: List[str]) -> int:
         opts, child = argv[:cut], argv[cut + 1:]
     else:
         opts, child = argv, []
-    if "--serve" in opts:
-        raise NotImplementedError(
-            "launch --serve (the serving fleet behind a global router) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 7h-ii)")
     ap = argparse.ArgumentParser(
         prog="python -m avenir_tpu_torch.launch",
         description="Spawn (or join) a fleet of worker processes and run "
@@ -67,7 +75,42 @@ def main(argv: List[str]) -> int:
     ap.add_argument("--journal-dir", default=None,
                     help="trace.journal.dir of the workers; shards are "
                          "merged into fleet-<run>.jsonl on teardown")
+    ap.add_argument("--serve", action="store_true",
+                    help="serving mode: front --nprocs serving worker "
+                         "processes (built from --conf) with one "
+                         "GlobalRouter on fleet.http.port")
+    ap.add_argument("--conf", default=None,
+                    help="(--serve) serving properties file, shared by "
+                         "every worker process")
+    ap.add_argument("--http-port", type=int, default=None,
+                    help="(--serve) override fleet.http.port for the "
+                         "router frontend (0: an ephemeral port)")
+    ap.add_argument("--device", default=None,
+                    help="(--serve) the workers' device: cuda (default) "
+                         "or cpu")
     args = ap.parse_args(opts)
+
+    if args.serve:
+        if not args.conf:
+            ap.error("--serve requires --conf <serve.properties>")
+        if args.nprocs < 1:
+            ap.error("--serve requires --nprocs >= 1")
+        # lazy import: the launcher module itself stays stdlib-only at
+        # import (the join-mode exec path must not pay a torch import)
+        from avenir_tpu_torch.serving.global_pool import serve_fleet
+
+        try:
+            return serve_fleet(
+                args.conf, args.nprocs, http_port=args.http_port,
+                device=args.device,
+                command=worker_command(child) if child else None)
+        except LaunchError as e:
+            print(f"launch error: {e}", file=sys.stderr)
+            return 3
+    for flag, value in (("--conf", args.conf), ("--http-port", args.http_port),
+                        ("--device", args.device)):
+        if value is not None:
+            ap.error(f"{flag} belongs to --serve")
     try:
         if not args.nprocs:
             if pod_env() is None:

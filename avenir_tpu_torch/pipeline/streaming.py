@@ -1,6 +1,5 @@
-"""Streaming serving loop, in-process — the Storm/Redis topology's
-counterpart; port of the in-process half of
-``avenir_tpu/pipeline/streaming.py``.
+"""Streaming serving loop — the Storm/Redis topology's counterpart; port
+of ``avenir_tpu/pipeline/streaming.py``.
 
 Capability parity with the reference's real-time path
 (``reinforce/ReinforcementLearnerTopology.java`` builds RedisSpout →
@@ -8,14 +7,18 @@ shuffle → learner bolt :42-85; ``RedisSpout.java`` rpop's
 ``(eventID, roundNum)`` events :86-100; ``ReinforcementLearnerBolt.java``
 drains the reward queue into ``learner.setReward`` then calls
 ``learner.nextActions(round)`` and writes to the action queue :93-125;
-pluggable queue I/O via ``ActionWriter`` / ``RewardReader`` interfaces).
+pluggable queue I/O via ``ActionWriter`` / ``RewardReader`` interfaces with
+Redis impls — lpush actions ``RedisActionWriter.java:46-49``, lindex walk of
+the reward list ``RedisRewardReader.java:72-86``).
 
 The topology collapses into an in-process event loop around the learner
-(``models/online_rl.py``, on the host by design), over bounded in-process
-queues; learner state is checkpointable between events.  What crosses a
-process or a network is ROADMAP.md Queue 1 item 7: the RESP client and
-its ``Redis*`` transports (which here raise before opening any socket) and
-the process-backed fleet.
+(``models/online_rl.py``, on the host by design) — the queue abstraction
+survives (bounded in-process deques for tests and embedding; Redis
+transports over the package's stdlib RESP client, ``pipeline/resp.py``,
+for drop-in use against the reference's own simulators — no external
+redis package).  Learner state is checkpointable between events.  A fleet
+of groups runs on threads (:class:`ShardedServingFleet`) or forked
+processes (:class:`ProcessServingFleet`).
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ class QueueFullError(RuntimeError):
 
 
 class InProcQueue:
-    """Deque-backed FIFO with the push/pop surface of a broker list.
+    """Deque-backed FIFO with the push/pop surface the Redis impls use.
 
     Bounded: ``depth`` (``stream.queue.depth``, default 65536) caps the
     backlog; a push past the cap raises :class:`QueueFullError`.
@@ -156,35 +159,37 @@ class QueueActionWriter:
             # so a multi-action selection must never publish a partial set
             push_all(msgs)
         else:
-            # uncapped broker transports never shed
+            # uncapped broker transports (Redis LPUSH) never shed
             for m in msgs:
                 self.queue.push(m)
 
 
-# Redis transports (RedisSpout.java rpop events; RedisActionWriter.java
-# lpush actions; RedisRewardReader.java reward-list reads) wait for the RESP
-# client; each constructor raises before any socket is opened.
+# Redis transports — the reference's spout/reader/writer contract
+# (RedisSpout.java rpop events; RedisActionWriter.java lpush actions;
+# RedisRewardReader.java reward-list reads) over the package's stdlib RESP
+# client (pipeline/resp.py). Rewards are consumed destructively (rpop
+# drain), matching the serving loop's read-once semantics; the reference's
+# non-destructive lindex walk with a running offset is equivalent for a
+# single reader.
 
-def _refuse_redis(kind: str) -> None:
-    raise NotImplementedError(
-        f"{kind}: the Redis transports and their RESP client are not ported "
-        f"yet (ROADMAP.md, Queue 1 item 7h-ii); use the in-process Queue* "
-        f"transports")
+def _redis_queue(queue, host, port, db):
+    from avenir_tpu_torch.pipeline.resp import RedisListQueue
+    return RedisListQueue(queue, host=host, port=port, db=db)
 
 
 class RedisEventSource(QueueEventSource):
     def __init__(self, host="localhost", port=6379, db=0, queue="eventQueue", delim=","):
-        _refuse_redis(type(self).__name__)
+        super().__init__(_redis_queue(queue, host, port, db), delim=delim)
 
 
 class RedisRewardReader(QueueRewardReader):
     def __init__(self, host="localhost", port=6379, db=0, queue="rewardQueue", delim=","):
-        _refuse_redis(type(self).__name__)
+        super().__init__(_redis_queue(queue, host, port, db), delim=delim)
 
 
 class RedisActionWriter(QueueActionWriter):
     def __init__(self, host="localhost", port=6379, db=0, queue="actionQueue", delim=","):
-        _refuse_redis(type(self).__name__)
+        super().__init__(_redis_queue(queue, host, port, db), delim=delim)
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +308,8 @@ class ShardedServingFleet:
 
     ``dispatch`` blocks when the target worker's queue is full; ``close``
     drains and joins the workers. Results (event_id → actions) flow through
-    each server's own ActionWriter, so any transport works unchanged.
+    each server's own ActionWriter, so any transport (in-proc, Redis)
+    works unchanged.
     """
 
     def __init__(self, server_factory: Callable[[str], "ReinforcementLearnerServer"],
@@ -374,6 +380,213 @@ class ShardedServingFleet:
             for group, srv in servers.items():
                 out[group] = srv.checkpoint()
         return out
+
+
+# ---------------------------------------------------------------------------
+# process-backed serving — the Storm num.workers (multi-JVM) analog
+# ---------------------------------------------------------------------------
+
+class _ForwardingActionWriter:
+    """Tees a server's action writes to the parent's result queue (the
+    caller-provided transport still runs in the worker — a Redis writer's
+    effects are globally visible; an in-proc queue's are not, which is why
+    the parent needs the forwarded copy)."""
+
+    def __init__(self, inner, group: str, out_q):
+        self.inner = inner
+        self.group = group
+        self.out_q = out_q
+
+    def write(self, event_id: str, actions: List[str]) -> None:
+        self.inner.write(event_id, actions)
+        self.out_q.put(("act", self.group, event_id, list(actions)))
+
+
+def _fleet_worker(worker_id: int, server_factory, in_q, out_q) -> None:
+    servers: dict = {}
+    while True:
+        item = in_q.get()
+        if item is None:
+            out_q.put(("ckpt", worker_id,
+                       [(g, srv.checkpoint()) for g, srv in servers.items()]))
+            return
+        group, event_id, round_num = item
+        try:
+            srv = servers.get(group)
+            if srv is None:
+                srv = servers[group] = server_factory(group)
+                srv.actions = _ForwardingActionWriter(srv.actions, group,
+                                                      out_q)
+            srv.handle(event_id, round_num)
+        except BaseException as e:     # surfaced on close()
+            out_q.put(("err", worker_id, repr(e)))
+
+
+class ProcessServingFleet:
+    """Multi-PROCESS event dispatch with per-group learner state — the
+    capacity analog of Storm's ``num.workers`` (one JVM per worker,
+    ReinforcementLearnerTopology.java:42-85), where
+    :class:`ShardedServingFleet` mirrors ``num.bolt.threads`` (executors
+    inside one JVM).
+
+    Same contract as the thread fleet: ``hash(group) % num_workers`` pins
+    each group to one worker (fieldsGrouping — learners update
+    single-threaded), bounded per-worker queues apply ``max.spout.pending``
+    backpressure, ``close()`` drains and re-raises the first worker error.
+    Because workers are processes, CPU-bound learner updates scale past the
+    GIL on multi-core hosts (thread workers cannot).
+
+    Process-boundary additions:
+    - action writes are forwarded to the parent (``actions()`` after
+      ``close()`` — per-group streams in dispatch order); the factory's own
+      transport still runs in the worker, so Redis-backed writers behave
+      exactly as in the thread fleet;
+    - learner state is collected at shutdown (``checkpoints()``), matching
+      the thread fleet's post-close semantics;
+    - ``server_factory`` is transferred via fork at worker start, so it may
+      be a closure; workers are started eagerly in ``__init__``.  The
+      learners run on the host by design and the workers never touch CUDA;
+      a forked child that does fails loudly in torch ("Cannot re-initialize
+      CUDA in forked subprocess") once the parent has initialised CUDA —
+      nothing re-routes it.
+    """
+
+    def __init__(self, server_factory: Callable[[str], ReinforcementLearnerServer],
+                 num_workers: int = 2, max_pending: int = 128,
+                 mp_context: str = "fork"):
+        import multiprocessing as mp
+
+        ctx = mp.get_context(mp_context)
+        self.num_workers = max(num_workers, 1)
+        self._in_qs = [ctx.Queue(maxsize=max(max_pending, 1))
+                       for _ in range(self.num_workers)]
+        self._out_q = ctx.Queue()
+        self._procs = [
+            ctx.Process(target=_fleet_worker,
+                        args=(w, server_factory, self._in_qs[w], self._out_q),
+                        daemon=True)
+            for w in range(self.num_workers)
+        ]
+        for p in self._procs:
+            p.start()
+        self._closed = False
+        self._actions: List[Tuple[str, str, List[str]]] = []
+        self._checkpoints: dict = {}
+        self._errors: List[str] = []
+        self.dispatched = 0
+
+    def dispatch(self, group: str, event_id: str, round_num: int) -> None:
+        """Route one event to its group's worker (blocks on backpressure)."""
+        import queue as _qmod
+
+        if self._closed:
+            raise RuntimeError("dispatch() after close()")
+        w = hash(group) % self.num_workers
+        while True:
+            try:
+                self._in_qs[w].put((group, event_id, round_num), timeout=1.0)
+                break
+            except _qmod.Full:
+                # backpressure against a DEAD worker would block forever
+                if not self._procs[w].is_alive():
+                    raise RuntimeError(
+                        f"serving worker {w} died (exitcode "
+                        f"{self._procs[w].exitcode}); queue full")
+        self.dispatched += 1
+
+    def _drain_out(self, expect_ckpts: int, deadline: float = 60.0) -> None:
+        import queue as _qmod
+        import time as _time
+
+        remaining = expect_ckpts
+        t_end = _time.monotonic() + deadline
+        empty_after_dead = 0
+        while remaining:
+            try:
+                kind, *rest = self._out_q.get(timeout=1.0)
+            except _qmod.Empty:
+                # a worker killed without sending its ckpt (OOM, segfault in
+                # native code) must not hang close() on a get() that can
+                # never be satisfied
+                dead = sum(1 for p in self._procs if not p.is_alive())
+                if dead >= remaining:
+                    # a just-exited worker's queue feeder thread may still be
+                    # flushing its ckpt/act payload into the pipe, so require
+                    # several consecutive empty polls before declaring the
+                    # handshake lost (each get() above already waited 1 s)
+                    empty_after_dead += 1
+                    if empty_after_dead >= 3:
+                        self._errors.append(
+                            f"{dead} serving worker(s) died without shutdown "
+                            f"handshake (exitcodes "
+                            f"{[p.exitcode for p in self._procs]})")
+                        return
+                else:
+                    # live-but-wedged worker (hung in handle()): bound the
+                    # IDLE time so close() terminates it instead of hanging —
+                    # t_end resets on every received message, so a fleet
+                    # draining a deep backlog slowly but steadily never trips
+                    if _time.monotonic() > t_end:
+                        self._errors.append(
+                            f"{remaining} serving worker(s) idle without "
+                            f"shutdown handshake for {deadline:.0f}s "
+                            f"(wedged in handle()?); terminating")
+                        return
+                continue
+            empty_after_dead = 0
+            t_end = _time.monotonic() + deadline
+            if kind == "act":
+                group, event_id, actions = rest
+                self._actions.append((group, event_id, actions))
+            elif kind == "err":
+                self._errors.append(rest[1])
+            elif kind == "ckpt":
+                for group, blob in rest[1]:
+                    self._checkpoints[group] = blob
+                remaining -= 1
+
+    def close(self) -> None:
+        """Flush queues, stop workers, re-raise the first worker error."""
+        import queue as _qmod
+
+        if self._closed:
+            return
+        self._closed = True
+        import time as _time
+        for w, q in enumerate(self._in_qs):
+            t_end = _time.monotonic() + 30.0     # per-worker budget
+            while True:
+                try:
+                    q.put(None, timeout=1.0)
+                    break
+                except _qmod.Full:
+                    if not self._procs[w].is_alive():
+                        break          # dead worker: nothing to hand-shake
+                    if _time.monotonic() > t_end:
+                        # wedged worker holding a full queue: give up on the
+                        # sentinel, let the drain deadline + terminate below
+                        # reclaim it (DeviceFeeder.close bounds the same way)
+                        self._errors.append(
+                            f"serving worker {w} input queue still full at "
+                            f"close deadline; skipping shutdown sentinel")
+                        break
+        self._drain_out(expect_ckpts=self.num_workers)
+        for p in self._procs:
+            p.join(timeout=30.0)
+            if p.is_alive():           # wedged worker: don't hang close()
+                p.terminate()
+        if self._errors:
+            raise RuntimeError(f"serving worker failed: {self._errors[0]}")
+
+    def actions(self) -> List[Tuple[str, str, List[str]]]:
+        """(group, event_id, actions) in per-group dispatch order (call
+        after close())."""
+        return list(self._actions)
+
+    def checkpoints(self) -> dict:
+        """group → learner-state JSON collected at worker shutdown (call
+        after close())."""
+        return dict(self._checkpoints)
 
 
 # ---------------------------------------------------------------------------

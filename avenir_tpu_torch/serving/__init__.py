@@ -1,14 +1,13 @@
-"""The online scoring plane in one process — port of
-``avenir_tpu/serving/`` (all but ``global_pool.py``, which spans processes:
-ROADMAP.md, Queue 1 item 7h-ii).
+"""The online scoring plane — port of ``avenir_tpu/serving/``.
 
 A :class:`ModelRegistry` loads any trained artifact the batch jobs produce
 and holds its parameters on one device (``cuda`` unless the CPU is asked
 for); a :class:`BucketedMicrobatcher` folds concurrent requests into padded
 batch buckets whose shapes are all warmed at start; a :class:`ReplicaPool`
 runs several batchers on the one card with failover; HTTP and in-process
-queue front ends expose them; ``ScoringPlane`` replays a file through them
-as a job or a pipeline stage.
+queue front ends expose them (the queue one also over Redis);
+``ScoringPlane`` replays a file through them as a job or a pipeline stage;
+``global_pool.py`` fronts a fleet of serving processes with one router.
 """
 
 from avenir_tpu_torch.serving.batcher import (BucketedMicrobatcher,

@@ -10,11 +10,16 @@ CUDA it raises), warms every (model, bucket) shape and serves HTTP on
 (or ``pool.autoscale.on``) set the plane is a
 :class:`~avenir_tpu_torch.serving.pool.ReplicaPool` on the one card.
 
+Optionally a RESP list pair on a Redis server when ``serve.request.queue``
+is set (``serve.redis.host`` / ``serve.redis.port``, responses to
+``serve.response.queue``) — the transport the reference's own Redis
+simulators drive — polled by a daemon thread once HTTP is bound.
+
 ``tenant.<id>.*`` contracts arm the tenancy arbiter before anything is
 loaded: a plane with ``tenant.id`` then draws arbitrated dispatch slots
-and sheds tenant-scoped 429s with ``Retry-After``.  Refused before the
-port is bound, naming its ROADMAP.md item: ``serve.request.queue`` (the
-Redis transport, Queue 1 item 7h-ii).
+and sheds tenant-scoped 429s with ``Retry-After``.  ``--http-port 0``
+binds an ephemeral port; the ``serving ... on http://host:port`` line
+names it (the fleet launcher's spawner reads it there).
 
 Runs until interrupted or sent SIGTERM; stats print once on shutdown.
 """
@@ -64,10 +69,6 @@ def main(argv: List[str]) -> int:
     # arm the tenant arbiter from tenant.* contracts (a no-op without
     # them; a malformed one raises before anything is bound or loaded)
     tenancy.configure(conf)
-    # refused before anything is bound or loaded: the JAX package serves
-    # a Redis list pair here
-    if conf.get("serve.request.queue"):
-        redis_score_frontend(None)         # raises: ROADMAP 7h-ii
     device = resolve_device(args.device)
     # telemetry from the same properties file the models load from
     # (trace.on / profile.on, both off by default); trace.writer.suffix
@@ -109,6 +110,19 @@ def main(argv: List[str]) -> int:
           f"(buckets {batcher.buckets}){pool_note} on {device}"
           + (f" with {len(slo.rules)} SLO rule(s)" if slo else ""),
           flush=True)
+
+    request_queue = conf.get("serve.request.queue")
+    if request_queue:
+        frontend = redis_score_frontend(
+            batcher,
+            host=conf.get("serve.redis.host", "localhost"),
+            port=conf.get_int("serve.redis.port", 6379),
+            request_queue=request_queue,
+            response_queue=conf.get("serve.response.queue",
+                                    "scoreResponseQueue"))
+        threading.Thread(target=frontend.run, daemon=True,
+                         name="serve-resp").start()
+        print(f"RESP transport polling {request_queue!r}", flush=True)
 
     # SIGTERM stops a replica like Ctrl-C: the forensics bundle latches
     # the in-flight table first (a no-op without blackbox.dir), then the

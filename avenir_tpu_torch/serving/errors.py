@@ -1,8 +1,7 @@
 """Typed serving-plane errors — port of ``avenir_tpu/serving/errors.py``,
 all eight types (the tenant-scoped shed is raised by the tenancy arbiter
-and a tenanted batcher's door; the worker-process error only by the
-serving fleet of ROADMAP.md, Queue 1 item 7h-ii, and kept so front ends
-map the same codes).
+and a tenanted batcher's door; the worker-process error by the serving
+fleet's router, ``serving/global_pool.py``).
 
 Every failure mode a client can observe has its own type, so front ends map
 them to distinct transport codes (HTTP status / RESP error tag) and callers

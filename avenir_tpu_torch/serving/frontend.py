@@ -13,10 +13,10 @@ Two transports, both stdlib-only:
   ``RedisListQueue``, or the in-proc queue for tests): clients LPUSH
   ``requestId,model,<csv row>`` onto a request list and collect
   ``requestId,<response line>`` (or ``requestId,ERR,<code>,<message>``)
-  from a response list.  The port runs it over in-process queues
-  (``pipeline/streaming.py::InProcQueue``); its Redis wiring,
-  :func:`redis_score_frontend`, needs the RESP client, which is not ported
-  yet (ROADMAP.md, Queue 1 item 7h-ii), and raises.
+  from a response list — so the reference's own Redis simulators can drive
+  the scoring plane exactly like they drive the Storm topology
+  (``ReinforcementLearnerTopology``); :func:`redis_score_frontend` wires
+  it to a Redis server.
 """
 
 from __future__ import annotations
@@ -307,12 +307,18 @@ class ScoreHTTPServer:
         a plain batcher warms-then-publishes, a ReplicaPool rolls replica
         by replica.  Returns the new version (for a pool: the slowest
         replica's, so the rollout is done when ``version`` moved).  The
-        entry loads onto the server's ``device``.  (The JAX package also
-        hands the props to a multi-process router's fleet swap,
-        ROADMAP.md, Queue 1 item 7h-ii.)"""
+        entry loads onto the server's ``device``.  Behind a
+        :class:`~avenir_tpu_torch.serving.global_pool.GlobalRouter` the
+        props go to its rolling fleet swap instead."""
         from avenir_tpu_torch.core.config import ConfigError, JobConfig
         from avenir_tpu_torch.serving.registry import FAMILIES
 
+        roll = getattr(self.batcher, "swap_fleet", None)
+        if callable(roll):
+            # a GlobalRouter upstream: /swap IS the rolling fleet swap —
+            # the router re-posts these props to each worker's /swap one
+            # at a time, holding the ready floor between hops
+            return roll(model, dict(props), warm=warm)
         loader = FAMILIES.get(model)
         if loader is None:
             raise UnknownModelError(
@@ -435,9 +441,14 @@ def redis_score_frontend(batcher: BucketedMicrobatcher,
                          request_queue: str = "scoreRequestQueue",
                          response_queue: str = "scoreResponseQueue",
                          ) -> QueueScoreFrontend:
-    """The Redis wiring of :class:`QueueScoreFrontend`.  The RESP client
-    (``pipeline/resp.py``) is not ported yet, so this raises before any
-    connection, as the RL loop's Redis transports do."""
-    from avenir_tpu_torch.pipeline.streaming import _refuse_redis
+    """The Redis wiring of :class:`QueueScoreFrontend` over the package's
+    stdlib RESP client — the scoring-plane twin of the RL loop's
+    RedisEventSource/RedisActionWriter transports."""
+    from avenir_tpu_torch.pipeline.resp import RedisListQueue, RespClient
 
-    _refuse_redis("redis_score_frontend")
+    client = RespClient(host, port, db=db)
+    return QueueScoreFrontend(
+        batcher,
+        RedisListQueue(request_queue, client=client),
+        RedisListQueue(response_queue,
+                       client=RespClient(host, port, db=db)))

@@ -1,7 +1,5 @@
 """Tenant contracts — the declarative ``tenant.*`` conf family; port of
-``avenir_tpu/tenancy/contract.py`` (its ``split_contracts``, which slices
-the contracts across a fleet of serving processes, waits with that fleet:
-ROADMAP.md, Queue 1 item 7h-ii).
+``avenir_tpu/tenancy/contract.py``.
 
 Grammar (properties file, the reference's ``-D`` contract), mirroring the
 ``slo.<name>.*`` rule family — the ``share`` key is the
@@ -126,6 +124,44 @@ def contracts_from_conf(conf) -> Dict[str, TenantContract]:
             queue_timeout_s=(float(timeout_ms) / 1e3
                              if timeout_ms is not None else None),
         )
+    return out
+
+
+def split_contracts(conf, nworkers: int) -> Dict[str, str]:
+    """One serving worker's 1/N slice of the conf's tenant contracts, as
+    ``-D``-able conf overrides.
+
+    The fleet launcher hands EVERY worker the same properties file; these
+    overrides re-scope the absolute quotas so that N workers' local DRR
+    arbitration sums back to the declared GLOBAL contract:
+
+    - ``max.inflight`` and ``queue.depth`` are absolute counts →
+      ceil-divided across workers (ceil, so N workers' slices always
+      cover the global quota — the router's OWN door enforces the exact
+      fleet-wide ceiling with the unsplit contracts, so a worker-side
+      over-grant of < 1 slot per worker never admits past the global
+      limit);
+    - ``share`` and ``priority`` are RELATIVE weights/tiers — identical
+      on every worker, a 3:1 split arbitrates 3:1 locally and therefore
+      3:1 globally — so they are not overridden;
+    - ``queue.timeout.ms`` and ``slo.*`` are per-request/per-journal
+      semantics, unsplit.
+
+    Raises the same ConfigError a malformed contract raises anywhere
+    (the split must not silently launder a typo into a running fleet)."""
+    from avenir_tpu_torch.core.config import ConfigError
+
+    if nworkers < 1:
+        raise ConfigError(
+            f"split_contracts needs nworkers >= 1, got {nworkers}")
+    out: Dict[str, str] = {}
+    for name, contract in contracts_from_conf(conf).items():
+        if contract.max_inflight:
+            out[f"tenant.{name}.max.inflight"] = str(
+                -(-contract.max_inflight // nworkers))
+        if contract.queue_depth:
+            out[f"tenant.{name}.queue.depth"] = str(
+                max(-(-contract.queue_depth // nworkers), 1))
     return out
 
 

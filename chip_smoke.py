@@ -329,15 +329,49 @@ Phases, in order; any failure exits non-zero:
     11's one-process history; (f) the join against a bound socket that
     never listens raises ``LaunchError`` within its 3 s timeout; one
     ``fleet`` JSON line;
-18. print a ``walls_s`` JSON line (the native encoder's build, native
+18. (after 17; ~60–120 s) the serving fleet on the card, over phase 12c's
+    models and rows, every worker a serving CLI process with its own CUDA
+    context on ``cuda:0`` (those that serve kNN inside ``chip_smoke.py
+    --serve-worker``, which sets the launch counts to 0 before the CLI
+    loads and warms and writes them out after SIGTERM).  A serving conf holds
+    one schema, so: (a) two ``python -m avenir_tpu_torch.launch --serve
+    --nprocs 2 --http-port 0`` fleets side by side, ``knn`` over phase
+    8a's 1M references (B5) and ``knn10k`` over 8b's 10K (B6): the rows
+    POSTed to each router answer as phase 12c's replays, ``/healthz``
+    aggregates both workers, ``/metrics`` carries ``worker="router"``,
+    the workers' ``/stats`` requests sum to the rows, each worker's own
+    B5/B6 count equals its 7 warmed buckets plus its ``/stats``
+    dispatches (between ceil(requests / 8) and requests: the router's 8
+    client threads POST single rows), and after SIGTERM the merged
+    ``fleet-<run>.jsonl`` holds one ``serve.request`` span per router
+    rid; (b) NB and the tree behind an in-process ``GlobalRouter`` over
+    the port's ``WorkerSpawner`` with ``fleet.pool.autoscale.on`` (min
+    2): ``w0`` SIGKILLed a quarter into 2,000 NB requests, every answer
+    phase 12c's, none lost or doubled, ``failovers`` ≥ 1, a
+    ``fleet.pool.scale`` up/replace and the replacement answering; (c)
+    ``POST /swap`` of NB to a second artifact through the router: both
+    live workers at version 2, ready capacity at the floor or above, and
+    both answering as the new artifact's batch predictor; (d) a RESP
+    server in this process on port 0 and two serving CLI workers with
+    ``serve.request.queue`` (NB and ``knn10k``): LPUSHed rows answer as
+    phase 12c's replays, each worker's requests equal the rows and its own
+    counts its warmed buckets plus dispatches (B6; none for NB), and the
+    lead-gen loop over
+    the three ``Redis*`` transports equals the loop over ``InProcQueue``s;
+    (e) ``ProcessServingFleet`` (2 forked workers, each a bad fork of this
+    CUDA process where any CUDA call raises) equals
+    ``ShardedServingFleet``; one ``serve_fleet`` JSON line with every
+    wall and the routers' ``stats()``;
+19. print a ``walls_s`` JSON line (the native encoder's build, native
     against Python encode, phases 3, 4, 5b, 5c, 8, 11, 11b, 12b, 12c,
-    13, 14, 15, 16 and 17's walls) with the card's name and power limit,
+    13, 14, 15, 16, 17 and 18's walls) with the card's name and power limit,
     then the kernels' JSON line (B1's and B4's launches also by phase 12's
     traced paths, B1's by 12b's planned paths, 13's stream and tenant
     paths, 14's sharded paths, 15's ``auto_*`` paths and 17's ``fleet_*``
     paths by rank, B2's by 17's ``fleet_mi_wide`` ranks, B4's by 15's
-    tree jobs and 13's tree refit, B5's and B6's by 12c's serving paths
-    and 16's ``mm_*`` paths and B5's by 13's tenant path), its numbers
+    tree jobs and 13's tree refit, B5's and B6's by 12c's serving paths,
+    16's ``mm_*`` paths and 18's ``serve_fleet_w<k>`` workers (B6's also
+    by 18's ``serve_resp`` worker) and B5's by 13's tenant path), its numbers
     from the main-path cases of phases 6 and 9 (B1: a hospital MI chunk;
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
     hospital tree's deepest level, with the forest's launches and its
@@ -568,6 +602,14 @@ def gram_bound(f: int, n: int, g_cells: int, used: int, n_eff: int) -> dict:
     nbytes, ops = hist.gram_work(f, n, g_cells, used, n_eff)
     return {"bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
             "dense_ops_bound_ms": ops / PEAK_INT8_OPS * 1e3}
+
+
+def write_props(path: str, props: dict) -> str:
+    """A properties file of ``props`` (keys whose value is None left out)."""
+    with open(path, "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in props.items()
+                         if v is not None))
+    return path
 
 
 def ops_module(name: str):
@@ -1233,10 +1275,7 @@ def pipeline_conf(work: str, name: str, train: str, schema: str) -> str:
         "stream.chunk.rows": str(CHUNK_ROWS),
         "mutual.info.score.algorithms": "mim,mifs,jmi,disr,mrmr",
     }
-    path = os.path.join(work, f"{name}.properties")
-    with open(path, "w") as fh:
-        fh.write("".join(f"{k}={v}\n" for k, v in props.items()))
-    return path
+    return write_props(os.path.join(work, f"{name}.properties"), props)
 
 
 def compare_rel(a_path: str, b_path: str, rtol: float) -> float:
@@ -1874,9 +1913,8 @@ def correlation_phase(rec: Recorder, work: str, train: str, schema: str,
         props[f"pipeline.stage.{stage}.job"] = job
         props[f"pipeline.stage.{stage}.input"] = "train"
         props[f"pipeline.stage.{stage}.output"] = f"{stage}_out"
-    conf_path = os.path.join(work, "corr_pipeline.properties")
-    with open(conf_path, "w") as fh:
-        fh.write("".join(f"{k}={v}\n" for k, v in props.items()))
+    conf_path = write_props(os.path.join(work, "corr_pipeline.properties"),
+                            props)
     ws = os.path.join(work, "ws_corr")
     reset_counts()
     t0 = time.perf_counter()
@@ -3394,11 +3432,7 @@ def planner_conf(work: str, name: str, train: str, test: str, schema: str,
         "mutual.info.score.algorithms": "mim,mifs,jmi,disr,mrmr",
         **extra,
     }
-    path = os.path.join(work, f"{name}.properties")
-    with open(path, "w") as fh:
-        fh.write("".join(f"{k}={v}\n" for k, v in props.items()
-                         if v is not None))
-    return path
+    return write_props(os.path.join(work, f"{name}.properties"), props)
 
 
 def corr_conf(work: str, name: str, train: str, schema: str,
@@ -3425,11 +3459,7 @@ def corr_conf(work: str, name: str, train: str, schema: str,
         "stream.chunk.rows": str(CHUNK_ROWS),
         **extra,
     }
-    path = os.path.join(work, f"{name}.properties")
-    with open(path, "w") as fh:
-        fh.write("".join(f"{k}={v}\n" for k, v in props.items()
-                         if v is not None))
-    return path
+    return write_props(os.path.join(work, f"{name}.properties"), props)
 
 
 def planner_phase(rec: Recorder, work: str, train: str, test: str,
@@ -3560,6 +3590,31 @@ class FirstCapture(NeighborCapture):
         super().__setattr__(key, value)
 
 
+def serve_families(work: str, schema: str) -> dict:
+    """Phase 12c's served models: name → (the family's conf keys, the
+    request rows' CSV), over the artifacts of phases 3, 4, 8 and 11."""
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    hospc = {"feature.schema.file.path": schema}
+    return {
+        "naiveBayes": ({**hospc, "bayesian.model.file.path": j("cuda_nb")},
+                       j("serve_hosp.csv")),
+        "tree": ({**hospc, "tree.model.file.path": j("cuda_tree")},
+                 j("serve_hosp.csv")),
+        "logistic": ({**hospc, "coeff.file.path": j("lr_resume_coeff.txt")},
+                     j("serve_hosp.csv")),
+        "viterbi": ({"hmm.model.file.path":
+                     j("HiddenMarkovModelBuilder_cuda"),
+                     "serve.sequence.pad.len": "256"}, j("serve_obs.csv")),
+        "knn": ({"feature.schema.file.path": j("elearn.json"),
+                 "training.data.path": j("elearn_train.csv"),
+                 "top.match.count": str(KNN_K)}, j("serve_knn1m.csv")),
+        "knn10k": ({"feature.schema.file.path": j("elearn_small.json"),
+                    "training.data.path": j("small_train.csv"),
+                    "top.match.count": str(KNN_K),
+                    "kernel.function": "gaussian"}, j("small_test.csv")),
+    }
+
+
 def serving_phase(rec: Recorder, work: str, test: str, schema: str,
                   used: dict, walls: dict) -> dict:
     """Phase 12c: the serving plane on the card; returns B5's and B6's
@@ -3582,7 +3637,6 @@ def serving_phase(rec: Recorder, work: str, test: str, schema: str,
     events), beside each bucket's whole dispatch; requests/s and p50/p99
     per model printed."""
     import functools
-    import urllib.request
 
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.jobs import get_job
@@ -3603,28 +3657,12 @@ def serving_phase(rec: Recorder, work: str, test: str, schema: str,
 
     j = lambda *p: os.path.join(work, *p)  # noqa: E731
     hosp = head(test, j("serve_hosp.csv"), SERVE_ROWS)
-    obs = head(j("obs.csv"), j("serve_obs.csv"), 300)
+    head(j("obs.csv"), j("serve_obs.csv"), 300)
     knn1m = head(j("elearn_test.csv"), j("serve_knn1m.csv"),
                  SERVE_KNN_1M_ROWS)
-    elearn = {"feature.schema.file.path": j("elearn.json"),
-              "training.data.path": j("elearn_train.csv"),
-              "top.match.count": str(KNN_K)}
-    small = {"feature.schema.file.path": j("elearn_small.json"),
-             "training.data.path": j("small_train.csv"),
-             "top.match.count": str(KNN_K), "kernel.function": "gaussian"}
+    families = serve_families(work, schema)
+    small = families["knn10k"][0]
     hospc = {"feature.schema.file.path": schema}
-    families = {
-        "naiveBayes": ({**hospc, "bayesian.model.file.path": j("cuda_nb")},
-                       hosp),
-        "tree": ({**hospc, "tree.model.file.path": j("cuda_tree")}, hosp),
-        "logistic": ({**hospc, "coeff.file.path": j("lr_resume_coeff.txt")},
-                     hosp),
-        "viterbi": ({"hmm.model.file.path":
-                     j("HiddenMarkovModelBuilder_cuda"),
-                     "serve.sequence.pad.len": "256"}, obs),
-        "knn": (elearn, knn1m),
-        "knn10k": (small, j("small_test.csv")),
-    }
     # the batch jobs' part files on the same rows, on cuda
     t0 = time.perf_counter()
     oracle = {}
@@ -3711,13 +3749,7 @@ def serving_phase(rec: Recorder, work: str, test: str, schema: str,
     srv = ScoreHTTPServer(batcher, host="127.0.0.1", port=0).start()
     try:
         base = "http://%s:%d" % srv.address
-
-        def call(path, payload=None):
-            data = None if payload is None else json.dumps(payload).encode()
-            req = urllib.request.Request(base + path, data=data)
-            with urllib.request.urlopen(req, timeout=120) as resp:
-                return resp.status, resp.read()
-
+        call = functools.partial(http_get, base)
         for name, (_props, rows) in families.items():
             sent = read_lines(rows)[:5]
             status, body = call("/score", {"model": name, "rows": sent})
@@ -5378,6 +5410,750 @@ def fleet_phase(work: str, train: str, schema: str, walls: dict,
             "B2": per_rank("mi_wide", "B2")}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the serving fleet (launch --serve, GlobalRouter, RESP)
+# ---------------------------------------------------------------------------
+
+SERVE_WARMED = 7             # serve.bucket.sizes 1, 2, ..., 64: one B5/B6 each
+SERVE_MAX_BUCKET = 64
+ROUTER_THREADS = 8           # fleet.pool.client.threads: the router's POSTs
+FAILOVER_ROWS = 2000         # phase 12c's hospital rows, NB through a router
+LEAD_GEN_ROUNDS = 600
+
+
+def serve_worker(out_dir: str, argv: list) -> int:
+    """One serving worker of phase 18: ``chip_smoke.py --serve-worker
+    <dir> <serving CLI arguments>``, started by the fleet's spawner
+    (``launch --serve ... -- chip_smoke.py --serve-worker <dir>``) or by
+    the RESP drill.  Sets every launch count to 0, runs the serving CLI
+    (model load, the warmed buckets, then HTTP until SIGTERM) in this
+    process, and on the way out writes the counts it reads to
+    ``<dir>/<shard suffix>.json``."""
+    from avenir_tpu_torch.launch import ENV_SUFFIX
+    from avenir_tpu_torch.serving.__main__ import main as serve_main
+
+    reset_counts()
+    rc = serve_main(argv)
+    path = os.path.join(out_dir, (os.environ.get(ENV_SUFFIX) or "worker")
+                        + ".json")
+    with open(path + ".tmp", "w") as fh:
+        json.dump({"launches": read_counts(), "rc": rc}, fh)
+    os.replace(path + ".tmp", path)
+    return rc
+
+
+def serve_worker_argv(out_dir: str) -> list:
+    os.makedirs(out_dir, exist_ok=True)
+    return [os.path.join(HERE, "chip_smoke.py"), "--serve-worker", out_dir]
+
+
+class Child:
+    """A child process of this script whose merged output a thread reads
+    line by line, so that its pipe never fills."""
+
+    def __init__(self, argv, env=None):
+        import threading
+
+        self.argv = argv
+        self.proc = subprocess.Popen(argv, cwd=HERE, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+        self.lines = []
+        self.stamps = []                 # perf_counter as each line came
+        self._cond = threading.Condition()
+        self._eof = False
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self._cond:
+                self.lines.append(line.rstrip("\n"))
+                self.stamps.append(time.perf_counter())
+                self._cond.notify_all()
+        with self._cond:
+            self._eof = True
+            self._cond.notify_all()
+
+    def wait_for(self, pattern: str, timeout_s: float):
+        """The match of the first output line matching ``pattern`` (its
+        arrival in ``matched_at``); raises when the child ends first or the
+        deadline passes."""
+        import re
+
+        rx = re.compile(pattern)
+        deadline = time.monotonic() + timeout_s
+        seen = 0
+        with self._cond:
+            while True:
+                for i in range(seen, len(self.lines)):
+                    m = rx.search(self.lines[i])
+                    if m:
+                        self.matched_at = self.stamps[i]
+                        return m
+                seen = len(self.lines)
+                left = deadline - time.monotonic()
+                if self._eof or left <= 0:
+                    raise AssertionError(
+                        f"{' '.join(self.argv[:4])}: no line matching "
+                        f"{pattern!r} ({'exited' if self._eof else 'timed out'}"
+                        f"):\n" + "\n".join(self.lines[-40:]))
+                self._cond.wait(min(left, 1.0))
+
+    def stop(self, timeout_s: float = 120.0) -> int:
+        """SIGTERM, then the exit code once its output is read."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout_s)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        self._reader.join(timeout=30.0)
+        return rc
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def http_get(base: str, path: str, payload=None, timeout_s: float = 120.0):
+    """(status, body bytes) of a GET, or a POST of ``payload`` as JSON."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+        return resp.status, resp.read()
+
+
+def worker_stats(url: str, model: str) -> dict:
+    """One serving worker's dispatches (its ``/stats`` histogram) and
+    requests; no recompiles."""
+    _, body = http_get(url, "/stats")
+    st = json.loads(body)[model]
+    dispatches = sum(v for k, v in st.items() if k.startswith("bucket."))
+    if st["batches"] != dispatches or st.get("recompiles", 0):
+        raise AssertionError(f"worker {url} stats {st}")
+    return {"dispatches": dispatches, "requests": st["requests"]}
+
+
+def held_launches(counts_file: str, kid, stats: dict, most_rows: int,
+                  dev: str) -> dict:
+    """A stopped ``--serve-worker``'s launch counts, read back from its
+    file and held to phase 12c's reckoning: on the card ``kid`` (B5, B6 or
+    None) launched once per warmed bucket and once per dispatch, and no
+    other kernel ran; on the CPU nothing launched.  The dispatches lie
+    between one a request and ``requests / most_rows``, the most rows
+    one batch could hold: the clients' concurrency, or the top bucket."""
+    import math
+
+    with open(counts_file) as fh:
+        rec = json.load(fh)
+    d, n = stats["dispatches"], stats["requests"]
+    want = only(**({kid: SERVE_WARMED + d} if kid and dev == "cuda"
+                    else {}))
+    if rec["rc"] != 0 or rec["launches"] != want or \
+            not math.ceil(n / most_rows) <= d <= n:
+        raise AssertionError(f"{counts_file}: launches {rec}, want {want}; "
+                             f"{d} dispatches for {n} requests at most "
+                             f"{most_rows} rows a batch")
+    return {"launches": rec["launches"][kid] if kid else 0, **stats}
+
+
+def scored_rids(journal: str) -> dict:
+    """Router rid (``g<n>.a<k>``) → its closed ``serve.request`` spans."""
+    from avenir_tpu_torch.telemetry.journal import read_events
+
+    out = {}
+    for e in read_events(journal):
+        if e.get("ev") == "span.close" and e.get("name") == "serve.request":
+            rid = (e.get("attrs") or {}).get("rid") or ""
+            if rid.startswith("g"):
+                out[rid] = out.get(rid, 0) + 1
+    return out
+
+
+def start_serve_fleet(work: str, name: str, props: dict, model: str,
+                      dev: str) -> Child:
+    """``python -m avenir_tpu_torch.launch --serve --nprocs 2 --http-port 0``
+    over one traced serving conf (its workers on the entry's default,
+    ``cuda``, unless ``dev`` is the CPU), each worker the serving CLI
+    inside ``chip_smoke.py --serve-worker``, which counts its launches
+    into ``<work>/counts_<name>/w<k>.json``."""
+    conf = write_props(os.path.join(work, f"fleet_{name}.properties"), {
+        **props, "serve.models": model,
+        "serve.request.timeout.ms": "60000", "trace.on": "true",
+        "trace.journal.dir": os.path.join(work, f"fleet_tel_{name}"),
+        "trace.run.id": f"serve-{name}",
+        "fleet.pool.client.threads": str(ROUTER_THREADS)})
+    return Child([sys.executable, "-m", "avenir_tpu_torch.launch", "--serve",
+                  "--conf", conf, "--nprocs", str(FLEET_PROCS),
+                  "--http-port", "0", *device_flag(dev), "--",
+                  *serve_worker_argv(os.path.join(work, f"counts_{name}"))],
+                 env={**os.environ, "PYTHONPATH": HERE})
+
+
+def drive_serve_fleet(child: Child, work: str, name: str, model: str,
+                      rows: list, want: list, t_start: float,
+                      dev: str) -> dict:
+    """Phase 18 (a) on one fleet: POST the rows to the router (answers =
+    ``want``), ``/healthz`` aggregating both workers, ``/metrics`` under
+    ``worker="router"``, the workers' ``/stats`` requests summing to the
+    rows; then SIGTERM: every router rid scored exactly once in the
+    merged journal, the router's stats printed, and each worker's own
+    launch counts held to its ``/stats`` dispatches (at most
+    ROUTER_THREADS rows a batch: the router's POSTs are single rows)."""
+    m = child.wait_for(r"GlobalServe fronting (\d+) worker\(s\) .* on "
+                       r"http://([^\s:]+):(\d+)", 600.0)
+    up_s = child.matched_at - t_start
+    base = f"http://{m.group(2)}:{m.group(3)}"
+    t0 = time.perf_counter()
+    status, body = http_get(base, "/score", {"model": model, "rows": rows})
+    score_s = time.perf_counter() - t0
+    if status != 200 or json.loads(body)["results"] != want:
+        raise AssertionError(f"fleet {name}: the router's answers differ "
+                             f"from phase 12c's")
+    status, body = http_get(base, "/healthz")
+    health = json.loads(body)
+    if status != 200 or not health["ready"] or \
+            [(r["worker"], r["ready"]) for r in health["workers"]] != \
+            [(f"w{k}", True) for k in range(FLEET_PROCS)]:
+        raise AssertionError(f"fleet {name}: /healthz {health}")
+    status, body = http_get(base, "/metrics")
+    if status != 200 or b'worker="router"' not in body:
+        raise AssertionError(f"fleet {name}: /metrics {status}")
+    served = {r["worker"]: worker_stats(r["url"], model)
+              for r in health["workers"]}
+    if sum(st["requests"] for st in served.values()) != len(rows):
+        raise AssertionError(f"fleet {name}: the workers' requests {served} "
+                             f"do not sum to the {len(rows)} rows")
+    t0 = time.perf_counter()
+    rc = child.stop()
+    stop_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"fleet {name} exited {rc}:\n" +
+                             "\n".join(child.lines[-40:]))
+    kid = {"knn": "B5", "knn10k": "B6"}[name]
+    workers = {w: held_launches(os.path.join(work, f"counts_{name}",
+                                             f"{w}.json"),
+                                kid, st, ROUTER_THREADS, dev)
+               for w, st in served.items()}
+    merged = child.wait_for(r"^\[fleet\] merged journal: (\S+)$", 1.0)
+    stats = json.loads([ln for ln in child.lines if ln.startswith("{")][-1])
+    scored = scored_rids(merged.group(1))
+    bases = {rid.rsplit(".a", 1)[0] for rid in scored}
+    if set(scored.values()) != {1} or \
+            bases != {f"g{i}" for i in range(1, len(rows) + 1)} or \
+            stats[model]["requests"] != len(rows):
+        raise AssertionError(f"fleet {name}: journal {len(scored)} spans "
+                             f"over {len(bases)} rids, stats {stats}")
+    log(f"serve fleet (a) {name}: launch --serve up in {up_s:.2f} s, "
+        f"{len(rows)} rows through the router in {score_s:.3f} s equal to "
+        f"phase 12c's, /healthz {len(health['workers'])} workers ready, "
+        f"/metrics worker=\"router\", one serve.request span per router rid, "
+        f"stopped in {stop_s:.2f} s; each worker's own {kid} count = "
+        f"{SERVE_WARMED} warmed + its dispatches: {json.dumps(workers)}")
+    log(json.dumps({"serve_fleet_router_stats": {name: stats}}))
+    return {"workers": workers, "walls": {"up_s": up_s, "score_s": score_s,
+                                          "stop_s": stop_s},
+            "stats": stats}
+
+
+def failover_and_swap(work: str, schema: str, rows: list, want: list,
+                      nb2: str, want2: list, dev: str) -> dict:
+    """Phase 18 (b) and (c): an in-process ``GlobalRouter`` over the
+    port's ``WorkerSpawner`` (NB and the tree from phase 12c's conf, two
+    workers, ``fleet.pool.autoscale.on`` with min 2): ``w0`` SIGKILLed
+    once a quarter of the stream is answered; every answer = ``want``,
+    none lost or doubled, the replacement spawned and serving; then
+    ``POST /swap`` of NB to ``nb2`` through the router's front end: each
+    live worker at version 2, ready capacity at the floor or above, and
+    both answering ``want2``."""
+    import signal
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.serving import ScoreHTTPServer
+    from avenir_tpu_torch.serving.global_pool import (GlobalRouter,
+                                                      WorkerClient,
+                                                      WorkerSpawner)
+    from avenir_tpu_torch.telemetry import spans as tel
+    from avenir_tpu_torch.telemetry.journal import read_events
+
+    families = serve_families(work, schema)
+    props = {**families["naiveBayes"][0], **families["tree"][0],
+             "serve.models": "naiveBayes,tree",
+             "serve.request.timeout.ms": "60000",
+             "fleet.pool.autoscale.on": "true",
+             "fleet.pool.autoscale.min": "2",
+             "fleet.pool.autoscale.interval.sec": "0.5",
+             "fleet.pool.monitor.interval.ms": "100",
+             "fleet.pool.failover.retries": "2",
+             "fleet.pool.swap.floor": "1"}
+    conf = write_props(os.path.join(work, "fleet_failover.properties"),
+                       props)
+    journal_dir = tempfile.mkdtemp(prefix="failover_", dir=work)
+    tel.tracer().enable(journal_dir)
+    spawner = WorkerSpawner(conf, "serve-failover", echo=False,
+                            device="cpu" if dev == "cpu" else None,
+                            env={**os.environ, "PYTHONPATH": HERE})
+    walls = {}
+    t0 = time.perf_counter()
+    workers = [spawner.spawn() for _ in range(FLEET_PROCS)]
+    walls["spawn 2 workers"] = time.perf_counter() - t0
+    router = GlobalRouter.from_conf(JobConfig(props), workers=workers,
+                                    spawner=spawner.spawn)
+    try:
+        t0 = time.perf_counter()
+        reqs = [router.submit_nowait("naiveBayes", ln) for ln in rows]
+        deadline = time.monotonic() + 300.0
+        while sum(r.result is not None for r in reqs) < len(rows) // 4:
+            if time.monotonic() > deadline:
+                raise AssertionError("failover: the stream stalled")
+            time.sleep(0.005)
+        os.kill(workers[0].proc.pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        got = [r.wait(120.0) for r in reqs]
+        walls["stream with w0 killed"] = time.perf_counter() - t0
+        if got != want:
+            raise AssertionError("failover: answers differ from phase 12c's")
+        deadline = time.monotonic() + 300.0
+        while time.monotonic() < deadline:
+            fleet = router.stats()["fleet"]
+            if fleet.get("workers.spawned") == 1 and fleet["ready"] == 2:
+                break
+            time.sleep(0.1)
+        walls["kill to replacement ready"] = time.perf_counter() - t_kill
+        stats = router.stats()
+        fleet = stats["fleet"]
+        if fleet.get("workers.spawned") != 1 or fleet["ready"] != 2 or \
+                fleet.get("workers.lost") != 1 or \
+                fleet.get("failovers", 0) < 1 or \
+                stats["naiveBayes"]["requests"] != len(rows):
+            raise AssertionError(f"failover: router stats {stats}")
+        rows_by = {r["worker"]: r for r in router.health()["workers"]}
+        if sorted(rows_by) != ["w0", "w1", "w2"] or rows_by["w0"]["alive"]:
+            raise AssertionError(f"failover: fleet {rows_by}")
+        clients = {w: WorkerClient(*rows_by[w]["url"][7:].split(":"), name=w)
+                   for w in ("w1", "w2")}
+        if clients["w2"].score("naiveBayes", rows[:64]) != want[:64]:
+            raise AssertionError("failover: the replacement's answers differ")
+        log(f"serve fleet (b): w0 SIGKILLed after {len(rows) // 4} of "
+            f"{len(rows)} answers; all {len(rows)} byte-identical to phase "
+            f"12c's in {walls['stream with w0 killed']:.3f} s, "
+            f"{fleet['failovers']} failed over, requests "
+            f"{stats['naiveBayes']['requests']} (none lost or doubled); w2 "
+            f"spawned and ready {walls['kill to replacement ready']:.2f} s "
+            f"after the kill and answering")
+
+        # (c) the rolling swap through the router's front end
+        t0 = time.perf_counter()
+        with ScoreHTTPServer(router) as front:
+            status, body = http_get(
+                "http://%s:%d" % front.address, "/swap",
+                {"model": "naiveBayes",
+                 "props": {"feature.schema.file.path": schema,
+                           "bayesian.model.file.path": nb2}})
+        walls["rolling swap"] = time.perf_counter() - t0
+        swap = json.loads(body)
+        if status != 200 or swap["versions"] != {"w1": 2, "w2": 2} or \
+                swap["min_ready"] < swap["floor"]:
+            raise AssertionError(f"swap: {status} {swap}")
+        for w, client in clients.items():
+            if client.score("naiveBayes", rows[:256]) != want2[:256]:
+                raise AssertionError(f"swap: {w} does not answer as the "
+                                     f"new artifact's one-process plane")
+        log(f"serve fleet (c): POST /swap to the router rolled NB to a second "
+            f"artifact in {walls['rolling swap']:.2f} s: versions "
+            f"{swap['versions']}, min_ready {swap['min_ready']} >= floor "
+            f"{swap['floor']}; w1 and w2 answer as the new plane")
+        stats = router.stats()
+    finally:
+        router.close(retire_workers=True)
+        tel.tracer().disable()
+    events = [e for name in os.listdir(journal_dir)
+              for e in read_events(os.path.join(journal_dir, name))]
+    scales = [(e["direction"], e["reason"]) for e in events
+              if e["ev"] == "fleet.pool.scale"]
+    ups = [(e["worker"], e["reason"]) for e in events
+           if e["ev"] == "fleet.pool.worker.up"]
+    downs = [(e["worker"], e["reason"]) for e in events
+             if e["ev"] == "fleet.pool.worker.down"]
+    swaps = [e["worker"] for e in events if e["ev"] == "fleet.pool.swap"]
+    if scales != [("up", "replace")] or ("w2", "replace") not in ups or \
+            ("w0", "died") not in downs or swaps != ["w1", "w2"]:
+        raise AssertionError(f"failover journal: scale {scales}, up {ups}, "
+                             f"down {downs}, swaps {swaps}")
+    log(json.dumps({"serve_fleet_router_stats": {"failover": stats}}))
+    return walls
+
+
+def fake_redis():
+    """A threaded RESP server on 127.0.0.1, port 0, with the list commands
+    the RL loop and the scoring front end use (there is no Redis here)."""
+    import socketserver
+    import threading
+    from collections import defaultdict, deque
+
+    class Handler(socketserver.BaseRequestHandler):
+        def handle(self):
+            buf = b""
+            while True:
+                try:
+                    chunk = self.request.recv(65536)
+                except OSError:
+                    return
+                if not chunk:
+                    return
+                buf += chunk
+                while True:
+                    args, buf = self._parse(buf)
+                    if args is None:
+                        break
+                    self.request.sendall(self._execute(args))
+
+        @staticmethod
+        def _parse(buf):
+            if not buf.startswith(b"*") or b"\r\n" not in buf:
+                return None, buf
+            head, rest = buf.split(b"\r\n", 1)
+            args = []
+            for _ in range(int(head[1:])):
+                if not rest.startswith(b"$") or b"\r\n" not in rest:
+                    return None, buf
+                lh, rest2 = rest.split(b"\r\n", 1)
+                n = int(lh[1:])
+                if len(rest2) < n + 2:
+                    return None, buf
+                args.append(rest2[:n].decode())
+                rest = rest2[n + 2:]
+            return args, rest
+
+        def _execute(self, args):
+            lists = self.server.lists
+            bulk = lambda v: b"$%d\r\n%s\r\n" % (len(v.encode()),  # noqa
+                                                 v.encode())
+            with self.server.lock:
+                cmd = args[0].upper()
+                if cmd == "PING":
+                    return b"+PONG\r\n"
+                if cmd == "SELECT":
+                    return b"+OK\r\n"
+                if cmd == "LPUSH":
+                    lists[args[1]].appendleft(args[2])
+                    return b":%d\r\n" % len(lists[args[1]])
+                if cmd == "RPOP":
+                    q = lists.get(args[1])
+                    if len(args) == 3:
+                        if not q:
+                            return b"*-1\r\n"
+                        vals = [q.pop() for _ in range(min(int(args[2]),
+                                                           len(q)))]
+                        return b"*%d\r\n" % len(vals) + b"".join(
+                            bulk(v) for v in vals)
+                    return bulk(q.pop()) if q else b"$-1\r\n"
+                if cmd == "LLEN":
+                    return b":%d\r\n" % len(lists.get(args[1], ()))
+                if cmd == "DEL":
+                    return b":%d\r\n" % int(lists.pop(args[1], None)
+                                            is not None)
+                return b"-ERR unknown command '%s'\r\n" % cmd.encode()
+
+    srv = socketserver.ThreadingTCPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    srv.lists = defaultdict(deque)
+    srv.lock = threading.Lock()
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv
+
+
+def lead_gen_loop(transport: str, address) -> tuple:
+    """The lead-gen closed loop (intervalEstimator, seeded rewards) over
+    the three ``Redis*`` transports or ``InProcQueue``s: (actions, the
+    learner's checkpoint)."""
+    import numpy as np
+
+    from avenir_tpu_torch.models import online_rl as orl
+    from avenir_tpu_torch.pipeline import resp
+    from avenir_tpu_torch.pipeline import streaming as st
+
+    ctr = {"page1": (30, 12), "page2": (60, 30), "page3": (80, 10)}
+    rng = np.random.default_rng(7)
+    learner = orl.create_learner("intervalEstimator", list(ctr),
+                                 {"min.reward.distr.sample": 15}, seed=3)
+    names = ("eventQueue", "actionQueue", "rewardQueue")
+    if transport == "redis":
+        host, port = address
+        server = st.ReinforcementLearnerServer(
+            learner, st.RedisEventSource(host, port, queue=names[0]),
+            st.RedisRewardReader(host, port, queue=names[2]),
+            st.RedisActionWriter(host, port, queue=names[1]))
+        sim = {q: resp.RedisListQueue(q, host=host, port=port) for q in names}
+    else:
+        sim = {q: st.InProcQueue() for q in names}
+        server = st.ReinforcementLearnerServer(
+            learner, st.QueueEventSource(sim[names[0]]),
+            st.QueueRewardReader(sim[names[2]]),
+            st.QueueActionWriter(sim[names[1]]))
+    actions = []
+    for n in range(1, LEAD_GEN_ROUNDS + 1):
+        sim["eventQueue"].push(f"ev{n},{n}")
+        if not server.process_one():
+            raise AssertionError(f"lead-gen over {transport}: no event {n}")
+        msg = sim["actionQueue"].pop()
+        actions.append(msg)
+        page = msg.split(",")[1]
+        sim["rewardQueue"].push(f"{page},{max(rng.normal(*ctr[page]), 0.0)}")
+    return actions, server.checkpoint()
+
+
+def resp_drill(work: str, schema: str, replays: dict, dev: str) -> dict:
+    """Phase 18 (d): the fake RESP server in this process; one serving CLI
+    worker for NB and one for ``knn10k`` (B6), each with
+    ``serve.request.queue`` and the server's bound port (and each inside
+    ``chip_smoke.py --serve-worker``), answer LPUSHed rows as phase 12c's
+    replays, each worker's ``/stats`` requests equal to the rows and its
+    own launch counts to its dispatches (the front end drains the list
+    at once, so up to the top bucket a batch); then the lead-gen loop
+    over the three ``Redis*`` transports equals the loop over
+    ``InProcQueue``s."""
+    from avenir_tpu_torch.jobs.base import read_lines
+    from avenir_tpu_torch.pipeline.resp import RedisListQueue
+
+    families = serve_families(work, schema)
+    srv = fake_redis()
+    host, port = srv.server_address
+    walls, children = {}, {}
+    try:
+        t0 = time.perf_counter()
+        for name, model in (("naiveBayes", "naiveBayes"), ("knn10k", "knn")):
+            conf = write_props(os.path.join(work, f"resp_{name}.properties"),
+                               {**families[name][0], "serve.models": model,
+                                "serve.request.timeout.ms": "60000",
+                                # the front end drains the whole list
+                                # into the queue at once
+                                "serve.queue.depth": "4096"})
+            children[name] = Child(
+                [sys.executable, *serve_worker_argv(
+                    os.path.join(work, f"counts_resp_{name}")),
+                 "--conf", conf, "--http-port", "0",
+                 "-D", f"serve.request.queue={name}Req",
+                 "-D", f"serve.response.queue={name}Resp",
+                 "-D", f"serve.redis.host={host}",
+                 "-D", f"serve.redis.port={port}", *device_flag(dev)],
+                env={**os.environ, "PYTHONPATH": HERE})
+        urls = {}
+        for name, child in children.items():
+            m = child.wait_for(r"^serving .* on (http://[^\s:]+:\d+) ", 600.0)
+            child.wait_for(f"^RESP transport polling '{name}Req'$", 60.0)
+            urls[name] = m.group(1)
+        walls["two RESP workers up"] = time.perf_counter() - t0
+        got = {}
+        for name, model in (("naiveBayes", "naiveBayes"), ("knn10k", "knn")):
+            want = replays[name]
+            requests = RedisListQueue(f"{name}Req", host=host, port=port)
+            responses = RedisListQueue(f"{name}Resp", host=host, port=port)
+            t0 = time.perf_counter()
+            for i, row in enumerate(read_lines(families[name][1])):
+                requests.push(f"r{i},{model},{row}")
+            out = []
+            deadline = time.monotonic() + 300.0
+            while len(out) < len(want) and time.monotonic() < deadline:
+                out += responses.drain()
+                time.sleep(0.002)
+            walls[f"RESP {name} {len(want)} rows"] = time.perf_counter() - t0
+            answers = dict(msg.split(",", 1) for msg in out)
+            if len(out) != len(want) or \
+                    [answers.get(f"r{i}") for i in range(len(want))] != want:
+                raise AssertionError(f"RESP {name}: {len(out)} responses, "
+                                     f"not phase 12c's replay")
+            got[name] = len(out)
+        served = {name: worker_stats(urls[name], model)
+                  for name, model in (("naiveBayes", "naiveBayes"),
+                                      ("knn10k", "knn"))}
+        for name, child in children.items():
+            if child.stop() != 0:
+                raise AssertionError(f"RESP worker {name}:\n" +
+                                     "\n".join(child.lines[-40:]))
+            if served[name]["requests"] != got[name]:
+                raise AssertionError(f"RESP worker {name}: {served[name]} "
+                                     f"for {got[name]} rows")
+        launched = {name: held_launches(
+            os.path.join(work, f"counts_resp_{name}", "worker.json"),
+            {"knn10k": "B6"}.get(name), served[name], SERVE_MAX_BUCKET, dev)
+            for name in children}
+        t0 = time.perf_counter()
+        over_redis = lead_gen_loop("redis", (host, port))
+        walls["lead-gen over Redis"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        in_proc = lead_gen_loop("inproc", None)
+        walls["lead-gen over InProcQueue"] = time.perf_counter() - t0
+    finally:
+        for child in children.values():
+            child.kill()
+        srv.shutdown()
+        srv.server_close()
+    if over_redis != in_proc:
+        raise AssertionError("lead-gen: the Redis transports' actions differ "
+                             "from the in-process queues'")
+    late = [a.split(",")[1] for a in in_proc[0][LEAD_GEN_ROUNDS // 2:]]
+    if max(set(late), key=late.count) != "page3":
+        raise AssertionError("lead-gen: the learner did not converge")
+    log(f"serve fleet (d): RESP on 127.0.0.1:{port} (this process): "
+        f"{got['naiveBayes']} NB and {got['knn10k']} knn10k rows LPUSHed to "
+        f"two serving CLI workers, answers = phase 12c's replays; each "
+        f"worker's own counts = {SERVE_WARMED} warmed + its dispatches "
+        f"{json.dumps(launched)}; the lead-gen loop over the three Redis* "
+        f"transports = over InProcQueues ({LEAD_GEN_ROUNDS} actions, "
+        f"converged on page3)")
+    return {"walls": walls, "b6": launched["knn10k"]}
+
+
+def process_fleet_drill(dev: str) -> dict:
+    """Phase 18 (e): ``ProcessServingFleet`` (2 forked workers) against
+    ``ShardedServingFleet`` on the same learners, on the host.  This
+    process holds a CUDA context, so torch marks each forked worker as a
+    bad fork where any CUDA call raises; every factory call checks that
+    mark, and a worker that touched CUDA would fail ``close()``."""
+    import torch
+
+    from avenir_tpu_torch.models import online_rl as orl
+    from avenir_tpu_torch.pipeline import streaming as st
+
+    on_cuda = dev == "cuda"
+    if on_cuda and not torch.cuda.is_initialized():
+        raise AssertionError("phase 18 (e) expects this process's CUDA "
+                             "context")
+    groups = [f"g{k}" for k in range(8)]
+
+    def factory(forked):
+        def make(group):
+            if torch.cuda._is_in_bad_fork() != forked:
+                raise RuntimeError(f"worker for {group}: bad-fork mark "
+                                   f"{torch.cuda._is_in_bad_fork()}")
+            learner = orl.create_learner(
+                "sampsonSampler", ["p1", "p2", "p3"], {"min.sample": 8},
+                seed=11)
+            srv = st.ReinforcementLearnerServer(
+                learner, st.QueueEventSource(st.InProcQueue()),
+                st.QueueRewardReader(st.InProcQueue()),
+                st.QueueActionWriter(st.InProcQueue()))
+            inner, streams[group] = srv.actions, []
+
+            class Tee:
+                def write(self, event_id, acts):
+                    inner.write(event_id, acts)
+                    streams[group].append((event_id, list(acts)))
+                    srv.rewards.queue.push(
+                        f"{acts[0]},{10.0 * int(acts[0][1:])}")
+
+            srv.actions = Tee()
+            return srv
+        return make
+
+    out = {}
+    for kind, cls in (("threads", st.ShardedServingFleet),
+                      ("processes", st.ProcessServingFleet)):
+        streams = {}
+        t0 = time.perf_counter()
+        fleet = cls(factory(on_cuda and kind == "processes"), num_workers=2,
+                    max_pending=64)
+        for n in range(1, 201):
+            for g in groups:
+                fleet.dispatch(g, f"ev{g}{n}", n)
+        fleet.close()
+        wall = time.perf_counter() - t0
+        if kind == "processes":
+            streams = {g: [] for g in groups}
+            for g, event_id, acts in fleet.actions():
+                streams[g].append((event_id, acts))
+        out[kind] = (streams, fleet.checkpoints(), wall)
+    if out["threads"][:2] != out["processes"][:2]:
+        raise AssertionError("ProcessServingFleet differs from "
+                             "ShardedServingFleet")
+    log(f"serve fleet (e): ProcessServingFleet (2 forked workers, each a bad "
+        f"fork of this CUDA process that never touched CUDA) = "
+        f"ShardedServingFleet: {len(groups)} groups x 200 events, actions and "
+        f"checkpoints equal; {out['processes'][2]:.2f} s against "
+        f"{out['threads'][2]:.2f} s")
+    return {"process fleet": out["processes"][2],
+            "thread fleet": out["threads"][2]}
+
+
+def device_flag(dev: str) -> list:
+    """A child entry's device flag: none on the card (the entry's own
+    default), ``--device cpu`` for a CPU rehearsal."""
+    return ["--device", "cpu"] if dev == "cpu" else []
+
+
+def serve_fleet_phase(work: str, test: str, schema: str, walls: dict,
+                      dev: str = "cuda") -> dict:
+    """Phase 18: the serving fleet on the card, over phase 12c's models and
+    rows; returns B5's and B6's launches by path (each fleet worker's).
+
+    A serving conf holds one schema, so each drill serves one family
+    group: (a) two ``launch --serve`` fleets side by side, ``knn`` over
+    phase 8a's 1M references (B5) and ``knn10k`` over 8b's 10K (B6);
+    (b) and (c) NB and the tree behind an in-process router; (d) NB and
+    ``knn10k`` over RESP; (e) the process fleet on the host.  ``dev``
+    "cpu" rehearses it on the CPU (the children get ``--device cpu``)."""
+    from avenir_tpu_torch.jobs.base import read_lines
+
+    t_phase = time.perf_counter()
+    j = lambda *p: os.path.join(work, *p)  # noqa: E731
+    families = serve_families(work, schema)
+    replays = {name: read_lines(j(f"serve_{name}_replay"))
+               for name in ("naiveBayes", "knn", "knn10k")}
+    fleets = {}
+    t0 = time.perf_counter()
+    children = {name: start_serve_fleet(work, name, families[name][0], "knn",
+                                        dev)
+                for name in ("knn", "knn10k")}
+    try:
+        for name, child in children.items():
+            fleets[name] = drive_serve_fleet(
+                child, work, name, "knn", read_lines(families[name][1]),
+                replays[name], t0, dev)
+    finally:
+        for child in children.values():
+            child.kill()
+    # (c)'s second NB artifact: NB trained on phase 3's test rows
+    run_cli(["BayesianDistribution", f"-Dfeature.schema.file.path={schema}",
+             test, j("fleet_nb_v2"), "--device", dev])
+    run_cli(["BayesianPredictor", f"-Dfeature.schema.file.path={schema}",
+             f"-Dbayesian.model.file.path={j('fleet_nb_v2')}",
+             j("serve_hosp.csv"), j("fleet_nb_v2_pred"), "--device", dev])
+    rows = read_lines(j("serve_hosp.csv"))[:FAILOVER_ROWS]
+    swap_walls = failover_and_swap(work, schema, rows,
+                                   replays["naiveBayes"][:FAILOVER_ROWS],
+                                   j("fleet_nb_v2"),
+                                   read_lines(j("fleet_nb_v2_pred")), dev)
+    resp = resp_drill(work, schema, replays, dev)
+    proc = process_fleet_drill(dev)
+    report = {
+        "card": card_line(),
+        "launch_serve": {name: {**f["walls"], "workers": f["workers"]}
+                         for name, f in fleets.items()},
+        "failover_and_swap_s": swap_walls, "resp_s": resp["walls"],
+        "process_fleet_s": proc,
+        "phase_s": time.perf_counter() - t_phase}
+    walls.update({f"phase 18 {k}": v for k, v in swap_walls.items()})
+    walls.update({f"phase 18 {k}": v for k, v in resp["walls"].items()})
+    for name, f in fleets.items():
+        walls.update({f"phase 18 fleet {name} {k}": v
+                      for k, v in f["walls"].items()})
+    log(json.dumps({"serve_fleet": report}))
+    by_path = lambda name: {  # noqa: E731
+        f"serve_fleet_{w}": rec["launches"]
+        for w, rec in fleets[name]["workers"].items()}
+    return {"B5": by_path("knn"),
+            "B6": {**by_path("knn10k"), "serve_resp": resp["b6"]["launches"]}}
+
+
 def kernel_entry(kid, name, source, replaces, launches_by_path, cases):
     """The kernels-line entry: numbers from the main path's own case."""
     path, which = MAIN_PATH[kid]
@@ -5408,6 +6184,9 @@ def main(argv=None) -> int:
 
     import torch
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--serve-worker"]:    # the serving CLI's own arguments
+        return serve_worker(argv[1], argv[2:])   # follow the counts' dir
     ap = argparse.ArgumentParser(description="Chip smoke test of the port.")
     ap.add_argument("--b4", action="store_true",
                     help="time B4 (csrc/cross.cu) alone: phase 2's B4 cases, "
@@ -5489,6 +6268,9 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         fleet = fleet_phase(work, train, schema, walls)
         walls["phase 17"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        served_fleet = serve_fleet_phase(work, test, schema, walls)
+        walls["phase 18"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
     all_cases += path_cases(hist, rec)       # phase 13's and 14's calls
@@ -5520,11 +6302,13 @@ def main(argv=None) -> int:
                      all_cases),
         kernel_entry("B5", "knn_tourney (B5)", src + "knn_tourney.cu",
                      "avenir_tpu/ops/pallas_knn.py:290",
-                     {**b5, **streamed["B5"], **mm.get("B5", {})},
+                     {**b5, **streamed["B5"], **mm.get("B5", {}),
+                      **served_fleet["B5"]},
                      all_cases),
         kernel_entry("B6", "knn_topk (B6)", src + "knn_topk.cu",
                      "avenir_tpu/ops/pallas_knn.py:73",
-                     {**b6, **mm.get("B6", {})}, all_cases),
+                     {**b6, **mm.get("B6", {}), **served_fleet["B6"]},
+                     all_cases),
         *probes,
     ]
     # phase 13 (c): B1 at every pane bucket of the stream, warm panes

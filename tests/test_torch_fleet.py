@@ -99,12 +99,53 @@ def test_launch_cli_exit_code_and_refusals(tmp_path, capsys):
                         child]) == 4
     err = capsys.readouterr().err
     assert "[launch] worker p1 exit=4" in err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h-ii"):
-        launch_main(["--serve", "--nprocs", "2"])
+    # --serve's usage errors (the fleet itself: test_torch_globalserve.py)
+    conf = str(tmp_path / "serve.properties")
+    for argv, said in (
+            (["--serve", "--nprocs", "2"], "--serve requires --conf"),
+            (["--serve", "--conf", conf], "--serve requires --nprocs >= 1"),
+            (["--nprocs", "2", "--conf", conf, "--", child],
+             "--conf belongs to --serve"),
+            (["--nprocs", "2", "--http-port", "0", "--", child],
+             "--http-port belongs to --serve"),
+            (["--nprocs", "2", "--device", "cpu", "--", child],
+             "--device belongs to --serve")):
+        with pytest.raises(SystemExit) as ei:
+            launch_main(argv)
+        assert ei.value.code == 2 and said in capsys.readouterr().err
+    import unittest.mock
+
+    import torch
+
+    with unittest.mock.patch.object(torch.cuda, "is_available",
+                                    lambda: False):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            launch_main(["--serve", "--conf", conf, "--nprocs", "2"])
     with pytest.raises(SystemExit):
         launch_main(["--", child])       # no --nprocs outside a pod
     with pytest.raises(launch.LaunchError, match="--nprocs must be >= 1"):
         launch.launch_local([child], 0)
+
+
+@pytest.mark.parametrize("child, command", [
+    ([], None),
+    (["wrap.py", "--flag"], [sys.executable, "wrap.py", "--flag"]),
+    (["-m", "some.module"], [sys.executable, "-m", "some.module"])])
+def test_launch_serve_hands_the_worker_argv_to_the_spawner(
+        tmp_path, monkeypatch, child, command):
+    """``launch --serve ... -- <argv>`` starts each worker by that argv
+    (``worker_command``'s shapes) in place of the serving CLI module."""
+    from avenir_tpu_torch.serving import global_pool
+
+    seen = []
+    monkeypatch.setattr(global_pool, "serve_fleet",
+                        lambda *a, **kw: seen.append((a, kw)) or 0)
+    conf = str(tmp_path / "serve.properties")
+    argv = ["--serve", "--conf", conf, "--nprocs", "2", "--http-port", "0",
+            "--device", "cpu"]
+    assert launch_main(argv + (["--", *child] if child else [])) == 0
+    assert seen == [((conf, 2), {"http_port": 0, "device": "cpu",
+                                 "command": command})]
 
 
 @pytest.mark.parametrize("argv", [

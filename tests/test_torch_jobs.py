@@ -205,7 +205,10 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.serving.replay, "
             "avenir_tpu_torch.serving.__main__, avenir_tpu_torch.launch, "
             "avenir_tpu_torch.launch.__main__, avenir_tpu_torch.checkpoint, "
-            "avenir_tpu_torch.checkpoint.reshard\n"
+            "avenir_tpu_torch.checkpoint.reshard, "
+            "avenir_tpu_torch.pipeline.resp, "
+            "avenir_tpu_torch.serving.global_pool, "
+            "avenir_tpu_torch.tenancy.contract\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -246,7 +249,9 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                 "serving/pool.py", "serving/frontend.py",
                 "serving/replay.py", "serving/__main__.py",
                 "launch/__init__.py", "launch/__main__.py",
-                "checkpoint/__init__.py", "checkpoint/reshard.py"):
+                "checkpoint/__init__.py", "checkpoint/reshard.py",
+                "pipeline/resp.py", "serving/global_pool.py",
+                "tenancy/contract.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"

@@ -3,13 +3,12 @@ against ``avenir_tpu`` on the CPU: the four learners' action streams and
 states, a JAX server's checkpoint resumed in the port
 (``convert.learner_state_from_jax``), the ``lead_gen`` closed loop through
 ``ReinforcementLearnerServer``, the thread fleet, the supervisor's
-restarts, the bounded queues, the latency and stats helpers, the
-``Redis*`` refusals (before any socket), and the ``lead_gen``,
-``price_opt`` and ``disease`` generators.  Nothing here binds a socket
-or starts a process."""
+restarts, the bounded queues, the latency and stats helpers, the process
+fleet (forked workers) against the thread fleet, and the ``lead_gen``,
+``price_opt`` and ``disease`` generators.  Nothing here binds a socket;
+the ``Redis*`` transports are held in ``tests/test_torch_resp.py``."""
 
 import json
-import socket
 
 import numpy as np
 import pytest
@@ -281,15 +280,98 @@ def test_server_sheds_on_a_full_action_queue():
     assert stats["shed"] == 2 and stats["requests"] == 3 and len(actions) == 2
 
 
-def test_redis_transports_refuse_before_any_socket(monkeypatch):
-    def no_socket(*args, **kwargs):
-        raise AssertionError("a socket was opened")
+def _process_fleet(mod, orl_mod, groups, n_rounds, workers, max_pending=8):
+    """The thread fleet's groups and rounds through ``mod``'s
+    ProcessServingFleet: the same factory (its reward tee runs in the
+    forked worker)."""
+    unused = {g: [] for g in groups}
 
-    monkeypatch.setattr(socket, "socket", no_socket)
-    monkeypatch.setattr(socket, "create_connection", no_socket)
-    for cls in (st.RedisEventSource, st.RedisRewardReader, st.RedisActionWriter):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            cls(host="localhost", port=6379)
+    def factory(group):
+        learner = orl_mod.create_learner(
+            "sampsonSampler", ["p1", "p2", "p3"], {"min.sample": 8}, seed=11)
+        srv = mod.ReinforcementLearnerServer(
+            learner, mod.QueueEventSource(mod.InProcQueue()),
+            mod.QueueRewardReader(mod.InProcQueue()),
+            mod.QueueActionWriter(mod.InProcQueue()))
+        inner = srv.actions
+
+        class Tee:
+            def write(self, event_id, acts):
+                inner.write(event_id, acts)
+                unused[group].append((event_id, list(acts)))
+                srv.rewards.queue.push(f"{acts[0]},{10.0 * int(acts[0][1:])}")
+
+        srv.actions = Tee()
+        return srv
+
+    fleet = mod.ProcessServingFleet(factory, num_workers=workers,
+                                    max_pending=max_pending)
+    for i in range(1, n_rounds + 1):
+        for g in groups:
+            fleet.dispatch(g, f"ev{g}{i}", i)
+    fleet.close()
+    return fleet
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_process_fleet_equals_thread_fleet(workers):
+    """Forked workers, each group pinned to one by ``hash(group) %
+    num_workers``: the forwarded actions and the end states equal the JAX
+    package's ProcessServingFleet's on the same groups and rounds, and
+    per group the thread fleet's (and the JAX thread fleet's)."""
+    groups = ["gA", "gB", "gC", "gD", "gE"]
+    tfleet, streams = _fleet(st, orl, groups, 60, workers=workers)
+    jtfleet, jstreams = _fleet(jst, jorl, groups, 60, workers=workers)
+    pfleet = _process_fleet(st, orl, groups, 60, workers)
+    jpfleet = _process_fleet(jst, jorl, groups, 60, workers)
+
+    def per_group(fleet):
+        # the workers' forwarded writes interleave as they come; each
+        # group's own stream keeps its dispatch order
+        out = {g: [] for g in groups}
+        for group, event_id, acts in fleet.actions():
+            out[group].append((event_id, acts))
+        return out
+
+    got = per_group(pfleet)
+    assert sum(map(len, got.values())) == 60 * len(groups)
+    assert got == per_group(jpfleet) == streams == jstreams
+    assert pfleet.checkpoints() == jpfleet.checkpoints()
+    assert pfleet.checkpoints() == tfleet.checkpoints() == \
+        jtfleet.checkpoints()
+    with pytest.raises(RuntimeError, match="after close"):
+        pfleet.dispatch("gA", "late", 61)
+    pfleet.close()                        # a second close is a no-op
+
+
+def test_process_fleet_error_surfaces_on_close():
+    def factory(group):
+        raise RuntimeError("factory boom")
+
+    fleet = st.ProcessServingFleet(factory, num_workers=1)
+    fleet.dispatch("g", "ev1", 1)
+    with pytest.raises(RuntimeError, match="factory boom"):
+        fleet.close()
+    with pytest.raises(RuntimeError, match="after close"):
+        fleet.dispatch("g", "ev2", 2)
+
+
+def test_process_fleet_dead_worker_fails_dispatch_and_close():
+    """A worker that dies without its shutdown handshake: a dispatch into
+    its full queue raises instead of blocking, and ``close()`` raises
+    after the idle polls instead of hanging."""
+    import os
+
+    def factory(group):
+        os._exit(3)
+
+    fleet = st.ProcessServingFleet(factory, num_workers=1, max_pending=1)
+    with pytest.raises(RuntimeError, match="serving worker 0 died"):
+        for i in range(1, 10):
+            fleet.dispatch("g", f"ev{i}", i)
+    with pytest.raises(RuntimeError, match="without shutdown handshake"):
+        fleet.close()
+    assert fleet.checkpoints() == {} and fleet.actions() == []
 
 
 def test_latency_and_stats_equal_jax():

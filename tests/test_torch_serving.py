@@ -7,7 +7,7 @@ port's batch predictor job and the JAX package's batch job on the same
 rows.  Around that: padding, warmup and the shape keys, typed shed,
 timeout and bad-request errors, both front ends (the HTTP handlers driven
 on in-memory streams, never a socket), the pipeline ``serve`` stage, the
-RL loop's shared stats schema, and the refusals of what is not ported.
+RL loop's shared stats schema, and what is refused before any output.
 Every wait has a timeout.
 """
 
@@ -708,25 +708,17 @@ def test_serving_cli_refusals_raise_before_binding(ws, tmp_path):
     base = {**churn, "bayesian.model.file.path": j("nb_model"),
             "serve.models": "naiveBayes"}
     conf.write_text("".join(f"{k}={v}\n" for k, v in base.items()))
-    # the tenant.* contract and fault.tenant.flood.after are honoured
-    # since the arbiter landed; the Redis transport is still refused
-    for extra, item in (("serve.request.queue=q", "7h"),):
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue 1 item {item}"):
-            main(["--conf", str(conf), "-D", extra, "--device", "cpu"])
+    # the tenant.* contract, fault.tenant.flood.after and the Redis
+    # transport (tests/test_torch_resp.py) are honoured; without CUDA and
+    # without --device cpu the CLI raises before binding
     import unittest.mock
 
     with unittest.mock.patch.object(torch.cuda, "is_available",
                                     lambda: False):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(["--conf", str(conf)])
-
-
-def test_redis_score_frontend_refused():
-    from avenir_tpu_torch.serving import redis_score_frontend
-
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7h"):
-        redis_score_frontend(None)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--conf", str(conf), "-D", "serve.request.queue=q"])
 
 
 def test_fault_tenant_flood_refused_before_output():

@@ -2,7 +2,8 @@
 JAX package's on the CPU.
 
 Contracts parse field for field and refuse key for key as the JAX
-package's; the weighted-DRR arbiter splits a contended pool in share
+package's, and a serving fleet worker's 1/N slice of them
+(``split_contracts``) equals the JAX package's; the weighted-DRR arbiter splits a contended pool in share
 proportion, strict priority tiers outrank backfill, and per-tenant queue
 shares and deadlines shed with a typed ``TenantShedError`` naming the
 tenant and the quota, leaving the other tenants whole; the journal events
@@ -17,6 +18,7 @@ driver and the serving CLI arm the arbiter from the conf.
 import dataclasses
 import io
 import json
+import re
 import threading
 import time
 
@@ -30,6 +32,7 @@ from avenir_tpu.jobs import get_job as jget_job
 from avenir_tpu.telemetry import spans as jtel
 from avenir_tpu.telemetry.journal import read_events as jread_events
 from avenir_tpu.tenancy.contract import contracts_from_conf as jcontracts
+from avenir_tpu.tenancy.contract import split_contracts as jsplit_contracts
 from avenir_tpu.tenancy.contract import tenant_slo_rules as jslo_rules
 from avenir_tpu_torch import tenancy
 from avenir_tpu_torch.core.config import ConfigError, JobConfig
@@ -46,6 +49,7 @@ from avenir_tpu_torch.serving.errors import ShedError, TenantShedError
 from avenir_tpu_torch.telemetry import spans as tel
 from avenir_tpu_torch.telemetry.journal import read_events
 from avenir_tpu_torch.tenancy.contract import (contracts_from_conf,
+                                               split_contracts,
                                                tenant_slo_rules)
 
 
@@ -113,6 +117,41 @@ def test_contracts_equal_jax_field_for_field(case):
     got = contracts_from_conf(JobConfig(dict(props)))
     assert {t: dataclasses.asdict(c) for t, c in got.items()} == \
         {t: dataclasses.asdict(c) for t, c in want.items()}
+
+
+SPLIT_CONFS = {
+    **CONTRACT_CONFS,
+    "ceil": {"tenant.a.share": "3", "tenant.a.max.inflight": "5",
+             "tenant.a.queue.depth": "1", "tenant.a.priority": "2",
+             "tenant.a.queue.timeout.ms": "80", "tenant.b.share": "1",
+             "tenant.b.max.inflight": "4", "tenant.b.queue.depth": "7",
+             "tenant.b.slo.p99.metric": "p99.latency.ms",
+             "tenant.b.slo.p99.target": "40"},
+}
+
+
+@pytest.mark.parametrize("nworkers", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", sorted(SPLIT_CONFS))
+def test_split_contracts_equal_jax(case, nworkers):
+    """A worker's slice: ``max.inflight`` and ``queue.depth`` ceil-divided
+    (the latter at least 1), the relative keys unsplit, the same
+    ConfigError for ``nworkers < 1`` or a malformed contract."""
+    props = SPLIT_CONFS[case]
+    try:
+        want = jsplit_contracts(JJobConfig(dict(props)), nworkers)
+    except Exception as exc:       # the JAX package refuses: so must we
+        with pytest.raises(ConfigError if isinstance(exc, JConfigError)
+                           else type(exc), match=re.escape(str(exc))):
+            split_contracts(JobConfig(dict(props)), nworkers)
+        return
+    got = split_contracts(JobConfig(dict(props)), nworkers)
+    assert got == want
+    if case == "ceil":
+        assert got == {
+            "tenant.a.max.inflight": str(-(-5 // nworkers)),
+            "tenant.a.queue.depth": "1",
+            "tenant.b.max.inflight": str(-(-4 // nworkers)),
+            "tenant.b.queue.depth": str(-(-7 // nworkers))}
 
 
 def test_tenant_slo_rules_equal_jax():
