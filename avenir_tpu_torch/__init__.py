@@ -17,6 +17,9 @@ Layers, entry point first:
                             the co-occurrence grams (``hist``), the kNN
                             candidate search (``knn``) and their kernels
   ``core``                  schema, properties, CSV and encoding (numpy)
+  ``analysis``              graftlint, the static gate over the port's own
+                            sources (stdlib only: ``python -m
+                            avenir_tpu_torch.analysis``)
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, CLI ``--device cpu``); without CUDA and without that

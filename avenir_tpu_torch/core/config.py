@@ -108,3 +108,7 @@ class JobConfig:
     @property
     def field_delim_regex(self) -> str:
         return self.get("field.delim.regex", ",")
+
+    @property
+    def debug_on(self) -> bool:
+        return self.get_bool("debug.on", False)

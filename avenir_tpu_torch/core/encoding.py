@@ -85,6 +85,11 @@ class EncodedDataset:
     def max_bins(self) -> int:
         return int(self.n_bins.max()) if self.n_bins.size else 0
 
+    def bin_mask(self) -> np.ndarray:
+        """bool [Fb, B] — True where a bin index is valid for the feature."""
+        b = self.max_bins
+        return np.arange(b)[None, :] < self.n_bins[:, None]
+
     def slice(self, start: int, stop: int) -> "EncodedDataset":
         return EncodedDataset(
             codes=self.codes[start:stop],
@@ -226,6 +231,8 @@ class DatasetEncoder:
             col = rows[:, f.ordinal]
             if f.is_categorical:
                 if f.ordinal not in self.vocab:
+                    # a numpy column of CSV strings: host data, no tensor to sync
+                    # graftlint: disable=GL005
                     values = sorted(set(col.tolist()))
                     self.vocab[f.ordinal] = {v: i for i, v in enumerate(values)}
                     self.n_bins[f.ordinal] = len(values) + 1  # + OOV
@@ -259,6 +266,8 @@ class DatasetEncoder:
             if f.is_categorical:
                 vmap = self.vocab[f.ordinal]
                 oov = self.n_bins[f.ordinal] - 1
+                # a numpy column of CSV strings: host data, no tensor to sync
+                # graftlint: disable=GL005
                 codes[:, j] = np.array([vmap.get(v, oov) for v in col.tolist()], dtype=np.int32)
             else:
                 vals = col.astype(np.float64)

@@ -56,4 +56,8 @@ def generate_xaction_sequences(
 
 
 def sequences_to_rows(seqs: List[List[str]]) -> List[List[str]]:
+    # the JAX package's line, kept as it is there (in its baseline): the
+    # ids are dict keys downstream, grouped in insertion order and never
+    # width-sorted, and no caller draws near 10**7 sequences
+    # graftlint: disable=GL003
     return [[f"C{i:07d}"] + seq for i, seq in enumerate(seqs)]

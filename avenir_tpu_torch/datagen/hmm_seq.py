@@ -69,9 +69,17 @@ def sample_hmm(a: np.ndarray, b: np.ndarray, pi: np.ndarray, n: int,
     return states, obs
 
 
+def _check_id_width(n: int, bound: int) -> None:
+    """Refuse more rows than the zero-padded row ids have room for."""
+    if n > bound:
+        raise ValueError(f"{n} rows exceed the {len(str(bound)) - 1}-digit "
+                         f"row-id width")
+
+
 def code_rows(codes: np.ndarray, symbols: List[str], prefix: str = "C"
               ) -> List[List[str]]:
     """Sequence-file rows ``[id, symbol, ...]`` of [R, T] codes."""
+    _check_id_width(len(codes), 10 ** 7)
     return [[f"{prefix}{r:07d}"] + [symbols[c] for c in row if c >= 0]
             for r, row in enumerate(codes)]
 
@@ -79,6 +87,7 @@ def code_rows(codes: np.ndarray, symbols: List[str], prefix: str = "C"
 def tagged_rows(states: np.ndarray, obs: np.ndarray, state_names: List[str],
                 obs_names: List[str], sub: str = ":") -> List[List[str]]:
     """Fully tagged rows ``[id, obs:state, ...]``."""
+    _check_id_width(len(states), 10 ** 7)
     return [[f"C{r:07d}"] + [f"{obs_names[o]}{sub}{state_names[s]}"
                              for s, o in zip(srow, orow) if s >= 0]
             for r, (srow, orow) in enumerate(zip(states, obs))]
@@ -89,6 +98,7 @@ def partial_rows(states: np.ndarray, obs: np.ndarray, state_names: List[str],
     """Partially tagged rows ``[id, token, ...]``: the observations, with
     the state's name inline before the first observation of each run of one
     state (the partially tagged HMM builder's input)."""
+    _check_id_width(len(states), 10 ** 7)
     rows = []
     for r, (srow, orow) in enumerate(zip(states, obs)):
         toks, prev = [f"C{r:07d}"], -1

@@ -864,6 +864,7 @@ class StreamCheckpointer:
         the end-of-stream merge."""
         from avenir_tpu_torch.parallel.mesh import all_process_sum_state
 
+        assert pid < 10 ** 3          # proc_subdir bounds the process count
         state = {}
         if self.error:
             state[f"ckpt_err_p{pid:03d}"] = np.frombuffer(
@@ -898,6 +899,10 @@ class StreamCheckpointer:
                                run=self.run_id, rows=total_rows,
                                chunk=int(cursor["chunk"]))
         if self.crash_after and self._consumed >= self.crash_after:
+            # fault-injection drill, not a misread key: the RuntimeError is the
+            # injected crash itself; a ConfigError would make recovery treat the
+            # drill as non-retryable bad configuration
+            # graftlint: disable=GL010
             raise RuntimeError(
                 f"stream.fault.crash.after.chunks={self.crash_after}: "
                 f"injected crash after chunk {cursor['chunk']}")

@@ -148,6 +148,10 @@ class CorrelationResult:
         return [delim.join([a, b, f"{v:.6f}"])
                 for (a, b), v in zip(self.pair_names, self.stat)]
 
+    def top(self, k: int = 10) -> List[Tuple[Tuple[str, str], float]]:
+        order = np.argsort(-self.stat)[:k]
+        return [(self.pair_names[i], float(self.stat[i])) for i in order]
+
 
 class CategoricalCorrelation:
     """All-pairs categorical association over binned features on
@@ -226,6 +230,9 @@ class CategoricalCorrelation:
                 continue
             if shard_gram:
                 tables = gram_tables(
+                    # one fetch per chunk by design: the host reads each chunk's gram
+                    # out into the pair tables, as the JAX package's sharded path does
+                    # graftlint: disable=GL005
                     shard_sum(gram, codes, lab).cpu().numpy(), f, b, n_cls,
                     pairs, against_class, b_dst)
                 for s in range(0, len(pairs), self.pair_chunk):

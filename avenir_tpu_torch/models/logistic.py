@@ -202,6 +202,10 @@ class LogisticRegression:
         with _full_fp32():
             for _ in range(self.max_iterations):
                 w = step(w, xd, yd, n, lr, l2)
+                # one [D] fetch per iteration by design: every iteration's weights
+                # are the history the job writes, and the convergence test reads
+                # them on the host
+                # graftlint: disable=GL005
                 cur = w.cpu().numpy()
                 history.append(cur)
                 if len(history) >= 2 and _converged(
@@ -268,6 +272,10 @@ class LogisticRegression:
         with _full_fp32():
             for _ in range(self.max_iterations):
                 wf = torch.from_numpy(w.astype(np.float32)).to(dev)
+                # one fetch per chunk and iteration by design: the partials merge on
+                # the host in float64, keyed by global chunk index, so a fleet's
+                # history equals one process's bit for bit
+                # graftlint: disable=GL005
                 state = {f"g{idx:08d}": _chunk_grad(wf, xd, yd).cpu().numpy(
                              ).astype(np.float64)
                          for idx, xd, yd in dev_chunks}
@@ -292,6 +300,12 @@ class LogisticRegression:
                       ) -> np.ndarray:
         z = x @ model.weights
         return 1.0 / (1.0 + np.exp(-z))
+
+    @staticmethod
+    def predict_batch(model_or_weights, x, threshold: float = 0.5,
+                      device=None) -> Tuple[np.ndarray, np.ndarray]:
+        return predict_batch(model_or_weights, x, threshold=threshold,
+                             device=device)
 
     @staticmethod
     def predict(model: LogisticRegressionModel, x: np.ndarray,

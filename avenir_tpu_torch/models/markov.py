@@ -384,6 +384,9 @@ class HMMBuilder:
             d = self.mesh.size("data") if self.mesh is not None else 1
             step = max(((agg.MAX_EXACT_CHUNK_ROWS - 1) // d) * d, d)
             for s0 in range(0, len(st_list), step):
+                # one fetch per 2^24-row block by design: each block's counts are
+                # exact on the device and summed in float64 on the host
+                # graftlint: disable=GL005
                 emit += shard_sum(
                     lambda a, b, w: agg.weighted_transition_counts(
                         a, b, w, s, o).double(),

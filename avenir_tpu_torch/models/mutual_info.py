@@ -57,6 +57,28 @@ class MutualInfoResult:
     def num_features(self) -> int:
         return len(self.feature_names)
 
+    # -- distribution views (the reference's 7 families) ---------------------
+    def class_distr(self) -> np.ndarray:
+        return self.class_counts / self.class_counts.sum()
+
+    def feature_distr(self) -> np.ndarray:
+        fc = self.feature_class_counts.sum(-1)
+        return fc / np.maximum(fc.sum(-1, keepdims=True), 1)
+
+    def feature_pair_distr(self) -> np.ndarray:
+        pc = self.pair_class_counts.sum(-1)
+        return pc / np.maximum(pc.sum((-2, -1), keepdims=True), 1)
+
+    def feature_class_cond_distr(self) -> np.ndarray:
+        """[F, B, C] P(bin | class) — the reference's feature-class-conditional."""
+        fcc = self.feature_class_counts
+        return fcc / np.maximum(fcc.sum(1, keepdims=True), 1)
+
+    def feature_pair_class_cond_distr(self) -> np.ndarray:
+        """[P, B, B, C] P(bin_i, bin_j | class)."""
+        pcc = self.pair_class_counts
+        return pcc / np.maximum(pcc.sum((1, 2), keepdims=True), 1)
+
     def finish(self) -> "MutualInfoResult":
         """Derived statistics in float32 on the host CPU — tiny tensors, so
         the result does not depend on the device the counts came from."""
@@ -186,6 +208,11 @@ class MutualInformation:
                                     c, b))
             for s in range(0, len(pair_index), self.pair_chunk):
                 sl = torch.from_numpy(pair_index[s:s + self.pair_chunk]).long()
+                # the pcc<s> keys are the port contract's keys and must not be
+                # renamed: MI always counts all pairs for a given F, so the chunk
+                # keys are fully determined by (F, B, C), which the resume gate
+                # validates; a fingerprint would add no safety
+                # graftlint: disable=GL002
                 acc.add(f"pcc{s}", shard_sum(agg.pair_class_counts_at,
                                              codes, labels, sl, c, b))
         if gk in acc:

@@ -180,6 +180,9 @@ class PredictionResult:
     confusion: Optional[ConfusionMatrix] = None
     counters: Counters = dc_field(default_factory=Counters)
 
+    def predicted_labels(self, class_values: Sequence[str]) -> List[str]:
+        return [class_values[i] for i in self.predicted]
+
 
 class NaiveBayes:
     """Estimator facade: ``fit`` over encoded chunks → :class:`NaiveBayesModel`

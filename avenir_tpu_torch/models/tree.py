@@ -326,6 +326,9 @@ def iter_scored_splits(table: np.ndarray, all_splits, algorithm: str,
             chunk = splits[s0:s0 + split_chunk]
             gmax = max(sp.num_segments for sp in chunk)
             h = split_histograms_from_table(table[a], chunk, gmax)
+            # the host pipeline (selection="host"): CPU tensors, .numpy() is a
+            # view and syncs nothing
+            # graftlint: disable=GL005
             scores = split_scores(
                 torch.as_tensor(h).to(torch.float32), algorithm,
                 parent_info=parent_info,
@@ -958,8 +961,11 @@ class DecisionTree:
                 vals, idx, whist = _device_select_splits(
                     table_dev, flat.seg_tab_dev, flat.attr_dev,
                     flat.nseg_dev, allow_dev, thr_dev, **statics)
+                # the one fetch per level by design: the host takes only the
+                # winners' descriptors to grow the tree
+                # graftlint: disable=GL005
                 vals, idx, whist = (vals.cpu().numpy(), idx.cpu().numpy(),
-                                    whist.cpu().numpy())
+                                    whist.cpu().numpy())  # graftlint: disable=GL005
                 if pkey is not None:
                     prof.sample(pkey, "tree.level",
                                 time.perf_counter() - t_disp)
@@ -971,6 +977,9 @@ class DecisionTree:
                         best_per_node[ki].append(
                             (s, flat.splits[int(idx[ki, p])], whist[ki, p]))
             else:
+                # the host selection route fetches the level table once per level
+                # by design (selection="host"); the device route is the one above
+                # graftlint: disable=GL005
                 table = table_dev.cpu().numpy()
                 for _a, chunk, scores, h in iter_scored_splits(
                         table, all_splits, self.algorithm, self.split_chunk,

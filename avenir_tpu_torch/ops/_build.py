@@ -79,5 +79,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            # compile-once build: the lock is held across build() so exactly
+            # one thread runs nvcc; every other thread must wait for the
+            # artifact, not race the compiler
+            # graftlint: disable=GL006
             lib = _loaded[name] = ctypes.CDLL(build(name))
         return lib

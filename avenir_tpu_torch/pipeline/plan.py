@@ -72,6 +72,8 @@ import torch
 from avenir_tpu_torch.core.config import JobConfig
 from avenir_tpu_torch.pipeline.driver import Pipeline, Stage
 
+REWRITES = ("fuse", "share-gram", "prune", "encode-once", "pack")
+
 
 @dataclass
 class SkipUnit:

@@ -480,6 +480,11 @@ class ChunkFolder:
             for s in range(0, len(self.pair_index), self.pair_chunk):
                 sl = torch.from_numpy(
                     self.pair_index[s:s + self.pair_chunk]).long()
+                # SharedScan accumulators live only for one fused scan, and windowed
+                # pane accumulators carry the run fingerprint in their snapshot
+                # envelope (stream/windows.py); the pcc<s> keys are the port
+                # contract's and mirror models/mutual_info.py's family
+                # graftlint: disable=GL002
                 acc.add(f"pcc{s}", shard_sum(agg.pair_class_counts_at,
                                              codes, labels, sl, self.c,
                                              self.b))

@@ -97,6 +97,10 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        # compile-once native-library build: the lock is held across
+        # build() so exactly one thread compiles; the I/O under the lock is
+        # the point
+        # graftlint: disable=GL006
         lib = ctypes.CDLL(build())
         i32p = ctypes.POINTER(ctypes.c_int32)
         lib.avenir_csv_encode.restype = ctypes.c_long
@@ -124,6 +128,22 @@ def load() -> ctypes.CDLL:
         ]
         _lib = lib
         return lib
+
+
+def build_error() -> Optional[str]:
+    """None once the encoder library is built and loaded (building it on
+    first call), else the build failure's message.  Only a report: the
+    encode path itself raises on a failed build."""
+    try:
+        load()
+    except (RuntimeError, OSError) as e:
+        return str(e)
+    return None
+
+
+def is_available() -> bool:
+    """Whether the encoder library builds and loads."""
+    return build_error() is None
 
 
 def _specs_from_encoder(encoder, with_labels: bool = True) -> tuple:

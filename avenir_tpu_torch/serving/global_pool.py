@@ -1056,6 +1056,7 @@ class WorkerSpawner:
         # stdout relay only: the pipe breaking (worker SIGKILLed, fleet
         # teardown) is the expected end of this thread, and the monitor
         # journals the worker's death itself
+        # graftlint: disable=GL012
         except Exception:                          # noqa: BLE001
             pass
         finally:

@@ -236,6 +236,10 @@ class ReplicaPool:
 
         n = conf.get_int("pool.replicas", 0) or 1
         dev = resolve_device(device) if registry_factory is None else None
+        # the JAX package pins one replica per local device; the port has
+        # one card and every replica already loads onto dev, so the key is
+        # read and pins nothing more
+        conf.get_bool("pool.pin.devices", False)
 
         def factory(name: str, **wiring) -> BucketedMicrobatcher:
             registry = (registry_factory() if registry_factory is not None

@@ -333,6 +333,10 @@ class WindowedScan:
         # the FaultPlan's fault.fold.crash.after fires BEFORE the fold
         # (mid-fold preemption) and journals fault.injected
         if self.crash_after and self.panes_closed >= self.crash_after:
+            # fault-injection drill: the raise is the simulated pane-boundary
+            # crash the checkpoint/restore path recovers from; a ConfigError
+            # would break its retry classification
+            # graftlint: disable=GL010
             raise RuntimeError(
                 f"stream.fault.crash.after.panes={self.crash_after}: "
                 f"injected crash after pane {self.panes_closed - 1}")

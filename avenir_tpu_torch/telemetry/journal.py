@@ -79,6 +79,10 @@ class Journal:
             if self._fh.closed:
                 return                     # emit after close: drop, not crash
             if self._fh.tell() + len(line) + 1 > self.max_bytes:
+                # single-writer rotation by design: _rotate must run under the mutex
+                # or a concurrent emit could interleave writes across the old and
+                # new shard file; it runs at most once per max_bytes of journal
+                # graftlint: disable=GL006
                 self._rotate()
             self._fh.write(line)
             self._fh.write("\n")

@@ -45,6 +45,9 @@ GOLDEN_EVENT_KEYS: Dict[str, Set[str]] = {
     # the bench canary (bench.py): a tiny fixed device program timed
     # before and after the measured passes, so interference shows up in
     # the artifact
+    # read by the telemetry CLI's profile view (the MFU column); its
+    # producer, utils/rig_canary.py, comes with the benchmark modules
+    # graftlint: disable=GL007
     "canary": {"ev", "ts", "trace", "span", "ms", "when"},
     # GraftFleet: per-device straggler probes
     # (parallel/skew.py — flagged when max/min exceeds the threshold),

@@ -232,6 +232,10 @@ class Tracer:
                 self._span_prefix = ""
                 self._root_trace = None
             if journal_dir:
+                # enable() cold path: the Journal is opened once per run inside the
+                # enable lock so two racing enable() calls cannot create two
+                # journals; no hot path takes this lock
+                # graftlint: disable=GL006
                 self.journal = Journal(os.path.join(journal_dir, name),
                                        max_bytes=max_bytes,
                                        stamp=self.stamp)

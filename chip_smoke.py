@@ -1,4 +1,7 @@
 #!/usr/bin/env python3
+# Every loop in this script is a timing probe or a check of a kernel
+# against its plain version: the host sync there IS the measurement.
+# graftlint: disable-file=GL005
 """Chip smoke test of the PyTorch/CUDA port (avenir_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
@@ -6,6 +9,11 @@
 
 Phases, in order; any failure exits non-zero:
 
+0. the port's static gate (graftlint, ``avenir_tpu_torch/analysis``) over
+   the tree this script runs from, before any device work: its default
+   paths (``avenir_tpu_torch``, ``chip_smoke.py``) with its baseline, one
+   ``graftlint files=... findings=... baselined=... s=...`` line, and any
+   live finding fails the run;
 1. print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels ``avenir_tpu_torch/csrc/{cooc_pair,cross,knn_tourney,knn_topk,
    gram_probe}.cu`` (one nvcc each) and the native CSV encoder
@@ -448,6 +456,25 @@ MAIN_PATH = {"B1": ("mi", "first"), "B2": ("mi_wide", "first"),
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def graftlint_phase() -> None:
+    """Phase 0: ``python -m avenir_tpu_torch.analysis`` in process over
+    its default paths under ``HERE``, with the checked-in baseline."""
+    from avenir_tpu_torch.analysis import engine
+    from avenir_tpu_torch.analysis.__main__ import DEFAULT_PATHS
+
+    stats: dict = {}
+    t0 = time.perf_counter()
+    findings = engine.run_paths([os.path.join(HERE, p) for p in DEFAULT_PATHS],
+                                root=HERE, stats=stats)
+    live = [f for f in findings if not f.baselined]
+    log(f"graftlint files={stats['files']} findings={len(live)} "
+        f"baselined={len(findings) - len(live)} "
+        f"s={time.perf_counter() - t0:.3f}")
+    if live:
+        log("\n".join(f.format() for f in live))
+        raise AssertionError(f"graftlint: {len(live)} live finding(s)")
 
 
 def card_line() -> str:
@@ -2310,6 +2337,7 @@ def markov_phase(work: str, walls: dict) -> None:
                     f"-Dhmm.model.file.path={model_dir}", obs_csv])
     with open(part) as fh:
         lines = fh.read().splitlines()
+    assert VITERBI_JOB_SEQS <= 10 ** 7   # code_rows' 7-digit row ids
     want = [",".join([f"C{r:07d}"] + [s_names[c] for c in row])
             for r, row in enumerate(paths[:VITERBI_JOB_SEQS])]
     if lines != want:
@@ -2521,6 +2549,7 @@ def bandit_jobs_phase(work: str, walls: dict) -> None:
     counts, rewards, valid = bandit_state(BANDIT_JOB_GROUPS, BANDIT_ARMS,
                                           seed=32, ragged=0.1)
     data = os.path.join(work, "bandit_state.csv")
+    assert BANDIT_JOB_GROUPS <= 10 ** 6    # the 6-digit group ids
     write_lines(data, (f"grp{gi:06d},item{ai},{int(counts[gi, ai])},"
                        f"{rewards[gi, ai]:.4f}"
                        for gi, ai in zip(*valid.nonzero())))
@@ -5263,6 +5292,7 @@ def fleet_phase(work: str, train: str, schema: str, walls: dict,
     same_bytes(j("fleet_mi_wide", "part-00000"),
                j("mi_wide_one", "part-00000"), "fleet MI 20x20x2")
     subdirs = sorted(os.listdir(ck))
+    assert FLEET_PROCS < 10 ** 3           # proc_subdir's 3-digit names
     if subdirs != [f"proc-{r:03d}-of-002" for r in range(FLEET_PROCS)]:
         raise AssertionError(f"fleet snapshots under {subdirs}")
     merged = [p for p in os.listdir(tel_dir) if p.startswith("fleet-")]
@@ -5466,14 +5496,21 @@ class Child:
         self._reader.start()
 
     def _read(self):
-        for line in self.proc.stdout:
+        try:
+            for line in self.proc.stdout:
+                with self._cond:
+                    self.lines.append(line.rstrip("\n"))
+                    self.stamps.append(time.perf_counter())
+                    self._cond.notify_all()
+        except Exception as e:               # noqa: BLE001
+            # a failed read ends the relay: wait_for reports it with the
+            # child's last lines instead of waiting out its deadline
             with self._cond:
-                self.lines.append(line.rstrip("\n"))
-                self.stamps.append(time.perf_counter())
+                self.lines.append(f"[reader failed: {type(e).__name__}: {e}]")
+        finally:
+            with self._cond:
+                self._eof = True
                 self._cond.notify_all()
-        with self._cond:
-            self._eof = True
-            self._cond.notify_all()
 
     def wait_for(self, pattern: str, timeout_s: float):
         """The match of the first output line matching ``pattern`` (its
@@ -6202,6 +6239,7 @@ def main(argv=None) -> int:
         return 1
     if args.b4:
         return cross_main()
+    graftlint_phase()
     from concurrent.futures import ThreadPoolExecutor
 
     from avenir_tpu_torch.ops import _build, hist

@@ -337,3 +337,15 @@ def test_stream_checkpoint_refused_as_jax_refuses(job_outputs, job, extra):
     assert errors[0] == errors[1]
     assert "stream.checkpoint.dir is not supported" in errors[0][1]
     assert not (work / "refused").exists()
+
+
+@pytest.mark.parametrize("rows", ["code_rows", "tagged_rows",
+                                  "partial_rows"])
+def test_row_ids_refuse_past_their_seven_digit_width(rows):
+    """The ``C{r:07d}`` row ids sort as their numbers only below 10**7
+    rows: the writers refuse more."""
+    codes = np.zeros((10 ** 7 + 1, 0), np.int32)
+    args = ((codes, O_NAMES) if rows == "code_rows"
+            else (codes, codes, S_NAMES, O_NAMES))
+    with pytest.raises(ValueError, match="7-digit row-id width"):
+        getattr(hmm_seq, rows)(*args)

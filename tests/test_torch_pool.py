@@ -593,3 +593,40 @@ def test_telemetry_cli_renders_the_failover_drill(tmp_path, capsys):
                                        "pool.replica.down"))]
     assert order[:2] == ["fault.injected", "pool.replica.down"]
     assert any(e["ev"] == "pool.failover" for e in read_events(path))
+
+
+class _ReadLog(JobConfig):
+    """A JobConfig that records every key looked up."""
+
+    def __init__(self, props):
+        super().__init__(props)
+        self.read = set()
+
+    def _lookup(self, key):
+        self.read.add(key)
+        return super()._lookup(key)
+
+
+@pytest.mark.parametrize("pin", ["true", "false"])
+def test_pool_pin_devices_is_read_and_replicas_share_the_pools_device(
+        ws, pin):
+    """``pool.pin.devices`` is read (the JAX package pins one replica per
+    local device, ``avenir_tpu/serving/pool.py:240,249``); one card is the
+    port's only placement, so under both values every replica loads its
+    models onto the pool's device."""
+    j, churn = ws["j"], ws["churn"]
+    conf = _ReadLog({**churn, "bayesian.model.file.path": j("nb_model"),
+                     "serve.models": "naiveBayes", "pool.replicas": "3",
+                     "pool.pin.devices": pin})
+    pool = ReplicaPool.from_conf(conf, device="cpu", start_monitor=False)
+    cpu = torch.device("cpu")
+    try:
+        assert "pool.pin.devices" in conf.read
+        replicas = list(pool._replicas.values())
+        assert len(replicas) == 3
+        for r in replicas:
+            assert r.batcher.registry.get("naiveBayes").device == cpu
+        line = ",".join(generate_churn(1, seed=3)[0][:-1])
+        assert pool.submit("naiveBayes", line, timeout_s=WAIT_S)
+    finally:
+        pool.close()

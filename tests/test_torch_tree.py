@@ -1,3 +1,6 @@
+# The comparisons in this file run on CPU tensors, in loops over
+# cases: .numpy() / .tolist() there read host memory and sync nothing.
+# graftlint: disable-file=GL005
 """The port's decision tree (avenir_tpu_torch.models.tree, jobs.tree) held
 against the JAX package on the CPU.
 

@@ -74,6 +74,9 @@ def main() -> None:
     from avenir_tpu_torch.parallel import mesh as pmesh
     from avenir_tpu_torch.pipeline import driver
 
+    # the test writes the specs file before any rank starts and nothing
+    # writes it after, so every rank reads the same bytes
+    # graftlint: disable=GL001
     with open(os.path.join(workdir, specs_file)) as fh:
         specs = json.load(fh)
     for i, spec in enumerate(specs):
@@ -106,6 +109,8 @@ def main() -> None:
                     data_axis="model")
                 print(f"proc {rank} mesh {json.dumps(m.sizes)} "
                       f"labels {m.axis_labels('model')[:2]} "
+                      # one spec per iteration, on CPU tensors: nothing to sync
+                      # graftlint: disable=GL005
                       f"rows {[p.tolist() for p in b.parts][:2]}",
                       flush=True)
             elif "qstep" in spec:
@@ -122,6 +127,8 @@ def main() -> None:
                     quantized=True, moments=False, proc_axis=plan.proc_axis)
                 g, _ = step(staged[0], staged[1], None)
                 np.savez(os.path.join(workdir, f"qstep_p{rank}.npz"),
+                         # one spec per iteration, on CPU tensors: nothing to sync
+                         # graftlint: disable=GL005
                          g=g.numpy())
             elif "gram" in spec:
                 import torch
@@ -135,6 +142,8 @@ def main() -> None:
                     torch.from_numpy(codes[lo:hi]).to(spec["gram"]),
                     torch.from_numpy(labels[lo:hi]).to(spec["gram"]), 13, 2)
                 out = pmesh.all_process_sum_state(
+                    # one spec per iteration: the rank's gram enters the sum once
+                    # graftlint: disable=GL005
                     {"g": g.cpu().numpy().astype(np.int64)})
                 np.savez(os.path.join(workdir, f"gram_p{rank}.npz"), **out)
         except Exception as e:  # noqa: BLE001
