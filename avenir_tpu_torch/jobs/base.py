@@ -937,8 +937,13 @@ class StreamCheckpointer:
             sub = os.path.join(root, name)
             if is_proc_subdir(name) and \
                     self.run_id and self._read_tag(sub) == self.run_id:
-                self._remove_tag(sub)
-                CheckpointManager(sub, keep=2).clear()
+                # a peer of this run clears its own subdirectory at the
+                # same moment: one that vanishes under the sweep is gone
+                try:
+                    self._remove_tag(sub)
+                    CheckpointManager(sub, keep=2).clear()
+                except FileNotFoundError:
+                    pass
         try:
             os.rmdir(root)                   # only succeeds when empty
         except OSError:

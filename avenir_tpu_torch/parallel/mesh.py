@@ -359,7 +359,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     raises the typed ``LaunchError`` naming it; the rendezvous itself
     carries the timeout and is retried up to ``attempts`` times.  Nothing
     falls back to a single process.  The join is recorded for the journal
-    (:func:`last_join`, ``fleet.join``)."""
+    (:func:`last_join`, ``fleet.join``), and an exit hook destroys the
+    group before interpreter teardown (:func:`_destroy_group`)."""
     import time
 
     import torch.distributed as dist
@@ -420,6 +421,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                 dist.init_process_group(
                     "gloo", store=store, timeout=timeout,
                     world_size=int(num_processes), rank=int(process_id))
+            import atexit
+
+            atexit.register(_destroy_group)
             _record_join(coordinator_address or init_method, attempt,
                          (time.monotonic() - t0) * 1e3)
             return dist.get_rank()
@@ -489,6 +493,27 @@ def _wait_for_coordinator(address: str, timeout_s: float) -> None:
         sleep_s = min(policy.next_backoff(sleep_s),
                       max(deadline - time.monotonic(), 0.0))
         time.sleep(sleep_s)
+
+
+def _destroy_group() -> None:
+    """The exit hook of a joined process: destroy the group if it is
+    still up.
+
+    Exit hooks run while the interpreter is still whole.  Without this
+    one the group lives into interpreter teardown with gloo's native
+    threads (``pt_gloo_runloop`` ×2, ``gloo_tcp_loop``) running.  A
+    runloop thread drops its reference to a finished collective's tensors
+    after it wakes the caller.  When the caller had already dropped them
+    (``_gather_bytes``'s temporaries), the tensor owns its Python object.
+    That last release takes the GIL; if the main thread has begun
+    finalizing by then, Python ends the thread with a forced unwind
+    through a noexcept destructor, and the process aborts with
+    "terminate called without an active exception" after its work is
+    done.  ``destroy_process_group`` joins those threads first."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _record_join(coordinator, attempts: int, wall_ms: float) -> None:

@@ -47,6 +47,7 @@ import sys
 from typing import Dict, List, Optional
 
 from avenir_tpu_torch.telemetry.journal import read_events
+from avenir_tpu_torch.utils.rig_canary import MATMUL_DIM
 
 
 def _writer_of(event: dict) -> str:
@@ -257,8 +258,8 @@ def render(events: List[dict], trace_filter: Optional[str] = None
 # GraftProf renderers
 # ---------------------------------------------------------------------------
 
-# one 4096³ bf16 matmul canary call = 2·4096³ FLOPs (utils/rig_canary.py)
-_CANARY_FLOPS_PER_CALL = 2.0 * 4096 ** 3
+# one matmul canary call at its default side = 2·dim³ FLOPs
+_CANARY_FLOPS_PER_CALL = 2.0 * MATMUL_DIM ** 3
 
 
 def canary_peak_flops(events: List[dict]) -> Optional[float]:

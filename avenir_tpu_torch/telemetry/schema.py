@@ -42,12 +42,10 @@ GOLDEN_EVENT_KEYS: Dict[str, Set[str]] = {
     # request log
     "serve.replay": {"ev", "ts", "trace", "span", "model", "rows",
                      "max_inflight"},
-    # the bench canary (bench.py): a tiny fixed device program timed
-    # before and after the measured passes, so interference shows up in
-    # the artifact
-    # read by the telemetry CLI's profile view (the MFU column); its
-    # producer, utils/rig_canary.py, comes with the benchmark modules
-    # graftlint: disable=GL007
+    # a rig canary reading (utils/rig_canary.py's matmul canary), timed
+    # beside the measured work so interference shows up in the journal;
+    # journaled by chip_smoke.py's telemetry phase, read by the telemetry
+    # CLI's profile view (the MFU column's peak)
     "canary": {"ev", "ts", "trace", "span", "ms", "when"},
     # GraftFleet: per-device straggler probes
     # (parallel/skew.py — flagged when max/min exceeds the threshold),

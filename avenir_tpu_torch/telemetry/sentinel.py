@@ -33,10 +33,10 @@ import fnmatch
 import json
 from typing import Dict, List, Optional
 
-# the BASELINE.md interpretation contract: matmul canary ≲ 7 ms reads
-# healthy; the contended regime reads 10-100x higher (bench.py uses the
-# same bound for value_canary_clean)
-CANARY_HEALTHY_MS = 7.0
+# a row whose matmul canary reads above the card's healthy bar is
+# contended (utils/rig_canary.py holds the bar and the readings it came
+# from)
+from avenir_tpu_torch.utils.rig_canary import CANARY_HEALTHY_MS
 
 DEFAULT_TOLERANCE_PCT = 25.0
 

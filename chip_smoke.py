@@ -14,7 +14,14 @@ Phases, in order; any failure exits non-zero:
    paths (``avenir_tpu_torch``, ``chip_smoke.py``) with its baseline, one
    ``graftlint files=... findings=... baselined=... s=...`` line, and any
    live finding fails the run;
-1. print the card's name and power limit (nvidia-smi) and build the CUDA
+1. print the card's name and power limit (nvidia-smi) and the peaks in
+   use (``utils/roofline.py::chip_peaks``: bf16, int8 and HBM, and the
+   table row they came from; a card without a row fails), then (1a) the
+   rig canaries of ``utils/rig_canary.py`` before any kernel of the port
+   runs: five readings of the 4096³ bf16 matmul and one of the kNN dot at
+   16,384 × 999,424 × 128, each beside the card's name and power limit,
+   and a ``canary`` JSON line; a reading that implies more than 105% of
+   the bf16 peak fails.  Then build the CUDA
    kernels ``avenir_tpu_torch/csrc/{cooc_pair,cross,knn_tourney,knn_topk,
    gram_probe}.cu`` (one nvcc each) and the native CSV encoder
    (``runtime/native/csv_encode.cpp``, g++), all started together,
@@ -231,7 +238,9 @@ Phases, in order; any failure exits non-zero:
     ``blackbox.dir`` and ``blackbox.watchdog.sec`` in a fresh process:
     exit 0, no live bundle left, a capture taken inside the run rendered
     by ``telemetry bundle``; (e) ``python -m avenir_tpu_torch.telemetry``
-    ``tree``, ``profile --peak-tflops 989`` (printed), ``metrics`` and
+    ``tree``, ``profile`` (printed; its peak derived from the ``canary``
+    event that (a) journals through the port's tracer after its first
+    traced run, and the phase fails unless it says so), ``metrics`` and
     ``diff`` on (a)'s journals, each exit 0;
 12b. (after 12; ~10 s) the planner on the card over phase 3's CSV:
     NB | BayesianPredictor | MI | Cramér (Cramér's ``uses`` edge naming
@@ -388,11 +397,14 @@ Phases, in order; any failure exits non-zero:
     (``launches`` 0: no path runs them), then the last line
     ``{"ok": true, "device": {...}}``.
 
-Bounds: B1–B4 count the work their inputs need, a sparse product — codes
-and labels (selectors) read once, G (the level table) written once, over
-the memory rate — with the dense product of the one-hots beside it as
+Bounds, at the peaks of the card's row in ``utils/roofline.py``: B1–B4
+count the work their inputs need, a sparse product — codes and labels
+(selectors) read once, G (the level table) written once, over the memory
+rate — with the dense product of the one-hots beside it as
 ``dense_ops_bound_ms``; B5–B6 their bf16 operations over the used
-lanes.
+lanes.  Every B1–B6 case row carries its share of that peak
+(``mfu_fields``: ``hbm_pct`` for B1–B4 over ``work_bytes``, ``mfu_pct``
+for B5–B6), and a share over 105% fails its phase.
 
 ``--b4`` runs B4 alone, in about a minute with its build: phase 2's B4
 cases, the hospital tree's level tables (``DecisionTree.fit`` on 1M seeded
@@ -411,6 +423,7 @@ device is available.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -423,11 +436,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-
-# H100 SXM published dense peaks (NVIDIA data sheet)
-PEAK_INT8_OPS = 1979e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
 
 MI_TOL = 2e-6            # MI numbers: float32 statistics printed to 6 places
 SCORE_TOL = 1e-6         # tree split scores (the tree contract)
@@ -482,6 +490,78 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def card_peaks() -> dict:
+    """The card's bf16, int8 and HBM peaks, looked up once by its name
+    (``utils/roofline.py::chip_peaks``).  Every bound and share reads
+    them; a card the table lacks (peaks probed, bf16 only) fails here,
+    since a bound by bytes or int8 operations would have no rate."""
+    from avenir_tpu_torch.utils import roofline
+
+    peaks = roofline.chip_peaks()
+    if not (peaks["bf16_flops"] and peaks["int8_ops"] and peaks["hbm_bytes"]):
+        raise AssertionError(f"no peaks table row for {peaks['device_kind']!r} "
+                             f"(source {peaks['source']}): add its row to "
+                             f"avenir_tpu_torch/utils/roofline.py")
+    return peaks
+
+
+def with_share(row: dict, nbytes: float = None, flops: float = None) -> dict:
+    """``row`` with the roofline share of its kernel time ``ms``
+    (``utils/roofline.py::mfu_fields`` at the card's peaks): the bytes its
+    work moves over the HBM rate (B1–B4: ``achieved_gbps``, ``hbm_pct``)
+    or its bf16 operations over the bf16 peak (B5–B6: ``achieved_tflops``,
+    ``mfu_pct``), whatever implements it.  A share over 105% fails: no
+    card gives it."""
+    from avenir_tpu_torch.utils import roofline
+
+    fields = roofline.mfu_fields(flops=flops, bytes_moved=nbytes,
+                                 dt=row["ms"] / 1e3, peaks=card_peaks())
+    del fields["device_kind"]
+    over = {k: v for k, v in fields.items() if k.endswith("_pct") and v > 105}
+    if over:
+        raise AssertionError(f"{row['kernel']} on {row['case']}: roofline "
+                             f"share {over} over 105% at {row['ms']} ms")
+    row.update(fields)
+    return row
+
+
+def canary_phase(card: str) -> dict:
+    """Phase 1a: the rig canaries (``utils/rig_canary.py``) before any
+    kernel of the port runs, as a benchmark measures its canary first:
+    five readings of the 4096³ bf16 matmul canary and one of the kNN dot
+    canary at its serving shape, each printed beside the card's name and
+    power limit, and one ``canary`` JSON line.  A reading that implies
+    more than 105% of the card's bf16 peak fails the phase."""
+    import torch
+
+    from avenir_tpu_torch.utils import rig_canary
+
+    peak = card_peaks()["bf16_flops"]
+    knn_refs = 1_000_000 - 1_000_000 % rig_canary.KNN_TILE
+    work = {"matmul": 2.0 * rig_canary.MATMUL_DIM ** 3,
+            "knn_dot": 2.0 * 16384 * knn_refs * 128}
+    readings = [("matmul", rig_canary.matmul_canary_ms()) for _ in range(5)]
+    readings.append(("knn_dot", rig_canary.knn_dot_canary_ms()))
+    torch.cuda.empty_cache()
+    for what, ms in readings:
+        pct = 100.0 * work[what] / (ms / 1e3) / peak if ms > 0 else float("inf")
+        log(f"canary {what}: {ms:.4f} ms, {work[what] / 1e12:.4f} TFLOP a "
+            f"call, {pct:.2f}% of the bf16 peak, on {card}")
+        if pct > 105.0:
+            raise AssertionError(f"canary {what} read {ms} ms: {pct:.2f}% of "
+                                 f"the bf16 peak, more than any card gives")
+    matmul = [ms for what, ms in readings if what == "matmul"]
+    out = {"matmul_4096_bf16_ms": matmul,
+           "matmul_median_ms": statistics.median(matmul),
+           "knn_dot_ms": readings[-1][1],
+           "healthy_ms": rig_canary.CANARY_HEALTHY_MS,
+           "above_healthy": sum(ms > rig_canary.CANARY_HEALTHY_MS
+                                for ms in matmul), "card": card}
+    log(json.dumps({"canary": out}))
+    return out
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -609,6 +689,7 @@ def kernel_cases(hist):
                "wp": wp, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                **gram_bound(f, n, wp * wp, f * b * c, n)}
+        with_share(row, nbytes=row["work_bytes"])
         log("B1 case:", json.dumps(row))
         results.append(row)
         del codes, labels, g, ref
@@ -627,8 +708,10 @@ def gram_bound(f: int, n: int, g_cells: int, used: int, n_eff: int) -> dict:
     from avenir_tpu_torch.ops import hist
 
     nbytes, ops = hist.gram_work(f, n, g_cells, used, n_eff)
-    return {"bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-            "dense_ops_bound_ms": ops / PEAK_INT8_OPS * 1e3}
+    peaks = card_peaks()
+    return {"bound_ms": nbytes / peaks["hbm_bytes"] * 1e3, "bound_by": "bytes",
+            "dense_ops_bound_ms": ops / peaks["int8_ops"] * 1e3,
+            "work_bytes": nbytes}
 
 
 def write_props(path: str, props: dict) -> str:
@@ -704,9 +787,9 @@ class Recorder:
 
 
 def bound(nbytes: float, ops: float):
-    """(bound ms, what bounds it) at the published H100 peaks."""
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    """(bound ms, what bounds it) at the card's HBM and int8 peaks."""
+    bytes_ms = nbytes / card_peaks()["hbm_bytes"] * 1e3
+    ops_ms = ops / card_peaks()["int8_ops"] * 1e3
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -798,6 +881,7 @@ def per_class_cases(hist):
                "mode": mode, "wp": wp, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                **gram_bound(f, n, c * wp * wp, f * b, n)}
+        with_share(row, nbytes=row["work_bytes"])
         log(f"{kid} case:", json.dumps(row))
         results.append(row)
         del codes, labels, g, ref
@@ -856,8 +940,10 @@ def cross_bound(f: int, n: int, b: int, s: int, n_eff: int) -> dict:
     from avenir_tpu_torch.ops import hist
 
     nbytes, ops = hist.cross_work(f, n, b, s, n_eff)
-    return {"bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-            "dense_ops_bound_ms": ops / PEAK_INT8_OPS * 1e3}
+    peaks = card_peaks()
+    return {"bound_ms": nbytes / peaks["hbm_bytes"] * 1e3, "bound_by": "bytes",
+            "dense_ops_bound_ms": ops / peaks["int8_ops"] * 1e3,
+            "work_bytes": nbytes}
 
 
 def cross_cases(hist):
@@ -922,6 +1008,7 @@ def cross_cases(hist):
                "num_sel": s, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                **cross_bound(f, n, b, s, n_eff)}
+        with_share(row, nbytes=row["work_bytes"])
         log("B4 case:", json.dumps(row))
         results.append(row)
         del codes, sel, t, ref
@@ -1607,6 +1694,7 @@ def telemetry_phase(work: str, train: str, schema: str, b4_tree: dict,
     from avenir_tpu_torch.ops import hist
     from avenir_tpu_torch.telemetry import spans as tel
     from avenir_tpu_torch.telemetry.journal import read_events
+    from avenir_tpu_torch.utils import rig_canary
 
     chunks = -(-ROWS_E2E // CHUNK_ROWS)
     path = pipeline_conf(work, "nb_mi", train, schema)
@@ -1624,9 +1712,14 @@ def telemetry_phase(work: str, train: str, schema: str, b4_tree: dict,
         t0 = time.perf_counter()
         try:
             run_pipeline(["run", path, f"-Dpipeline.workspace={ws}", *extra])
+            wall = time.perf_counter() - t0
+            if name == "traced_a":
+                # the journal's canary reading, through the port's tracer,
+                # as a benchmark journals its own: the profile's MFU peak
+                tel.tracer().event("canary", ms=round(
+                    rig_canary.matmul_canary_ms(), 4), when="post_run")
         finally:
             tel.tracer().disable()
-        wall = time.perf_counter() - t0
         (plain_walls if name.startswith("plain") else traced_walls).append(wall)
         counts = read_counts()
         if counts != only(B1=chunks):
@@ -1804,8 +1897,7 @@ def telemetry_phase(work: str, train: str, schema: str, b4_tree: dict,
 
     # (e) the CLI on the card's journals
     jb = journal_of(os.path.join(work, "tel_traced_b"))
-    for argv in (["tree", journal], ["profile", journal, "--peak-tflops",
-                                     "989"],
+    for argv in (["tree", journal], ["profile", journal],
                  ["metrics", journal], ["diff", journal, jb]):
         out = subprocess.run([*cli, *argv], cwd=HERE, capture_output=True,
                              text=True, timeout=120)
@@ -1814,6 +1906,11 @@ def telemetry_phase(work: str, train: str, schema: str, b4_tree: dict,
                                  f"{out.returncode}:\n{out.stderr}")
         if argv[0] == "profile":
             log("telemetry (e) profile:\n" + out.stdout.rstrip())
+            # the MFU column's peak from (a)'s journaled canary
+            if not any(ln.startswith("peak: ") and "(canary-derived" in ln
+                       for ln in out.stdout.splitlines()):
+                raise AssertionError("telemetry (e): the profile printed no "
+                                     "canary-derived peak")
     log("telemetry (e): tree, profile, metrics and diff exit 0")
     return launches
 
@@ -2868,6 +2965,7 @@ def path_cases(hist, rec: Recorder) -> list:
             else:          # upper triangle of the used lanes (per class: F·B)
                 row.update(gram_bound(f, n, *hist.gram_cells(f, b, k), n_eff))
             row["n_eff"] = n_eff
+            with_share(row, nbytes=row["work_bytes"])
             log(f"{kid} path case:", json.dumps(row))
         results.append(row)
         del got, want
@@ -2971,17 +3069,23 @@ def knn_data(n, m, f, fc, nb, seed, dup=1):
             tk.used_lanes(f, nb, fc))
 
 
+def knn_flops(m, n, w_used) -> float:
+    """B5's and B6's bf16 operations: 2·m·n·w over the used lanes
+    w = F·B + 6·Fc + 6."""
+    return 2.0 * m * n * w_used
+
+
 def knn_bound(kid, q, r, m, n, w_used):
-    """(bound ms, what bounds it): 2·m·n·w bf16 operations over the used
-    lanes w = F·B + 6·Fc + 6 at 989 TFLOP/s, against the operands read once
-    and the outputs written once at 3.35 TB/s."""
+    """(bound ms, what bounds it): :func:`knn_flops` at the card's bf16
+    peak, against the operands read once and the outputs written once at
+    its HBM rate."""
     from avenir_tpu_torch.ops import knn as tk
 
     out = (3 * q.shape[0] * tk._round_up(r.shape[0] // tk.SEG, 128) * 4
            if kid == "B5" else q.shape[0] * tk.SLOTS * 8)
     nbytes = (q.numel() + r.numel()) * 2 + out
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    ops_ms = 2 * m * n * w_used / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / card_peaks()["hbm_bytes"] * 1e3
+    ops_ms = knn_flops(m, n, w_used) / card_peaks()["bf16_flops"] * 1e3
     return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
@@ -3187,6 +3291,7 @@ def knn_cases():
                     "plain_ms": time_ms(ref, iters=3, warmup=1),
                     "library_ms": time_ms(lib, iters=5 if big else 20),
                     "bound_ms": bound_ms, "bound_by": bound_by})
+        with_share(row, flops=knn_flops(m, n_real, w_used))
         log(f"{kid} case:", json.dumps(row))
         results.append(row)
         del q, r, cq, xq, cr, xr, got, want
@@ -4945,6 +5050,7 @@ def knn_path_cases(rec: Recorder, used: dict) -> list:
             row.update({"w_used": w_used, "m": m_real, "n": n_real})
             row["bound_ms"], row["bound_by"] = knn_bound(
                 kid, q, r, m_real, n_real, w_used)
+            with_share(row, flops=knn_flops(m_real, n_real, w_used))
             log(f"{kid} path case:", json.dumps(row))
         results.append(row)
     rec.calls.clear()
@@ -6213,6 +6319,7 @@ def kernel_entry(kid, name, source, replaces, launches_by_path, cases):
         "library_ms": main["library_ms"],
         **({"dense_ops_bound_ms": main["dense_ops_bound_ms"]}
            if "dense_ops_bound_ms" in main else {}),
+        **{k: main[k] for k in ("hbm_pct", "mfu_pct") if k in main},
     }
 
 
@@ -6250,6 +6357,12 @@ def main(argv=None) -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    peaks = card_peaks()
+    log(f"peaks: bf16 {peaks['bf16_flops'] / 1e12:g} TFLOP/s, int8 "
+        f"{peaks['int8_ops'] / 1e12:g} TOP/s, HBM {peaks['hbm_bytes'] / 1e12:g} "
+        f"TB/s for {peaks['device_kind']!r} from {peaks['source']} "
+        f"(avenir_tpu_torch/utils/roofline.py)")
+    canary_phase(card)
 
     def build(name):
         t0 = time.perf_counter()

@@ -168,6 +168,35 @@ def test_checkpointer_interval_and_crash(tmp_path):
     assert not (tmp_path / "ck").exists()
 
 
+def test_finish_sweep_tolerates_a_peer_clearing_its_own_subdir(
+        tmp_path, monkeypatch):
+    """Two processes of one run finish at once: process 0 sweeps process
+    1's subdirectory (same run id) while process 1 clears it itself.  The
+    subdirectory vanishing under the sweep is not an error, and the root
+    is gone once both have finished."""
+    from avenir_tpu_torch.utils.checkpoint import CheckpointManager
+
+    root = tmp_path / "ck"
+    cks = [StreamCheckpointer(str(root / f"proc-00{p}-of-002"),
+                              interval_chunks=1, parent_dir=str(root),
+                              run_id="runA") for p in range(2)]
+    for p, ck in enumerate(cks):
+        ck.accumulator.add("x", np.arange(3) + p)
+        ck.chunk_done({"file": "f", "offset": 10, "chunk": 1, "rows": 5},
+                      last=False)
+    peer = str(root / "proc-001-of-002")
+    recover = CheckpointManager._recover
+
+    def racing(self):
+        if self.directory == peer and os.path.isdir(peer):
+            cks[1].finish()           # the peer clears itself first
+        recover(self)
+
+    monkeypatch.setattr(CheckpointManager, "_recover", racing)
+    cks[0].finish()
+    assert not root.exists()
+
+
 def test_snapshot_run_fingerprint_rejected_on_mismatch(tmp_path):
     ck = StreamCheckpointer(str(tmp_path / "ck"), interval_chunks=1,
                             run_id="runA")

@@ -1341,3 +1341,43 @@ def test_fleet_sum_of_card_partials_equals_cpu(cuda, tmp_path):
     for r in range(2):
         got = np.load(tmp_path / f"gram_p{r}.npz")["g"]
         np.testing.assert_array_equal(got, want.astype(np.int64))
+
+
+@pytest.mark.cuda
+def test_chip_peaks_name_the_cards_row(cuda):
+    """The attached card's peaks come from its own table row."""
+    from avenir_tpu_torch.utils import roofline
+
+    name = torch.cuda.get_device_name(0)
+    key = roofline._lookup_row(name)
+    assert key is not None, f"no peaks row for {name!r}"
+    assert roofline.chip_peaks() == {"device_kind": name,
+                                     **roofline._PEAKS[key],
+                                     "source": f"table:{key}"}
+
+
+@pytest.mark.cuda
+def test_canaries_on_the_card_within_the_bf16_peak(cuda):
+    """The matmul canary reads a positive time that implies at most 105%
+    of the card's bf16 peak; its step on the card (cuBLAS, float32 out)
+    equals the CPU step within float32 summation order; the kNN dot
+    canary takes references already on the card."""
+    from avenir_tpu_torch.utils import roofline, rig_canary
+
+    peak = roofline.chip_peaks()["bf16_flops"]
+    ms = rig_canary.matmul_canary_ms()
+    assert ms > 0
+    assert 2.0 * rig_canary.MATMUL_DIM ** 3 / (ms / 1e3) <= 1.05 * peak
+    a = torch.randn(512, 512, generator=torch.Generator().manual_seed(3)
+                    ).to(torch.bfloat16)
+    got = rig_canary.dot_f32(a.to(cuda), a.to(cuda))
+    assert got.dtype == torch.float32
+    want = rig_canary.dot_f32(a, a)
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    refs = torch.randn(2 * rig_canary.KNN_TILE + 5, 128,
+                       device=cuda).to(torch.bfloat16)
+    ms = rig_canary.knn_dot_canary_ms(refs=refs, reps=2)
+    assert ms > 0
+    flops = 2.0 * 16384 * 2 * rig_canary.KNN_TILE * 128
+    assert flops / (ms / 1e3) <= 1.05 * peak

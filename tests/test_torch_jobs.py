@@ -208,7 +208,9 @@ def test_package_imports_neither_jax_nor_avenir_tpu():
             "avenir_tpu_torch.checkpoint.reshard, "
             "avenir_tpu_torch.pipeline.resp, "
             "avenir_tpu_torch.serving.global_pool, "
-            "avenir_tpu_torch.tenancy.contract\n"
+            "avenir_tpu_torch.tenancy.contract, "
+            "avenir_tpu_torch.utils.roofline, "
+            "avenir_tpu_torch.utils.rig_canary\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'avenir_tpu' "
             "or m.startswith('avenir_tpu.'))\n"
@@ -251,7 +253,8 @@ def test_package_sources_name_neither_jax_nor_avenir_tpu():
                 "launch/__init__.py", "launch/__main__.py",
                 "checkpoint/__init__.py", "checkpoint/reshard.py",
                 "pipeline/resp.py", "serving/global_pool.py",
-                "tenancy/contract.py"):
+                "tenancy/contract.py", "utils/roofline.py",
+                "utils/rig_canary.py"):
         assert PKG / new in files
     assert len(files) > 40
     hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"

@@ -390,18 +390,21 @@ def test_metrics_cli_post_hoc_prometheus(tmp_path, capsys, monkeypatch):
 # the perf-regression sentinel, held against the JAX package's
 # ---------------------------------------------------------------------------
 
+# clean canary readings lie below both the card's bar (rig_canary's
+# CANARY_HEALTHY_MS) and the JAX package's TPU bar of 7 ms, so the two
+# sentinels' verdicts agree on them
 def _bench_line(value=200.0, clean=True, fam_tree=10.0, knn=5000.0):
     return {
         "metric": "nb_mi_pipeline_throughput",
         "value": value, "unit": "rows/sec/chip",
         "value_canary_clean": value if clean else None,
         "canary_clean_passes": 3 if clean else 0,
-        "canary_matmul_4096_bf16_ms": 1.2 if clean else 180.0,
+        "canary_matmul_4096_bf16_ms": 0.21 if clean else 180.0,
         "knn": {"value": knn, "unit": "queries/sec/chip",
-                "canary_matmul_4096_bf16_ms": 1.0 if clean else 190.0},
+                "canary_matmul_4096_bf16_ms": 0.2 if clean else 190.0},
         "families": {"tree": {
             "value": fam_tree, "unit": "rows/sec/chip",
-            "canary_per_pass_ms": [1.1, 0.9] if clean else [180.0, 167.0]}},
+            "canary_per_pass_ms": [0.22, 0.19] if clean else [180.0, 167.0]}},
     }
 
 
@@ -426,6 +429,25 @@ def test_sentinel_verdicts_equal_jax(case):
     assert ours["verdict"] == verdict
     assert ours == jsentinel.evaluate(current, baseline,
                                       per_metric=per_metric)
+
+
+def test_sentinel_flags_a_reading_between_the_bars():
+    # 3 ms of 4096³ bf16: contended on the card (past its bar), healthy
+    # on the TPU bar the JAX package keeps — the designed difference
+    between = 3.0
+    assert sentinel.CANARY_HEALTHY_MS < between < jsentinel.CANARY_HEALTHY_MS
+    current = _bench_line(value=140.0)
+    del current["value_canary_clean"]
+    current["canary_matmul_4096_bf16_ms"] = between
+    baseline = {k: v for k, v in _bench_line().items()
+                if k in ("metric", "value", "unit", "value_canary_clean",
+                         "canary_matmul_4096_bf16_ms")}
+    current = {k: current[k] for k in ("metric", "value", "unit",
+                                       "canary_matmul_4096_bf16_ms")}
+    ours = sentinel.evaluate(current, baseline)
+    theirs = jsentinel.evaluate(current, baseline)
+    assert ours["verdict"] == "skip"
+    assert theirs["verdict"] == "regression"
 
 
 def test_sentinel_cli_exit_codes(tmp_path, capsys):
