@@ -34,13 +34,24 @@ COUNTER_GROUPS = {
 }
 
 SPAN_SITES = {
+    'acc.add': 'docs/observability.md',
+    'acc.fetch': 'docs/observability.md',
     'chunk': 'docs/observability.md',
     'feeder.stage': 'docs/observability.md',
     'job.*': 'docs/observability.md',
+    'knn.fallback': 'docs/observability.md',
+    'knn.fetch': 'docs/observability.md',
+    'knn.launch': 'docs/observability.md',
+    'knn.predict': 'docs/observability.md',
+    'knn.prep': 'docs/observability.md',
+    'knn.vote': 'docs/observability.md',
     'pipeline.run': 'docs/observability.md',
     'scan': 'docs/observability.md',
     'scan.chunk': 'docs/observability.md',
+    'scan.finalize': 'docs/observability.md',
     'scan.fused': 'docs/observability.md',
+    'scan.launch': 'docs/observability.md',
+    'scan.read': 'docs/observability.md',
     'serve.request': 'docs/architecture.md',
     'stage.*': 'docs/observability.md',
 }

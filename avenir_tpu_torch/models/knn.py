@@ -52,6 +52,7 @@ from avenir_tpu_torch.ops import agg
 from avenir_tpu_torch.ops import knn as kops
 from avenir_tpu_torch.parallel.mesh import (device_put_sharded_batch,
                                             is_wide, pad_batch)
+from avenir_tpu_torch.telemetry import spans as tel
 from avenir_tpu_torch.utils.metrics import (ConfusionMatrix,
                                             CostBasedArbitrator, Counters)
 
@@ -285,23 +286,33 @@ def _nearest_neighbors_kernel(model: KNNModel, test: EncodedDataset, k: int,
     """Query batches through ``ops.knn.search`` (B5 or B6 with the exact
     re-rank and certificate); rows whose certificate fails are recomputed
     by the exact scan.  Their count adds to ``fallback_rows``, and
-    ``last_fallback`` holds the last call's row indices."""
+    ``last_fallback`` holds the last call's row indices.  Traced: the
+    query-side host work is ``knn.prep`` spans, each tile's fetch a
+    ``knn.fetch`` (attr ``bytes``), the exact scan of the failed rows
+    ``knn.fallback`` (attr ``rows``)."""
+    tracer = tel.tracer()
     r_mat, n = model.device_packed(device)
     codes_r, cont01_r = model.device_rerank_arrays(device)
-    cont01_q = _normalize01(test.cont, model.cont_lo, model.cont_hi)
+    with tracer.span("knn.prep"):
+        cont01_q = _normalize01(test.cont, model.cont_lo, model.cont_hi)
     total_attrs = test.codes.shape[1] + test.cont.shape[1]
     out_d, out_i, out_c = [], [], []
     for m0 in range(0, test.num_rows, test_tile):
-        d, idx, cert = kops.search(
-            torch.from_numpy(test.codes[m0:m0 + test_tile]).to(device),
-            torch.from_numpy(cont01_q[m0:m0 + test_tile]).to(device),
-            r_mat, codes_r, cont01_r, n, model.num_bins, k, total_attrs)
-        # one fetch per query tile: not designed — the tiles' results
-        # could stay on the device and cross once after the loop
-        # (ROADMAP, GL005 syncs left for perf_opt)
-        out_d.append(d.cpu().numpy())  # graftlint: disable=GL005
-        out_i.append(idx.cpu().numpy())  # graftlint: disable=GL005
-        out_c.append(cert.cpu().numpy())  # graftlint: disable=GL005
+        with tracer.span("knn.prep"):
+            codes_q = torch.from_numpy(test.codes[m0:m0 + test_tile]).to(
+                device)
+            cont_q = torch.from_numpy(cont01_q[m0:m0 + test_tile]).to(device)
+        d, idx, cert = kops.search(codes_q, cont_q, r_mat, codes_r, cont01_r,
+                                   n, model.num_bins, k, total_attrs)
+        with tracer.span("knn.fetch") as sp:
+            # one fetch per query tile: not designed — the tiles' results
+            # could stay on the device and cross once after the loop
+            # (ROADMAP, GL005 syncs left for perf_opt)
+            out_d.append(d.cpu().numpy())  # graftlint: disable=GL005
+            out_i.append(idx.cpu().numpy())  # graftlint: disable=GL005
+            out_c.append(cert.cpu().numpy())  # graftlint: disable=GL005
+            sp.set("bytes", out_d[-1].nbytes + out_i[-1].nbytes
+                   + out_c[-1].nbytes)
     d, idx, cert = (np.concatenate(out_d), np.concatenate(out_i),
                     np.concatenate(out_c))
     rows = np.flatnonzero(~cert)
@@ -310,16 +321,18 @@ def _nearest_neighbors_kernel(model: KNNModel, test: EncodedDataset, k: int,
     if len(rows):
         # the candidate set might miss a true neighbor: recompute those
         # rows with the exact scan
-        sub = EncodedDataset(
-            codes=test.codes[rows], cont=test.cont[rows],
-            labels=None if test.labels is None else test.labels[rows],
-            ids=None, n_bins=test.n_bins, class_values=test.class_values,
-            binned_ordinals=test.binned_ordinals,
-            cont_ordinals=test.cont_ordinals)
-        d_sub, i_sub = _nearest_neighbors_scan(model, sub, k, "euclidean",
-                                               65536, 8192, device)
-        d[rows] = d_sub
-        idx[rows] = i_sub
+        with tracer.span("knn.fallback") as sp:
+            sp.set("rows", len(rows))
+            sub = EncodedDataset(
+                codes=test.codes[rows], cont=test.cont[rows],
+                labels=None if test.labels is None else test.labels[rows],
+                ids=None, n_bins=test.n_bins, class_values=test.class_values,
+                binned_ordinals=test.binned_ordinals,
+                cont_ordinals=test.cont_ordinals)
+            d_sub, i_sub = _nearest_neighbors_scan(model, sub, k, "euclidean",
+                                                   65536, 8192, device)
+            d[rows] = d_sub
+            idx[rows] = i_sub
     return d, idx
 
 
@@ -401,14 +414,29 @@ def nearest_neighbors(
     package's gate); otherwise the kernel route serves the euclidean
     metric (:func:`kernel_route`), the exact scan everything else."""
     dev = resolve_device(device)
-    if is_wide(mesh) and min(k, model.num_refs) <= _shard_rows(
-            model.num_refs, mesh.size("data")):
+    route = neighbor_route(model, k, metric, dev, mesh)
+    if route == "sharded":
         return _nearest_neighbors_sharded(model, test, k, metric, mesh,
                                           ref_tile, test_tile)
-    if kernel_route(model, k, metric):
-        return _nearest_neighbors_kernel(model, test, k, test_tile, dev)
-    return _nearest_neighbors_scan(model, test, k, metric, ref_tile,
-                                   test_tile, dev)
+    if route == "scan":
+        return _nearest_neighbors_scan(model, test, k, metric, ref_tile,
+                                       test_tile, dev)
+    return _nearest_neighbors_kernel(model, test, k, test_tile, dev)
+
+
+def neighbor_route(model: KNNModel, k: int, metric: str,
+                   device: torch.device, mesh=None) -> str:
+    """The route :func:`nearest_neighbors` takes: ``sharded``, the kernel
+    route's kernel as ``ops.knn.search`` picks it over the packed
+    references (``b5`` or ``b6``), or the exact ``scan``."""
+    if is_wide(mesh) and min(k, model.num_refs) <= _shard_rows(
+            model.num_refs, mesh.size("data")):
+        return "sharded"
+    if not kernel_route(model, k, metric):
+        return "scan"
+    r_mat, n = model.device_packed(device)
+    kk = min(k + kops.MARGIN, kops.SLOTS)
+    return "b5" if kops.use_tourney(n, r_mat.shape[0], kk) else "b6"
 
 
 
@@ -494,9 +522,34 @@ class KNN:
     # -- classification ------------------------------------------------------
     def predict(self, model: KNNModel, test: EncodedDataset,
                 validate: bool = False) -> KNNResult:
+        """Classify ``test``'s rows by their neighbours' votes.  Traced:
+        one ``knn.predict`` span (attrs ``queries``, ``route``) around
+        the search's spans and ``knn.vote``."""
         if model.labels is None:
             raise ValueError("classification requires labels in the reference set")
-        dists, idx = self._neighbors(model, test)
+        tracer = tel.tracer()
+        with tracer.span("knn.predict") as sp:
+            sp.set("queries", test.num_rows)
+            dists, idx = self._neighbors(model, test)
+            if sp.enabled:
+                sp.set("route", neighbor_route(model, self.k, self.metric,
+                                               self.device, self.mesh))
+            with tracer.span("knn.vote"):
+                result = self._vote(model, dists, idx)
+        if validate:
+            if test.labels is None:
+                raise ValueError("validation requires test labels")
+            cm = ConfusionMatrix(model.class_values, pos_class=self.pos_class)
+            cm.add_batch(test.labels, result.predicted)
+            counters = Counters()
+            cm.publish(counters)
+            result.confusion = cm
+            result.counters = counters
+        return result
+
+    def _vote(self, model: KNNModel, dists: np.ndarray,
+              idx: np.ndarray) -> KNNResult:
+        """Weights, class scores and the decision from the neighbours."""
         w = kernel_weights(dists, self.kernel, self.kernel_sigma, self.inverse_distance)
         neigh_labels = model.labels[idx]                        # [M, k]
         c = len(model.class_values)
@@ -522,18 +575,8 @@ class KNN:
             predicted = np.where(shares[:, p] >= self.decision_threshold, p, 1 - p).astype(np.int32)
         else:
             predicted = np.argmax(shares, axis=1).astype(np.int32)
-        result = KNNResult(predicted=predicted, class_scores=shares,
-                           neighbor_idx=idx, neighbor_dist=dists)
-        if validate:
-            if test.labels is None:
-                raise ValueError("validation requires test labels")
-            cm = ConfusionMatrix(model.class_values, pos_class=self.pos_class)
-            cm.add_batch(test.labels, predicted)
-            counters = Counters()
-            cm.publish(counters)
-            result.confusion = cm
-            result.counters = counters
-        return result
+        return KNNResult(predicted=predicted, class_scores=shares,
+                         neighbor_idx=idx, neighbor_dist=dists)
 
     # -- regression ----------------------------------------------------------
     def regress(self, model: KNNModel, test: EncodedDataset,

@@ -20,6 +20,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch.telemetry import spans as tel
+
 # The JAX einsum path sums float32 one-hots, exact only below 2^24 per cell;
 # chunks stay under this cap on every path so per-chunk int32 counts are
 # exact and the paths stay interchangeable.
@@ -216,15 +218,24 @@ class Accumulator:
         self._totals = {}
 
     def add(self, name: str, value) -> None:
+        """Fold ``value`` into the total ``name``.  Traced as two spans:
+        ``acc.fetch`` (a tensor's copy to the host, waiting for the device
+        work behind it; attr ``bytes``) and ``acc.add`` (the widening and
+        the add)."""
+        tracer = tel.tracer()
         if isinstance(value, torch.Tensor):
-            value = value.cpu().numpy()
-        arr = np.asarray(value)
-        arr = (arr.astype(np.int64) if np.issubdtype(arr.dtype, np.integer)
-               else arr.astype(np.float64))
-        if name in self._totals:
-            self._totals[name] = self._totals[name] + arr
-        else:
-            self._totals[name] = arr
+            with tracer.span("acc.fetch") as sp:
+                value = value.cpu().numpy()
+                sp.set("bytes", value.nbytes)
+        with tracer.span("acc.add"):
+            arr = np.asarray(value)
+            arr = (arr.astype(np.int64)
+                   if np.issubdtype(arr.dtype, np.integer)
+                   else arr.astype(np.float64))
+            if name in self._totals:
+                self._totals[name] = self._totals[name] + arr
+            else:
+                self._totals[name] = arr
 
     def get(self, name: str) -> np.ndarray:
         return self._totals[name]

@@ -58,6 +58,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch.telemetry import spans as tel
+
 # Block shapes of the JAX kernels, kept because the operand padding follows
 # them: queries pad to TM rows, small reference sets to TN rows.
 TM = 512
@@ -694,18 +696,23 @@ def search(codes_q: torch.Tensor, cont01_q: torch.Tensor, r_mat: torch.Tensor,
     reference rows for the re-rank.  Returns ([M, k] distances in [0, 1],
     [M, k] int64 reference indices, [M] bool certificate) ordered by
     (exact d², index); a row whose certificate is False must be served by
-    the exact scan."""
+    the exact scan.  Traced: the query pack is a ``knn.prep`` span, the
+    kernel call with the assembly, re-rank and certificate ``knn.launch``
+    (host time enqueuing: nothing here waits for the device)."""
     m, f = codes_q.shape
     kk = min(k + margin, SLOTS)
     rows = _round_up(max(m, TM), TM)
-    q_mat = _pack_queries_dev(codes_q, cont01_q, num_bins, rows, float(f))
+    tracer = tel.tracer()
+    with tracer.span("knn.prep"):
+        q_mat = _pack_queries_dev(codes_q, cont01_q, num_bins, rows, float(f))
     used = used_lanes(f, num_bins, cont01_q.shape[1])
-    if use_tourney(n_real, r_mat.shape[0], kk):
-        out = knn_tourney(q_mat, r_mat, used=used)
-    else:
-        out = knn_topk(q_mat, r_mat, kk, used=used)
-    return finish(codes_q, cont01_q, codes_r, cont01_r, n_real,
-                  assemble(out, m, kk), k, total_attrs)
+    with tracer.span("knn.launch"):
+        if use_tourney(n_real, r_mat.shape[0], kk):
+            out = knn_tourney(q_mat, r_mat, used=used)
+        else:
+            out = knn_topk(q_mat, r_mat, kk, used=used)
+        return finish(codes_q, cont01_q, codes_r, cont01_r, n_real,
+                      assemble(out, m, kk), k, total_attrs)
 
 
 def topk_candidates(q_mat: torch.Tensor, r_mat: torch.Tensor, k: int,

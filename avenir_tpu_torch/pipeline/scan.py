@@ -34,6 +34,11 @@ model's own ``fit`` over the same chunks (tests/test_torch_scan.py).
 
 Row-validity: rows whose label is out of range drop out of every table
 (the NB/MI drop-invalid contract).
+
+Traced, a scan is a ``scan`` span holding a ``scan.read`` and a
+``scan.chunk`` a chunk (in it each ``scan.launch``, ``acc.fetch`` and
+``acc.add``), then ``scan.finalize`` beside it; every live span is also
+a ``torch.profiler`` range while a capture runs (``telemetry/spans.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ import torch
 from avenir_tpu_torch.core.encoding import EncodedDataset, peek_chunks
 from avenir_tpu_torch.device import to_device
 from avenir_tpu_torch.ops import agg
+from avenir_tpu_torch.telemetry import spans as tel
 from avenir_tpu_torch.utils.metrics import Counters
 
 
@@ -406,18 +412,28 @@ class ChunkFolder:
             self._fold(ds, acc)
 
     def _fold(self, ds: EncodedDataset, acc: agg.Accumulator) -> None:
+        """Place the chunk and fold it.  Traced: each group of work the
+        host enqueues is a ``scan.launch`` span (here the placement and,
+        off the sharded steps, the class count), each host accumulation
+        an ``acc.fetch`` and an ``acc.add`` (``agg.Accumulator.add``)."""
+        from avenir_tpu_torch.parallel.collectives import shard_sum
         from avenir_tpu_torch.parallel.mesh import place_batch
 
-        if self.shard is not None:
-            codes, labels, cont = self.shard.shard_batch(ds.codes, ds.labels,
-                                                         ds.cont)
-        else:
-            codes, labels, cont = place_batch(
-                self.mesh, self.device, ds.codes, ds.labels,
-                ds.cont if self.needs_moments else None)
-        if self.step in ("shard", "sharded"):
+        sharded = self.step in ("shard", "sharded")
+        with tel.tracer().span("scan.launch"):
+            if self.shard is not None:
+                codes, labels, cont = self.shard.shard_batch(
+                    ds.codes, ds.labels, ds.cont)
+            else:
+                codes, labels, cont = place_batch(
+                    self.mesh, self.device, ds.codes, ds.labels,
+                    ds.cont if self.needs_moments else None)
+            if not sharded:
+                class_counts = shard_sum(agg.class_counts, labels, self.c)
+        if sharded:
             self._fold_shard(codes, labels, cont, acc)
             return
+        acc.add("class", class_counts)
         self._fold_local(codes, labels, cont, acc)
 
     def _fold_shard(self, codes, labels, cont, acc: agg.Accumulator) -> None:
@@ -452,44 +468,51 @@ class ChunkFolder:
             self._skew.maybe_probe(codes, labels)
 
     def _fold_local(self, codes, labels, cont, acc: agg.Accumulator) -> None:
-        """One chunk on the kernel, packed or einsum route; on the einsum
-        route a chunk split over a mesh (:class:`Blocks`) is counted per
-        shard and summed in shard order."""
+        """The rest of one chunk on the kernel, packed or einsum route
+        (:meth:`_fold` has counted the classes); on the einsum route a
+        chunk split over a mesh (:class:`Blocks`) is counted per shard and
+        summed in shard order."""
         from avenir_tpu_torch.ops import hist
         from avenir_tpu_torch.parallel.collectives import shard_sum
 
-        acc.add("class", shard_sum(agg.class_counts, labels, self.c))
+        tracer = tel.tracer()
         moments = None
         if self.step == "kernel":
-            if self.needs_moments:
-                g, *moments = hist.gram_moments(codes, labels, cont,
-                                                self.b, self.c)
-            else:
-                g = hist.cooc_counts(codes, labels, self.b, self.c)
+            with tracer.span("scan.launch"):
+                if self.needs_moments:
+                    g, *moments = hist.gram_moments(codes, labels, cont,
+                                                    self.b, self.c)
+                else:
+                    g = hist.cooc_counts(codes, labels, self.b, self.c)
             acc.add(self.gk, g)
         elif self.step == "packed":
-            if self.needs_moments:
-                g, *moments = hist.gram_counts_moments(codes, labels, cont,
-                                                       self.b, self.c)
-            else:
-                g = hist.gram_counts(codes, labels, self.b, self.c)
+            with tracer.span("scan.launch"):
+                if self.needs_moments:
+                    g, *moments = hist.gram_counts_moments(
+                        codes, labels, cont, self.b, self.c)
+                else:
+                    g = hist.gram_counts(codes, labels, self.b, self.c)
             acc.add(self.gk, g)
         elif self.step == "einsum":
-            acc.add("fc", shard_sum(agg.feature_class_counts, codes, labels,
-                                    self.c, self.b))
+            with tracer.span("scan.launch"):
+                fc = shard_sum(agg.feature_class_counts, codes, labels,
+                               self.c, self.b)
+            acc.add("fc", fc)
             for s in range(0, len(self.pair_index), self.pair_chunk):
                 sl = torch.from_numpy(
                     self.pair_index[s:s + self.pair_chunk]).long()
+                with tracer.span("scan.launch"):
+                    pcc = shard_sum(agg.pair_class_counts_at, codes, labels,
+                                    sl, self.c, self.b)
                 # SharedScan accumulators live only for one fused scan, and windowed
                 # pane accumulators carry the run fingerprint in their snapshot
                 # envelope (stream/windows.py); the pcc<s> keys are the port
                 # contract's and mirror models/mutual_info.py's family
                 # graftlint: disable=GL002
-                acc.add(f"pcc{s}", shard_sum(agg.pair_class_counts_at,
-                                             codes, labels, sl, self.c,
-                                             self.b))
+                acc.add(f"pcc{s}", pcc)
         if self.needs_moments and moments is None:
-            moments = shard_sum(agg.class_moments, cont, labels, self.c)
+            with tracer.span("scan.launch"):
+                moments = shard_sum(agg.class_moments, cont, labels, self.c)
         if moments is not None:
             acc.add("cont_count", moments[0])
             acc.add("cont_sum", moments[1])
@@ -709,8 +732,6 @@ class SharedScan:
         import time
 
         from avenir_tpu_torch.telemetry import profile as _profile
-        from avenir_tpu_torch.telemetry import spans as tel
-        from avenir_tpu_torch.utils import profiling
 
         tracer = tel.tracer()
         prof = _profile.profiler()
@@ -727,10 +748,14 @@ class SharedScan:
             devices = list(self.shard.mesh.axis_devices(self.shard.data_axis))
         elif self.mesh is not None:
             devices = list(self.mesh.axis_devices("data"))
-        # the scan is a range of its own in a trace.xla.dir device trace
-        with tracer.span("scan", attrs=attrs) as scan_span, \
-                profiling.region("scan"):
-            for ds in chunks:
+        chunks = iter(chunks)
+        with tracer.span("scan", attrs=attrs) as scan_span:
+            while True:
+                # the input side: in a CSV job the reader and the encoder
+                with tracer.span("scan.read"):
+                    ds = next(chunks, None)
+                if ds is None:
+                    break
                 # a chunk the sharded feeder staged arrives padded; its
                 # valid_rows is the true count
                 true_rows = (ds.valid_rows if ds.valid_rows is not None
@@ -758,7 +783,8 @@ class SharedScan:
                 self.chunks_seen += 1
             scan_span.set("chunks", self.chunks_seen)
             scan_span.set("rows", rows)
-        return folder.finalize(acc, rows)
+        with tracer.span("scan.finalize"):
+            return folder.finalize(acc, rows)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,19 @@ package's schema, so a slow or wedged run reads as one tree
 - **honest wall times**: CUDA launches are asynchronous, so a span
   measuring device work registers its output via :meth:`Span.block_on`
   and the close synchronizes through ``utils/profiling.device_sync``.
+  A span's ``dur_ms`` holds no journal write: its clock starts after its
+  ``span.open`` is written, and the time this thread spends journaling
+  inside it (its children's opens and closes, its events) is taken out,
+  so a traced span measures the program and not the tracer.  The open
+  and close events' ``ts`` keep the wall times.
+- **one mechanism on the device trace's clock**: while a
+  ``torch.profiler`` capture runs, every live span is also a
+  ``torch.profiler.record_function`` range over its extent, journal on
+  or off (with the journal off, :meth:`Tracer.span` hands out a
+  :class:`_RangeSpan`), so the capture's ``user_annotation`` events name
+  what the host was doing with the program's own span names.  Retroactive
+  spans (:meth:`Tracer.emit_span`: ``feeder.stage``, ``serve.request``,
+  ``chunk``) are journal-only: their work is over when they are written.
 - **single-writer journal shards**: a writer with a suffix
   (``trace.writer.suffix``, or ``tenant.id``) or a shared
   ``trace.run.id`` journals to its own shard
@@ -39,6 +52,7 @@ import contextlib
 import contextvars
 import itertools
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, Iterable, Iterator, Optional
@@ -90,7 +104,7 @@ class Span:
     output via :meth:`block_on` so the close time is honest."""
 
     __slots__ = ("tracer", "trace_id", "span_id", "parent_id", "name",
-                 "attrs", "ts", "_t0", "dur_ms", "status", "_pending")
+                 "attrs", "ts", "_t0", "_j0", "dur_ms", "status", "_pending")
 
     def __init__(self, tracer: "Tracer", trace_id: str, span_id: str,
                  parent_id: Optional[str], name: str,
@@ -102,7 +116,8 @@ class Span:
         self.name = name
         self.attrs: Dict[str, Any] = dict(attrs or {})
         self.ts = time.time()
-        self._t0 = time.perf_counter()
+        self._t0 = 0.0          # the clock and the thread's journal time,
+        self._j0 = 0.0          # both read once the open is journaled
         self.dur_ms: Optional[float] = None
         self.status = "ok"
         self._pending = None
@@ -132,7 +147,8 @@ class Span:
 
             device_sync(self._pending)
             self._pending = None
-        self.dur_ms = (time.perf_counter() - self._t0) * 1e3
+        wall = time.perf_counter() - self._t0
+        self.dur_ms = (wall - (self.tracer._journal_s() - self._j0)) * 1e3
 
 
 class _NoopSpan:
@@ -163,6 +179,48 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def _profiling() -> bool:
+    """Is a ``torch.profiler`` capture running in this process?  False
+    while torch is not even imported (then none can be): the telemetry
+    package itself never imports torch.  Once torch is there, this name
+    is rebound to torch's own check, so the off path pays one C call."""
+    global _profiling
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    _profiling = torch.autograd._profiler_enabled
+    return _profiling()
+
+
+def _range(name: str):
+    """An entered ``record_function`` range named ``name``."""
+    from torch.profiler import record_function
+
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _RangeSpan(_NoopSpan):
+    """The span handed out while tracing is off and a ``torch.profiler``
+    capture runs: the inert span's API, holding a ``record_function``
+    range named for the span over its extent."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        self._range = _range(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        self._range.__exit__(*exc)
+        return False
+
+
 def _new_id(prefix: str) -> str:
     return prefix + os.urandom(6).hex()
 
@@ -185,6 +243,7 @@ class Tracer:
         self.writer_suffix = ""
         self._span_prefix = ""
         self._root_trace: Optional[str] = None
+        self._spent = threading.local()          # journal seconds a thread
 
     # -- lifecycle -----------------------------------------------------------
     def enable(self, journal_dir: Optional[str] = None,
@@ -278,10 +337,12 @@ class Tracer:
              parent: Optional[Span] = None):
         """Open a child of the context's current span (or of ``parent``
         when crossing a thread); a span with no parent roots a new trace.
-        Disabled: returns the shared NOOP span directly — one attribute
-        check, no generator frame, no allocation."""
+        Disabled: returns the shared NOOP span directly — an attribute
+        check and the profiler check, no generator frame, no allocation —
+        or, while a ``torch.profiler`` capture runs, a
+        :class:`_RangeSpan`."""
         if not self.enabled:
-            return NOOP_SPAN
+            return _RangeSpan(name) if _profiling() else NOOP_SPAN
         return self._live_span(name, attrs, parent)
 
     @contextlib.contextmanager
@@ -296,6 +357,9 @@ class Tracer:
         self._journal_emit("span.open", trace=sp.trace_id, span=sp.span_id,
                            parent=sp.parent_id, name=sp.name,
                            attrs=sp.attrs)
+        rf = _range(name) if _profiling() else None
+        sp._t0 = time.perf_counter()
+        sp._j0 = self._journal_s()
         try:
             yield sp
         except BaseException as exc:
@@ -303,7 +367,11 @@ class Tracer:
             raise
         finally:
             _CURRENT.reset(token)
-            sp._close()
+            try:
+                sp._close()
+            finally:
+                if rf is not None:
+                    rf.__exit__(None, None, None)
             self._journal_emit("span.close", trace=sp.trace_id,
                                span=sp.span_id, name=sp.name,
                                dur_ms=round(sp.dur_ms, 3),
@@ -315,7 +383,8 @@ class Tracer:
                   status: str = "ok") -> None:
         """Retroactively journal a completed span — the cross-thread form
         (the feeder's worker) where the work finished on a thread that
-        never held the submitting context."""
+        never held the submitting context.  Journal-only: no profiler
+        range, since the work is over by now."""
         if not self.enabled:
             return
         trace_id = (parent.trace_id if parent is not None
@@ -337,7 +406,17 @@ class Tracer:
         return f"{self._span_prefix}s{next(self._seq)}"
 
     # -- journal shorthands --------------------------------------------------
+    def _journal_s(self) -> float:
+        """Seconds this thread has spent in the tracer's journal writes
+        (what a live span's duration leaves out)."""
+        return getattr(self._spent, "s", 0.0)
+
     def _journal_emit(self, ev: str, **fields) -> None:
+        t0 = time.perf_counter()
+        self._write(ev, fields)
+        self._spent.s = self._journal_s() + time.perf_counter() - t0
+
+    def _write(self, ev: str, fields: Dict[str, Any]) -> None:
         # every journaled event also lands in the always-on flight ring (a dead process's last moments survive the journal's
         # file buffer); copied because the labels/ts mutation below would
         # otherwise alias the ring's stored record

@@ -8,9 +8,10 @@
   kernels and copies when the region runs on a CUDA device) in place of
   XProf's ``<log_dir>/plugins/profile/<stamp>/*.xplane.pb``.  Open it in
   ``chrome://tracing`` or Perfetto.  The whole region is one range named
-  for ``log_dir``'s last component (the pipeline's stage name), and
-  :func:`region` marks ranges inside it (``scan``), so a reader can take
-  the device's busy share of either window.
+  for ``log_dir``'s last component (the pipeline's stage name); inside
+  it every live span of the tracer (``telemetry/spans.py``: ``scan``,
+  ``scan.chunk``, ``acc.fetch``, ...) is a range of its own, tracer on
+  or off, so a reader can take the device's busy share of any of them.
 - :class:`StepTimer` keeps per-step walls with percentile summaries,
   synchronized on the step's device output.
 - :func:`get_logger` honours the reference's per-job ``debug.on`` flag.
@@ -55,18 +56,6 @@ def device_sync(value):
         # graftlint: disable=GL005
         torch.cuda.synchronize(dev)
     return value
-
-
-def region(name: str):
-    """A named range in the trace of an open :func:`trace` (a
-    ``torch.profiler.record_function``); with no profiler running, a null
-    context — one check, no allocation."""
-    if not torch.autograd._profiler_enabled():
-        return _NULL
-    return torch.profiler.record_function(name)
-
-
-_NULL = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
