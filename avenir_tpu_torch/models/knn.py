@@ -25,7 +25,9 @@ Three search routes, chosen by the same gates on every device:
   metric with k + 1 ≤ ``SLOTS``: ``ops/knn.search`` — query pack, B5
   (``csrc/knn_tourney.cu``) or B6 (``csrc/knn_topk.cu``) on ``cuda`` and
   their plain versions on the CPU, exact re-rank and certificate; rows
-  whose certificate fails are served by the exact scan;
+  whose certificate fails are served by the exact kernel,
+  ``ops/knn.knn_exact`` (``csrc/knn_exact.cu``, its plain version on the
+  CPU): every reference's exact d² in one pass;
 - the exact scan (:func:`_nearest_neighbors_scan`): float32 distances by
   the norm expansion over reference tiles (TF32 off), merged into a
   running top-k.
@@ -285,11 +287,11 @@ def _nearest_neighbors_kernel(model: KNNModel, test: EncodedDataset, k: int,
                               ) -> Tuple[np.ndarray, np.ndarray]:
     """Query batches through ``ops.knn.search`` (B5 or B6 with the exact
     re-rank and certificate); rows whose certificate fails are recomputed
-    by the exact scan.  Their count adds to ``fallback_rows``, and
-    ``last_fallback`` holds the last call's row indices.  Traced: the
-    query-side host work is ``knn.prep`` spans, each tile's fetch a
-    ``knn.fetch`` (attr ``bytes``), the exact scan of the failed rows
-    ``knn.fallback`` (attr ``rows``)."""
+    by the exact kernel (:func:`_exact_rows`).  Their count adds to
+    ``fallback_rows``, and ``last_fallback`` holds the last call's row
+    indices.  Traced: the query-side host work is ``knn.prep`` spans, each
+    tile's fetch a ``knn.fetch`` (attr ``bytes``), the exact kernel's call
+    on the failed rows ``knn.fallback`` (attr ``rows``)."""
     tracer = tel.tracer()
     r_mat, n = model.device_packed(device)
     codes_r, cont01_r = model.device_rerank_arrays(device)
@@ -320,24 +322,35 @@ def _nearest_neighbors_kernel(model: KNNModel, test: EncodedDataset, k: int,
     _nearest_neighbors_kernel.last_fallback = rows
     if len(rows):
         # the candidate set might miss a true neighbor: recompute those
-        # rows with the exact scan
+        # rows exactly over every reference
         with tracer.span("knn.fallback") as sp:
             sp.set("rows", len(rows))
-            sub = EncodedDataset(
-                codes=test.codes[rows], cont=test.cont[rows],
-                labels=None if test.labels is None else test.labels[rows],
-                ids=None, n_bins=test.n_bins, class_values=test.class_values,
-                binned_ordinals=test.binned_ordinals,
-                cont_ordinals=test.cont_ordinals)
-            d_sub, i_sub = _nearest_neighbors_scan(model, sub, k, "euclidean",
-                                                   65536, 8192, device)
-            d[rows] = d_sub
-            idx[rows] = i_sub
+            d[rows], idx[rows] = _exact_rows(
+                test.codes[rows], cont01_q[rows], codes_r, cont01_r, k,
+                total_attrs, device)
     return d, idx
 
 
 _nearest_neighbors_kernel.fallback_rows = 0
 _nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
+
+
+def _exact_rows(codes: np.ndarray, cont01: np.ndarray, codes_r: torch.Tensor,
+                cont01_r: torch.Tensor, k: int, total_attrs: int,
+                device: torch.device) -> Tuple[np.ndarray, np.ndarray]:
+    """([R, k] distances, [R, k] int64 indices) on the host of the query
+    rows ``codes`` [R, F] and normalized ``cont01`` [R, Fc] by
+    ``ops.knn.knn_exact`` against the resident re-rank arrays: one upload
+    (the codes and the continuous columns' bits side by side as int32),
+    one kernel call, the [R, k] answers fetched.  ``ops.knn.distances``
+    gives the same bits on every device, so it runs on the fetched d²:
+    seven ops on a few rows, with no launch."""
+    f = codes.shape[1]
+    q = torch.from_numpy(np.concatenate(
+        [codes.astype(np.int32), cont01.view(np.int32)], axis=1)).to(device)
+    d2, idx = kops.knn_exact(q[:, :f], q[:, f:].view(torch.float32), codes_r,
+                             cont01_r, k)
+    return kops.distances(d2.cpu(), total_attrs).numpy(), idx.cpu().numpy()
 
 
 def _shard_rows(n: int, d_par: int) -> int:

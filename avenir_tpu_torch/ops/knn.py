@@ -32,6 +32,11 @@ version beside it:
   second kernel merges; plain version :func:`knn_topk_ref`, and
   :func:`knn_topk_merge_ref` for the merge alone.
 
+A third, :func:`knn_exact` → ``csrc/knn_exact.cu``, replaces no TPU
+kernel: it serves the rows whose certificate fails, the exact top-k by
+:func:`rerank_d2`'s arithmetic over every reference in one pass; plain
+version :func:`knn_exact_ref`.
+
 :func:`search` is the counterpart of ``search_fused``: query pack, B5 or
 B6 by the JAX package's route gate, assembly, exact re-rank and
 certificate, all on the tensors' device.  On a CPU tensor a wrapper runs
@@ -509,6 +514,126 @@ def knn_topk(a: torch.Tensor, b: torch.Tensor, kk: int,
 knn_topk.launches = 0                  # B6
 
 
+EXACT_ROWS = 8          # query rows a block of csrc/knn_exact.cu takes
+EXACT_TILE = 256        # references a block reads a step
+EXACT_REFS_PER_SLOT = 128  # references per range and kept slot, at least
+EXACT_REF_PAIRS = 1 << 22  # query-reference pairs a step of the plain version
+
+
+def knn_exact_ref(codes_q: torch.Tensor, cont_q: torch.Tensor,
+                  codes_r: torch.Tensor, cont_r: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`knn_exact`: codes_q [R, F] int32 and cont_q
+    [R, Fc] float32 against every reference of codes_r [N, F] and cont_r
+    [N, Fc] → (d² [R, k] float32, idx [R, k] int64), the k least by (d²,
+    index) ascending, d² by :func:`rerank_d2`.  Walks the references in
+    steps of about ``EXACT_REF_PAIRS`` pairs, keeping the k least keys
+    ``(bits(d²) << 32) | index``: d² ≥ +0, so the keys order as (d², index)
+    and are unique."""
+    r, n = codes_q.shape[0], codes_r.shape[0]
+    dev = codes_q.device
+    best = torch.empty((r, 0), dtype=torch.int64, device=dev)
+    step = max(EXACT_REF_PAIRS // max(r, 1), 1)
+    for s0 in range(0, n, step):
+        idx = torch.arange(s0, min(n, s0 + step), device=dev).expand(r, -1)
+        d2 = rerank_d2(codes_q, cont_q, codes_r, cont_r, idx)
+        keys = torch.cat([best, (d2.view(torch.int32).long() << 32) | idx], 1)
+        best = torch.topk(keys, min(k, keys.shape[1]), dim=1, largest=False,
+                          sorted=True).values
+    return (best >> 32).int().view(torch.float32), best & 0xFFFFFFFF
+
+
+def exact_splits(r: int, n: int, k: int, slots: int) -> Tuple[int, int]:
+    """:func:`knn_exact`'s reference split → (S, references per range): the
+    n references cut into S ranges of whole 256-row tiles, the last
+    possibly shorter, so that the R / 8 query chunks times S fill the
+    card's ``slots`` resident blocks (SMs × blocks per SM), a partial last
+    wave included.  Each range holds at least EXACT_REFS_PER_SLOT·k
+    references, since every range fills its own k-list."""
+    tiles = -(-n // EXACT_TILE)
+    chunks = -(-r // EXACT_ROWS)
+    s = max(1, min(-(-slots // chunks), n // (EXACT_REFS_PER_SLOT * k), tiles))
+    per = -(-tiles // s)
+    return -(-tiles // per), per * EXACT_TILE
+
+
+def knn_exact(codes_q: torch.Tensor, cont_q: torch.Tensor,
+              codes_r: torch.Tensor, cont_r: torch.Tensor, k: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact top-k of a few query rows over every reference: codes_q
+    [R, F] int32 and cont_q [R, Fc] float32 (their columns contiguous; the
+    rows may be strided) against codes_r [N, F] int32 and cont_r [N, Fc]
+    float32 → (d² [R, k] float32, idx [R, k] int64), the k ≤ min(SLOTS, N)
+    least by (d², index) ascending, d² bit for bit :func:`rerank_d2`'s.
+
+    On CUDA this launches ``csrc/knn_exact.cu`` (counted in
+    ``knn_exact.launches``) over the reference ranges of
+    :func:`exact_splits`, merged on the card where there are several; on
+    the CPU it runs :func:`knn_exact_ref`."""
+    r, f = codes_q.shape
+    n, fc = cont_r.shape
+    if (cont_q.shape != (r, fc) or codes_r.shape != (n, f)
+            or len({t.device for t in (codes_q, cont_q, codes_r, cont_r)}) != 1):
+        raise ValueError(f"knn_exact: codes_q [R, F], cont_q [R, Fc], codes_r "
+                         f"[N, F] and cont_r [N, Fc] on one device needed, got "
+                         f"{tuple(codes_q.shape)}, {tuple(cont_q.shape)}, "
+                         f"{tuple(codes_r.shape)}, {tuple(cont_r.shape)}")
+    if codes_q.dtype != torch.int32 or codes_r.dtype != torch.int32 or \
+            cont_q.dtype != torch.float32 or cont_r.dtype != torch.float32:
+        raise TypeError("knn_exact: codes must be int32 and continuous "
+                        "columns float32")
+    if not 1 <= k <= min(SLOTS, n):
+        raise ValueError(f"k must be in [1, {min(SLOTS, n)}], got {k}")
+    if codes_q.device.type == "cpu":
+        return knn_exact_ref(codes_q, cont_q, codes_r, cont_r, k)
+    if codes_q.device.type != "cuda":
+        raise ValueError(f"knn_exact takes CPU or CUDA tensors, got "
+                         f"{codes_q.device}")
+    if not (codes_r.is_contiguous() and cont_r.is_contiguous()) or \
+            (f > 1 and codes_q.stride(1) != 1) or \
+            (fc > 1 and cont_q.stride(1) != 1):
+        raise ValueError("knn_exact needs contiguous references and query "
+                         "rows with contiguous columns")
+    dev = codes_q.device
+    if r == 0:
+        return (torch.empty((0, k), dtype=torch.float32, device=dev),
+                torch.empty((0, k), dtype=torch.int64, device=dev))
+    lib = _kernel("knn_exact")
+    with torch.cuda.device(dev):
+        s, per = exact_splits(r, n, k, _exact_slots(dev.index, f, fc, k))
+        # the kernels write every slot; one allocation holds the indices,
+        # the d² and, where there are several ranges, their keys
+        half = -(-r * k // 2)
+        buf = torch.empty(r * k + half + (r * s * k if s > 1 else 0),
+                          dtype=torch.int64, device=dev)
+        idx = buf[:r * k].view(r, k)
+        d2 = buf[r * k:r * k + half].view(torch.float32)[:r * k].view(r, k)
+        part = buf.data_ptr() + 8 * (r * k + half)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.knn_exact(codes_q.data_ptr(), cont_q.data_ptr(),
+                            codes_r.data_ptr(), cont_r.data_ptr(),
+                            part if s > 1 else None, d2.data_ptr(),
+                            idx.data_ptr(), codes_q.stride(0),
+                            cont_q.stride(0), r, n, f, fc, k, s, per, stream)
+    if err:
+        raise RuntimeError(f"knn_exact launch failed with CUDA error {err}")
+    with _COUNT_LOCK:
+        knn_exact.launches += 1
+    return d2, idx
+
+
+knn_exact.launches = 0                 # the certificate fallback's kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _exact_slots(index: int, f: int, fc: int, k: int) -> int:
+    """Blocks of ``csrc/knn_exact.cu`` the card holds at once (SMs × blocks
+    per SM) on CUDA device ``index`` for these features and k; the caller
+    has made it the current device."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * max(_kernel("knn_exact").knn_exact_blocks_per_sm(f, fc, k), 1)
+
+
 @functools.lru_cache(maxsize=None)
 def _topk_geometry(index: int, w: int, kk: int) -> Tuple[int, int]:
     """(query rows per block, blocks the card holds at once) of B6 on CUDA
@@ -528,6 +653,9 @@ _ENTRY = {
                  + [ctypes.c_void_p],
                  "knn_topk_rows_per_block": [ctypes.c_int],
                  "knn_topk_blocks_per_sm": [ctypes.c_int] * 2},
+    "knn_exact": {"knn_exact": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                  + [ctypes.c_void_p],
+                  "knn_exact_blocks_per_sm": [ctypes.c_int] * 3},
 }
 
 

@@ -6,6 +6,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b4     # B4 alone (below)
+    python3 chip_smoke.py --knn-exact   # the fallback's exact kernel alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -23,7 +24,7 @@ Phases, in order; any failure exits non-zero:
    and a ``canary`` JSON line; a reading that implies more than 105% of
    the bf16 peak fails.  Then build the CUDA
    kernels ``avenir_tpu_torch/csrc/{cooc_pair,cross,knn_tourney,knn_topk,
-   gram_probe}.cu`` (one nvcc each) and the native CSV encoder
+   gram_probe,knn_exact}.cu`` (one nvcc each) and the native CSV encoder
    (``runtime/native/csv_encode.cpp``, g++), all started together,
    printing each build time and ptxas report;
 2. hold each count kernel against its plain PyTorch version on the card —
@@ -135,17 +136,25 @@ Phases, in order; any failure exits non-zero:
    streamed), keys and slots bit-equal; and B6 at the 10K path's shape
    (2,048 × 10,240 refs, 9 continuous, kk 18) with its references in one
    range (S = 1, no merge) beside the wrapper's ranges;
+7b. the certificate fallback's exact kernel (``csrc/knn_exact.cu``) at
+   the elearn shape (9 continuous, 1M references with every row four
+   times, k 10) at 1, 3, 8, 64, 512 and 4,096 rows: bit-equal to its
+   plain version at 1, 3, 64 and 4,096, one count a call, its time (CUDA
+   events) beside its bound (bytes at the HBM rate against float64
+   operations at FP64_FLOPS), and the whole fallback of a call beside
+   the exact scan it replaced, on the host's clock;
 8. the kNN paths: (a) NearestNeighbor through the CLI on a seeded 1M-row
    elearn training CSV and 4,096 test rows on ``cuda`` (B5 once), then
    with ``--device cpu`` on the first 1,024 test rows: predictions
-   byte-identical but for rows the exact scan served on either device,
+   byte-identical but for rows the exact kernel served on either device,
    whose distances must agree within 1e-6; (b) NearestNeighbor with
    validation and the gaussian kernel, and SameTypeSimilarity, on 10,000
    elearn rows and 2,000 test rows on both devices (B6 once each): part
    files byte-identical (same exception) and validation counters equal;
    (c) ``KNN.predict`` at the knn_qps shape on ``cuda`` (B5 once) against
    a float64 oracle on its first 256 rows.  Each prints its launch counts
-   and how many rows failed the certificate and went to the exact scan;
+   (the exact kernel's once for each call whose certificate refused rows)
+   and how many rows failed the certificate and went to the exact kernel;
 9. B5 and B6 again on every call the kNN paths made on ``cuda``, held
    against their plain versions with the used lanes the search handed
    them (which must be the schema's); the first of each path and shape
@@ -393,8 +402,9 @@ Phases, in order; any failure exits non-zero:
     B2: a 20 × 20 × 2 MI chunk; B3: the wide tree's K = 8 level; B4: the
     hospital tree's deepest level, with the forest's launches and its
     deepest level under ``forest``; B5: the 1M-row NearestNeighbor job;
-    B6: the 10K-row NearestNeighbor job) and one entry per probe
-    (``launches`` 0: no path runs them), then the last line
+    B6: the 10K-row NearestNeighbor job), the exact kernel's phase-7b
+    cases and one entry per probe (``launches`` 0: no path runs them),
+    then the last line
     ``{"ok": true, "device": {...}}``.
 
 Bounds, at the peaks of the card's row in ``utils/roofline.py``: B1–B4
@@ -405,6 +415,8 @@ rate — with the dense product of the one-hots beside it as
 lanes.  Every B1–B6 case row carries its share of that peak
 (``mfu_fields``: ``hbm_pct`` for B1–B4 over ``work_bytes``, ``mfu_pct``
 for B5–B6), and a share over 105% fails its phase.
+
+``--knn-exact`` runs phase 7b alone, with the exact kernel's build.
 
 ``--b4`` runs B4 alone, in about a minute with its build: phase 2's B4
 cases, the hospital tree's level tables (``DecisionTree.fit`` on 1M seeded
@@ -445,17 +457,19 @@ KNN_REFS = 1_000_000     # the repo's kNN width (benchmarks/knn_qps.py)
 KNN_BATCH = 4096
 KNN_CPU_ROWS = 1024      # the --device cpu run's share of the 1M-ref job
 KNN_K = 10
-DIST_TOL = 1e-6          # distances of rows the exact scan served
+DIST_TOL = 1e-6          # distances of rows the exact kernel served
 PAD_D2 = 1e29            # d² of a pad reference (ops/knn.py's _PADC, 1e30)
 KEY_TOL = 1e-5           # |Δd²| of two float32 summation orders (B5, B6)
-KERNEL_SOURCES = ("cooc_pair", "cross", "knn_tourney", "knn_topk", "gram_probe")
+KERNEL_SOURCES = ("cooc_pair", "cross", "knn_tourney", "knn_topk", "gram_probe",
+                  "knn_exact")
 # launch counts: kernel id → (ops module, wrapper, attribute)
 COUNTS = {"B1": ("hist", "cooc_counts_cols", "launches"),
           "B2": ("hist", "cooc_counts_cols", "cls_launches"),
           "B3": ("hist", "cooc_counts_cols", "clsb_launches"),
           "B4": ("hist", "cross_cooc_counts_cols", "launches"),
           "B5": ("knn", "knn_tourney", "launches"),
-          "B6": ("knn", "knn_topk", "launches")}
+          "B6": ("knn", "knn_topk", "launches"),
+          "knn_exact": ("knn", "knn_exact", "launches")}
 # the main path of each kernel in the kernels line: (path, which call)
 MAIN_PATH = {"B1": ("mi", "first"), "B2": ("mi_wide", "first"),
              "B3": ("wide_tree", "first"), "B4": ("tree", "last"),
@@ -741,6 +755,22 @@ def read_counts() -> dict:
 def only(**launches) -> dict:
     """The counts of a run that launched these kernels and no other."""
     return {k: launches.get(k, 0) for k in COUNTS}
+
+
+def with_exact(counts: dict, want: dict) -> dict:
+    """``want`` with the exact kernel's launches as ``counts`` read them,
+    where a phase does not reckon the rows a certificate refuses: at most
+    one a kNN call, so no more than B5's and B6's launches.  Above that
+    it stays as ``want`` has it, and the phase's comparison fails."""
+    fell = counts["knn_exact"]
+    return {**want, "knn_exact": fell if fell <= counts["B5"] + counts["B6"]
+            else want["knn_exact"]}
+
+
+def exact_calls(cap) -> int:
+    """The kNN calls a NeighborCapture saw whose certificate refused rows:
+    each launched the exact kernel once."""
+    return sum(len(fell) > 0 for _d, _i, fell in cap.calls)
 
 
 class Recorder:
@@ -3299,9 +3329,166 @@ def knn_cases():
     return results
 
 
+FP64_FLOPS = 34e12       # H100 SXM data sheet: float64 outside the tensor cores
+EXACT_CASE_ROWS = (1, 3, 8, 64, 512, 4096)   # fallback rows of one call
+EXACT_CHECKED = (1, 3, 64, 4096)        # held to the plain version
+
+
+def exact_bound(r, n, f, fc, k):
+    """(bound ms, what bounds it) of the exact kernel: the references and
+    query rows read once and the [r, k] answers written once, at the
+    card's HBM rate, against its float64 products and sums, r·n·Fc each,
+    at FP64_FLOPS."""
+    nbytes = (n + r) * (f + fc) * 4 + r * k * 12
+    bytes_ms = nbytes / card_peaks()["hbm_bytes"] * 1e3
+    ops_ms = 2.0 * r * n * fc / FP64_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def device_ms(fn, iters: int, names) -> float:
+    """Device time per call of the kernels whose names hold one of
+    ``names``, summed from ``torch.profiler``'s CUDA activity over
+    ``iters`` calls after one warm call; None where the profiler records
+    no such kernel.  Unlike :func:`time_ms` it leaves out the host's time
+    to launch them, which exceeds a short kernel's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if any(name in e.key for name in names))
+    return us / iters / 1e3 if us else None
+
+
+def knn_exact_cases():
+    """Phase 7b: the certificate fallback's exact kernel
+    (``csrc/knn_exact.cu``) at the elearn shape, 9 continuous features
+    against 1,000,000 references (250,000 rows repeated four times, so
+    that d² ties), k 10, at R = 1, 3, 8, 64, 512 and 4,096 query rows (each
+    call's error code is its wrapper's, which raises on one that is not 0):
+    bit-equal to its plain version at R = 1, 3, 64 (on the CPU) and 4,096
+    (the plain version on the card: the same float64 arithmetic), its
+    launches per call, its time beside its bound, and the whole fallback
+    of one call, rows up and answers down, on the host's clock beside the
+    exact scan it replaces (the crossover).  ``ms`` is the kernels' device
+    time (:func:`device_ms`), ``call_ms`` a call's between CUDA events,
+    the wrapper's host work included."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.core.encoding import EncodedDataset
+    from avenir_tpu_torch.models import knn as mknn
+    from avenir_tpu_torch.ops import knn as tk
+
+    n, f, fc, k = KNN_REFS, 0, 9, KNN_K
+    rng = np.random.default_rng(700)
+    cont_r = np.tile(rng.normal(size=(n // 4, fc)).astype(np.float32), (4, 1))
+    cont_q = rng.normal(size=(max(EXACT_CASE_ROWS), fc)).astype(np.float32)
+
+    def ds(x):
+        return EncodedDataset(
+            codes=np.zeros((x.shape[0], f), np.int32), cont=x,
+            labels=np.zeros(x.shape[0], np.int32), ids=None,
+            n_bins=np.zeros(0, np.int32), class_values=["a"],
+            binned_ordinals=[], cont_ordinals=list(range(fc)))
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = mknn.fit_knn(ds(cont_r))
+    codes_r, cont01_r = model.device_rerank_arrays(dev)
+    cq01 = mknn._normalize01(cont_q, model.cont_lo, model.cont_hi)
+    codes_q = np.zeros((cq01.shape[0], f), np.int32)
+    results = []
+    for r in EXACT_CASE_ROWS:
+        xq = torch.from_numpy(cq01[:r]).to(dev)
+        cq = torch.from_numpy(codes_q[:r]).to(dev)
+        reset_counts()
+        d2, idx = tk.knn_exact(cq, xq, codes_r, cont01_r, k)
+        torch.cuda.synchronize()
+        if read_counts() != only(knn_exact=1):
+            raise AssertionError(f"knn_exact at R = {r} counted {read_counts()}")
+        with torch.cuda.device(dev):
+            splits, per = tk.exact_splits(
+                r, n, k, tk._exact_slots(dev.index, f, fc, k))
+        row = {"kernel": "knn_exact", "r": r, "n": n, "f": f, "fc": fc,
+               "k": k, "splits": splits, "refs_per_range": per,
+               "kernels_per_call": 1 if splits == 1 else 2, "cuda_error": 0}
+        if r in EXACT_CHECKED:
+            if r <= 64:
+                wd, wi = tk.knn_exact_ref(torch.from_numpy(codes_q[:r]),
+                                          torch.from_numpy(cq01[:r]),
+                                          codes_r.cpu(), cont01_r.cpu(), k)
+            else:
+                wd, wi = tk.knn_exact_ref(cq, xq, codes_r, cont01_r, k)
+            if not (torch.equal(idx.cpu(), wi.cpu()) and torch.equal(
+                    d2.cpu().view(torch.int32), wd.cpu().view(torch.int32))):
+                raise AssertionError(f"knn_exact differs from its plain "
+                                     f"version at R = {r}")
+            row["bit_equal"] = True
+            row["ties_at_k"] = int((d2[:, k - 1] == d2[:, k - 2]).sum())
+        big = r >= 512
+        call = lambda: tk.knn_exact(cq, xq, codes_r, cont01_r, k)  # noqa: E731
+        row["ms"] = device_ms(call, 5 if big else 50,
+                              ("exact_kernel", "merge_kernel"))
+        row["merge_ms"] = device_ms(call, 5 if big else 50, ("merge_kernel",))
+        row["call_ms"] = time_ms(call, iters=5 if big else 50)
+        row["bound_ms"], row["bound_by"] = exact_bound(r, n, f, fc, k)
+        row["bound_pct"] = 100.0 * row["bound_ms"] / (row["ms"] or row["call_ms"])
+
+        def wall_ms(fn, iters):
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(walls)
+
+        total = f + fc
+        row["fallback_ms"] = wall_ms(lambda: mknn._exact_rows(
+            codes_q[:r], cq01[:r], codes_r, cont01_r, k, total, dev),
+            3 if big else 20)
+        row["scan_ms"] = wall_ms(lambda: mknn._nearest_neighbors_scan(
+            model, ds(cont_q[:r]), k, "euclidean", 65536, 8192, dev),
+            1 if big else 5)
+        got = mknn._exact_rows(codes_q[:r], cq01[:r], codes_r, cont01_r, k,
+                               total, dev)
+        old = mknn._nearest_neighbors_scan(model, ds(cont_q[:r]), k,
+                                           "euclidean", 65536, 8192, dev)
+        row["scan_rows_differ"] = int(((got[1] != old[1]).any(1)
+                                       | (got[0] != old[0]).any(1)).sum())
+        log("knn_exact case:", json.dumps(row))
+        results.append(row)
+        del d2, idx, xq, cq
+        torch.cuda.empty_cache()
+    return results
+
+
+def knn_exact_main() -> int:
+    """``--knn-exact``: the exact kernel alone — its build (ptxas report)
+    and phase 7b, printed as one JSON line with the card."""
+    from avenir_tpu_torch.ops import _build
+
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    lib = _build.build("knn_exact")
+    build_s = time.perf_counter() - t0
+    with open(lib[:-3] + ".log") as fh:
+        log(fh.read())
+    log(json.dumps({"checkout": HERE, "card": card, "build_s": build_s,
+                    "knn_exact": knn_exact_cases()}))
+    return 0
+
+
 class NeighborCapture:
     """Wraps ``models.knn.nearest_neighbors`` while on: keeps each call's
-    (distances, indices) and the rows the exact scan served in it, and in
+    (distances, indices) and the rows the exact kernel served in it, and in
     ``used`` the last call's (used lanes w = F·B + 6·Fc + 6, test rows,
     references), taken from the model and test set it was given."""
 
@@ -3336,10 +3523,10 @@ class NeighborCapture:
 
 
 def same_but_fallback(a_path, b_path, cap_a, cap_b, per_row, what, rows=None):
-    """Part files equal line for line, but for rows the exact scan served
+    """Part files equal line for line, but for rows the exact kernel served
     on either device, whose distances must agree within DIST_TOL; compares
     the first ``rows`` test rows (``per_row`` lines each).  Returns the
-    number of rows the exact scan served on either device."""
+    number of rows the exact kernel served on either device."""
     import numpy as np
 
     with open(a_path) as fa, open(b_path) as fb:
@@ -3354,12 +3541,12 @@ def same_but_fallback(a_path, b_path, cap_a, cap_b, per_row, what, rows=None):
         if a[r * per_row:(r + 1) * per_row] != b[r * per_row:(r + 1) * per_row]:
             if r not in served:
                 raise AssertionError(f"{what}: row {r} differs between cuda "
-                                     f"and cpu and no scan served it")
+                                     f"and cpu and no exact kernel served it")
     if served:
         s = sorted(served)
         gap = float(np.abs(da[s] - db[s]).max())
         if gap > DIST_TOL:
-            raise AssertionError(f"{what}: scan-served rows' distances differ "
+            raise AssertionError(f"{what}: kernel-served rows' distances differ "
                                  f"by {gap}")
     return len(served)
 
@@ -3407,19 +3594,19 @@ def knn_job_phase(rec: Recorder, work: str, used: dict, walls: dict) -> dict:
         fell = len(caps[dev].calls[-1][2])
         if dev == "cuda":
             counts = read_counts()
-            if counts != only(B5=1):
+            if counts != only(B5=1, knn_exact=exact_calls(caps[dev])):
                 raise AssertionError(f"NearestNeighbor at 1M refs launched {counts}")
             used["knn_job"] = caps[dev].used
         log(f"knn job on {dev}: NearestNeighbor {wall:.2f} s over "
             f"{KNN_BATCH if dev == 'cuda' else KNN_CPU_ROWS} test rows; "
             f"launches {read_counts() if dev == 'cuda' else 'none (plain)'}; "
-            f"{fell} rows failed the certificate and went to the exact scan")
+            f"{fell} rows failed the certificate and went to the exact kernel")
         outs[dev] = os.path.join(out, "part-00000")
     served = same_but_fallback(outs["cuda"], outs["cpu"], caps["cuda"],
                                caps["cpu"], 1, "NearestNeighbor 1M",
                                rows=KNN_CPU_ROWS)
     log(f"knn job: the first {KNN_CPU_ROWS} predictions byte-identical cuda "
-        f"vs cpu but for {served} rows the exact scan served (distances "
+        f"vs cpu but for {served} rows the exact kernel served (distances "
         f"within {DIST_TOL})")
     return {"knn_job": counts["B5"]}
 
@@ -3461,20 +3648,21 @@ def knn_small_phase(rec: Recorder, work: str, used: dict, walls: dict) -> dict:
             wall = walls[f"{dev} {name}"] = time.perf_counter() - t0
             counts = read_counts()
             if dev == "cuda":
-                if counts != only(B6=1):
+                if counts != only(B6=1,
+                                  knn_exact=exact_calls(caps[dev, name])):
                     raise AssertionError(f"{name} on cuda launched {counts}")
                 b6[name] = counts["B6"]
                 used[name] = caps[dev, name].used
             log(f"{name} on {dev}: {wall:.2f} s, launches {counts}, "
                 f"{len(caps[dev, name].calls[-1][2])} rows went to the exact "
-                f"scan")
+                f"kernel")
             outs[dev, name] = os.path.join(out, "part-00000")
     for name, _argv, per in jobs:
         served = same_but_fallback(outs["cuda", name], outs["cpu", name],
                                    caps["cuda", name], caps["cpu", name], per,
                                    name)
         log(f"{name}: part files byte-identical cuda vs cpu but for {served} "
-            f"scan-served rows")
+            f"kernel-served rows")
     got, want = (validation_counters(text[d, "knn_small_nn"])
                  for d in ("cuda", "cpu"))
     if got != want:
@@ -3513,7 +3701,7 @@ def knn_qps_phase(rec: Recorder, used: dict) -> dict:
         res = est.predict(model, test)
     wall = time.perf_counter() - t0
     counts = read_counts()
-    if counts != only(B5=1):
+    if counts != only(B5=1, knn_exact=exact_calls(cap)):
         raise AssertionError(f"KNN.predict at 1M refs launched {counts}")
     used["knn_qps"] = cap.used
     # the oracle: float64 d² in 16-row slices (a whole-batch broadcast
@@ -3532,7 +3720,7 @@ def knn_qps_phase(rec: Recorder, used: dict) -> dict:
     log(f"knn_qps: KNN.predict of {KNN_BATCH} queries over {KNN_REFS} refs "
         f"on cuda {wall:.2f} s (first call: packs and uploads the refs); "
         f"launches {counts}; {len(cap.calls[-1][2])} rows went to the exact "
-        f"scan; first 256 rows within {worst:.2e} of the float64 oracle")
+        f"kernel; first 256 rows within {worst:.2e} of the float64 oracle")
     return {"knn_qps": counts["B5"]}
 
 
@@ -3850,7 +4038,8 @@ def serving_phase(rec: Recorder, work: str, test: str, schema: str,
         batches = sum(v for k, v in grp.items() if k.startswith("bucket."))
         warmed = 7                          # serve.bucket.sizes 1, 2, ..., 64
         kid = {"knn": "B5", "knn10k": "B6"}.get(name)
-        want = only(**({kid: batches + warmed} if kid else {}))
+        want = with_exact(counts, only(**({kid: batches + warmed}
+                                          if kid else {})))
         if counts != want or grp.get("recompiles", 0) != 0 \
                 or grp["requests"] != len(got) or grp["batches"] != batches:
             raise AssertionError(f"serving {name}: launches {counts} (want "
@@ -4343,7 +4532,7 @@ def tenancy_phase(rec: Recorder, work: str, train: str, schema: str,
             if stats[t]["grants"] + stats[t]["shed"] != n or stats[t]["shed"]:
                 raise AssertionError(f"tenant {t}: {stats[t]} for {n} slots "
                                      f"asked")
-        if counts != only(B1=chunks, B5=dispatches + 7):
+        if counts != with_exact(counts, only(B1=chunks, B5=dispatches + 7)):
             raise AssertionError(f"tenants launched {counts}")
         launches = {"B1": {"tenant": counts["B1"]},
                     "B5": {"tenant": counts["B5"]}}
@@ -4958,7 +5147,7 @@ def model_mesh_phase(work: str, train: str, schema: str,
             timed[f"{tag} auto={auto}"] = time.perf_counter() - t0
             got[auto] = read_counts()
         off, on = got["false"], got["true"]
-        if off_want is not None and off != off_want:
+        if off_want is not None and off != with_exact(off, off_want):
             raise AssertionError(f"model mesh {tag} (auto off) launched "
                                  f"{off}")
         knn = tag.startswith(("nn_", "serve_knn"))
@@ -5698,8 +5887,9 @@ def held_launches(counts_file: str, kid, stats: dict, most_rows: int,
     with open(counts_file) as fh:
         rec = json.load(fh)
     d, n = stats["dispatches"], stats["requests"]
-    want = only(**({kid: SERVE_WARMED + d} if kid and dev == "cuda"
-                    else {}))
+    want = with_exact(rec["launches"],
+                      only(**({kid: SERVE_WARMED + d} if kid and dev == "cuda"
+                              else {})))
     if rec["rc"] != 0 or rec["launches"] != want or \
             not math.ceil(n / most_rows) <= d <= n:
         raise AssertionError(f"{counts_file}: launches {rec}, want {want}; "
@@ -6335,6 +6525,9 @@ def main(argv=None) -> int:
     ap.add_argument("--b4", action="store_true",
                     help="time B4 (csrc/cross.cu) alone: phase 2's B4 cases, "
                          "the hospital tree's levels, a 1-row call")
+    ap.add_argument("--knn-exact", action="store_true",
+                    help="the certificate fallback's exact kernel "
+                         "(csrc/knn_exact.cu) alone: phase 7b")
     ap.add_argument("--fleet-worker", metavar="SPEC",
                     help="run as one rank of a phase-17 fleet (started by "
                          "python -m avenir_tpu_torch.launch)")
@@ -6346,6 +6539,8 @@ def main(argv=None) -> int:
         return 1
     if args.b4:
         return cross_main()
+    if args.knn_exact:
+        return knn_exact_main()
     graftlint_phase()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -6398,6 +6593,7 @@ def main(argv=None) -> int:
         all_cases = cases + cls_cases + x_cases + path_cases(hist, rec)
         rec.calls.clear()
         all_cases += knn_cases()
+        exact = knn_exact_cases()
         used = {}
         b5 = knn_job_phase(rec, work, used, walls)
         b6 = knn_small_phase(rec, work, used, walls)
@@ -6460,6 +6656,8 @@ def main(argv=None) -> int:
                      "avenir_tpu/ops/pallas_knn.py:73",
                      {**b6, **mm.get("B6", {}), **served_fleet["B6"]},
                      all_cases),
+        {"name": "knn_exact (certificate fallback)", "route": "cuda",
+         "source": src + "knn_exact.cu", "replaces": None, "cases": exact},
         *probes,
     ]
     # phase 13 (c): B1 at every pane bucket of the stream, warm panes

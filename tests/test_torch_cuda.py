@@ -4,6 +4,8 @@ versions: the co-occurrence grams in every layout (the pair histogram of
 counts (``csrc/cross.cu``, B4) exactly; the kNN candidate kernels
 (``csrc/knn_tourney.cu``, B5, and ``csrc/knn_topk.cu``, B6) exactly where
 every d² is an integer sum and to the float32 summation order elsewhere;
+the certificate fallback's exact kernel (``csrc/knn_exact.cu``) to the
+bit, and a forced fallback on ``cuda`` against the CPU;
 the kNN search on ``cuda`` against the CPU; B1 at one class and the
 correlation job on ``cuda``, and a ``cuda`` snapshot resumed on the CPU;
 the probe functions of
@@ -999,7 +1001,7 @@ def test_search_on_the_card_equals_cpu(cuda, n, f, fc):
     (d, i, c), (wd, wi, wc) = _search_on_both(cuda, n, f, fc)
     both = c & wc
     # categorical data through B5 certifies few rows: its ties hide in the
-    # segments' thirds, and the exact scan serves those rows
+    # segments' thirds, and the exact kernel serves those rows
     assert both.mean() > (0.05 if fc == 0 and n > tk.TB else 0.9)
     np.testing.assert_array_equal(d[both], wd[both])
     np.testing.assert_array_equal(i[both], wi[both])
@@ -1052,7 +1054,7 @@ def _search_on_both(cuda, n, f, fc):
 @pytest.mark.cuda
 def test_knn_predict_on_the_card_equals_cpu(cuda):
     """KNN.predict on elearn (9 integer features, 20,000 references: B5)
-    on cuda and on the CPU; rows served by the exact scan on either device
+    on cuda and on the CPU; rows served by the exact kernel on either device
     may differ only where their distances agree within 1e-6."""
     from avenir_tpu_torch.datagen.elearn import ELEARN_SCHEMA_JSON, generate_elearn
 
@@ -1071,6 +1073,73 @@ def test_knn_predict_on_the_card_equals_cpu(cuda):
                             | (a.neighbor_idx != b.neighbor_idx).any(axis=1))
     assert set(differ.tolist()) <= fell["cuda"] | fell["cpu"]
     np.testing.assert_allclose(a.neighbor_dist, b.neighbor_dist, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,r,f,fc,k", [
+    (1_000_000, 3, 0, 9, 10),      # the elearn fallback: ranges merged
+    (40_000, 37, 6, 8, 127),       # mixed, four list registers
+    (40_000, 64, 6, 0, 1),         # categorical: ties everywhere
+    (3000, 4096, 0, 9, 10),        # many rows: one range, no merge
+    (300, 5, 2, 3, 40),            # one short range, two list registers
+])
+def test_exact_kernel_matches_plain_version(cuda, n, r, f, fc, k):
+    """``knn_exact`` on the card bit-equal to its plain version, the query
+    rows handed as the fallback hands them (strided views of one int32
+    upload), the references tiled four times so that d² ties."""
+    rng = np.random.default_rng(n + r + k)
+    base = -(-n // 4)
+    codes_r = np.tile(rng.integers(0, 5, size=(base, f)).astype(np.int32),
+                      (4, 1))[:n]
+    cont_r = np.tile(rng.random(size=(base, fc)).astype(np.float32), (4, 1))[:n]
+    codes_q = rng.integers(0, 5, size=(r, f)).astype(np.int32)
+    cont_q = rng.random(size=(r, fc)).astype(np.float32)
+    rows = torch.from_numpy(np.concatenate([codes_q, cont_q.view(np.int32)],
+                                           axis=1)).to(cuda)
+    cr, xr = torch.from_numpy(codes_r).to(cuda), torch.from_numpy(cont_r).to(cuda)
+    before = tk.knn_exact.launches
+    d2, idx = tk.knn_exact(rows[:, :f], rows[:, f:].view(torch.float32), cr,
+                           xr, k)
+    assert tk.knn_exact.launches == before + 1
+    torch.cuda.synchronize()
+    wd, wi = tk.knn_exact_ref(torch.from_numpy(codes_q),
+                              torch.from_numpy(cont_q),
+                              torch.from_numpy(codes_r),
+                              torch.from_numpy(cont_r), k)
+    assert torch.equal(idx.cpu(), wi)
+    assert torch.equal(d2.cpu().view(torch.int32), wd.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_forced_fallback_on_the_card_equals_cpu(cuda, monkeypatch):
+    """Every other row's certificate forced to fail: the exact kernel on
+    cuda and its plain version on the CPU serve those rows, and the
+    predictions equal to the bit on both devices."""
+    from avenir_tpu_torch.datagen.elearn import ELEARN_SCHEMA_JSON, generate_elearn
+
+    enc = DatasetEncoder(FeatureSchema.from_json(ELEARN_SCHEMA_JSON))
+    ds = enc.fit_transform(generate_elearn(20_500, seed=10))
+    train, test = ds.slice(0, 20_000), ds.slice(20_000, 20_500)
+    search = tk.search
+
+    def failing(*args, **kwargs):
+        d, idx, cert = search(*args, **kwargs)
+        cert = cert.clone()
+        cert[::2] = False
+        return d, idx, cert
+
+    monkeypatch.setattr(tk, "search", failing)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        est = mknn.KNN(k=10, device=dev)
+        before = tk.knn_exact.launches
+        res[dev] = est.predict(est.fit(train), test, validate=True)
+        assert tk.knn_exact.launches == before + (dev == "cuda")
+        assert len(mknn._nearest_neighbors_kernel.last_fallback) >= 250
+    a, b = res["cuda"], res["cpu"]
+    np.testing.assert_array_equal(a.neighbor_idx, b.neighbor_idx)
+    np.testing.assert_array_equal(a.neighbor_dist, b.neighbor_dist)
+    np.testing.assert_array_equal(a.predicted, b.predicted)
 
 
 @pytest.mark.cuda
@@ -1280,7 +1349,7 @@ def test_knn_servable_on_the_card_equals_cpu_and_its_bucket(cuda, tmp_path):
     """``KNNServable`` on cuda over 20,000 elearn references (B5, one
     launch per dispatch): a row scored alone and in a full bucket of 64
     gives the same bytes, and the responses equal the CPU servable's but
-    for rows the exact scan served on either device."""
+    for rows the exact kernel served on either device."""
     from avenir_tpu_torch.core.config import JobConfig
     from avenir_tpu_torch.core.csv_io import write_csv
     from avenir_tpu_torch.datagen.elearn import ELEARN_SCHEMA_JSON, generate_elearn

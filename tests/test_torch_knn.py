@@ -653,6 +653,129 @@ def _twin(ds):
         cont_ordinals=list(ds.cont_ordinals))
 
 
+# ---------------------------------------------------------------------------
+# the exact kernel's plain version: the certificate fallback
+# ---------------------------------------------------------------------------
+
+def _exact_oracle(codes_q, cont_q, codes_r, cont_r, k):
+    """The configuration's d²: the float64 sum of the squared float32
+    differences, feature by feature in order, rounded once to float32;
+    the top-k by a stable argsort, so by (d², index)."""
+    acc = (codes_q[:, None, :] != codes_r[None]).sum(-1).astype(np.float64)
+    for j in range(cont_q.shape[1]):
+        diff = (cont_q[:, None, j] - cont_r[None, :, j]).astype(np.float64)
+        acc = acc + diff * diff
+    d2 = acc.astype(np.float32)
+    idx = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(d2, idx, axis=1), idx
+
+
+@pytest.mark.parametrize("k", [1, 10, 127])
+@pytest.mark.parametrize("r", [1, 3, 37])
+@pytest.mark.parametrize("f,fc,nb", [(3, 4, 4), (0, 5, 1), (4, 0, 3)],
+                         ids=["mixed", "continuous", "categorical"])
+def test_exact_plain_matches_oracle_and_scan(f, fc, nb, r, k):
+    """``knn_exact_ref`` on 300 base rows tiled five times (every d² at
+    least five-fold, so the k-th place ties), with query 0 a copy of base
+    row 7 whose first continuous value is −0.0 against the references'
+    +0.0: equal to the oracle bit for bit, to the exact scan's answer, and
+    every d² a non-negative float (no −0)."""
+    rng = np.random.default_rng(100 * r + k + f)
+    base_c = rng.integers(0, nb, size=(300, f)).astype(np.int32)
+    base_x = rng.random(size=(300, fc)).astype(np.float32)
+    if fc:
+        base_x[0], base_x[1], base_x[7, 0] = 0.0, 1.0, 0.0  # range [0, 1]
+    codes_r, cont_r = np.tile(base_c, (5, 1)), np.tile(base_x, (5, 1))
+    codes_q = rng.integers(0, nb, size=(r, f)).astype(np.int32)
+    cont_q = rng.random(size=(r, fc)).astype(np.float32)
+    codes_q[0], cont_q[0] = base_c[7], base_x[7]
+    if fc:
+        cont_q[0, 0] = -0.0
+    d2, idx = tk.knn_exact(_t(codes_q), _t(cont_q), _t(codes_r), _t(cont_r),
+                           k)
+    assert d2.dtype == torch.float32 and idx.dtype == torch.int64
+    assert d2.shape == idx.shape == (r, k)
+    od, oi = _exact_oracle(codes_q, cont_q, codes_r, cont_r, k)
+    np.testing.assert_array_equal(idx.numpy(), oi)
+    np.testing.assert_array_equal(d2.numpy().view(np.int32), od.view(np.int32))
+    assert (d2.numpy().view(np.int32) >= 0).all()
+    # the planted copy: d² +0 at its five places, lowest index first (on
+    # categorical data other base rows may equal it too)
+    near = idx[0, :min(k, 5)].numpy()
+    assert (d2[0, :min(k, 5)].numpy().view(np.int32) == 0).all()
+    if fc:
+        np.testing.assert_array_equal(near, (7 + 300 * np.arange(5))[:len(near)])
+    ds = lambda c, x: EncodedDataset(  # noqa: E731
+        codes=c, cont=x, labels=np.zeros(len(c), np.int32),
+        n_bins=np.full(f, nb, np.int32), class_values=["a"],
+        binned_ordinals=list(range(f)), cont_ordinals=list(range(f, f + fc)))
+    model = mknn.fit_knn(ds(codes_r, cont_r))
+    np.testing.assert_array_equal(model.cont01(), cont_r)   # range [0, 1]
+    sd, si = mknn._nearest_neighbors_scan(model, ds(codes_q, cont_q), k,
+                                          "euclidean", 700, 25, CPU)
+    np.testing.assert_array_equal(si, oi)
+    np.testing.assert_array_equal(sd, tk.distances(d2, f + fc).numpy())
+
+
+def test_exact_wrapper_checks_its_operands():
+    codes = torch.zeros((4, 2), dtype=torch.int32)
+    cont = torch.zeros((4, 3), dtype=torch.float32)
+    with pytest.raises(ValueError):
+        tk.knn_exact(codes, cont, codes, cont, 5)            # k > N
+    with pytest.raises(ValueError):
+        tk.knn_exact(codes, cont, codes, cont, 0)
+    with pytest.raises(ValueError):
+        tk.knn_exact(codes, cont[:, :2], codes, cont, 2)     # Fc differs
+    with pytest.raises(TypeError):
+        tk.knn_exact(codes.long(), cont, codes, cont, 2)
+    with pytest.raises(TypeError):
+        tk.knn_exact(codes, cont.double(), codes, cont.double(), 2)
+    d2, idx = tk.knn_exact(codes[:0], cont[:0], codes, cont, 2)
+    assert d2.shape == idx.shape == (0, 2)
+
+
+@pytest.mark.parametrize("f,fc", [(6, 8), (0, 9)], ids=["mixed", "elearn"])
+def test_forced_certificate_failure_is_served_exactly(f, fc, monkeypatch):
+    """Every third row's certificate forced to fail on the kernel route,
+    with the exact scan made to raise: the exact kernel's plain version
+    serves those rows, the answers equal the JAX package's, and
+    ``fallback_rows`` counts exactly the refused rows."""
+    rng = np.random.default_rng(53 + f)
+    train = _mixed_ds(EncodedDataset, rng, 3000, f=f, fc=fc)
+    test = _mixed_ds(EncodedDataset, rng, 200, f=f, fc=fc)
+    est = mknn.KNN(k=7, device="cpu")
+    model = est.fit(train)
+    jest = jknn.KNN(k=7)
+    want = jest.predict(jest.fit(_twin(train)), _twin(test), validate=True)
+    search, refused = tk.search, []
+
+    def failing(*args, **kwargs):
+        d, idx, cert = search(*args, **kwargs)
+        cert = cert.clone()
+        cert[::3] = False
+        refused.append(np.flatnonzero(~cert.numpy()))
+        return d, idx, cert
+
+    def no_scan(*args, **kwargs):
+        raise AssertionError("the fallback ran the exact scan")
+
+    monkeypatch.setattr(tk, "search", failing)
+    monkeypatch.setattr(mknn, "_nearest_neighbors_scan", no_scan)
+    before = mknn._nearest_neighbors_kernel.fallback_rows
+    got = est.predict(model, test, validate=True)
+    (rows,) = refused
+    assert len(rows) >= 67
+    assert mknn._nearest_neighbors_kernel.fallback_rows - before == len(rows)
+    np.testing.assert_array_equal(mknn._nearest_neighbors_kernel.last_fallback,
+                                  rows)
+    np.testing.assert_array_equal(got.predicted, want.predicted)
+    np.testing.assert_array_equal(got.neighbor_idx, want.neighbor_idx)
+    # the JAX package's float32 re-rank sums in another order (header)
+    np.testing.assert_allclose(got.neighbor_dist, want.neighbor_dist, atol=2e-5)
+    np.testing.assert_allclose(got.class_scores, want.class_scores, atol=1e-6)
+    assert got.counters.as_dict() == want.counters.as_dict()
+
+
 @pytest.mark.parametrize("metric", ["euclidean", "manhattan"])
 def test_scan_matches_jax_scan(metric):
     train = _mixed_ds(EncodedDataset, np.random.default_rng(41), 2500)

@@ -201,7 +201,7 @@ def test_forced_certificate_failure_spans_the_fallback(tmp_path,
     (call,) = _named(spans, "knn.predict")
     (fb,) = _named(spans, "knn.fallback")
     assert spans[fb][1] == call and spans[fb][2] == {"rows": delta}
-    # no span of the query side opens inside the exact scan
+    # no span of the query side opens inside the fallback
     assert not [s for s in spans.values() if s[1] == fb]
     np.testing.assert_array_equal(got.neighbor_idx, want.neighbor_idx)
     np.testing.assert_array_equal(got.neighbor_dist, want.neighbor_dist)
