@@ -38,6 +38,8 @@ SPAN_SITES = {
     'acc.fetch': 'docs/observability.md',
     'chunk': 'docs/observability.md',
     'feeder.stage': 'docs/observability.md',
+    'input.encode': 'docs/observability.md',
+    'input.read': 'docs/observability.md',
     'job.*': 'docs/observability.md',
     'knn.fallback': 'docs/observability.md',
     'knn.fetch': 'docs/observability.md',
@@ -45,6 +47,7 @@ SPAN_SITES = {
     'knn.predict': 'docs/observability.md',
     'knn.prep': 'docs/observability.md',
     'knn.vote': 'docs/observability.md',
+    'output.write': 'docs/observability.md',
     'pipeline.run': 'docs/observability.md',
     'scan': 'docs/observability.md',
     'scan.chunk': 'docs/observability.md',

@@ -38,6 +38,11 @@ from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.utils.metrics import Counters
 
 PART_FILE = "part-00000"
+# the chunk reader's file buffer: a 1M-line chunk is ~75 MB, which the
+# default 8 KB buffer reads in ~9,000 read() calls; where a call is dear,
+# as on a sandboxed host (an H100 host measured them at half of a chunk's
+# readline loop, and most of its spread), 4 MB makes them ~20
+READ_BUFFER = 4 << 20
 
 
 def input_files(path: str) -> List[str]:
@@ -547,7 +552,7 @@ class Job:
     @staticmethod
     def _iter_chunks_retrying(conf: JobConfig, input_path: str,
                               counters: Counters, decode, owner=None,
-                              start: Optional[dict] = None):
+                              start: Optional[dict] = None, parent=None):
         """The chunk-scan and retry engine behind both streaming readers.
 
         Scans each input file by (byte offset, global chunk index); the
@@ -559,10 +564,16 @@ class Job:
         ``owner(chunk_index)`` assigns chunks: chunks it refuses are scanned
         for their boundaries but never decoded or yielded.  ``start``
         resumes from a persisted cursor (``{"file", "offset", "chunk"}``,
-        the position after the last chunk counted).  Yields
-        ``(file, offset_after, chunk_index_after, payload)``."""
+        the position after the last chunk counted).  Each task's line read
+        is an ``input.read`` span (``bytes``, ``lines``), a child of
+        ``parent`` (the span open where the stream was built, for a
+        stream pulled on another thread), else of the pulling thread's
+        current span.  Yields ``(file, offset_after, chunk_index_after,
+        payload)``."""
+        from avenir_tpu_torch.telemetry import spans as tel
         from avenir_tpu_torch.utils.retry import RetryPolicy, run_with_retry
 
+        tracer = tel.tracer()
         policy = RetryPolicy.from_conf(conf)
         chunk_rows = conf.get_int("stream.chunk.rows", 1_000_000)
         i = int(start["chunk"]) if start else 0
@@ -579,19 +590,13 @@ class Job:
             while True:
                 def task(path=f, off=offset, idx=i):
                     mine = owner is None or owner(idx)
-                    with open(path, "rb") as fh:
+                    with open(path, "rb", buffering=READ_BUFFER) as fh:
                         fh.seek(off)
-                        raw: List[bytes] = []
-                        nraw = 0
-                        while nraw < chunk_rows:
-                            ln = fh.readline()
-                            if not ln:
-                                break
-                            if ln.strip():
-                                nraw += 1
-                                if mine:
-                                    raw.append(ln)
-                        end = fh.tell()
+                        with tracer.span("input.read", parent=parent) as sp:
+                            raw, nraw = _read_lines(fh, chunk_rows, mine)
+                            end = fh.tell()
+                            sp.set("bytes", end - off)
+                            sp.set("lines", nraw)
                     if not nraw:
                         return end, None
                     if not mine:
@@ -634,37 +639,96 @@ class Job:
         split.  The native encoder parses a chunk where the schema is
         complete, the delimiter one character and the chunk's rows wide
         enough; else the Python one does (which raises ConfigError, not
-        retried, on an incomplete schema).
+        retried, on an incomplete schema); :func:`encode_chunk` counts
+        the rows of each route.
 
         ``start`` resumes after a persisted cursor; ``emit_cursor`` yields
         ``(chunk, cursor)`` pairs, the cursor ``{"file", "offset", "chunk",
         "rows"}`` being the position after the chunk and the rows yielded
-        since ``start``."""
-        from avenir_tpu_torch.core.csv_io import read_csv_string
-        from avenir_tpu_torch.runtime import native
+        since ``start``.
 
+        The stream is pulled lazily, usually on the feeder's worker
+        thread, so the span open here, where it is built, parents its
+        ``input.read`` and ``input.encode`` spans (``route``, ``rows``)."""
+        from avenir_tpu_torch.telemetry import spans as tel
+
+        return Job._encoded_chunks(conf, input_path, encoder, counters,
+                                   with_labels, start, emit_cursor, owner,
+                                   tel.tracer().current())
+
+    @staticmethod
+    def _encoded_chunks(conf, input_path, encoder, counters, with_labels,
+                        start, emit_cursor, owner, parent):
+        from avenir_tpu_torch.telemetry import spans as tel
+
+        tracer = tel.tracer()
         delim = conf.field_delim_regex
         use_native = len(delim) == 1 and (
             encoder._fitted or encoder.schema_complete(with_labels))
 
         def decode(raw, path):
             ncols = raw[0].rstrip(b"\r\n").count(delim.encode()) + 1
-            if use_native and ncols > encoder.max_ordinal(with_labels):
-                return native.encode_bytes(
-                    b"".join(raw), encoder, ncols=ncols, delim=delim,
-                    with_labels=with_labels)
-            rows = read_csv_string(b"".join(raw).decode(), delim=delim)
-            return encoder.transform(rows, with_labels=with_labels)
+            route = ("native" if use_native
+                     and ncols > encoder.max_ordinal(with_labels)
+                     else "python")
+            with tracer.span("input.encode", parent=parent) as sp:
+                ds = encode_chunk(route, raw, encoder, ncols, delim,
+                                  with_labels)
+                sp.set("route", route)
+                sp.set("rows", ds.num_rows)
+            return ds
 
         rows_out = 0
         for f, offset, i, ds in Job._iter_chunks_retrying(
-                conf, input_path, counters, decode, owner=owner, start=start):
+                conf, input_path, counters, decode, owner=owner, start=start,
+                parent=parent):
             if emit_cursor:
                 rows_out += ds.num_rows
                 yield ds, {"file": f, "offset": offset, "chunk": i,
                            "rows": rows_out}
             else:
                 yield ds
+
+
+def _read_lines(fh, chunk_rows: int, mine: bool):
+    """Up to ``chunk_rows`` non-blank lines from ``fh``'s position: (the
+    lines, kept only when ``mine``; how many were read)."""
+    raw: List[bytes] = []
+    nraw = 0
+    while nraw < chunk_rows:
+        ln = fh.readline()
+        if not ln:
+            break
+        if ln.strip():
+            nraw += 1
+            if mine:
+                raw.append(ln)
+    return raw, nraw
+
+
+def encode_chunk(route: str, raw: List[bytes], encoder: DatasetEncoder,
+                 ncols: int, delim: str, with_labels: bool) -> EncodedDataset:
+    """One chunk's lines encoded by ``route``: ``native``
+    (``runtime/native.py::encode_bytes``) or ``python`` (the CSV parse and
+    ``DatasetEncoder.transform``).  ``encode_chunk.rows_native`` and
+    ``encode_chunk.rows_python`` count the rows each route has encoded in
+    this process."""
+    from avenir_tpu_torch.core.csv_io import read_csv_string
+    from avenir_tpu_torch.runtime import native
+
+    if route == "native":
+        ds = native.encode_bytes(b"".join(raw), encoder, ncols=ncols,
+                                 delim=delim, with_labels=with_labels)
+        encode_chunk.rows_native += ds.num_rows
+        return ds
+    rows = read_csv_string(b"".join(raw).decode(), delim=delim)
+    ds = encoder.transform(rows, with_labels=with_labels)
+    encode_chunk.rows_python += ds.num_rows
+    return ds
+
+
+encode_chunk.rows_native = 0
+encode_chunk.rows_python = 0
 
 
 class StreamCheckpointer:

@@ -856,11 +856,12 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
                    keep: Optional[Sequence[int]] = None):
     """``(consumer, writer)`` for one fusable stage (NB, MI, or a
     correlation job); the writer publishes the finalized result byte for
-    byte as the standalone job writes it, and ``counters`` receives NB's
-    model-row count.  The planner builds consumers here without data.
-    ``keep`` (the sorted binned positions the planner's prune keeps)
-    remaps a correlation stage's attribute selection into the pruned
-    space; NB and MI read every column and refuse it."""
+    byte as the standalone job writes it and returns its line count, and
+    ``counters`` receives NB's model-row count.  The planner builds
+    consumers here without data.  ``keep`` (the sorted binned positions
+    the planner's prune keeps) remaps a correlation stage's attribute
+    selection into the pruned space; NB and MI read every column and
+    refuse it."""
     from avenir_tpu_torch.jobs import get_job
     from avenir_tpu_torch.jobs.base import write_output
     from avenir_tpu_torch.jobs.explore import correlation_plan, mi_output_lines
@@ -877,6 +878,7 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
             write_output(out_path, lines)
             if counters is not None:
                 counters.set("Model", "Rows", len(lines))
+            return len(lines)
 
         return consumer, write_nb
     if job == "MutualInformation":
@@ -887,7 +889,9 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
         consumer = MutualInfoConsumer(feature_names=names_, name=name)
 
         def write_mi(result):
-            write_output(out_path, mi_output_lines(conf, result, names_))
+            lines = mi_output_lines(conf, result, names_)
+            write_output(out_path, lines)
+            return len(lines)
 
         return consumer, write_mi
     # CramerCorrelation / HeterogeneityReductionCorrelation
@@ -905,7 +909,9 @@ def stage_consumer(name, job, conf, out_path, schema, enc,
         against_class=against_class, feature_names=names_, name=name)
 
     def write_corr(result):
-        write_output(out_path, result.to_lines(delim=conf.field_delim))
+        lines = result.to_lines(delim=conf.field_delim)
+        write_output(out_path, lines)
+        return len(lines)
 
     return consumer, write_corr
 
@@ -961,9 +967,11 @@ def run_fused_stages(stages, device=None,
     one input and compatible confs (the driver checks both).  Builds one
     chunk source through the jobs' ``encoded_data_source``, registers one
     consumer per stage, runs the scan and writes each stage's output as
-    its standalone job does.  Returns per-stage Counters, each with a
-    ``SharedScan`` group; the first stage's also carries the stream's
-    ``Task`` and ``Telemetry`` counters.
+    its standalone job does, each write (its lines made and its part file
+    written) an ``output.write`` span (``stage``, ``lines``).  Returns
+    per-stage Counters, each with a ``SharedScan`` group; the first
+    stage's also carries the stream's ``Task`` and ``Telemetry``
+    counters.
 
     The planner (``pipeline/plan.py``) passes its decisions: ``prune``
     folds only the listed binned columns (consumers remapped into the
@@ -1031,11 +1039,14 @@ def run_fused_stages(stages, device=None,
                 else (pruned_view(ds, keep) for ds in data))
     results = engine.run(data)
     rows = rows_fn()
+    tracer = tel.tracer()
     for name, _job, _inp, _out, _conf in stages:
         # under a global plan every process finalizes the same totals and
         # process 0 writes, as the streamed jobs do
         if Job.is_output_writer():
-            writers[name](results[name])
+            with tracer.span("output.write") as sp:
+                sp.set("lines", writers[name](results[name]))
+                sp.set("stage", name)
         counters[name].set("Records", "Processed", rows)
         counters[name].set("SharedScan", "FusedStages", len(stages))
         counters[name].set("SharedScan", "Scans", 1)

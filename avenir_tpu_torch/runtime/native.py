@@ -194,6 +194,16 @@ def _specs_from_encoder(encoder, with_labels: bool = True) -> tuple:
             np.asarray(nbins, np.int32), b"".join(vocab_parts))
 
 
+def threads() -> int:
+    """The encoder's default worker threads: the process's compute
+    threads where ``OMP_NUM_THREADS`` states them, as it does for
+    PyTorch's pool, else the CPU count; at most 8."""
+    stated = os.environ.get("OMP_NUM_THREADS", "")
+    n = int(stated) if stated.isdigit() and int(stated) > 0 else (
+        os.cpu_count() or 1)
+    return min(n, 8)
+
+
 def encode_bytes(data: bytes, encoder, ncols: int, delim: str = ",",
                  with_labels: bool = True, nthreads: Optional[int] = None):
     """CSV bytes → EncodedDataset through the native encoder.
@@ -201,8 +211,8 @@ def encode_bytes(data: bytes, encoder, ncols: int, delim: str = ",",
     ``encoder`` must be fitted (or its schema complete); raises ValueError
     on data errors (the Python path's conditions, with the absolute row)
     and RuntimeError if the library cannot be built.  Buffers over 1 MiB
-    are parsed by ``nthreads`` worker threads (default: up to 8 or the CPU
-    count), with output identical to one thread's."""
+    are parsed by ``nthreads`` worker threads (default: :func:`threads`),
+    with output identical to one thread's."""
     from avenir_tpu_torch.core.encoding import EncodedDataset
 
     lib = load()
@@ -221,7 +231,7 @@ def encode_bytes(data: bytes, encoder, ncols: int, delim: str = ",",
     id_len = np.zeros(max_rows, np.int32) if has_ids else None
     err_row = ctypes.c_long(0)
     if nthreads is None:
-        nthreads = min(os.cpu_count() or 1, 8)
+        nthreads = threads()
     i32p = ctypes.POINTER(ctypes.c_int32)
     rows = lib.avenir_csv_encode_mt(
         data, len(data), ctypes.c_char(delim.encode()), ncols,

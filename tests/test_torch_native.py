@@ -186,6 +186,15 @@ def test_multithreaded_large_buffer_and_absolute_error_row():
         native.encode_bytes(_csv_bytes(bad), enc, ncols=12, nthreads=8)
 
 
+@pytest.mark.parametrize("stated, want", [
+    ("1", 1), ("3", 3), ("64", 8), ("", None), ("0", None), ("x", None)])
+def test_default_threads_follow_omp_num_threads(monkeypatch, stated, want):
+    """The encoder's default pool is the process's stated compute threads
+    (at most 8), else the CPU count's."""
+    monkeypatch.setenv("OMP_NUM_THREADS", stated)
+    assert native.threads() == (want or min(os.cpu_count() or 1, 8))
+
+
 def test_iter_encoded_native_chunks_equal_whole():
     rows = generate_hosp_readmit(1000, seed=5)
     enc, _ = _encoders(HOSP_SCHEMA_JSON, rows)
