@@ -11,7 +11,8 @@ for ``cpu``.
 Inputs are parsed by the native encoder (``runtime/native.py``) wherever
 the JAX package parses them natively, and streamed chunk by chunk with
 per-chunk retry (``utils/retry.py``) through the device feeder
-(``runtime/feeder.py``).  A streamed count job checkpoints its totals and
+(``runtime/feeder.py``); a count job's chunks on a CUDA card are parsed
+there (``ops/csv.py``, :class:`BlockReader`).  A streamed count job checkpoints its totals and
 cursor with :class:`StreamCheckpointer` (``stream.checkpoint.dir``) and
 resumes from them (``stream.resume``, the CLI's ``--resume``).
 
@@ -25,6 +26,7 @@ merged in one collective at the end of the stream
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Iterator, List, Optional, Sequence
 
@@ -38,7 +40,7 @@ from avenir_tpu_torch.device import resolve_device
 from avenir_tpu_torch.utils.metrics import Counters
 
 PART_FILE = "part-00000"
-# the chunk reader's file buffer: a 1M-line chunk is ~75 MB, which the
+# the line chunk reader's file buffer: a 1M-line chunk is ~75 MB, which the
 # default 8 KB buffer reads in ~9,000 read() calls; where a call is dear,
 # as on a sandboxed host (an H100 host measured them at half of a chunk's
 # readline loop, and most of its spread), 4 MB makes them ~20
@@ -460,11 +462,14 @@ class Job:
             ckpt = checkpointer
             base_rows = ckpt.base_rows if ckpt else 0
             box = {"n": base_rows}
+            depth = conf.get_int("stream.prefetch.depth", 2)
+            staged = depth > 0 and shard is None and mesh is None
+            # the consumers (the models' fit, ChunkFolder) read no ids
             pairs = self.iter_encoded_retrying(
                 conf, input_path, enc, counters, with_labels=with_labels,
                 start=ckpt.start if ckpt else None, emit_cursor=True,
-                owner=owner)
-            depth = conf.get_int("stream.prefetch.depth", 2)
+                owner=owner, with_ids=False,
+                device=self._decode_device(self.device, staged))
             if depth > 0:
                 from avenir_tpu_torch.runtime.feeder import (
                     DeviceFeeder, mesh_pair_stage, sharded_pair_stage)
@@ -503,6 +508,19 @@ class Job:
                                            with_labels=with_labels,
                                            need_rows=False)
         return enc, ds, lambda: ds.num_rows
+
+    @staticmethod
+    def _decode_device(device, staged: bool):
+        """The device a count job's chunk stream is encoded on
+        (:meth:`iter_encoded_retrying`'s ``device``), or None for the host:
+        a CUDA device whose chunks the feeder's plain stage hands over
+        (``staged``: a prefetching feeder with no shard plan or data mesh,
+        whose stages pad and split host arrays), since the consumer's
+        ``record_stream`` then covers tensors made on the input layer's
+        stream."""
+        if staged and device is not None and device.type == "cuda":
+            return device
+        return None
 
     @staticmethod
     def stream_checkpointer(conf: JobConfig) -> Optional["StreamCheckpointer"]:
@@ -552,20 +570,23 @@ class Job:
     @staticmethod
     def _iter_chunks_retrying(conf: JobConfig, input_path: str,
                               counters: Counters, decode, owner=None,
-                              start: Optional[dict] = None, parent=None):
+                              start: Optional[dict] = None, parent=None,
+                              read=None):
         """The chunk-scan and retry engine behind both streaming readers.
 
         Scans each input file by (byte offset, global chunk index); the
         retried task re-opens, re-seeks, re-reads and re-decodes one chunk
-        (``decode(raw_lines, path)`` runs inside the task, so a decode fault
-        is retried with the read; policy from ``mapred.map.max.attempts``).
-        The end of each file is found by one more task that reads nothing,
-        as in the JAX package, so ``Task::attempts`` counts it too.
+        (``read(path, offset, chunk_rows, mine)`` → (raw, non-blank lines,
+        end offset), by default :func:`_read_line_chunk`; then
+        ``decode(raw, path)`` inside the task, so a decode fault is retried
+        with the read; policy from ``mapred.map.max.attempts``).  The end
+        of each file is found by one more task that reads nothing, as in
+        the JAX package, so ``Task::attempts`` counts it too.
         ``owner(chunk_index)`` assigns chunks: chunks it refuses are scanned
         for their boundaries but never decoded or yielded.  ``start``
         resumes from a persisted cursor (``{"file", "offset", "chunk"}``,
-        the position after the last chunk counted).  Each task's line read
-        is an ``input.read`` span (``bytes``, ``lines``), a child of
+        the position after the last chunk counted).  Each task's read is
+        an ``input.read`` span (``bytes``, ``lines``), a child of
         ``parent`` (the span open where the stream was built, for a
         stream pulled on another thread), else of the pulling thread's
         current span.  Yields ``(file, offset_after, chunk_index_after,
@@ -575,6 +596,7 @@ class Job:
 
         tracer = tel.tracer()
         policy = RetryPolicy.from_conf(conf)
+        read = read or _read_line_chunk
         chunk_rows = conf.get_int("stream.chunk.rows", 1_000_000)
         i = int(start["chunk"]) if start else 0
         files = input_files(input_path)
@@ -590,13 +612,10 @@ class Job:
             while True:
                 def task(path=f, off=offset, idx=i):
                     mine = owner is None or owner(idx)
-                    with open(path, "rb", buffering=READ_BUFFER) as fh:
-                        fh.seek(off)
-                        with tracer.span("input.read", parent=parent) as sp:
-                            raw, nraw = _read_lines(fh, chunk_rows, mine)
-                            end = fh.tell()
-                            sp.set("bytes", end - off)
-                            sp.set("lines", nraw)
+                    with tracer.span("input.read", parent=parent) as sp:
+                        raw, nraw, end = read(path, off, chunk_rows, mine)
+                        sp.set("bytes", end - off)
+                        sp.set("lines", nraw)
                     if not nraw:
                         return end, None
                     if not mine:
@@ -632,15 +651,23 @@ class Job:
                               encoder: DatasetEncoder, counters: Counters,
                               with_labels: bool = True,
                               start: Optional[dict] = None,
-                              emit_cursor: bool = False, owner=None):
+                              emit_cursor: bool = False, owner=None,
+                              with_ids: bool = True, device=None):
         """Encoded chunks of ``stream.chunk.rows`` rows with per-chunk retry:
         the retried task is the read, parse and encode of one chunk,
         addressed by (file, byte offset) as a Hadoop map task is by its
-        split.  The native encoder parses a chunk where the schema is
-        complete, the delimiter one character and the chunk's rows wide
-        enough; else the Python one does (which raises ConfigError, not
-        retried, on an incomplete schema); :func:`encode_chunk` counts
-        the rows of each route.
+        split.  A chunk is read as one byte block (:class:`BlockReader`:
+        the lines :func:`_read_lines` reads, at the same boundaries).  The
+        native encoder parses a chunk where the schema is complete, the
+        delimiter one character and the chunk's rows wide enough; else the
+        Python one does (which raises ConfigError, not retried, on an
+        incomplete schema).  With a ``device`` and ``with_ids=False`` the
+        native route's chunks are encoded there instead
+        (``ops/csv.py::encode_csv``: on CUDA from a pinned block, by
+        ``csrc/csv_encode.cu``; a chunk it refuses is encoded natively);
+        a stream that reads ids stays on the host.  :func:`encode_chunk`
+        counts the rows of each route.  ``with_ids=False`` leaves the id
+        column unread.
 
         ``start`` resumes after a persisted cursor; ``emit_cursor`` yields
         ``(chunk, cursor)`` pairs, the cursor ``{"file", "offset", "chunk",
@@ -654,26 +681,33 @@ class Job:
 
         return Job._encoded_chunks(conf, input_path, encoder, counters,
                                    with_labels, start, emit_cursor, owner,
-                                   tel.tracer().current())
+                                   tel.tracer().current(), with_ids, device)
 
     @staticmethod
     def _encoded_chunks(conf, input_path, encoder, counters, with_labels,
-                        start, emit_cursor, owner, parent):
+                        start, emit_cursor, owner, parent, with_ids, device):
         from avenir_tpu_torch.telemetry import spans as tel
 
         tracer = tel.tracer()
         delim = conf.field_delim_regex
         use_native = len(delim) == 1 and (
             encoder._fitted or encoder.schema_complete(with_labels))
+        decoder = None
+        if device is not None and use_native and not with_ids:
+            from avenir_tpu_torch.ops.csv import CsvDecoder
 
-        def decode(raw, path):
-            ncols = raw[0].rstrip(b"\r\n").count(delim.encode()) + 1
-            route = ("native" if use_native
-                     and ncols > encoder.max_ordinal(with_labels)
-                     else "python")
+            decoder = CsvDecoder(encoder, with_labels, device)
+        reader = BlockReader(
+            pinned=decoder is not None and decoder.device.type == "cuda")
+
+        def decode(block, path):
+            ncols = block.first_line().rstrip(b"\r\n").count(delim.encode()) + 1
+            route = "python"
+            if use_native and ncols > encoder.max_ordinal(with_labels):
+                route = "native" if decoder is None else "device"
             with tracer.span("input.encode", parent=parent) as sp:
-                ds = encode_chunk(route, raw, encoder, ncols, delim,
-                                  with_labels)
+                ds, route = encode_chunk(route, block, encoder, ncols, delim,
+                                         with_labels, with_ids, decoder)
                 sp.set("route", route)
                 sp.set("rows", ds.num_rows)
             return ds
@@ -681,7 +715,7 @@ class Job:
         rows_out = 0
         for f, offset, i, ds in Job._iter_chunks_retrying(
                 conf, input_path, counters, decode, owner=owner, start=start,
-                parent=parent):
+                parent=parent, read=reader.read):
             if emit_cursor:
                 rows_out += ds.num_rows
                 yield ds, {"file": f, "offset": offset, "chunk": i,
@@ -706,29 +740,200 @@ def _read_lines(fh, chunk_rows: int, mine: bool):
     return raw, nraw
 
 
-def encode_chunk(route: str, raw: List[bytes], encoder: DatasetEncoder,
-                 ncols: int, delim: str, with_labels: bool) -> EncodedDataset:
-    """One chunk's lines encoded by ``route``: ``native``
-    (``runtime/native.py::encode_bytes``) or ``python`` (the CSV parse and
-    ``DatasetEncoder.transform``).  ``encode_chunk.rows_native`` and
-    ``encode_chunk.rows_python`` count the rows each route has encoded in
-    this process."""
+def _read_line_chunk(path: str, off: int, chunk_rows: int, mine: bool):
+    """A chunk task's read as lines (:func:`_read_lines`): (the non-blank
+    lines, kept only when ``mine``; how many; the offset after them)."""
+    with open(path, "rb", buffering=READ_BUFFER) as fh:
+        fh.seek(off)
+        raw, nraw = _read_lines(fh, chunk_rows, mine)
+        return raw, nraw, fh.tell()
+
+
+class Block:
+    """One chunk as :class:`BlockReader` read it: ``rows`` non-blank lines
+    in ``nbytes`` bytes.  ``packed`` (uint8) holds ``starts``, each row's
+    offset and after them the offset just past the last row's line (int64,
+    ``rows + 1``), from byte 0, and the bytes from ``data_off``; ``tensor``
+    is the same memory as a torch tensor (pinned where the reader is).
+    Valid until the reader's next read."""
+
+    def __init__(self, packed: np.ndarray, tensor, data_off: int, rows: int,
+                 nbytes: int):
+        self.packed, self.tensor = packed, tensor
+        self.data_off, self.rows, self.nbytes = data_off, rows, nbytes
+
+    @property
+    def data(self) -> np.ndarray:
+        return self.packed[self.data_off:self.data_off + self.nbytes]
+
+    @property
+    def starts(self) -> np.ndarray:
+        return self.packed[:8 * (self.rows + 1)].view(np.int64)
+
+    def first_line(self) -> bytes:
+        """The first row's line with its newline, as :func:`_read_lines`
+        reads it."""
+        s, e = int(self.starts[0]), int(self.starts[1])
+        nl = np.flatnonzero(self.data[s:e] == 10)
+        return self.data[s:s + int(nl[0]) + 1 if nl.size else e].tobytes()
+
+    def lines(self) -> List[bytes]:
+        """Every row's line, :func:`_read_lines`' list for the chunk."""
+        text = self.data.tobytes()
+        starts = self.starts[:-1].tolist()
+        out = []
+        for s in starts:
+            e = text.find(b"\n", s)
+            out.append(text[s:e + 1 if e >= 0 else len(text)])
+        return out
+
+
+class BlockReader:
+    """The encoded stream's chunk read: a task's bytes from its offset, in
+    large reads (``readinto``) into one buffer that the stream reuses and
+    grows, walked for the offsets of their non-blank lines
+    (``runtime/native.py::walk``, without the interpreter lock) up to
+    ``stream.chunk.rows`` of them: the lines :func:`_read_lines` reads, at
+    the same boundaries.  Bytes read past the chunk's last line are dropped
+    (the next task reads from its own offset).  The buffer is a
+    :class:`Block`'s layout, pinned with ``pinned`` so that one copy takes
+    a block to a card."""
+
+    FIRST_READ = 1 << 20                 # bytes, before a row's size is known
+
+    def __init__(self, pinned: bool = False):
+        self.pinned = pinned
+        self._packed = np.zeros(0, np.uint8)
+        self._tensor = None
+        self._rows_cap = 0                # row offsets the buffer holds
+        self._bytes_cap = 0
+        self._row_bytes = 0.0             # a row's mean bytes, last chunk
+
+    @property
+    def _data_off(self) -> int:
+        return -(-8 * self._rows_cap // 16) * 16
+
+    def _reserve(self, rows_cap: int, bytes_cap: int, rows: int,
+                 fill: int) -> None:
+        """Room for ``rows_cap`` offsets and ``bytes_cap`` bytes, keeping
+        the first ``rows`` offsets and ``fill`` bytes."""
+        if rows_cap <= self._rows_cap and bytes_cap <= self._bytes_cap:
+            return
+        new_rows = max(rows_cap, self._rows_cap)
+        new_bytes = max(bytes_cap, self._bytes_cap)
+        if new_bytes > self._bytes_cap:
+            new_bytes = max(new_bytes, self._bytes_cap * 5 // 4)
+        off = -(-8 * new_rows // 16) * 16
+        if self.pinned:
+            import torch
+
+            tensor = torch.empty(off + new_bytes, dtype=torch.uint8,
+                                 pin_memory=True)
+            packed = tensor.numpy()
+        else:
+            tensor, packed = None, np.empty(off + new_bytes, np.uint8)
+        packed[:8 * rows] = self._packed[:8 * rows]
+        packed[off:off + fill] = self._packed[
+            self._data_off:self._data_off + fill]
+        self._packed, self._tensor = packed, tensor
+        self._rows_cap, self._bytes_cap = new_rows, new_bytes
+
+    def read(self, path: str, off: int, chunk_rows: int, mine: bool):
+        """(the chunk's :class:`Block`, kept only when ``mine``; its rows;
+        the offset after its last line) from ``path`` at ``off``."""
+        from avenir_tpu_torch.runtime import native
+
+        fill = pos = rows = 0
+        eof = False
+        with open(path, "rb", buffering=0) as fh:
+            size = os.fstat(fh.fileno()).st_size
+            fh.seek(off)
+            while True:
+                if fill > pos or eof:
+                    # at most one offset a byte walked: never past the room
+                    self._reserve(min(chunk_rows, rows + fill - pos) + 1, 0,
+                                  rows, fill)
+                    data_off = self._data_off
+                    rows, pos = native.walk(
+                        self._packed[data_off:], fill, pos, rows,
+                        min(chunk_rows, self._rows_cap - 1),
+                        eof, self._packed[:8 * self._rows_cap].view(np.int64))
+                if rows == chunk_rows or eof:
+                    break
+                row_bytes = pos / rows if rows else self._row_bytes
+                want = (int(row_bytes * (chunk_rows - rows) * 1.02)
+                        + (1 << 16) if row_bytes else self.FIRST_READ)
+                # no room for bytes the file does not hold
+                want = min(want, max(size - off - fill, 1 << 16))
+                self._reserve(0, fill + want, rows, fill)
+                data_off = self._data_off
+                got = fh.readinto(memoryview(self._packed)[
+                    data_off + fill:data_off + fill + want])
+                eof = not got
+                fill += got or 0
+        if rows:
+            self._row_bytes = pos / rows
+        self._reserve(rows + 1, 0, rows, fill)
+        self._packed[:8 * (rows + 1)].view(np.int64)[rows] = pos
+        if not (rows and mine):
+            return None, rows, off + pos
+        return Block(self._packed, self._tensor, self._data_off, rows,
+                     pos), rows, off + pos
+
+
+def encode_chunk(route: str, block: Block, encoder: DatasetEncoder,
+                 ncols: int, delim: str, with_labels: bool,
+                 with_ids: bool = True, decoder=None):
+    """One chunk's block encoded by ``route`` → (dataset, the route that
+    encoded it): ``device`` (``decoder``, an ``ops/csv.py::CsvDecoder``:
+    the codes, labels and continuous values made on its device; a chunk it
+    refuses is encoded natively), ``native``
+    (``runtime/native.py::encode_bytes`` over the block where it lies) or
+    ``python`` (the CSV parse of the block's lines and
+    ``DatasetEncoder.transform``).  ``encode_chunk.rows_device``,
+    ``rows_native`` and ``rows_python`` count the rows each route has
+    encoded in this process, ``encode_chunk.chunks_refused`` the chunks the
+    device route refused."""
     from avenir_tpu_torch.core.csv_io import read_csv_string
     from avenir_tpu_torch.runtime import native
 
+    if route == "device":
+        import torch
+
+        got = decoder(block.tensor if block.tensor is not None
+                      else torch.from_numpy(block.packed), block.rows,
+                      block.data_off, block.nbytes, ncols, delim)
+        if got is not None:
+            codes, labels, cont = got
+            encode_chunk.rows_device += block.rows
+            return EncodedDataset(
+                codes=codes, cont=cont, labels=labels, ids=None,
+                n_bins=np.array([encoder.n_bins[f.ordinal]
+                                 for f in encoder.binned_fields], np.int32),
+                class_values=list(encoder.class_values),
+                binned_ordinals=[f.ordinal for f in encoder.binned_fields],
+                cont_ordinals=[f.ordinal for f in encoder.cont_fields]), \
+                route
+        encode_chunk.chunks_refused += 1
+        route = "native"
     if route == "native":
-        ds = native.encode_bytes(b"".join(raw), encoder, ncols=ncols,
-                                 delim=delim, with_labels=with_labels)
+        ds = native.encode_bytes(block.data, encoder, ncols=ncols,
+                                 delim=delim, with_labels=with_labels,
+                                 with_ids=with_ids)
         encode_chunk.rows_native += ds.num_rows
-        return ds
-    rows = read_csv_string(b"".join(raw).decode(), delim=delim)
+        return ds, route
+    rows = read_csv_string(b"".join(block.lines()).decode(), delim=delim)
     ds = encoder.transform(rows, with_labels=with_labels)
+    if not with_ids:
+        ds = dataclasses.replace(ds, ids=None)
     encode_chunk.rows_python += ds.num_rows
-    return ds
+    return ds, route
 
 
+encode_chunk.rows_device = 0
 encode_chunk.rows_native = 0
 encode_chunk.rows_python = 0
+encode_chunk.chunks_refused = 0
 
 
 class StreamCheckpointer:

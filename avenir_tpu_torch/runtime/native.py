@@ -3,7 +3,8 @@
 
 :func:`encode_bytes` turns CSV bytes into an :class:`EncodedDataset` with
 the semantics of ``DatasetEncoder.transform`` (the C++ source is the JAX
-package's, unchanged).  The library is built with ``g++`` on first use into
+package's, with one function more: :func:`walk`, the chunk reader's line
+walk).  The library is built with ``g++`` on first use into
 ``avenir_tpu_torch/build/libavenir_native-<hash>.so``, the hash taken over
 the source, so an edited source is never served from a stale build.
 
@@ -119,6 +120,12 @@ def load() -> ctypes.CDLL:
         lib.avenir_csv_encode_mt.argtypes = \
             lib.avenir_csv_encode.argtypes + [ctypes.c_int32]
         lib.avenir_csv_count_rows.restype = ctypes.c_long
+        lib.avenir_csv_walk.restype = ctypes.c_long
+        lib.avenir_csv_walk.argtypes = [
+            ctypes.c_void_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+            ctypes.c_long, ctypes.c_int32, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_long),
+        ]
         lib.avenir_csv_count_rows.argtypes = [ctypes.c_char_p, ctypes.c_long]
         lib.avenir_gather_ids_u32.restype = ctypes.c_int32
         lib.avenir_gather_ids_u32.argtypes = [
@@ -146,7 +153,8 @@ def is_available() -> bool:
     return build_error() is None
 
 
-def _specs_from_encoder(encoder, with_labels: bool = True) -> tuple:
+def _specs_from_encoder(encoder, with_labels: bool = True,
+                        with_ids: bool = True) -> tuple:
     """Flatten a fitted DatasetEncoder into the parallel spec arrays."""
     kinds: List[int] = []
     ordinals: List[int] = []
@@ -183,7 +191,7 @@ def _specs_from_encoder(encoder, with_labels: bool = True) -> tuple:
         nbins.append(len(encoder.class_values))
         vocab_parts.append(
             b"".join(v.encode() + b"\x1f" for v in encoder.class_values) + b"\x1e")
-    if encoder.id_field is not None:
+    if with_ids and encoder.id_field is not None:
         kinds.append(KIND_ID)
         ordinals.append(encoder.id_field.ordinal)
         widths.append(0.0)
@@ -204,29 +212,65 @@ def threads() -> int:
     return min(n, 8)
 
 
-def encode_bytes(data: bytes, encoder, ncols: int, delim: str = ",",
-                 with_labels: bool = True, nthreads: Optional[int] = None):
+def walk(buf: np.ndarray, length: int, pos: int, rows: int, max_rows: int,
+         at_eof: bool, starts: np.ndarray) -> tuple:
+    """The chunk reader's line walk over ``buf[pos:length]`` (a uint8
+    array): the offset of each non-blank line (one ``bytes.strip()`` does
+    not empty) appended to ``starts[rows:]``, an int64 array with room for
+    ``max_rows``, until ``max_rows`` are held or the bytes run out; a line
+    with no newline counts only ``at_eof``.  Returns (rows, the offset just
+    after the last line walked).  Runs without the interpreter lock."""
+    if not (buf.dtype == np.uint8 and starts.dtype == np.int64
+            and buf.flags.c_contiguous and starts.flags.c_contiguous
+            and 0 <= pos <= length <= buf.size and 0 <= rows <= max_rows
+            and max_rows <= starts.size):
+        raise ValueError("walk: a contiguous uint8 buffer and an int64 "
+                         "starts array with room for max_rows needed")
+    end = ctypes.c_long(0)
+    got = load().avenir_csv_walk(buf.ctypes.data, length, pos, rows,
+                                 max_rows, int(at_eof), starts.ctypes.data,
+                                 ctypes.byref(end))
+    return int(got), end.value
+
+
+def encode_bytes(data, encoder, ncols: int, delim: str = ",",
+                 with_labels: bool = True, nthreads: Optional[int] = None,
+                 with_ids: bool = True):
     """CSV bytes → EncodedDataset through the native encoder.
 
-    ``encoder`` must be fitted (or its schema complete); raises ValueError
-    on data errors (the Python path's conditions, with the absolute row)
-    and RuntimeError if the library cannot be built.  Buffers over 1 MiB
-    are parsed by ``nthreads`` worker threads (default: :func:`threads`),
-    with output identical to one thread's."""
+    ``data`` is ``bytes`` or a contiguous uint8 numpy array (a chunk
+    reader's block, parsed where it lies).  ``encoder`` must be fitted (or
+    its schema complete); raises ValueError on data errors (the Python
+    path's conditions, with the absolute row) and RuntimeError if the
+    library cannot be built.  Buffers over 1 MiB are parsed by
+    ``nthreads`` worker threads (default: :func:`threads`), with output
+    identical to one thread's.  ``with_ids=False`` leaves the id column
+    unread (``ids`` None)."""
     from avenir_tpu_torch.core.encoding import EncodedDataset
 
     lib = load()
+    if not isinstance(data, bytes):
+        if not (isinstance(data, np.ndarray) and data.dtype == np.uint8
+                and data.ndim == 1 and data.flags.c_contiguous):
+            raise TypeError("encode_bytes takes bytes or a contiguous uint8 "
+                            "array")
+        keep = data                       # alive while the library reads it
+        data = keep.ctypes.data_as(ctypes.c_char_p)
+        nbytes = keep.size
+    else:
+        keep, nbytes = data, len(data)
     kinds, ordinals, widths, offsets, nbins, vocab_blob = \
-        _specs_from_encoder(encoder, with_labels=with_labels)
+        _specs_from_encoder(encoder, with_labels=with_labels,
+                            with_ids=with_ids)
     n_binned = len(encoder.binned_fields)
     n_cont = len(encoder.cont_fields)
-    max_rows = lib.avenir_csv_count_rows(data, len(data))
+    max_rows = lib.avenir_csv_count_rows(data, nbytes)
     codes = np.zeros((max_rows, max(n_binned, 1)), np.int32)
     cont = np.zeros((max_rows, max(n_cont, 1)), np.float32)
     has_labels = with_labels and encoder.class_field is not None and \
         bool(encoder.class_values)
     labels = np.zeros(max_rows, np.int32) if has_labels else None
-    has_ids = encoder.id_field is not None
+    has_ids = with_ids and encoder.id_field is not None
     id_off = np.zeros(max_rows, np.int64) if has_ids else None
     id_len = np.zeros(max_rows, np.int32) if has_ids else None
     err_row = ctypes.c_long(0)
@@ -234,7 +278,7 @@ def encode_bytes(data: bytes, encoder, ncols: int, delim: str = ",",
         nthreads = threads()
     i32p = ctypes.POINTER(ctypes.c_int32)
     rows = lib.avenir_csv_encode_mt(
-        data, len(data), ctypes.c_char(delim.encode()), ncols,
+        data, nbytes, ctypes.c_char(delim.encode()), ncols,
         kinds.ctypes.data_as(i32p),
         ordinals.ctypes.data_as(i32p),
         widths.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
@@ -267,7 +311,7 @@ def encode_bytes(data: bytes, encoder, ncols: int, delim: str = ",",
         if ascii_ok:
             ids = chars.view(f"<U{maxlen}")[:, 0]
         else:                            # non-ASCII ids: decode each
-            ids = np.array([data[off[i]:off[i] + ln[i]].decode()
+            ids = np.array([bytes(keep[off[i]:off[i] + ln[i]]).decode()
                             for i in range(rows)], dtype=object)
     return EncodedDataset(
         codes=codes[:rows, :n_binned] if n_binned else np.zeros((rows, 0), np.int32),

@@ -7,6 +7,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --b4     # B4 alone (below)
     python3 chip_smoke.py --knn-exact   # the fallback's exact kernel alone
+    python3 chip_smoke.py --csv-encode  # the CSV encode kernel alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -24,7 +25,7 @@ Phases, in order; any failure exits non-zero:
    and a ``canary`` JSON line; a reading that implies more than 105% of
    the bf16 peak fails.  Then build the CUDA
    kernels ``avenir_tpu_torch/csrc/{cooc_pair,cross,knn_tourney,knn_topk,
-   gram_probe,knn_exact}.cu`` (one nvcc each) and the native CSV encoder
+   gram_probe,knn_exact,csv_encode}.cu`` (one nvcc each) and the native CSV encoder
    (``runtime/native/csv_encode.cpp``, g++), all started together,
    printing each build time and ptxas report;
 2. hold each count kernel against its plain PyTorch version on the card —
@@ -143,6 +144,13 @@ Phases, in order; any failure exits non-zero:
    events) beside its bound (bytes at the HBM rate against float64
    operations at FP64_FLOPS), and the whole fallback of a call beside
    the exact scan it replaced, on the host's clock;
+7c. the CSV encode kernel (``csrc/csv_encode.cu``) on a 1M-row generated
+   hospital part read as one pinned block: bit-equal to its plain version
+   on the card and to the native encoder, its device time beside its
+   bytes bound, the H2D copy, the whole call, the plain version, the
+   native encode on one thread, the block read against the line read;
+   then the NB + MI pipeline over the part on ``cuda``: one launch a
+   250K-row chunk and every row encoded on the card;
 8. the kNN paths: (a) NearestNeighbor through the CLI on a seeded 1M-row
    elearn training CSV and 4,096 test rows on ``cuda`` (B5 once), then
    with ``--device cpu`` on the first 1,024 test rows: predictions
@@ -417,6 +425,8 @@ lanes.  Every B1–B6 case row carries its share of that peak
 for B5–B6), and a share over 105% fails its phase.
 
 ``--knn-exact`` runs phase 7b alone, with the exact kernel's build.
+``--csv-encode`` runs phase 7c alone (the CSV encode kernel on a 1M-row
+part, its times and the pipeline's launches), with its build.
 
 ``--b4`` runs B4 alone, in about a minute with its build: phase 2's B4
 cases, the hospital tree's level tables (``DecisionTree.fit`` on 1M seeded
@@ -461,7 +471,7 @@ DIST_TOL = 1e-6          # distances of rows the exact kernel served
 PAD_D2 = 1e29            # d² of a pad reference (ops/knn.py's _PADC, 1e30)
 KEY_TOL = 1e-5           # |Δd²| of two float32 summation orders (B5, B6)
 KERNEL_SOURCES = ("cooc_pair", "cross", "knn_tourney", "knn_topk", "gram_probe",
-                  "knn_exact")
+                  "knn_exact", "csv_encode")
 # launch counts: kernel id → (ops module, wrapper, attribute)
 COUNTS = {"B1": ("hist", "cooc_counts_cols", "launches"),
           "B2": ("hist", "cooc_counts_cols", "cls_launches"),
@@ -3467,6 +3477,166 @@ def knn_exact_cases():
         del d2, idx, xq, cq
         torch.cuda.empty_cache()
     return results
+
+
+def csv_encode_cases() -> dict:
+    """Phase 7c: the CSV encode kernel (``csrc/csv_encode.cu``) on a 1M-row
+    generated hospital part read as one pinned block (``BlockReader``):
+    bit-equal to its plain version on the card and to the native encoder;
+    its device time (``torch.profiler``; ``event_ms``, its launch alone
+    between CUDA events) beside its bytes bound, the H2D
+    copy of the block and its row offsets (CUDA events), the whole
+    ``encode_csv`` call (the copy, the kernel, the flag's read), the plain
+    version on the card, the native encoder on one host thread and the
+    block read against the line read it replaced (host clock); then the NB
+    + MI pipeline over the part in 250K-row chunks on cuda: one launch a
+    chunk, every row on the card (``encode_chunk.rows_device``)."""
+    import numpy as np
+    import torch
+
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.core.csv_io import write_csv
+    from avenir_tpu_torch.core.encoding import DatasetEncoder
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.datagen.hosp_readmit import (HOSP_SCHEMA_JSON,
+                                                      generate_hosp_readmit)
+    from avenir_tpu_torch.jobs import base
+    from avenir_tpu_torch.ops import csv as tcsv
+    from avenir_tpu_torch.pipeline.driver import Pipeline
+    from avenir_tpu_torch.runtime import native
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    work = tempfile.mkdtemp(prefix="chip_smoke_csv_")
+    try:
+        part = os.path.join(work, "data", "part-00000")
+        os.makedirs(os.path.dirname(part))
+        write_csv(part, generate_hosp_readmit(ROWS_E2E, seed=17))
+        enc = DatasetEncoder(FeatureSchema.from_json(HOSP_SCHEMA_JSON))
+        spec = tcsv.CsvSpec(enc)
+
+        def host_ms(fn, iters):
+            fn()
+            walls = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(walls)
+
+        reader = base.BlockReader(pinned=True)
+        block, rows, _ = reader.read(part, 0, ROWS_E2E, True)
+        row = {"kernel": "csv_encode", "rows": rows, "bytes": block.nbytes,
+               "n_binned": spec.n_binned, "tile_bytes": tcsv.tile_span(
+                   block.starts, rows)}
+        stream = torch.cuda.Stream(dev)
+        call = lambda: tcsv.encode_csv(  # noqa: E731
+            block.tensor, rows, block.data_off, block.nbytes, spec, 12, ",",
+            dev, stream)
+        launches = tcsv.encode_csv.launches
+        got = call()
+        if tcsv.encode_csv.launches != launches + 1 or got is None:
+            raise AssertionError("csv_encode refused or did not launch on a "
+                                 "generated part")
+        plain = tcsv.csv_encode_ref(
+            block.tensor[block.data_off:block.data_off + block.nbytes].to(dev),
+            torch.from_numpy(block.starts.copy()).to(dev), spec, 12, ",")
+        want = native.encode_bytes(block.data, enc, 12, ",", nthreads=1,
+                                   with_ids=False)
+        if not (all(torch.equal(a, b) for a, b in zip(got, plain))
+                and np.array_equal(got[0].cpu().numpy(), want.codes)
+                and np.array_equal(got[1].cpu().numpy(), want.labels)):
+            raise AssertionError("csv_encode differs from its plain version "
+                                 "or the native encoder")
+        row["bit_equal"] = True
+        with torch.cuda.stream(stream):
+            row["ms"] = device_ms(call, 20, ("csv_encode_kernel",))
+        n = block.data_off + block.nbytes
+        # the launch alone between CUDA events, on the block already there
+        meta = spec.device_meta(12, dev)
+        span = tcsv.tile_span(block.starts, rows)
+        buf = torch.empty(n + 32, dtype=torch.uint8, device=dev)
+        buf[:n].copy_(block.tensor[:n])
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        lib = tcsv._kernel()
+        row["event_ms"] = time_ms(lambda: lib.csv_encode(
+            buf.data_ptr(), block.data_off, rows, meta.data_ptr(),
+            meta.numel(), 12, len(spec.kinds),
+            sum(len(v) for v in spec.vocabs if v), ord(","), spec.n_binned,
+            spec.n_cont, span, got[0].data_ptr(), got[1].data_ptr(),
+            got[2].data_ptr(), flag.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream), 50)
+        if int(flag.item()):
+            raise AssertionError("csv_encode refused a part it took")
+        row["h2d_ms"] = time_ms(
+            lambda: buf[:n].copy_(block.tensor[:n], non_blocking=True), 20)
+        row["h2d_gb_s"] = n / row["h2d_ms"] / 1e6
+        row["call_ms"] = host_ms(call, 20)
+        row["plain_ms"] = time_ms(lambda: tcsv.csv_encode_ref(
+            block.tensor[block.data_off:n].to(dev),
+            torch.from_numpy(block.starts.copy()).to(dev), spec, 12, ","), 3)
+        row["native_1thread_ms"] = host_ms(lambda: native.encode_bytes(
+            block.data, enc, 12, ",", nthreads=1, with_ids=False), 3)
+        row["block_read_ms"] = host_ms(
+            lambda: base.BlockReader(pinned=True).read(part, 0, ROWS_E2E,
+                                                       True), 3)
+        row["block_reread_ms"] = host_ms(
+            lambda: reader.read(part, 0, ROWS_E2E, True), 5)
+        row["line_read_ms"] = host_ms(
+            lambda: base._read_line_chunk(part, 0, ROWS_E2E, True), 3)
+        work_bytes = n + rows * (spec.n_binned + 1) * 4
+        row["bound_ms"], row["bound_by"] = bound(work_bytes, 0)
+        row["bound_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+        del got, plain, buf
+
+        # the main path: the pipeline's chunks take the kernel
+        with open(os.path.join(work, "hosp.json"), "w") as fh:
+            json.dump(HOSP_SCHEMA_JSON, fh)
+        props = {"pipeline.stages": "bayes,mi",
+                 "pipeline.stage.bayes.job": "BayesianDistribution",
+                 "pipeline.stage.bayes.input": "data",
+                 "pipeline.stage.bayes.output": "bayes",
+                 "pipeline.stage.mi.job": "MutualInformation",
+                 "pipeline.stage.mi.input": "data",
+                 "pipeline.stage.mi.output": "mi",
+                 "stream.chunk.rows": str(CHUNK_ROWS),
+                 "feature.schema.file.path": os.path.join(work, "hosp.json"),
+                 "pipeline.bind.data": os.path.dirname(part),
+                 "pipeline.workspace": os.path.join(work, "ws")}
+        counts = (base.encode_chunk.rows_device, base.encode_chunk.rows_native,
+                  base.encode_chunk.chunks_refused, tcsv.encode_csv.launches)
+        t0 = time.perf_counter()
+        Pipeline.from_conf(JobConfig(props), device="cuda").run()
+        row["pipeline_s"] = time.perf_counter() - t0
+        delta = [b - a for a, b in zip(counts, (
+            base.encode_chunk.rows_device, base.encode_chunk.rows_native,
+            base.encode_chunk.chunks_refused, tcsv.encode_csv.launches))]
+        if delta != [ROWS_E2E, 0, 0, ROWS_E2E // CHUNK_ROWS]:
+            raise AssertionError(f"the pipeline's CSV chunks did not all take "
+                                 f"the kernel: {delta}")
+        row["launches_pipeline"] = delta[3]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("csv_encode case:", json.dumps(row))
+    return row
+
+
+def csv_encode_main() -> int:
+    """``--csv-encode``: the CSV encode kernel alone — its build (ptxas
+    report) and phase 7c, printed as one JSON line with the card."""
+    from avenir_tpu_torch.ops import _build
+    from avenir_tpu_torch.runtime import native
+
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    lib = _build.build("csv_encode")
+    build_s = time.perf_counter() - t0
+    native.build()
+    with open(lib[:-3] + ".log") as fh:
+        log(fh.read())
+    log(json.dumps({"checkout": HERE, "card": card, "build_s": build_s,
+                    "csv_encode": csv_encode_cases()}))
+    return 0
 
 
 def knn_exact_main() -> int:
@@ -6528,6 +6698,9 @@ def main(argv=None) -> int:
     ap.add_argument("--knn-exact", action="store_true",
                     help="the certificate fallback's exact kernel "
                          "(csrc/knn_exact.cu) alone: phase 7b")
+    ap.add_argument("--csv-encode", action="store_true",
+                    help="the CSV encode kernel (csrc/csv_encode.cu) alone: "
+                         "phase 7c")
     ap.add_argument("--fleet-worker", metavar="SPEC",
                     help="run as one rank of a phase-17 fleet (started by "
                          "python -m avenir_tpu_torch.launch)")
@@ -6541,6 +6714,8 @@ def main(argv=None) -> int:
         return cross_main()
     if args.knn_exact:
         return knn_exact_main()
+    if args.csv_encode:
+        return csv_encode_main()
     graftlint_phase()
     from concurrent.futures import ThreadPoolExecutor
 
@@ -6594,6 +6769,7 @@ def main(argv=None) -> int:
         rec.calls.clear()
         all_cases += knn_cases()
         exact = knn_exact_cases()
+        csv_case = csv_encode_cases()
         used = {}
         b5 = knn_job_phase(rec, work, used, walls)
         b6 = knn_small_phase(rec, work, used, walls)
@@ -6658,6 +6834,9 @@ def main(argv=None) -> int:
                      all_cases),
         {"name": "knn_exact (certificate fallback)", "route": "cuda",
          "source": src + "knn_exact.cu", "replaces": None, "cases": exact},
+        {"name": "csv_encode (the CSV chunk's encode)", "route": "cuda",
+         "source": src + "csv_encode.cu", "replaces": None,
+         "cases": [csv_case]},
         *probes,
     ]
     # phase 13 (c): B1 at every pane bucket of the stream, warm panes

@@ -5,7 +5,9 @@ counts (``csrc/cross.cu``, B4) exactly; the kNN candidate kernels
 (``csrc/knn_tourney.cu``, B5, and ``csrc/knn_topk.cu``, B6) exactly where
 every d² is an integer sum and to the float32 summation order elsewhere;
 the certificate fallback's exact kernel (``csrc/knn_exact.cu``) to the
-bit, and a forced fallback on ``cuda`` against the CPU;
+bit, and a forced fallback on ``cuda`` against the CPU; the CSV encode
+kernel (``csrc/csv_encode.cu``) to the bit against its plain version and
+the native encoder, and the CSV pipeline's chunks all on its route;
 the kNN search on ``cuda`` against the CPU; B1 at one class and the
 correlation job on ``cuda``, and a ``cuda`` snapshot resumed on the CPU;
 the probe functions of
@@ -1450,3 +1452,208 @@ def test_canaries_on_the_card_within_the_bf16_peak(cuda):
     assert ms > 0
     flops = 2.0 * 16384 * 2 * rig_canary.KNN_TILE * 128
     assert flops / (ms / 1e3) <= 1.05 * peak
+
+
+def _csv_part(path, rows, tail=()):
+    """Generated rows, a blank line and ``tail`` lines, as CSV."""
+    text = "\n".join(",".join(map(str, r)) for r in rows) + "\n\n"
+    path.write_bytes((text + "".join(t + "\n" for t in tail)).encode())
+    return str(path)
+
+
+HOSP_ROW = "P1,31,164,67,retired,with partner,poor,low,high,non smoker,low,N"
+ELEARN_ROW = "1038273,334,12,66,3,90,71,154,15,16,P"
+# per case: schema, generator, rows generated, fields a row, labels read,
+# and the odd parts (lines a fast path takes, under "taken", or refuses)
+CSV_CASES = {
+    "hospital": ("hosp", generate_hosp_readmit, 1_000_000, 12, True, {
+        "taken": [HOSP_ROW.replace(",31,", ",-31.5,"),
+                  HOSP_ROW.replace(",164,", ",+999999999999999,"),
+                  HOSP_ROW.replace("retired", "student"),
+                  HOSP_ROW.replace(",67,", ",-.25,") + "\r"],
+        "exponent": [HOSP_ROW.replace(",31,", ",3e1,")],
+        "digits": [HOSP_ROW.replace(",31,", ",0000000000000031,")],
+        "ragged": [HOSP_ROW + ",x"],
+        "label": [HOSP_ROW[:-1] + "maybe"],
+        "space": [HOSP_ROW.replace(",31,", ", 31,")]}),
+    "hospital_unlabelled": ("hosp", generate_hosp_readmit, 200_000, 12,
+                            False, {
+        "taken": [HOSP_ROW[:-1] + "maybe", HOSP_ROW.replace(",31,", ",-0,")],
+        "ragged": [HOSP_ROW + ",x"]}),
+    "elearn": ("elearn", None, 1_000_000, 11, True, {
+        "taken": [ELEARN_ROW.replace(",334,", ",-0.1,"),
+                  ELEARN_ROW.replace(",12,", ",16777217,"),
+                  ELEARN_ROW.replace(",66,", ",123456789012345,"),
+                  ELEARN_ROW.replace(",3,", ",-0,"),
+                  ELEARN_ROW.replace(",90,", ",.3333333,") + "\r"],
+        "exponent": [ELEARN_ROW.replace(",334,", ",1e3,")],
+        "empty": [ELEARN_ROW.replace(",334,", ",,")]}),
+    "mixed": ("mixed", generate_hosp_readmit, 200_000, 12, True, {
+        "taken": [HOSP_ROW.replace(",31,", ",-31.25,"),
+                  HOSP_ROW.replace(",164,", ",0.1,")],
+        "digits": [HOSP_ROW.replace(",67,", ",1234567890123456,")]}),
+}
+
+
+def _csv_schema(name):
+    import copy
+
+    from avenir_tpu_torch.datagen.elearn import ELEARN_SCHEMA_JSON
+
+    if name == "elearn":
+        return ELEARN_SCHEMA_JSON
+    schema = copy.deepcopy(HOSP_SCHEMA_JSON)
+    if name == "mixed":             # three continuous fields among binned
+        for f in schema["fields"][1:4]:
+            for k in ("bucketWidth", "min", "max"):
+                f.pop(k)
+    return schema
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CSV_CASES))
+def test_csv_encode_kernel_equals_plain_and_native(cuda, tmp_path, case):
+    """``csrc/csv_encode.cu`` on a generated part and on parts with fields
+    the fast path takes or refuses, for binned, categorical, continuous and
+    label fields and a read of no labels: its codes, labels and continuous
+    values bit-equal to its plain version on the card and to the native
+    encoder, a refusal wherever the plain version refuses, one launch a
+    call."""
+    from avenir_tpu_torch.datagen.elearn import generate_elearn
+    from avenir_tpu_torch.jobs.base import BlockReader
+    from avenir_tpu_torch.ops import csv as tcsv
+    from avenir_tpu_torch.runtime import native
+
+    schema, gen, n, ncols, with_labels, odd = CSV_CASES[case]
+    gen = gen or generate_elearn
+    rows = gen(n, seed=9)
+    enc = DatasetEncoder(FeatureSchema.from_json(_csv_schema(schema)))
+    if not enc.schema_complete(True):
+        enc.fit(rows[:5000])
+    spec = tcsv.CsvSpec(enc, with_labels=with_labels)
+    assert spec.has_labels == with_labels
+    assert spec.n_cont == {"elearn": 9, "mixed": 3}.get(schema, 0)
+    parts = {"generated": _csv_part(tmp_path / "gen.csv", rows)}
+    for name, tail in odd.items():
+        parts[name] = _csv_part(tmp_path / f"{name}.csv", rows[:5000], tail)
+    stream = torch.cuda.Stream(cuda)
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for name, path in parts.items():
+        block, nrows, _ = BlockReader(pinned=True).read(path, 0, 1 << 30,
+                                                        True)
+        before = tcsv.encode_csv.launches
+        got = tcsv.encode_csv(block.tensor, nrows, block.data_off,
+                              block.nbytes, spec, ncols, ",", cuda, stream)
+        assert tcsv.encode_csv.launches == before + 1
+        plain = tcsv.csv_encode_ref(
+            block.tensor[block.data_off:block.data_off + block.nbytes].to(cuda),
+            torch.from_numpy(block.starts.copy()).to(cuda), spec, ncols, ",")
+        assert (got is None) == (plain is None) == (
+            name not in ("generated", "taken")), name
+        if got is None:
+            continue
+        want = native.encode_bytes(block.data, enc, ncols, ",",
+                                   with_labels=with_labels, with_ids=False)
+        for a, b in zip(got, plain):
+            assert (a is None) == (b is None), name
+            assert a is None or torch.equal(bits(a), bits(b)), name
+        assert np.array_equal(got[0].cpu().numpy(), want.codes), name
+        assert np.array_equal(got[2].cpu().numpy().view(np.int32),
+                              want.cont.view(np.int32)), name
+        if with_labels:
+            assert np.array_equal(got[1].cpu().numpy(), want.labels), name
+        else:
+            assert got[1] is None and want.labels is None, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [120, 128])
+def test_csv_encode_kernel_at_the_shared_memory_limit(cuda, tmp_path, rows):
+    """150 binned columns of 7 digits in one tile: 120 rows take all but
+    ~5 KB of a block's shared memory and are encoded, bit-equal to the
+    native encoder; 128 rows need more, and the chunk is refused before
+    any launch."""
+    from avenir_tpu_torch.jobs.base import BlockReader
+    from avenir_tpu_torch.ops import csv as tcsv
+    from avenir_tpu_torch.runtime import native
+
+    schema = {"fields": [
+        {"name": f"x{i}", "ordinal": i, "dataType": "int", "feature": True,
+         "bucketWidth": 100000, "min": 0, "max": 9999999} for i in range(150)
+    ] + [{"name": "y", "ordinal": 150, "dataType": "categorical",
+          "cardinality": ["N", "Y"]}]}
+    vals = np.random.default_rng(3).integers(1_000_000, 9_999_999,
+                                             size=(rows, 150))
+    path = tmp_path / "wide.csv"
+    path.write_bytes("".join(",".join(map(str, r)) + f",{'NY'[i % 2]}\n"
+                             for i, r in enumerate(vals)).encode())
+    enc = DatasetEncoder(FeatureSchema.from_json(schema))
+    spec = tcsv.CsvSpec(enc)
+    block, n, _ = BlockReader(pinned=True).read(str(path), 0, 1 << 30,
+                                                True)
+    smem = tcsv.smem_bytes(spec, 151, tcsv.tile_span(block.starts, n))
+    assert (smem <= tcsv.SMEM_MAX) == (rows == 120)
+    before = tcsv.encode_csv.launches
+    got = tcsv.encode_csv(block.tensor, n, block.data_off, block.nbytes,
+                          spec, 151, ",", cuda, torch.cuda.Stream(cuda))
+    if rows == 128:
+        assert got is None and tcsv.encode_csv.launches == before
+        return
+    assert tcsv.encode_csv.launches == before + 1
+    want = native.encode_bytes(block.data, enc, 151, ",", with_ids=False)
+    assert np.array_equal(got[0].cpu().numpy(), want.codes)
+    assert np.array_equal(got[1].cpu().numpy(), want.labels)
+
+
+@pytest.mark.cuda
+def test_csv_pipeline_takes_the_device_route(cuda, tmp_path, monkeypatch):
+    """The NB + MI pipeline over CSV parts on cuda encodes every row on the
+    card (``encode_chunk.rows_device``, one ``encode_csv`` launch a chunk,
+    nothing refused or encoded on the host) and writes the host route's
+    part files on cuda byte for byte, and the CPU run's NB file."""
+    from avenir_tpu_torch.core.config import JobConfig
+    from avenir_tpu_torch.jobs import base
+    from avenir_tpu_torch.ops import csv as tcsv
+    from avenir_tpu_torch.pipeline.driver import Pipeline
+
+    data = tmp_path / "data"
+    data.mkdir()
+    for p in range(2):
+        _csv_part(data / f"part-{p:05d}",
+                  generate_hosp_readmit(250_000, seed=20 + p))
+    (tmp_path / "hosp.json").write_text(json.dumps(HOSP_SCHEMA_JSON))
+    props = {"pipeline.stages": "bayes,mi",
+             "pipeline.stage.bayes.job": "BayesianDistribution",
+             "pipeline.stage.bayes.input": "data",
+             "pipeline.stage.bayes.output": "bayes",
+             "pipeline.stage.mi.job": "MutualInformation",
+             "pipeline.stage.mi.input": "data",
+             "pipeline.stage.mi.output": "mi",
+             "stream.chunk.rows": "100000",
+             "feature.schema.file.path": str(tmp_path / "hosp.json"),
+             "pipeline.bind.data": str(data)}
+    files = {}
+    for dev in ("cuda", "host", "cpu"):
+        if dev == "host":           # the native route, copied to the card
+            monkeypatch.setattr(base.Job, "_decode_device",
+                                staticmethod(lambda device, staged: None))
+        conf = JobConfig(dict(props, **{
+            "pipeline.workspace": str(tmp_path / dev)}))
+        counts = (base.encode_chunk.rows_device, base.encode_chunk.rows_native,
+                  base.encode_chunk.rows_python,
+                  base.encode_chunk.chunks_refused, tcsv.encode_csv.launches)
+        Pipeline.from_conf(conf, device="cpu" if dev == "cpu" else "cuda"
+                           ).run()
+        after = (base.encode_chunk.rows_device, base.encode_chunk.rows_native,
+                 base.encode_chunk.rows_python,
+                 base.encode_chunk.chunks_refused, tcsv.encode_csv.launches)
+        delta = [b - a for a, b in zip(counts, after)]
+        assert delta == ([500_000, 0, 0, 0, 6] if dev == "cuda"
+                         else [0, 500_000, 0, 0, 0]), (dev, delta)
+        files[dev] = {s: (tmp_path / dev / s / "part-00000").read_bytes()
+                      for s in ("bayes", "mi")}
+    assert files["cuda"] == files["host"]
+    assert files["cuda"]["bayes"] == files["cpu"]["bayes"]
