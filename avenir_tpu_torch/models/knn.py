@@ -10,34 +10,38 @@ class-conditional probability weighting, inverse-distance weighting,
 classification by argmax, decision threshold or cost arbitration,
 regression average / median / linear, and validation counters.
 
-Three search routes, chosen by the same gates on every device:
+Three search routes, decided once a call by :func:`neighbor_route` with
+the same gates on every device.  One loop over query tiles serves them
+all (:func:`_search`): the queries normalised once, each tile uploaded,
+the route's step enqueued, and after the loop one fetch.  Only the step
+depends on the route:
 
-- the sharded route (:func:`_nearest_neighbors_sharded`) when a ``mesh``
-  has a data axis of two or more devices and k fits a shard (the JAX
-  package's gate): the references split over the axis,
-  ``parallel/collectives.py::sharded_knn_topk`` scans each block on its
-  device and merges the candidates in shard order, then the exact
-  re-rank keeps k.  It follows the JAX package on every kind of mesh:
-  each shard runs the tile scan, as the JAX package's sharded route runs
-  no Pallas kernel on a TPU mesh either;
-
+- the sharded route when a ``mesh`` has a data axis of two or more
+  devices and k fits a shard (the JAX package's gate): the references
+  split over the axis, ``parallel/collectives.py::sharded_knn_topk``
+  scans each block on its device and merges the candidates in shard
+  order.  It follows the JAX package on every kind of mesh: each shard
+  runs the tile scan, as the JAX package's sharded route runs no Pallas
+  kernel on a TPU mesh either;
 - the kernel route (:func:`_nearest_neighbors_kernel`) for the euclidean
   metric with k + 1 ≤ ``SLOTS``: ``ops/knn.search`` — query pack, B5
   (``csrc/knn_tourney.cu``) or B6 (``csrc/knn_topk.cu``) on ``cuda`` and
-  their plain versions on the CPU, exact re-rank and certificate; rows
-  whose certificate fails are served by the exact kernel,
-  ``ops/knn.knn_exact`` (``csrc/knn_exact.cu``, its plain version on the
-  CPU): every reference's exact d² in one pass;
-- the exact scan (:func:`_nearest_neighbors_scan`): float32 distances by
-  the norm expansion over reference tiles (TF32 off), merged into a
-  running top-k.
+  their plain versions on the CPU, exact re-rank and certificate; after
+  the fetch, rows whose certificate fails are served by the exact
+  kernel, ``ops/knn.knn_exact`` (``csrc/knn_exact.cu``, its plain version
+  on the CPU): every reference's exact d² in one pass;
+- the exact scan: ``ops/knn.topk_over_tiles``, float32 distances by the
+  norm expansion over reference tiles (TF32 off), merged into a running
+  top-k.
 
-All three order the top-k by (exact distance, reference index), so a
-row's answer does not depend on the route or the device.  The jobs' search
-mode "approx" runs the exact route: the JAX package's ``approx_min_k`` is
-exact off the TPU, and the port adds no approximate search.  Distances are
-true floats in [0, 1]; the reference's ×1000 integer scaling is applied
-only in the serde view.
+The scan and sharded routes re-rank their candidates by the kernel
+route's exact tail (``ops/knn.rerank_topk``), so all three order the
+top-k by (exact distance, reference index), and a row's answer does not
+depend on the route or the device.  The jobs' search mode "approx" runs
+the exact route: the JAX package's ``approx_min_k`` is exact off the TPU,
+and the port adds no approximate search.  Distances are true floats in
+[0, 1]; the reference's ×1000 integer scaling is applied only in the
+serde view.
 """
 
 from __future__ import annotations
@@ -50,7 +54,6 @@ import torch
 
 from avenir_tpu_torch.core.encoding import EncodedDataset
 from avenir_tpu_torch.device import resolve_device
-from avenir_tpu_torch.ops import agg
 from avenir_tpu_torch.ops import knn as kops
 from avenir_tpu_torch.parallel.mesh import (device_put_sharded_batch,
                                             is_wide, pad_batch)
@@ -158,121 +161,13 @@ def fit_knn(
 
 
 # ---------------------------------------------------------------------------
-# the exact scan: tiled distance + running top-k
+# the search: one loop over query tiles, the route's step inside it
 # ---------------------------------------------------------------------------
-
-def _normalize_cont(cont, lo, hi):
-    span = torch.clamp_min(hi - lo, 1e-9)
-    return torch.clamp((cont - lo) / span, 0.0, 1.0)
-
 
 def _normalize01(cont: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
     span = np.maximum(hi - lo, 1e-9)
     return np.clip((cont - lo) / span, 0.0, 1.0).astype(np.float32)
 
-
-def _tile_distances(test_codes, test_cont, ref_codes, ref_cont, cont_lo,
-                    cont_hi, num_bins: int, metric: str = "euclidean"
-                    ) -> torch.Tensor:
-    """[M, T] mean per-attribute distance in [0, 1].
-
-    Categorical attribute distance = 0/1 mismatch; numeric = |Δ| on the
-    train-range-normalized value (squared for euclidean).  Both are float32
-    matrix products in full float32: mismatch count = F − ⟨onehot,
-    onehot⟩, squared numeric distance via the norm expansion."""
-    f = test_codes.shape[1]
-    fc = test_cont.shape[1]
-    total_attrs = max(f + fc, 1)
-    d = 0
-    with kops.full_float32():
-        if f:
-            a = agg.one_hot(test_codes, num_bins).reshape(test_codes.shape[0], -1)
-            bmat = agg.one_hot(ref_codes, num_bins).reshape(ref_codes.shape[0], -1)
-            d = d + (f - a @ bmat.T)                          # mismatch count
-        if fc:
-            x = _normalize_cont(test_cont, cont_lo, cont_hi)
-            y = _normalize_cont(ref_cont, cont_lo, cont_hi)
-            if metric == "euclidean":
-                sq = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
-                      - 2.0 * (x @ y.T))
-                d = d + sq.clamp_min(0.0)
-            else:  # manhattan — no matmul form; fine for small Fc
-                d = d + (x[:, None, :] - y[None, :, :]).abs().sum(-1)
-    d = d / total_attrs
-    if metric == "euclidean":
-        d = torch.sqrt(d.clamp_min(0.0))
-    return d.clamp(0.0, 1.0)
-
-
-def _topk_over_tiles(test_codes, test_cont, ref_codes_t, ref_cont_t,
-                     n_real: int, cont_lo, cont_hi, k: int, num_bins: int,
-                     metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Walk the resident reference tiles ([T, tile, ·]), merging each
-    tile's distances into a running top-k, so the [M, N] distance matrix
-    never exists.  Pad rows (index ≥ n_real) are masked to +inf.  The merge
-    is a stable sort of [best, tile]: every index in ``best`` precedes the
-    tile's, so among equal distances the lower index stays."""
-    m = test_codes.shape[0]
-    tile = ref_codes_t.shape[1]
-    dev = test_codes.device
-    best_d = torch.full((m, 0), float("inf"), dtype=torch.float32, device=dev)
-    best_i = torch.full((m, 0), -1, dtype=torch.int64, device=dev)
-    for t in range(ref_codes_t.shape[0]):
-        d = _tile_distances(test_codes, test_cont, ref_codes_t[t],
-                            ref_cont_t[t], cont_lo, cont_hi, num_bins, metric)
-        idx = torch.arange(t * tile, (t + 1) * tile, device=dev)
-        d = torch.where(idx[None, :] < n_real, d, float("inf"))
-        cd = torch.cat([best_d, d], dim=1)
-        ci = torch.cat([best_i, idx.expand(m, -1)], dim=1)
-        order = torch.sort(cd, dim=1, stable=True).indices[:, :k]
-        best_d = torch.gather(cd, 1, order)
-        best_i = torch.gather(ci, 1, order)
-    return best_d, best_i
-
-
-def _nearest_neighbors_scan(model: KNNModel, test: EncodedDataset, k: int,
-                            metric: str, ref_tile: int, test_tile: int,
-                            device: torch.device
-                            ) -> Tuple[np.ndarray, np.ndarray]:
-    """The exact scan: the tiles' float32 distances pick each row's
-    k + MARGIN best, which are then re-ranked by their exact distance sums
-    and ordered by (exact distance, index), as the kernel route orders its
-    candidates.  So a row the scan serves gets the same bits on every
-    device, and float32 rounding never reorders its neighbors."""
-    n = model.num_refs
-    lo = torch.from_numpy(model.cont_lo).to(device)
-    hi = torch.from_numpy(model.cont_hi).to(device)
-    ref_tile = min(ref_tile, max(-(-n // 8), 1024))   # ≤8 scan steps small-N
-    rc_t, rx_t = model.device_tiles(ref_tile, device)
-    codes_r, cont01_r = model.device_rerank_arrays(device)
-    cont01_q = _normalize01(test.cont, model.cont_lo, model.cont_hi)
-    total_attrs = test.codes.shape[1] + test.cont.shape[1]
-    k_eff = min(k, n)
-    out_d, out_i = [], []
-    for m0 in range(0, test.num_rows, test_tile):
-        tc = torch.from_numpy(test.codes[m0:m0 + test_tile]).to(device)
-        tx = torch.from_numpy(test.cont[m0:m0 + test_tile]).to(device)
-        _d, cand = _topk_over_tiles(tc, tx, rc_t, rx_t, n, lo, hi,
-                                    min(k + kops.MARGIN, n), model.num_bins,
-                                    metric)
-        sums = kops.rerank_d2(
-            tc, torch.from_numpy(cont01_q[m0:m0 + test_tile]).to(device),
-            codes_r, cont01_r, cand, metric)
-        sums, cand = kops.rank_exact(sums, cand)
-        # one fetch per query tile: not designed — the tiles' results
-        # could stay on the device and cross once after the loop
-        # (ROADMAP, GL005 syncs left for perf_opt)
-        # graftlint: disable=GL005
-        out_d.append(kops.distances(sums[:, :k_eff], total_attrs,
-                                    metric).cpu().numpy())
-        out_i.append(cand[:, :k_eff].cpu().numpy())  # graftlint: disable=GL005
-    # degenerate tiny reference sets: keep the [M, k] shape
-    return _pad_topk(np.concatenate(out_d), np.concatenate(out_i), k, k_eff)
-
-
-# ---------------------------------------------------------------------------
-# the kernel route
-# ---------------------------------------------------------------------------
 
 def kernel_route(model: KNNModel, k: int, metric: str) -> bool:
     """The kernel route's gate, the same on every device and at every
@@ -282,41 +177,126 @@ def kernel_route(model: KNNModel, k: int, metric: str) -> bool:
             and min(k, model.num_refs) == k)
 
 
-def _nearest_neighbors_kernel(model: KNNModel, test: EncodedDataset, k: int,
-                              test_tile: int, device: torch.device
-                              ) -> Tuple[np.ndarray, np.ndarray]:
-    """Query batches through ``ops.knn.search`` (B5 or B6 with the exact
-    re-rank and certificate); rows whose certificate fails are recomputed
-    by the exact kernel (:func:`_exact_rows`).  Their count adds to
-    ``fallback_rows``, and ``last_fallback`` holds the last call's row
-    indices.  Traced: the query-side host work is ``knn.prep`` spans, each
-    tile's fetch a ``knn.fetch`` (attr ``bytes``), the exact kernel's call
-    on the failed rows ``knn.fallback`` (attr ``rows``)."""
-    tracer = tel.tracer()
+def _shard_rows(n: int, d_par: int) -> int:
+    """ceil(n / d_par): a shard's real reference rows, read by the mesh
+    gate and the sharded route alike."""
+    return max(-(-n // d_par), 1)
+
+
+def neighbor_route(model: KNNModel, k: int, metric: str,
+                   device: torch.device, mesh=None) -> str:
+    """The route :func:`nearest_neighbors` takes: ``sharded``, the kernel
+    route's kernel as ``ops.knn.search`` picks it over the packed
+    references (``b5`` or ``b6``), or the exact ``scan``."""
+    if is_wide(mesh) and min(k, model.num_refs) <= _shard_rows(
+            model.num_refs, mesh.size("data")):
+        return "sharded"
+    if not kernel_route(model, k, metric):
+        return "scan"
+    r_mat, n = model.device_packed(device)
+    kk = min(k + kops.MARGIN, kops.SLOTS)
+    return "b5" if kops.use_tourney(n, r_mat.shape[0], kk) else "b6"
+
+
+def _nearest_neighbors_kernel(model: KNNModel, k: int, total_attrs: int,
+                              device: torch.device):
+    """The kernel route's step: fn(codes_q, cont01_q) of one query tile →
+    ``ops.knn.search``'s ([m, k] distances, [m, k] indices, [m]
+    certificate), enqueued.  Its attributes ``fallback_rows`` and
+    ``last_fallback`` count the refused rows (:func:`_search`)."""
     r_mat, n = model.device_packed(device)
     codes_r, cont01_r = model.device_rerank_arrays(device)
+    return lambda codes_q, cont01_q: kops.search(
+        codes_q, cont01_q, r_mat, codes_r, cont01_r, n, model.num_bins, k,
+        total_attrs)
+
+
+_nearest_neighbors_kernel.fallback_rows = 0
+_nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
+
+
+def _scan_step(route: str, model: KNNModel, k: int, metric: str,
+               ref_tile: int, total_attrs: int, device: torch.device, mesh):
+    """The scan and sharded routes' step: fn(codes_q, cont01_q, cont_q) of
+    one query tile → ([m, ≤ k] distances, their indices, [m] certificate,
+    all True), enqueued in one ``knn.launch`` span.  The candidates are
+    each row's k + MARGIN float32-nearest references: the tile scan
+    (``ops.knn.topk_over_tiles``) over the resident tiles, or under a
+    ``mesh`` each shard's, merged in shard order
+    (``collectives.sharded_knn_topk``).  They are re-ranked by their
+    exact distance sums (``ops.knn.rerank_topk``), as the kernel route
+    re-ranks its own, so float32 rounding never reorders a row's
+    neighbors."""
+    n = model.num_refs
+    lo = torch.from_numpy(model.cont_lo).to(device)
+    hi = torch.from_numpy(model.cont_hi).to(device)
+    codes_r, cont01_r = model.device_rerank_arrays(device)
+    if route == "sharded":
+        from avenir_tpu_torch.parallel import collectives
+
+        shard = _shard_rows(n, mesh.size("data"))
+        tile = min(ref_tile, shard)
+        rc, rx = model.device_sharded(mesh, tile)
+        topk = collectives.sharded_knn_topk(
+            mesh, k=min(min(k, n) + kops.MARGIN, shard),
+            num_bins=model.num_bins, metric=metric, ref_tile=tile)
+        candidates = lambda c, x: topk(c, x, rc, rx, lo, hi, n)  # noqa: E731
+    else:
+        tile = min(ref_tile, max(-(-n // 8), 1024))   # ≤8 scan steps small-N
+        rc_t, rx_t = model.device_tiles(tile, device)
+        candidates = lambda c, x: kops.topk_over_tiles(  # noqa: E731
+            c, x, rc_t, rx_t, n, lo, hi, min(k + kops.MARGIN, n),
+            model.num_bins, metric)
+    tracer = tel.tracer()
+
+    def step(codes_q, cont01_q, cont_q):
+        with tracer.span("knn.launch"):
+            sums, idx = kops.rerank_topk(
+                codes_q, cont01_q, codes_r, cont01_r,
+                candidates(codes_q, cont_q)[1], k, metric)
+            return (kops.distances(sums, total_attrs, metric), idx,
+                    torch.ones(idx.shape[0], dtype=torch.bool, device=device))
+    return step
+
+
+def _search(route: str, model: KNNModel, test: EncodedDataset, k: int,
+            metric: str, ref_tile: int, test_tile: int, device: torch.device,
+            mesh) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`nearest_neighbors`'s answers by ``route``, which the caller
+    decides once (:func:`neighbor_route`); only the step inside the loop
+    over query tiles depends on it.  The rows whose certificate fails are
+    served after the loop by the exact kernel (:func:`_exact_rows`): their
+    count adds to ``_nearest_neighbors_kernel.fallback_rows``, and
+    ``_nearest_neighbors_kernel.last_fallback`` holds this call's row
+    indices.  Traced: the queries' normalisation and each tile's upload
+    are ``knn.prep`` spans, the step's ``knn.prep`` and ``knn.launch``,
+    the one fetch after the loop ``knn.fetch`` (attr ``bytes``), the exact
+    kernel's call on the refused rows ``knn.fallback`` (attr ``rows``)."""
+    if route == "sharded":
+        device = mesh.axis_devices("data")[0]
+    tracer = tel.tracer()
+    total_attrs = test.codes.shape[1] + test.cont.shape[1]
     with tracer.span("knn.prep"):
         cont01_q = _normalize01(test.cont, model.cont_lo, model.cont_hi)
-    total_attrs = test.codes.shape[1] + test.cont.shape[1]
-    out_d, out_i, out_c = [], [], []
+    if route in ("b5", "b6"):
+        queries = (test.codes, cont01_q)
+        step = _nearest_neighbors_kernel(model, k, total_attrs, device)
+    else:
+        # the tile scan normalises the raw continuous columns itself
+        queries = (test.codes, cont01_q, test.cont)
+        step = _scan_step(route, model, k, metric, ref_tile, total_attrs,
+                          device, mesh)
+    tiles = []
     for m0 in range(0, test.num_rows, test_tile):
         with tracer.span("knn.prep"):
-            codes_q = torch.from_numpy(test.codes[m0:m0 + test_tile]).to(
-                device)
-            cont_q = torch.from_numpy(cont01_q[m0:m0 + test_tile]).to(device)
-        d, idx, cert = kops.search(codes_q, cont_q, r_mat, codes_r, cont01_r,
-                                   n, model.num_bins, k, total_attrs)
-        with tracer.span("knn.fetch") as sp:
-            # one fetch per query tile: not designed — the tiles' results
-            # could stay on the device and cross once after the loop
-            # (ROADMAP, GL005 syncs left for perf_opt)
-            out_d.append(d.cpu().numpy())  # graftlint: disable=GL005
-            out_i.append(idx.cpu().numpy())  # graftlint: disable=GL005
-            out_c.append(cert.cpu().numpy())  # graftlint: disable=GL005
-            sp.set("bytes", out_d[-1].nbytes + out_i[-1].nbytes
-                   + out_c[-1].nbytes)
-    d, idx, cert = (np.concatenate(out_d), np.concatenate(out_i),
-                    np.concatenate(out_c))
+            tile = [torch.from_numpy(a[m0:m0 + test_tile]).to(device)
+                    for a in queries]
+        tiles.append(step(*tile))
+    with tracer.span("knn.fetch") as sp:
+        # a lone tile's tensors cross as they are, with no copy on the card
+        d, idx, cert = ((torch.cat(parts) if len(parts) > 1 else parts[0])
+                        .cpu().numpy() for parts in zip(*tiles))
+        sp.set("bytes", d.nbytes + idx.nbytes + cert.nbytes)
     rows = np.flatnonzero(~cert)
     _nearest_neighbors_kernel.fallback_rows += len(rows)
     _nearest_neighbors_kernel.last_fallback = rows
@@ -325,14 +305,12 @@ def _nearest_neighbors_kernel(model: KNNModel, test: EncodedDataset, k: int,
         # rows exactly over every reference
         with tracer.span("knn.fallback") as sp:
             sp.set("rows", len(rows))
+            codes_r, cont01_r = model.device_rerank_arrays(device)
             d[rows], idx[rows] = _exact_rows(
                 test.codes[rows], cont01_q[rows], codes_r, cont01_r, k,
                 total_attrs, device)
-    return d, idx
-
-
-_nearest_neighbors_kernel.fallback_rows = 0
-_nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
+    # degenerate tiny reference sets: keep the [M, k] shape
+    return _pad_topk(d, idx, k, min(k, model.num_refs))
 
 
 def _exact_rows(codes: np.ndarray, cont01: np.ndarray, codes_r: torch.Tensor,
@@ -351,58 +329,6 @@ def _exact_rows(codes: np.ndarray, cont01: np.ndarray, codes_r: torch.Tensor,
     d2, idx = kops.knn_exact(q[:, :f], q[:, f:].view(torch.float32), codes_r,
                              cont01_r, k)
     return kops.distances(d2.cpu(), total_attrs).numpy(), idx.cpu().numpy()
-
-
-def _shard_rows(n: int, d_par: int) -> int:
-    """ceil(n / d_par): a shard's real reference rows, read by the mesh
-    gate and the sharded route alike."""
-    return max(-(-n // d_par), 1)
-
-
-def _nearest_neighbors_sharded(model: KNNModel, test: EncodedDataset,
-                               k: int, metric: str, mesh, ref_tile: int,
-                               test_tile: int
-                               ) -> Tuple[np.ndarray, np.ndarray]:
-    """The references split over ``mesh``'s data axis
-    (:meth:`KNNModel.device_sharded`): each query batch takes each
-    shard's k + MARGIN best float32 candidates (at most a shard's real
-    rows), merged in shard order (``collectives.sharded_knn_topk``), then
-    re-ranked by exact distance sums and ordered by (exact distance,
-    index) on the axis' first device, as the unsharded routes order
-    theirs."""
-    from avenir_tpu_torch.parallel import collectives
-
-    n = model.num_refs
-    shard = _shard_rows(n, mesh.size("data"))
-    tile = min(ref_tile, shard)
-    k_eff = min(k, n)
-    rc, rx = model.device_sharded(mesh, tile)
-    step = collectives.sharded_knn_topk(
-        mesh, k=min(k_eff + kops.MARGIN, shard), num_bins=model.num_bins,
-        metric=metric, ref_tile=tile)
-    dev = mesh.axis_devices("data")[0]
-    lo = torch.from_numpy(model.cont_lo).to(dev)
-    hi = torch.from_numpy(model.cont_hi).to(dev)
-    codes_r, cont01_r = model.device_rerank_arrays(dev)
-    cont01_q = _normalize01(test.cont, model.cont_lo, model.cont_hi)
-    total_attrs = test.codes.shape[1] + test.cont.shape[1]
-    out_d, out_i = [], []
-    for m0 in range(0, test.num_rows, test_tile):
-        tc = torch.from_numpy(test.codes[m0:m0 + test_tile]).to(dev)
-        _d, cand = step(tc, torch.from_numpy(test.cont[m0:m0 + test_tile]),
-                        rc, rx, lo, hi, n)
-        sums = kops.rerank_d2(
-            tc, torch.from_numpy(cont01_q[m0:m0 + test_tile]).to(dev),
-            codes_r, cont01_r, cand, metric)
-        sums, cand = kops.rank_exact(sums, cand)
-        # one fetch per query tile: not designed — the tiles' results
-        # could stay on the device and cross once after the loop
-        # (ROADMAP, GL005 syncs left for perf_opt)
-        # graftlint: disable=GL005
-        out_d.append(kops.distances(sums[:, :k_eff], total_attrs,
-                                    metric).cpu().numpy())
-        out_i.append(cand[:, :k_eff].cpu().numpy())  # graftlint: disable=GL005
-    return _pad_topk(np.concatenate(out_d), np.concatenate(out_i), k, k_eff)
 
 
 def _pad_topk(d: np.ndarray, i: np.ndarray, k: int, k_eff: int
@@ -426,31 +352,9 @@ def nearest_neighbors(
     more devices takes the sharded route where k fits a shard (the JAX
     package's gate); otherwise the kernel route serves the euclidean
     metric (:func:`kernel_route`), the exact scan everything else."""
-    dev = resolve_device(device)
-    route = neighbor_route(model, k, metric, dev, mesh)
-    if route == "sharded":
-        return _nearest_neighbors_sharded(model, test, k, metric, mesh,
-                                          ref_tile, test_tile)
-    if route == "scan":
-        return _nearest_neighbors_scan(model, test, k, metric, ref_tile,
-                                       test_tile, dev)
-    return _nearest_neighbors_kernel(model, test, k, test_tile, dev)
-
-
-def neighbor_route(model: KNNModel, k: int, metric: str,
-                   device: torch.device, mesh=None) -> str:
-    """The route :func:`nearest_neighbors` takes: ``sharded``, the kernel
-    route's kernel as ``ops.knn.search`` picks it over the packed
-    references (``b5`` or ``b6``), or the exact ``scan``."""
-    if is_wide(mesh) and min(k, model.num_refs) <= _shard_rows(
-            model.num_refs, mesh.size("data")):
-        return "sharded"
-    if not kernel_route(model, k, metric):
-        return "scan"
-    r_mat, n = model.device_packed(device)
-    kk = min(k + kops.MARGIN, kops.SLOTS)
-    return "b5" if kops.use_tourney(n, r_mat.shape[0], kk) else "b6"
-
+    device = resolve_device(device)
+    return _search(neighbor_route(model, k, metric, device, mesh), model,
+                   test, k, metric, ref_tile, test_tile, device, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -528,9 +432,12 @@ class KNN:
         return fit_knn(ds, values=values, class_probs=class_probs)
 
     def _neighbors(self, model: KNNModel, test: EncodedDataset):
-        return nearest_neighbors(model, test, self.k, self.metric,
-                                 self.ref_tile, self.test_tile,
-                                 device=self.device, mesh=self.mesh)
+        """(route, distances, indices) of :func:`nearest_neighbors`."""
+        route = neighbor_route(model, self.k, self.metric, self.device,
+                               self.mesh)
+        return (route, *_search(route, model, test, self.k, self.metric,
+                                self.ref_tile, self.test_tile, self.device,
+                                self.mesh))
 
     # -- classification ------------------------------------------------------
     def predict(self, model: KNNModel, test: EncodedDataset,
@@ -543,10 +450,8 @@ class KNN:
         tracer = tel.tracer()
         with tracer.span("knn.predict") as sp:
             sp.set("queries", test.num_rows)
-            dists, idx = self._neighbors(model, test)
-            if sp.enabled:
-                sp.set("route", neighbor_route(model, self.k, self.metric,
-                                               self.device, self.mesh))
+            route, dists, idx = self._neighbors(model, test)
+            sp.set("route", route)
             with tracer.span("knn.vote"):
                 result = self._vote(model, dists, idx)
         if validate:
@@ -601,7 +506,7 @@ class KNN:
         test record's ``input_var`` (Neighborhood.java:244-250)."""
         if model.values is None:
             raise ValueError("regression requires target values in the model")
-        dists, idx = self._neighbors(model, test)
+        _route, dists, idx = self._neighbors(model, test)
         vals = model.values[idx]                                # [M, k]
         if method == "average":
             w = kernel_weights(dists, self.kernel, self.kernel_sigma, self.inverse_distance)

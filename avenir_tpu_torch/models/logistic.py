@@ -26,27 +26,16 @@ count.
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass, field as dc_field
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from avenir_tpu_torch.core.encoding import EncodedDataset, NoDataError
 from avenir_tpu_torch.device import resolve_device
+from avenir_tpu_torch.ops.linear import chunk_grad, full_float32
 from avenir_tpu_torch.parallel.mesh import is_wide, place_batch
-
-
-@contextlib.contextmanager
-def _full_fp32() -> Iterator[None]:
-    """float32 matmuls in full precision (no TF32) inside the block."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def design_matrix(ds: EncodedDataset, include_binned: bool = True,
@@ -78,17 +67,7 @@ def _grad_step(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                n: torch.Tensor, lr: torch.Tensor, l2: torch.Tensor
                ) -> torch.Tensor:
     """One full-batch gradient-ascent step on the log-likelihood, float32."""
-    p = torch.sigmoid(x @ w)
-    grad = x.t() @ (y - p) / n - l2 * w
-    return w + lr * grad
-
-
-def _chunk_grad(w: torch.Tensor, x: torch.Tensor, y: torch.Tensor
-                ) -> torch.Tensor:
-    """One chunk's unscaled gradient partial Σ x·(y−σ(wᵀx)), the quantity a
-    reference mapper emitted (LogisticRegressionJob.java:169-176)."""
-    p = torch.sigmoid(x @ w)
-    return x.t() @ (y - p)
+    return w + lr * (chunk_grad(w, x, y) / n - l2 * w)
 
 
 def _sigmoid_scores(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -110,7 +89,7 @@ def predict_batch(model_or_weights, x, threshold: float = 0.5,
         return torch.as_tensor(np.array(a, np.float32)).to(dev)
 
     w, xt = on_device(w), on_device(x)
-    with _full_fp32():
+    with full_float32():
         probs = _sigmoid_scores(w, xt).cpu().numpy()
     return probs, (probs >= threshold).astype(np.int32)
 
@@ -199,7 +178,7 @@ class LogisticRegression:
             w = torch.zeros(xd.shape[1], dtype=torch.float32, device=dev)
             history = []
         converged = False
-        with _full_fp32():
+        with full_float32():
             for _ in range(self.max_iterations):
                 w = step(w, xd, yd, n, lr, l2)
                 # one [D] fetch per iteration by design: every iteration's weights
@@ -269,14 +248,14 @@ class LogisticRegression:
             w = np.zeros(d, np.float64)
             history = []
         converged = False
-        with _full_fp32():
+        with full_float32():
             for _ in range(self.max_iterations):
                 wf = torch.from_numpy(w.astype(np.float32)).to(dev)
                 # one fetch per chunk and iteration by design: the partials merge on
                 # the host in float64, keyed by global chunk index, so a fleet's
                 # history equals one process's bit for bit
                 # graftlint: disable=GL005
-                state = {f"g{idx:08d}": _chunk_grad(wf, xd, yd).cpu().numpy(
+                state = {f"g{idx:08d}": chunk_grad(wf, xd, yd).cpu().numpy(
                              ).astype(np.float64)
                          for idx, xd, yd in dev_chunks}
                 tot = merge(state)

@@ -37,6 +37,11 @@ kernel: it serves the rows whose certificate fails, the exact top-k by
 :func:`rerank_d2`'s arithmetic over every reference in one pass; plain
 version :func:`knn_exact_ref`.
 
+The routes the kernels do not serve (another metric, too many slots, a
+sharded reference set) take their candidates from the float32 tile scan,
+:func:`topk_over_tiles`, which stands in for no kernel, and share the
+kernel route's exact tail, :func:`rerank_topk`.
+
 :func:`search` is the counterpart of ``search_fused``: query pack, B5 or
 B6 by the JAX package's route gate, assembly, exact re-rank and
 certificate, all on the tensors' device.  On a CPU tensor a wrapper runs
@@ -54,7 +59,6 @@ approximate d².
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import threading
@@ -63,6 +67,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch.ops import agg
+from avenir_tpu_torch.ops.linear import full_float32
 from avenir_tpu_torch.telemetry import spans as tel
 
 # Block shapes of the JAX kernels, kept because the operand padding follows
@@ -256,21 +262,6 @@ def _pack_queries_dev(codes: torch.Tensor, cont01: torch.Tensor,
 # ---------------------------------------------------------------------------
 # the candidate kernels and their plain versions
 # ---------------------------------------------------------------------------
-
-@contextlib.contextmanager
-def full_float32():
-    """float32 matrix products in full float32 on the card (no TF32), as
-    the JAX package's ``precision="highest"`` asks; restores the flags."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.get_float32_matmul_precision())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved[0]
-        torch.set_float32_matmul_precision(saved[1])
-
 
 def _d2_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """d² = A·Bᵀ in float32 from the bf16 operands widened to float32.
@@ -673,6 +664,74 @@ def _kernel(name: str) -> ctypes.CDLL:
 
 
 # ---------------------------------------------------------------------------
+# the tile scan: the candidates of the scan and sharded routes
+# ---------------------------------------------------------------------------
+
+def _normalize_cont(cont, lo, hi):
+    span = torch.clamp_min(hi - lo, 1e-9)
+    return torch.clamp((cont - lo) / span, 0.0, 1.0)
+
+
+def tile_distances(test_codes, test_cont, ref_codes, ref_cont, cont_lo,
+                   cont_hi, num_bins: int, metric: str = "euclidean"
+                   ) -> torch.Tensor:
+    """[M, T] mean per-attribute distance in [0, 1].
+
+    Categorical attribute distance = 0/1 mismatch; numeric = |Δ| on the
+    train-range-normalized value (squared for euclidean).  Both are float32
+    matrix products in full float32: mismatch count = F − ⟨onehot,
+    onehot⟩, squared numeric distance via the norm expansion."""
+    f = test_codes.shape[1]
+    fc = test_cont.shape[1]
+    total_attrs = max(f + fc, 1)
+    d = 0
+    with full_float32():
+        if f:
+            a = agg.one_hot(test_codes, num_bins).reshape(test_codes.shape[0], -1)
+            bmat = agg.one_hot(ref_codes, num_bins).reshape(ref_codes.shape[0], -1)
+            d = d + (f - a @ bmat.T)                          # mismatch count
+        if fc:
+            x = _normalize_cont(test_cont, cont_lo, cont_hi)
+            y = _normalize_cont(ref_cont, cont_lo, cont_hi)
+            if metric == "euclidean":
+                sq = ((x * x).sum(1)[:, None] + (y * y).sum(1)[None, :]
+                      - 2.0 * (x @ y.T))
+                d = d + sq.clamp_min(0.0)
+            else:  # manhattan — no matmul form; fine for small Fc
+                d = d + (x[:, None, :] - y[None, :, :]).abs().sum(-1)
+    d = d / total_attrs
+    if metric == "euclidean":
+        d = torch.sqrt(d.clamp_min(0.0))
+    return d.clamp(0.0, 1.0)
+
+
+def topk_over_tiles(test_codes, test_cont, ref_codes_t, ref_cont_t,
+                    n_real: int, cont_lo, cont_hi, k: int, num_bins: int,
+                    metric: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Walk the resident reference tiles ([T, tile, ·]), merging each
+    tile's distances into a running top-k, so the [M, N] distance matrix
+    never exists.  Pad rows (index ≥ n_real) are masked to +inf.  The merge
+    is a stable sort of [best, tile]: every index in ``best`` precedes the
+    tile's, so among equal distances the lower index stays."""
+    m = test_codes.shape[0]
+    tile = ref_codes_t.shape[1]
+    dev = test_codes.device
+    best_d = torch.full((m, 0), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.full((m, 0), -1, dtype=torch.int64, device=dev)
+    for t in range(ref_codes_t.shape[0]):
+        d = tile_distances(test_codes, test_cont, ref_codes_t[t],
+                           ref_cont_t[t], cont_lo, cont_hi, num_bins, metric)
+        idx = torch.arange(t * tile, (t + 1) * tile, device=dev)
+        d = torch.where(idx[None, :] < n_real, d, float("inf"))
+        cd = torch.cat([best_d, d], dim=1)
+        ci = torch.cat([best_i, idx.expand(m, -1)], dim=1)
+        order = torch.sort(cd, dim=1, stable=True).indices[:, :k]
+        best_d = torch.gather(cd, 1, order)
+        best_i = torch.gather(ci, 1, order)
+    return best_d, best_i
+
+
+# ---------------------------------------------------------------------------
 # the search: pack → kernel → assembly → exact re-rank → certificate
 # ---------------------------------------------------------------------------
 
@@ -753,6 +812,21 @@ def rank_exact(d2: torch.Tensor, idx: torch.Tensor
     return torch.gather(d2, 1, order), torch.gather(idx, 1, order)
 
 
+def rerank_topk(codes_q: torch.Tensor, cont01_q: torch.Tensor,
+                codes_r: torch.Tensor, cont01_r: torch.Tensor,
+                idx: torch.Tensor, k: int, metric: str = "euclidean"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact tail of every route: the candidates ``idx`` [M, K] (−1
+    for an empty slot, which sums to ``_BIG``) re-ranked by
+    :func:`rerank_d2` and ordered by (exact d², index) → ([M, min(k, K)]
+    exact sums, their int64 indices)."""
+    d2 = rerank_d2(codes_q, cont01_q, codes_r, cont01_r, idx.clamp_min(0),
+                   metric)
+    d2 = torch.where(idx < 0, torch.full_like(d2, _BIG), d2)
+    d2, idx = rank_exact(d2, idx)
+    return d2[:, :k], idx[:, :k]
+
+
 class Candidates(NamedTuple):
     """A candidate kernel's output, assembled: ``d2`` [M, kk] approximate
     d² ascending, ``idx`` [M, kk] int64 reference indices, ``bound`` [M]
@@ -789,10 +863,8 @@ def finish(codes_q: torch.Tensor, cont01_q: torch.Tensor,
     # unseen. A pad in the slots also implies every real ref is a candidate.
     cand_idx = torch.where(cand.idx >= n_real, -1, cand.idx)
     pad_last = cand_idx[:, -1] < 0
-    d2 = rerank_d2(codes_q, cont01_q.to(torch.float32), codes_r, cont01_r,
-                   cand_idx.clamp_min(0))
-    d2 = torch.where(cand_idx < 0, torch.full_like(d2, _BIG), d2)
-    d2s, idxs = rank_exact(d2, cand_idx)
+    d2s, idxs = rerank_topk(codes_q, cont01_q.to(torch.float32), codes_r,
+                            cont01_r, cand_idx, k)
     kth_at = min(k, kk) - 1
     kth = d2s[:, kth_at]
     # certificate: nothing outside the candidate set can beat the k-th
@@ -812,7 +884,7 @@ def finish(codes_q: torch.Tensor, cont01_q: torch.Tensor,
         cert &= ((d3 > kth[:, None])
                  | ((d3 == kth[:, None])
                     & (i3 > idxs[:, kth_at, None]))).all(dim=1)
-    return distances(d2s[:, :k], total_attrs), idxs[:, :k], cert
+    return distances(d2s, total_attrs), idxs, cert
 
 
 def search(codes_q: torch.Tensor, cont01_q: torch.Tensor, r_mat: torch.Tensor,
@@ -824,9 +896,10 @@ def search(codes_q: torch.Tensor, cont01_q: torch.Tensor, r_mat: torch.Tensor,
     reference rows for the re-rank.  Returns ([M, k] distances in [0, 1],
     [M, k] int64 reference indices, [M] bool certificate) ordered by
     (exact d², index); a row whose certificate is False must be served by
-    the exact scan.  Traced: the query pack is a ``knn.prep`` span, the
-    kernel call with the assembly, re-rank and certificate ``knn.launch``
-    (host time enqueuing: nothing here waits for the device)."""
+    the exact kernel, :func:`knn_exact`.  Traced: the query pack is a
+    ``knn.prep`` span, the kernel call with the assembly, re-rank and
+    certificate ``knn.launch`` (host time enqueuing: nothing here waits
+    for the device)."""
     m, f = codes_q.shape
     kk = min(k + margin, SLOTS)
     rows = _round_up(max(m, TM), TM)

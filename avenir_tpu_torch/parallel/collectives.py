@@ -23,7 +23,7 @@ plan: :func:`sharded_nb_fit_step`, :func:`sharded_nb_fit_step_2d`,
 top-k merged in shard order) and :func:`sharded_lr_step` (float32
 gradient partials summed in shard order).  The JAX steps count with XLA
 einsums, not with a Pallas kernel, so their counterparts here count with
-``ops/agg.py`` (``bincount``) and scan with ``models/knn.py``'s tile
+``ops/agg.py`` (``bincount``) and scan with ``ops/knn.py``'s tile
 scan on every device, a card included: none of them is the plain
 version of B1–B6, and none stands in for a kernel.  The two-axis steps
 put rows over ``data`` and a feature or pair block over ``model``: shard
@@ -393,13 +393,13 @@ def sharded_knn_topk(mesh: Mesh, k: int, num_bins: int,
 
     The queries go to every shard; each shard walks its reference block
     in ``ref_tile``-row tiles with a running top-k
-    (``models/knn.py::_topk_over_tiles``; the whole block as one tile
+    (``ops/knn.py::topk_over_tiles``; the whole block as one tile
     when it is not tile-divisible), its indices offset by the block's
     base and pad rows (global index ≥ ``n_real``) masked to +inf.  The
     [M, D·k] candidates are gathered onto the first shard's device in
     shard order and cut to k by a stable sort, so an equal distance keeps
     the lower global index.  Requires k ≤ a shard's rows."""
-    from avenir_tpu_torch.models.knn import _topk_over_tiles
+    from avenir_tpu_torch.ops.knn import topk_over_tiles
 
     def step(test_codes, test_cont, ref_codes, ref_cont, lo, hi, n_real):
         rc, rx = _on_data(mesh, data_axis, ref_codes, _float_rows(ref_cont))
@@ -416,7 +416,7 @@ def sharded_knn_topk(mesh: Mesh, k: int, num_bins: int,
         for i, (c, x) in enumerate(zip(shard_parts(rc), shard_parts(rx))):
             tc, tx, lo_d, hi_d = (q.to(c.device) for q in queries)
             base = i * local
-            d, idx = _topk_over_tiles(
+            d, idx = topk_over_tiles(
                 tc, tx, c.reshape(local // tile, tile, c.shape[1]),
                 x.reshape(local // tile, tile, x.shape[1]),
                 min(max(n_real - base, 0), local), lo_d, hi_d, k, num_bins,
@@ -435,20 +435,19 @@ def sharded_lr_step(mesh: Mesh, data_axis: str = "data"):
     """The data-parallel logistic-regression step: fn(w [D], x [N, D],
     y [N], n_total, lr, l2) → new w [D] float32 on the first shard's
     device.  Each shard computes its float32 partial xᵀ(y − σ(xw)) on its
-    device (``models/logistic.py::_chunk_grad``, TF32 off); the partials
+    device (``ops/linear.py::chunk_grad``, TF32 off); the partials
     are summed in shard order, then ``w + lr · (Σ / n_total − l2 · w)`` in
     float32.  Pad rows are 0.0 and add nothing; ``n_total`` is the true
     row count."""
-    from avenir_tpu_torch.models.logistic import _chunk_grad, _full_fp32
+    from avenir_tpu_torch.ops.linear import chunk_grad, full_float32
 
     def step(w, x, y, n_total, lr, l2):
         x, y = _on_data(mesh, data_axis, _float_rows(x), _float_rows(y))
         dev = mesh.axis_devices(data_axis)[0]
         w, n_total, lr, l2 = (torch.as_tensor(v, dtype=torch.float32).to(dev)
                               for v in (w, n_total, lr, l2))
-        with _full_fp32():
-            g = shard_sum(lambda xs, ys, ws: _chunk_grad(ws, xs, ys), x, y,
-                          w)
+        with full_float32():
+            g = shard_sum(lambda xs, ys, ws: chunk_grad(ws, xs, ys), x, y, w)
             return w + lr * (g / n_total - l2 * w)
 
     return step

@@ -3459,17 +3459,20 @@ def knn_exact_cases():
                 walls.append((time.perf_counter() - t0) * 1e3)
             return statistics.median(walls)
 
+        def scan(rows):
+            """The exact scan's answers: the search on the ``scan`` route
+            at ``nearest_neighbors``'s default tiles."""
+            return mknn._search("scan", model, ds(cont_q[:rows]), k,
+                                "euclidean", 65536, 8192, dev, None)
+
         total = f + fc
         row["fallback_ms"] = wall_ms(lambda: mknn._exact_rows(
             codes_q[:r], cq01[:r], codes_r, cont01_r, k, total, dev),
             3 if big else 20)
-        row["scan_ms"] = wall_ms(lambda: mknn._nearest_neighbors_scan(
-            model, ds(cont_q[:r]), k, "euclidean", 65536, 8192, dev),
-            1 if big else 5)
+        row["scan_ms"] = wall_ms(lambda: scan(r), 1 if big else 5)
         got = mknn._exact_rows(codes_q[:r], cq01[:r], codes_r, cont01_r, k,
                                total, dev)
-        old = mknn._nearest_neighbors_scan(model, ds(cont_q[:r]), k,
-                                           "euclidean", 65536, 8192, dev)
+        old = scan(r)
         row["scan_rows_differ"] = int(((got[1] != old[1]).any(1)
                                        | (got[0] != old[0]).any(1)).sum())
         log("knn_exact case:", json.dumps(row))
@@ -3657,7 +3660,8 @@ def knn_exact_main() -> int:
 
 
 class NeighborCapture:
-    """Wraps ``models.knn.nearest_neighbors`` while on: keeps each call's
+    """Wraps ``models.knn._search`` (the search loop behind
+    ``nearest_neighbors`` and ``KNN``) while on: keeps each call's
     (distances, indices) and the rows the exact kernel served in it, and in
     ``used`` the last call's (used lanes w = F·B + 6·Fc + 6, test rows,
     references), taken from the model and test set it was given."""
@@ -3671,13 +3675,13 @@ class NeighborCapture:
         from avenir_tpu_torch.models import knn as mknn
         from avenir_tpu_torch.ops import knn as tk
 
-        inner = mknn.nearest_neighbors
+        inner = mknn._search
 
         def call(*args, **kwargs):
             import numpy as np
 
             mknn._nearest_neighbors_kernel.last_fallback = np.zeros(0, np.int64)
-            model, test = args[0], args[1]
+            model, test = args[1], args[2]
             self.used = (tk.used_lanes(model.codes.shape[1], model.num_bins,
                                        model.cont.shape[1]), test.num_rows,
                          model.num_refs)
@@ -3685,11 +3689,11 @@ class NeighborCapture:
             self.calls.append((d, i, mknn._nearest_neighbors_kernel.last_fallback))
             return d, i
 
-        mknn.nearest_neighbors = call
+        mknn._search = call
         try:
             yield self
         finally:
-            mknn.nearest_neighbors = inner
+            mknn._search = inner
 
 
 def same_but_fallback(a_path, b_path, cap_a, cap_b, per_row, what, rows=None):

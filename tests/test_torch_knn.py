@@ -50,6 +50,7 @@ from avenir_tpu_torch.jobs.base import read_input  # noqa: E402
 from avenir_tpu_torch.models import knn as mknn  # noqa: E402
 from avenir_tpu_torch.ops import agg  # noqa: E402
 from avenir_tpu_torch.ops import knn as tk  # noqa: E402
+from avenir_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 
 CPU = torch.device("cpu")
 STEP = 2048                     # one truncation step of a B5 key, int view
@@ -566,7 +567,7 @@ def test_search_heavy_duplicates_matches_jax():
 def test_tie_rule_on_categorical_data(n):
     """Categorical only: every d² is an integer and ties abound.  The port
     equals a stable argsort of exact d² by (d², index) on both routes, the
-    rows its certificate refuses included (served by the exact scan)."""
+    rows its certificate refuses included (served by the exact kernel)."""
     rng = np.random.default_rng(31)
     f, nb, k = 6, 10, 5
     codes_r = rng.integers(0, nb, size=(n, f)).astype(np.int32)
@@ -585,7 +586,7 @@ def test_tie_rule_on_categorical_data(n):
     od, oi = _oracle(codes_q, np.zeros((24, 0)), codes_r, cont, k)
     np.testing.assert_array_equal(i, oi)
     np.testing.assert_allclose(d, od, atol=1e-7)
-    if n > tk.TB:      # the stricter certificate sends some rows to the scan
+    if n > tk.TB:      # the stricter certificate refuses some rows
         assert mknn._nearest_neighbors_kernel.fallback_rows > before
 
 
@@ -657,6 +658,13 @@ def _twin(ds):
 # the exact kernel's plain version: the certificate fallback
 # ---------------------------------------------------------------------------
 
+def _routed(route, model, test, k, metric, ref_tile, test_tile):
+    """The search on the CPU by ``route``, whatever ``neighbor_route``
+    would pick."""
+    return mknn._search(route, model, test, k, metric, ref_tile, test_tile,
+                        CPU, None)
+
+
 def _exact_oracle(codes_q, cont_q, codes_r, cont_r, k):
     """The configuration's d²: the float64 sum of the squared float32
     differences, feature by feature in order, rounded once to float32;
@@ -711,8 +719,8 @@ def test_exact_plain_matches_oracle_and_scan(f, fc, nb, r, k):
         binned_ordinals=list(range(f)), cont_ordinals=list(range(f, f + fc)))
     model = mknn.fit_knn(ds(codes_r, cont_r))
     np.testing.assert_array_equal(model.cont01(), cont_r)   # range [0, 1]
-    sd, si = mknn._nearest_neighbors_scan(model, ds(codes_q, cont_q), k,
-                                          "euclidean", 700, 25, CPU)
+    sd, si = _routed("scan", model, ds(codes_q, cont_q), k, "euclidean",
+                     700, 25)
     np.testing.assert_array_equal(si, oi)
     np.testing.assert_array_equal(sd, tk.distances(d2, f + fc).numpy())
 
@@ -737,7 +745,7 @@ def test_exact_wrapper_checks_its_operands():
 @pytest.mark.parametrize("f,fc", [(6, 8), (0, 9)], ids=["mixed", "elearn"])
 def test_forced_certificate_failure_is_served_exactly(f, fc, monkeypatch):
     """Every third row's certificate forced to fail on the kernel route,
-    with the exact scan made to raise: the exact kernel's plain version
+    with the tile scan made to raise: the exact kernel's plain version
     serves those rows, the answers equal the JAX package's, and
     ``fallback_rows`` counts exactly the refused rows."""
     rng = np.random.default_rng(53 + f)
@@ -757,10 +765,10 @@ def test_forced_certificate_failure_is_served_exactly(f, fc, monkeypatch):
         return d, idx, cert
 
     def no_scan(*args, **kwargs):
-        raise AssertionError("the fallback ran the exact scan")
+        raise AssertionError("the fallback ran the tile scan")
 
     monkeypatch.setattr(tk, "search", failing)
-    monkeypatch.setattr(mknn, "_nearest_neighbors_scan", no_scan)
+    monkeypatch.setattr(tk, "topk_over_tiles", no_scan)
     before = mknn._nearest_neighbors_kernel.fallback_rows
     got = est.predict(model, test, validate=True)
     (rows,) = refused
@@ -781,7 +789,7 @@ def test_scan_matches_jax_scan(metric):
     train = _mixed_ds(EncodedDataset, np.random.default_rng(41), 2500)
     test = _mixed_ds(EncodedDataset, np.random.default_rng(42), 60)
     model = mknn.fit_knn(train)
-    d, i = mknn._nearest_neighbors_scan(model, test, 7, metric, 700, 25, CPU)
+    d, i = _routed("scan", model, test, 7, metric, 700, 25)
     jd, ji = jknn._nearest_neighbors_xla(jknn.fit_knn(_twin(train)),
                                          _twin(test), 7, metric, 700, 25)
     np.testing.assert_allclose(d, np.asarray(jd), atol=1e-6)
@@ -795,9 +803,90 @@ def test_scan_keeps_lowest_index_of_a_tie():
                         n_bins=np.array([2], np.int32), class_values=["a"])
     model = mknn.fit_knn(ds)
     q = ds.slice(0, 1)
-    d, i = mknn._nearest_neighbors_scan(model, q, 4, "manhattan", 2, 8, CPU)
+    d, i = _routed("scan", model, q, 4, "manhattan", 2, 8)
     np.testing.assert_array_equal(i, [[0, 2, 4, 1]])
     np.testing.assert_array_equal(d, [[0, 0, 0, 1]])
+
+
+# ---------------------------------------------------------------------------
+# one loop over query tiles for every route
+# ---------------------------------------------------------------------------
+
+LOOP_ROUTES = {
+    # (metric, on the conftest's eight-slot CPU mesh, neighbor_route's name)
+    "scan": ("manhattan", False, "scan"),
+    "kernel": ("euclidean", False, "b6"),
+    "sharded": ("euclidean", True, "sharded"),
+}
+TILINGS = {"one": 8192, "several": 25, "ragged": 32}     # of 100 queries
+
+
+@pytest.fixture(scope="module")
+def loop_data():
+    rng = np.random.default_rng(61)
+    train = _mixed_ds(EncodedDataset, rng, 3000)
+    test = _mixed_ds(EncodedDataset, rng, 100)
+    jmodel = jknn.fit_knn(_twin(train))
+    jax_answers = {m: jknn.nearest_neighbors(jmodel, _twin(test), 7, m)
+                   for m in ("euclidean", "manhattan")}
+    return mknn.fit_knn(train), test, jax_answers
+
+
+@pytest.mark.parametrize("tiling", sorted(TILINGS))
+@pytest.mark.parametrize("route", sorted(LOOP_ROUTES))
+def test_every_route_gives_the_same_bits_on_every_tiling(loop_data, route,
+                                                         tiling):
+    """100 queries in one tile, in four tiles of 25, or in tiles of 32
+    with a ragged last tile of 4: every route gives the one-tile call's
+    bits, and the JAX package's indices with its distances within the
+    kNN contract's 2e-5."""
+    model, test, jax_answers = loop_data
+    metric, meshed, name = LOOP_ROUTES[route]
+    mesh = pmesh.make_mesh(("data",), device=CPU) if meshed else None
+    assert mknn.neighbor_route(model, 7, metric, CPU, mesh) == name
+    d, i = mknn.nearest_neighbors(model, test, 7, metric,
+                                  test_tile=TILINGS[tiling], device=CPU,
+                                  mesh=mesh)
+    wd, wi = mknn.nearest_neighbors(model, test, 7, metric, device=CPU,
+                                    mesh=mesh)
+    assert d.shape == i.shape == (100, 7)
+    np.testing.assert_array_equal(i, wi)
+    np.testing.assert_array_equal(d.view(np.int32), wd.view(np.int32))
+    jd, ji = jax_answers[metric]
+    np.testing.assert_array_equal(i, np.asarray(ji))
+    np.testing.assert_allclose(d, np.asarray(jd), rtol=0, atol=2e-5)
+
+
+def test_certificate_failure_in_a_later_tile_is_served_exactly(loop_data,
+                                                               monkeypatch):
+    """The kernel route over 100 queries in tiles of 32, every fourth
+    certificate of the third tile forced to fail: the refused rows are
+    counted and named by their place in the call (64 + their row in the
+    tile), and the exact kernel serves them with an unforced call's
+    bits."""
+    model, test, _ = loop_data
+    wd, wi = mknn.nearest_neighbors(model, test, 7, test_tile=32, device=CPU)
+    natural = mknn._nearest_neighbors_kernel.last_fallback
+    search, tiles = tk.search, []
+
+    def failing(*args, **kwargs):
+        d, idx, cert = search(*args, **kwargs)
+        tiles.append(len(cert))
+        if len(tiles) == 3:
+            cert = cert.clone()
+            cert[1::4] = False
+        return d, idx, cert
+
+    monkeypatch.setattr(tk, "search", failing)
+    before = mknn._nearest_neighbors_kernel.fallback_rows
+    d, i = mknn.nearest_neighbors(model, test, 7, test_tile=32, device=CPU)
+    assert tiles == [32, 32, 32, 4]
+    rows = np.union1d(natural, 64 + np.arange(1, 32, 4))
+    np.testing.assert_array_equal(mknn._nearest_neighbors_kernel.last_fallback,
+                                  rows)
+    assert mknn._nearest_neighbors_kernel.fallback_rows - before == len(rows)
+    np.testing.assert_array_equal(i, wi)
+    np.testing.assert_array_equal(d.view(np.int32), wd.view(np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,7 @@ from avenir_tpu_torch.models import knn as mknn  # noqa: E402
 from avenir_tpu_torch.models import logistic as mlr  # noqa: E402
 from avenir_tpu_torch.models import markov as mk  # noqa: E402
 from avenir_tpu_torch.ops import agg  # noqa: E402
+from avenir_tpu_torch.ops import knn as kops  # noqa: E402
 from avenir_tpu_torch.parallel import collectives  # noqa: E402
 from avenir_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from avenir_tpu_torch.parallel.mesh import Blocks  # noqa: E402
@@ -236,7 +237,7 @@ def test_knn_topk_step_equals_jax(case):
     np.testing.assert_array_equal(i.numpy(), _np(ji))
     assert (i.numpy() < n_ref).all()
     # against the whole reference set as one tile on one device
-    wd, wi = mknn._topk_over_tiles(
+    wd, wi = kops.topk_over_tiles(
         torch.from_numpy(tc), torch.from_numpy(tx),
         torch.from_numpy(rc)[None], torch.from_numpy(rx)[None], n_ref,
         torch.from_numpy(lo), torch.from_numpy(hi), k, B, "euclidean")
@@ -340,8 +341,9 @@ def test_nearest_neighbors_mesh_equals_jax_and_the_unsharded_routes(
     d, i = mknn.nearest_neighbors(model, test, 7, metric, ref_tile=128,
                                   device=CPU, mesh=_mesh())
     assert ("sharded", _mesh(), 128) in model.__dict__["_dev_cache"]
-    sd, si = mknn._nearest_neighbors_scan(model, test, 7, metric, 700, 50,
-                                          torch.device(CPU))
+    # the exact scan, unsharded
+    sd, si = mknn._search("scan", model, test, 7, metric, 700, 50,
+                          torch.device(CPU), None)
     np.testing.assert_array_equal(i, si)
     np.testing.assert_array_equal(d, sd)
     if metric == "euclidean":          # the kernel route's plain versions
@@ -367,7 +369,7 @@ def test_nearest_neighbors_gate_falls_back_where_k_exceeds_a_shard(
         binned_ordinals=train.binned_ordinals,
         cont_ordinals=train.cont_ordinals))
     assert mknn._shard_rows(20, 8) == 3
-    monkeypatch.setattr(mknn, "_nearest_neighbors_sharded",
+    monkeypatch.setattr(collectives, "sharded_knn_topk",
                         lambda *a, **k: pytest.fail("sharded route taken"))
     d, i = mknn.nearest_neighbors(small, test, 5, device=CPU, mesh=_mesh())
     wd, wi = mknn.nearest_neighbors(small, test, 5, device=CPU)

@@ -6,7 +6,8 @@
 - A traced ``KNN.predict`` on the kernel route journals ``knn.predict`` ⊃
   {``knn.prep``, ``knn.launch``, ``knn.fetch``, ``knn.vote``} and, for
   rows whose certificate fails, ``knn.fallback``; the answers are an
-  untraced call's.
+  untraced call's.  Over several query tiles every route journals one
+  ``knn.fetch``, after each tile's ``knn.prep`` and ``knn.launch``.
 - While a ``torch.profiler`` capture runs, every live span is a
   ``record_function`` range (``user_annotation`` in the Chrome trace),
   tracer on or off.
@@ -31,6 +32,7 @@ from avenir_tpu_torch.models import knn as mknn  # noqa: E402
 from avenir_tpu_torch.models import naive_bayes as nb  # noqa: E402
 from avenir_tpu_torch.ops import hist  # noqa: E402
 from avenir_tpu_torch.ops import knn as kops  # noqa: E402
+from avenir_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from avenir_tpu_torch.pipeline import scan  # noqa: E402
 from avenir_tpu_torch.telemetry import spans as tel  # noqa: E402
 from avenir_tpu_torch.telemetry.journal import read_events  # noqa: E402
@@ -169,6 +171,34 @@ def test_traced_knn_predict_spans_and_same_answers(tmp_path, refs, route):
     (fetch,) = _named(spans, "knn.fetch")
     assert spans[fetch][2]["bytes"] == 64 * (10 * 4 + 10 * 8 + 1)
     assert inside[-1] == "knn.vote"
+
+
+@pytest.mark.parametrize("metric,meshed,route", [
+    ("manhattan", False, "scan"), ("euclidean", False, "b6"),
+    ("euclidean", True, "sharded")])
+def test_traced_multi_tile_call_fetches_once(tmp_path, metric, meshed,
+                                             route):
+    """64 queries in tiles of 24, 24 and 16: one ``knn.launch`` a tile,
+    one ``knn.prep`` for the normalisation and one a tile's upload (and,
+    on the kernel route, one a tile's query pack), then one
+    ``knn.fetch`` for the whole call."""
+    model, test = _refs(3000, 64, seed=29)
+    mesh = pmesh.make_mesh(("data",), device="cpu") if meshed else None
+    knn = mknn.KNN(k=10, metric=metric, test_tile=24, mesh=mesh,
+                   device="cpu")
+    want = knn.predict(model, test)
+    got, spans = _traced(knn, model, test, tmp_path)
+    np.testing.assert_array_equal(got.neighbor_idx, want.neighbor_idx)
+    np.testing.assert_array_equal(got.neighbor_dist, want.neighbor_dist)
+    (call,) = _named(spans, "knn.predict")
+    assert spans[call][2] == {"queries": 64, "route": route}
+    inside = _children(spans, call)
+    assert inside.count("knn.launch") == 3
+    assert inside.count("knn.prep") == 1 + 3 * (2 if route == "b6" else 1)
+    assert inside.count("knn.fetch") == 1
+    assert inside.index("knn.fetch") == len(inside) - 2    # then the vote
+    (fetch,) = _named(spans, "knn.fetch")
+    assert spans[fetch][2]["bytes"] == 64 * (10 * 4 + 10 * 8 + 1)
 
 
 def _traced(knn, model, test, directory):
